@@ -1,0 +1,81 @@
+// Shared helpers of the port's attention kernels: dtype codes, 16-byte
+// vector loads that widen to fp32, narrowing stores.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+// dtype codes of the C interface (ops/kernels/utils.py DTYPE_CODES)
+enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
+// running-max floor of the decode and chunk kernels
+// (decode_attention.py M_FLOOR): keeps exp(m_prev - m_new) finite
+#define DS_M_FLOOR (-1e30f)
+
+// elements of T in one 16-byte vector
+template <typename T> struct VecWidth { static constexpr int value = 16 / sizeof(T); };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+    return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and widened back: the TPU kernels cast p to the input
+// dtype before the P.V product
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+    return to_float(from_float<T>(x));
+}
+
+// 16 bytes (VecWidth<T> elements) as fp32
+__device__ __forceinline__ void widen16(const uint4& r, float* out, float) {
+    out[0] = __uint_as_float(r.x); out[1] = __uint_as_float(r.y);
+    out[2] = __uint_as_float(r.z); out[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void widen16(const uint4& r, float* out, __half) {
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float2 f = __half22float2(h[i]);
+        out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    }
+}
+__device__ __forceinline__ void widen16(const uint4& r, float* out, __nv_bfloat16) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float2 f = __bfloat1622float2(h[i]);
+        out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    }
+}
+
+// four consecutive elements of T (8 or 16 bytes, aligned) as fp32
+template <typename T> __device__ __forceinline__ float4 load4(const T* p) {
+    float4 f;
+    f.x = to_float(p[0]); f.y = to_float(p[1]);
+    f.z = to_float(p[2]); f.w = to_float(p[3]);
+    return f;
+}
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+template <typename T> __device__ __forceinline__ void store4(T* p, float a, float b, float c, float d) {
+    p[0] = from_float<T>(a); p[1] = from_float<T>(b);
+    p[2] = from_float<T>(c); p[3] = from_float<T>(d);
+}
+template <> __device__ __forceinline__ void store4<float>(float* p, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+extern "C" const char* ds_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

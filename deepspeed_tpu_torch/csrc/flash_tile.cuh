@@ -1,0 +1,208 @@
+// The q-tile attention loop shared by flash_fwd (prefill) and chunk_attn
+// (chunked prefill / extend over the padded KV cache).
+//
+// One CTA of 128 threads owns a (b, h, q-tile).  A query row is held by
+// TPR = D/16 neighbouring lanes, each owning four float4 chunks of the
+// head dim (chunk c*TPR + t), so a warp's reads of a shared-memory K or V
+// row touch TPR consecutive float4s and broadcast them to every row of
+// the warp: no bank conflicts.  The CTA walks the k-tiles up to its
+// causal frontier only; each k-tile is loaded once from device memory
+// with 16-byte loads (neighbouring threads on neighbouring addresses),
+// widened to fp32 in shared memory, and reused by all BQ rows of the
+// tile.  Scores, the online-softmax state and the output accumulator stay
+// in registers in fp32.  Inputs are read through their strides, so the
+// [B, S, H, D] activations and the [B, S_max, H, D] layer view of the KV
+// cache are used in place, with no transpose copy.
+//
+// This first version multiplies with fp32 FMAs, not tensor cores: it is
+// bound by the FMA issue rate, well above the card's least time for the
+// same work (the bytes over 3.35 TB/s at the slice's shapes).  mma/wgmma
+// and TMA are later work.
+#pragma once
+
+#include "common.cuh"
+
+#define DS_TILE_THREADS 128
+
+struct TileArgs {
+    const void* q; const void* k; const void* v; void* o; float* lse;
+    int B, Sq, Sk, H;
+    long long q_sb, q_ss, q_sh;
+    long long k_sb, k_ss, k_sh;
+    long long v_sb, v_ss, v_sh;
+    long long o_sb, o_ss, o_sh;
+    float scale;
+    int causal;
+    // CHUNK only: absolute position of query 0, per row (pos) or shared
+    const int* pos;
+    int pos_scalar;
+};
+
+// CHUNK = false: flash_attention.py _fwd_kernel semantics.  Causal is
+//   end-aligned (key j visible to query i iff j <= i + Sk - Sq); the
+//   running max starts at -inf; p is rounded to T before P.V; O and the
+//   fp32 logsumexp are written.
+// CHUNK = true: decode_attention.py _chunk_kernel semantics.  Query i sits
+//   at absolute position pos[b] + i and sees cache slots <= pos[b] + i;
+//   q is scaled before the product; the running max starts at M_FLOOR;
+//   p stays fp32; only O is written.
+template <typename T, int D, bool CHUNK>
+__global__ void __launch_bounds__(DS_TILE_THREADS)
+attn_tile_kernel(const TileArgs a) {
+    constexpr int TPR = D / 16;                   // lanes per query row
+    constexpr int BQ = DS_TILE_THREADS / TPR;     // query rows per CTA
+    constexpr int BK = D <= 64 ? 64 : 32;         // keys per k-tile
+    constexpr int NCH = 4;                        // float4 chunks per lane
+    constexpr int VEC = VecWidth<T>::value;
+    constexpr int VPR = D / VEC;                  // 16-byte vectors per row
+    __shared__ float4 ks[BK][D / 4];
+    __shared__ float4 vs[BK][D / 4];
+
+    const int tid = threadIdx.x;
+    const int r = tid / TPR;
+    const int t = tid % TPR;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int q0 = blockIdx.x * BQ;
+    const int qi = q0 + r;
+    const bool row_ok = qi < a.Sq;
+
+    int off;
+    bool masked;
+    if (CHUNK) {
+        off = a.pos ? a.pos[b] : a.pos_scalar;
+        masked = true;
+    } else {
+        off = a.Sk - a.Sq;
+        masked = a.causal != 0;
+    }
+    const int qpos = qi + off;                    // last visible key of the row
+    int kend = a.Sk;
+    if (masked) {
+        const int last_row = min(a.Sq, q0 + BQ) - 1;
+        kend = max(0, min(a.Sk, last_row + off + 1));
+    }
+
+    const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)qi * a.q_ss + h * a.q_sh;
+    const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+
+    float4 q[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+        q[c] = row_ok ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (CHUNK) {
+            q[c].x *= a.scale; q[c].y *= a.scale; q[c].z *= a.scale; q[c].w *= a.scale;
+        }
+    }
+    float4 acc[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    float m = CHUNK ? DS_M_FLOOR : -INFINITY;
+    float l = 0.f;
+
+    for (int k0 = 0; k0 < kend; k0 += BK) {
+        __syncthreads();                          // the previous tile is consumed
+        for (int id = tid; id < BK * VPR; id += DS_TILE_THREADS) {
+            const int j = id / VPR, vv = id % VPR;
+            float kf[VEC], vf[VEC];
+            if (k0 + j < a.Sk) {
+                const uint4 kr = *reinterpret_cast<const uint4*>(kp + (long long)(k0 + j) * a.k_ss + vv * VEC);
+                const uint4 vr = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + j) * a.v_ss + vv * VEC);
+                widen16(kr, kf, T());
+                widen16(vr, vf, T());
+            } else {
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
+            }
+#pragma unroll
+            for (int e = 0; e < VEC / 4; ++e) {
+                ks[j][vv * (VEC / 4) + e] = make_float4(kf[4 * e], kf[4 * e + 1], kf[4 * e + 2], kf[4 * e + 3]);
+                vs[j][vv * (VEC / 4) + e] = make_float4(vf[4 * e], vf[4 * e + 1], vf[4 * e + 2], vf[4 * e + 3]);
+            }
+        }
+        __syncthreads();
+
+        float s[BK];
+        float tile_max = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BK; ++j) {
+            float part = 0.f;
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+                const float4 kv = ks[j][c * TPR + t];
+                part += q[c].x * kv.x + q[c].y * kv.y + q[c].z * kv.z + q[c].w * kv.w;
+            }
+#pragma unroll
+            for (int o = TPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+            if (!CHUNK) part *= a.scale;
+            const int kj = k0 + j;
+            const bool vis = kj < a.Sk && (!masked || kj <= qpos);
+            s[j] = vis ? part : -INFINITY;
+            tile_max = fmaxf(tile_max, s[j]);
+        }
+        const float m_new = fmaxf(m, tile_max);
+        // a row with no visible key yet keeps m = -inf (flash only): guard
+        // the subtraction so its p and alpha come out 0, not nan
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = expf(m - m_safe);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BK; ++j) {
+            const float p = expf(s[j] - m_safe);
+            psum += p;
+            s[j] = CHUNK ? p : round_to<T>(p);
+        }
+        l = l * alpha + psum;
+        m = m_new;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+            acc[c].x *= alpha; acc[c].y *= alpha; acc[c].z *= alpha; acc[c].w *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < BK; ++j) {
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+                const float4 vv = vs[j][c * TPR + t];
+                acc[c].x += s[j] * vv.x; acc[c].y += s[j] * vv.y;
+                acc[c].z += s[j] * vv.z; acc[c].w += s[j] * vv.w;
+            }
+        }
+    }
+
+    if (!row_ok) return;
+    const float lf = fmaxf(l, 1e-30f);
+    const float inv = 1.f / lf;
+    T* op = static_cast<T*>(a.o) + b * a.o_sb + (long long)qi * a.o_ss + h * a.o_sh;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+        store4(op + (c * TPR + t) * 4, acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
+    if (!CHUNK && t == 0 && a.lse != nullptr)
+        a.lse[((long long)b * a.H + h) * a.Sq + qi] = m + logf(lf);
+}
+
+template <typename T, int D, bool CHUNK>
+static cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
+    constexpr int BQ = DS_TILE_THREADS / (D / 16);
+    const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+    attn_tile_kernel<T, D, CHUNK><<<grid, DS_TILE_THREADS, 0, stream>>>(a);
+    return cudaGetLastError();
+}
+
+template <bool CHUNK>
+static cudaError_t dispatch_tile(int dtype, int D, const TileArgs& a, cudaStream_t stream) {
+#define DS_TILE_D(T)                                                      \
+    switch (D) {                                                          \
+        case 32: return launch_tile<T, 32, CHUNK>(a, stream);             \
+        case 64: return launch_tile<T, 64, CHUNK>(a, stream);             \
+        case 128: return launch_tile<T, 128, CHUNK>(a, stream);           \
+        default: return cudaErrorInvalidValue;                            \
+    }
+    switch (dtype) {
+        case kF32: DS_TILE_D(float)
+        case kF16: DS_TILE_D(__half)
+        case kBF16: DS_TILE_D(__nv_bfloat16)
+        default: return cudaErrorInvalidValue;
+    }
+#undef DS_TILE_D
+}

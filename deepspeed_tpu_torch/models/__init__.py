@@ -1,0 +1,3 @@
+"""Models of the port: the GPT-2 family (``gpt``), its KV-cached
+inference (``gpt_inference``) and weight conversion from the JAX
+package's parameter tree (``convert``)."""

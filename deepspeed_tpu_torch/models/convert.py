@@ -1,0 +1,54 @@
+"""Weight and config conversion from the JAX package's GPT.
+
+The port keeps the JAX parameter tree and layouts, so conversion is a
+re-wrap: :func:`from_jax_params` takes the tree as numpy arrays (what
+``jax.device_get(params)`` returns) and builds the same tree of torch
+tensors.  Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from . import gpt
+
+_CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
+                  "d_ff", "vocab_round_to", "attn_softmax_scale", "pos_embed",
+                  "activation", "parallel_residual", "local_attention_window",
+                  "tie_word_embeddings", "lm_head_bias", "pos_offset",
+                  "embed_layernorm")
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A numpy/JAX dtype (or its name) as the torch dtype."""
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    return {"float32": torch.float32, "float16": torch.float16,
+            "bfloat16": torch.bfloat16}[name]
+
+
+def from_jax_params(tree: Mapping[str, Any], device=None,
+                    dtype: torch.dtype | None = None) -> dict:
+    """Nested dict of numpy arrays → the same nested dict of tensors on
+    ``device``.  Float arrays (bfloat16 included) become ``dtype`` (fp32
+    when None); integer arrays keep their type."""
+    def leaf(x):
+        a = np.asarray(x)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+        return t.to(device=device, dtype=dtype or torch.float32)
+
+    return {k: from_jax_params(v, device, dtype) if isinstance(v, Mapping)
+            else leaf(v) for k, v in tree.items()}
+
+
+def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
+    """The port's ``GPTConfig`` with the fields of a JAX ``GPTConfig``;
+    ``dtype`` defaults to the JAX config's compute dtype."""
+    fields = {f: getattr(jax_config, f) for f in _CONFIG_FIELDS}
+    return gpt.GPTConfig(
+        dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),
+        **fields)

@@ -1,0 +1,29 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+A wrapper launches its kernel on CUDA tensors and runs the plain version
+on CPU tensors (``utils.on_cuda``); ``launch_counts`` reads every
+wrapper's count of kernel launches."""
+
+from .decode_attention import (cached_attention, cached_attention_reference,
+                               chunk_attn, decode_attn)
+from .flash_attention import (flash_attention, flash_attention_reference,
+                              flash_fwd, mha_reference)
+
+#: every kernel wrapper of the port, by kernel name
+KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
+           "chunk_attn": chunk_attn}
+
+
+def launch_counts() -> dict:
+    return {name: type(k).launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        type(k).launches = 0
+
+
+__all__ = ["KERNELS", "cached_attention", "cached_attention_reference",
+           "chunk_attn", "decode_attn", "flash_attention",
+           "flash_attention_reference", "flash_fwd",
+           "launch_counts", "mha_reference", "reset_launch_counts"]

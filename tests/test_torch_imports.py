@@ -1,0 +1,58 @@
+"""``deepspeed_tpu_torch`` imports with JAX blocked and pulls in neither
+``jax`` nor ``deepspeed_tpu``; its entry points refuse to run on the host
+unless asked to."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import deepspeed_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    deepspeed_tpu_torch.__path__, "deepspeed_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("deepspeed_tpu", "jaxlib")
+                or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_init_inference_without_cuda_raises(monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt.GPTConfig(vocab_size=64, max_seq_len=16, n_layer=1, n_head=2,
+                        d_model=32, dtype=torch.float32)
+    params = gpt.init(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.init_inference(model=(cfg, params),
+                                           config={"dtype": "float32"})
+    eng = deepspeed_tpu_torch.init_inference(
+        model=(cfg, params), config={"dtype": "float32"}, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_cuda_only_paths_refuse_mixed_devices():
+    from deepspeed_tpu_torch.ops.kernels.utils import on_cuda
+    a = torch.zeros(2)
+    assert on_cuda(a, a) is False
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        on_cuda(torch.zeros(2, device="meta"))
