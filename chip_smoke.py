@@ -8,22 +8,35 @@ imports JAX.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
-2. holds each kernel against its plain PyTorch version at the serving
-   slice's shapes in bf16 (plain computed in fp32 from the same inputs),
-   and times kernel, plain version, ``scaled_dot_product_attention`` (a
-   yardstick the port never calls) and the card's bound for the work;
-   then sweeps every dtype and head dim the kernels take over every cache
-   frontier of a small ragged batch;
+2. holds each kernel against its plain PyTorch version at the shapes its
+   slice gives it, in bf16 (plain computed in fp32 from the same inputs),
+   and times kernel, plain version, a one-call PyTorch yardstick the port
+   never calls (``scaled_dot_product_attention``, its backward, fused
+   ``AdamW``) and the card's bound for the work; then sweeps every dtype
+   and head dim the attention kernels take: every cache frontier of a
+   small ragged batch, and odd, cross-length and no-key causal shapes for
+   the flash forward and backward; and checks that a skipped Adam step
+   leaves its state bitwise unchanged;
 3. checks a tiny fp32 model end to end on the card against the same model
    on the host (plain kernels): equal greedy tokens, logits within 1e-3;
-4. with every launch count at 0, drives the main path at full width:
+   and trains it 5 steps through ``initialize`` on both: losses within
+   1e-5 relative, master params within 1e-4, and two card runs bitwise
+   equal;
+4. with every launch count at 0, drives the serving path at full width:
    GPT-2 350M (24 layers, bf16, random weights from a seed) through
    ``init_inference`` → ``generate``, then a ``SlotBatcher`` answering 16
    requests; reads the counts, and checks full-width logits against an
    fp32 host forward and each greedy request against a rerun alone;
 5. profiles a short ``generate`` (kernel time on the card against the
    host's wall time);
-6. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
+6. with every launch count at 0, drives the training path at full width:
+   bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
+   ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
+   ``initialize`` → ``train_batch_fused``, 2 warm-up and 10 timed steps on
+   one batch; reads the counts; checks the card's bf16 loss of one row
+   against the host's fp32 loss, finite and falling losses; reports step
+   time, tokens/s, MFU and peak memory, and profiles 2 steps;
+7. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises: no result line, non-zero exit.  The numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -31,6 +44,7 @@ to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -45,9 +59,13 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import gpt
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops import kernels
-from deepspeed_tpu_torch.ops.kernels import (build, cached_attention_reference,
-                                             flash_attention_reference)
+from deepspeed_tpu_torch.ops.kernels import (adam_hyper, build,
+                                             cached_attention_reference,
+                                             flash_attention_backward_reference,
+                                             flash_attention_reference,
+                                             fused_adam_reference)
 from deepspeed_tpu_torch.ops.kernels.utils import HEAD_DIMS
+from deepspeed_tpu_torch.runtime.model import from_gpt
 from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
@@ -68,7 +86,13 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
            "decode_attn": ("deepspeed_tpu_torch/csrc/decode_attn.cu",
                            "deepspeed_tpu/ops/pallas/decode_attention.py:101"),
            "chunk_attn": ("deepspeed_tpu_torch/csrc/chunk_attn.cu",
-                          "deepspeed_tpu/ops/pallas/decode_attention.py:218")}
+                          "deepspeed_tpu/ops/pallas/decode_attention.py:218"),
+           "flash_bwd_dq": ("deepspeed_tpu_torch/csrc/flash_bwd_dq.cu",
+                            "deepspeed_tpu/ops/pallas/flash_attention.py:246"),
+           "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd_dkv.cu",
+                             "deepspeed_tpu/ops/pallas/flash_attention.py:304"),
+           "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
+                          "deepspeed_tpu/ops/pallas/fused_adam.py:29")}
 
 
 def log(msg: str) -> None:
@@ -95,6 +119,23 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
     start, end = ACCEL.event(), ACCEL.event()
     start.record()
     graph.replay()
+    end.record()
+    ACCEL.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def eager_ms(fn, n: int, warmup: int = 2) -> float:
+    """Mean device ms of ``fn()`` over ``n`` eager calls between two CUDA
+    events: for yardsticks that cannot be captured in a graph (autograd,
+    ``torch.optim``), each call long enough that launch overhead is small
+    beside it."""
+    for _ in range(warmup):
+        fn()
+    ACCEL.synchronize()
+    start, end = ACCEL.event(), ACCEL.event()
+    start.record()
+    for _ in range(n):
+        fn()
     end.record()
     ACCEL.synchronize()
     return start.elapsed_time(end) / n
@@ -160,6 +201,124 @@ def check_flash(B, S, H=16, D=64):
     nbytes = 4 * B * S * H * D * 2 + B * H * S * 4
     return _report("flash_fwd", f"B{B} S{S} H{H} D{D} bf16 causal", err, tol,
                    ms, plain_ms, lib_ms, nbytes, 4 * D * pairs)
+
+
+def check_flash_bwd(B, S, H=16, D=64):
+    """``flash_bwd_dq`` and ``flash_bwd_dkv`` against the fp32 plain
+    backward, from bf16 q, k, v (views of [B, S, 3, H, D]), dO and the
+    forward kernel's O and lse.  Plain ms is the whole plain backward (dq,
+    dk and dv in one function); library ms is the backward of
+    ``scaled_dot_product_attention(is_causal=True)``, timed alone, which
+    also computes all three."""
+    gen = torch.Generator(device="cuda").manual_seed(7 * B + S)
+    per_set = 4 * B * S * H * D * 2
+    n = max(1, min(8, (120 << 20) // per_set))
+    scale = 1.0 / math.sqrt(D)
+    sets = []
+    for q, k, v in _qkv_views(n, B, S, H, D, gen):
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda",
+                         dtype=torch.float32).to(torch.bfloat16)
+        o, lse = kernels.flash_fwd(q, k, v, True, scale)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        sets.append((q, k, v, do, o, lse, delta))
+    q, k, v, do, o, lse, delta = sets[0]
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), True,
+        scale)
+    ACCEL.synchronize()
+    errs = [(a.float() - r).abs().max().item() for a, r in zip((dq, dk, dv), ref)]
+    tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
+
+    def kernel(fn):
+        def run(i):
+            q_, k_, v_, do_, _, lse_, delta_ = sets[i % n]
+            return fn(q_, k_, v_, do_, lse_, delta_, True, scale)
+        return run
+
+    def plain(i):
+        q_, k_, v_, do_, o_, lse_, _ = sets[i % n]
+        return flash_attention_backward_reference(q_, k_, v_, o_, lse_, do_,
+                                                  True, scale)
+
+    ms_dq = time_ms(kernel(kernels.flash_bwd_dq), 10)
+    ms_dkv = time_ms(kernel(kernels.flash_bwd_dkv), 10)
+    plain_ms = time_ms(plain, 2)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           is_causal=True)
+    gout = do.transpose(1, 2)
+    lib_ms = eager_ms(lambda: torch.autograd.grad(out, leaves, gout,
+                                                  retain_graph=True), 10)
+    pairs = B * H * S * (S + 1) // 2
+    elem = B * S * H * D * 2                          # one bf16 [B, S, H, D]
+    stats = 2 * B * H * S * 4                         # lse and delta, fp32
+    shape = f"B{B} S{S} H{H} D{D} bf16 causal"
+    return [_report("flash_bwd_dq", shape, errs[0], tols[0], ms_dq, plain_ms,
+                    lib_ms, 5 * elem + stats, 6 * D * pairs),
+            _report("flash_bwd_dkv", shape, max(errs[1:]), min(tols[1:]),
+                    ms_dkv, plain_ms, lib_ms, 6 * elem + stats,
+                    8 * D * pairs)]
+
+
+#: fused_adam vs its plain version (times max(1, |ref|)): both run the
+#: same fp32 arithmetic, the kernel with contracted multiply-adds
+ADAM_TOL = 1e-5
+
+
+def check_fused_adam(n=355_000_000):
+    """``fused_adam`` over ``n`` elements (the full-width model's flat
+    buffers) against its plain version; library ms is
+    ``torch.optim.AdamW(fused=True).step()`` over the same fp32 tensors
+    (it writes no bf16 copy and leaves the gradient)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda")
+    m = torch.randn(n, generator=gen, device="cuda") * 0.1
+    v = torch.rand(n, generator=gen, device="cuda") * 0.01
+    pc = p.to(torch.bfloat16)
+    hyper = adam_hyper(1e-4, 0.9, 0.999, 1e-8, 0.01, 3, device="cuda")
+    ref = [t.clone() for t in (p, g, m, v)]
+    kernels.fused_adam(p, g, m, v, hyper, p_compute=pc)
+    fused_adam_reference(*ref, hyper)
+    ACCEL.synchronize()
+    pairs = list(zip((p, m, v), (ref[0], ref[2], ref[3])))
+    err = max((a - r).abs().max().item() for a, r in pairs)
+    tol = ADAM_TOL * max(1.0, max(r.abs().max().item() for _, r in pairs))
+    if not (torch.equal(pc, p.to(torch.bfloat16)) and not g.any()):
+        raise AssertionError("fused_adam: bf16 copy or zeroed gradient wrong")
+    del ref
+    g.normal_(generator=gen)
+    ms = time_ms(lambda i: kernels.fused_adam(p, g, m, v, hyper,
+                                              p_compute=pc), 10)
+    plain_ms = time_ms(lambda i: fused_adam_reference(p, g, m, v, hyper, pc), 2)
+    p.grad = g
+    opt = torch.optim.AdamW([p], lr=1e-4, weight_decay=0.01, fused=True)
+    lib_ms = eager_ms(opt.step, 10)
+    del p, g, m, v, pc, opt
+    return _report("fused_adam", f"n {n} fp32 master, bf16 copy", err,
+                   tol, ms, plain_ms, lib_ms, 34 * n, 15 * n)
+
+
+def check_adam_skip(n=1_000_003):
+    """A skipped step (``skip`` set) leaves p, m, v and the bf16 copy
+    bitwise unchanged and zeroes the gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p, g, m, v = (torch.randn(n, generator=gen, device="cuda") for _ in range(4))
+    v = v.abs()
+    pc = p.to(torch.bfloat16)
+    before = [t.clone() for t in (p, m, v, pc)]
+    kernels.fused_adam(p, g, m, v, adam_hyper(1e-3, 0.9, 0.999, 1e-8, 0.01, 1,
+                                              device="cuda"),
+                       p_compute=pc, skip=torch.ones((), dtype=torch.bool,
+                                                     device="cuda"))
+    ACCEL.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((p, m, v, pc), before))
+    log(f"[adam skip] n {n}: state bitwise unchanged {same}, gradient zeroed "
+        f"{not g.any().item()}")
+    if not same or g.any():
+        raise AssertionError("fused_adam with skip changed its state")
 
 
 def _caches(B, Smax, H, D, gen, min_bytes=200 << 20):
@@ -262,14 +421,46 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
             err = torch.maximum(err, (of.float() - rf).abs().max()
                                 / rf.abs().max().clamp(min=1.0))
             lse_err = (lse - rl).abs().max().item()
-            worst[f"{str(dt)[6:]} D{D}"] = err.item()
+            bwd_err = max(_bwd_sweep_err(rnd, Sq_, Sk_, D, causal)
+                          for Sq_, Sk_, causal in BWD_SWEEP)
+            worst[f"{str(dt)[6:]} D{D}"] = max(err.item(), bwd_err)
             log(f"[sweep] {str(dt)[6:]} D{D}: pos 0..{S - Sq - 1} ragged, "
                 f"worst relative err {err.item():.3e} (tol {tol:.0e}), "
-                f"flash lse err {lse_err:.2e} (tol 1e-3)")
-            if not (err.item() <= tol and lse_err <= 1e-3):
+                f"flash lse err {lse_err:.2e} (tol 1e-3); flash backward "
+                f"{BWD_SWEEP} worst relative err {bwd_err:.3e} (tol "
+                f"{tol:.0e}), no-key rows zero")
+            if not (err.item() <= tol and lse_err <= 1e-3 and bwd_err <= tol):
                 raise AssertionError(f"sweep {dt} D{D}: err {err.item()} "
-                                     f"lse err {lse_err}")
+                                     f"lse err {lse_err} bwd err {bwd_err}")
     return worst
+
+
+#: (Sq, Sk, causal) of the backward sweep: odd, cross-length, Sq > Sk
+#: (rows with no visible key), full
+BWD_SWEEP = ((77, 77, True), (40, 100, True), (100, 40, True),
+             (77, 77, False))
+
+
+def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
+    """Worst relative error of dq, dk, dv against the fp32 plain backward;
+    raises on a non-finite gradient or a non-zero gradient of a row that
+    sees no key."""
+    q, do = rnd(B, Sq, H, D), rnd(B, Sq, H, D)
+    k, v = rnd(B, Sk, H, D), rnd(B, Sk, H, D)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = kernels.flash_fwd(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), causal,
+        scale)
+    if not all(torch.isfinite(t).all() for t in (dq, dk, dv)):
+        raise AssertionError(f"flash backward Sq{Sq} Sk{Sk} D{D}: non-finite")
+    if causal and Sq > Sk and dq[:, :Sq - Sk].any():
+        raise AssertionError("flash backward: a row with no key has dq != 0")
+    return max(((a.float() - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
+               for a, r in zip((dq, dk, dv), ref))
 
 
 # ------------------------------------------------------------- models
@@ -430,18 +621,17 @@ def check_full_width_logits(engine, cfg, params_fp32):
     return {"rel_l2_err": rel, "argmax_agreement": agree}
 
 
-def profile_generate(engine, cfg):
-    """Where ``generate``'s time goes: a 16-token run of phase 3's batch
-    under ``torch.profiler``; kernel time on the card, by kernel, against
-    the host's wall time of the same run (profiler overhead included)."""
+def device_profile(label, run):
+    """``run()`` under ``torch.profiler``: kernel time on the card, by
+    kernel, against the host's wall time of the same run (profiler
+    overhead included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
-    lens = [512, 384, 200, 77]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate(toks, max_new_tokens=16, prompt_lens=lens).cpu()
+        run()
+        ACCEL.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {e.key: e.self_device_time_total / 1e3
                  for e in prof.key_averages()
@@ -452,12 +642,164 @@ def profile_generate(engine, cfg):
     res = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_busy_share": device_ms / wall_ms,
            "top_kernels_ms": [[k[:80], v] for k, v in top]}
-    log(f"[profile] generate 4x16 tokens: wall {wall_ms:.1f} ms, kernel "
-        f"time on the card {device_ms:.1f} ms (busy share "
-        f"{res['device_busy_share']:.3f})")
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms, kernel time on the card "
+        f"{device_ms:.1f} ms (busy share {res['device_busy_share']:.3f})")
     for name, ms in res["top_kernels_ms"]:
         log(f"[profile]   {ms:8.3f} ms  {name}")
     return res
+
+
+def profile_generate(engine, cfg):
+    """Where ``generate``'s time goes: a 16-token run of phase 3's batch."""
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
+    lens = [512, 384, 200, 77]
+    return device_profile("generate 4x16 tokens", lambda: engine.generate(
+        toks, max_new_tokens=16, prompt_lens=lens).cpu())
+
+
+# ------------------------------------------------------------- training
+
+#: the full-width training configuration: bench.py:515-611 (GPT-2 350M,
+#: seq 1024, bf16, remat attn_out, Adam lr 1e-4 wd 0.01, ZeRO 1 on one
+#: device, gas 1), at bench.py's smallest micro-batch candidate
+TRAIN_MICRO_BATCH = 16
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO_BATCH,
+                "gradient_accumulation_steps": 1,
+                "steps_per_print": 1 << 30,
+                "optimizer": {"type": "Adam",
+                              "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                "zero_optimization": {"stage": 1},
+                "bf16": {"enabled": True}}
+
+
+def _train_tiny(cfg, params, batches, device):
+    """5 steps of ``train_batch_fused``; (losses, final fp32 master)."""
+    spec = dataclasses.replace(from_gpt(cfg), params=params)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=spec, device=device,
+        config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 4,
+                "gradient_clipping": 1.0, "bf16": {"enabled": False}})
+    losses = [engine.train_batch_fused(b) for b in batches]
+    master = torch.cat([t.detach().reshape(-1).cpu() for t in
+                        _leaves(engine.state["master"])])
+    return torch.stack(losses).cpu(), master
+
+
+def _leaves(tree):
+    return [x for v in tree.values()
+            for x in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def check_tiny_training():
+    """The training path in fp32 on the card (kernels) vs on the host
+    (plain versions) from the same params and batches; then a second card
+    run, bitwise equal to the first."""
+    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=128, n_layer=2, n_head=4,
+                        d_model=256, dtype=torch.float32, remat=True,
+                        remat_policy="attn_out")
+    params = gpt.init(cfg, torch.Generator().manual_seed(8))
+    rng = np.random.default_rng(10)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 97))}
+               for _ in range(5)]
+    dev_losses, dev_master = _train_tiny(cfg, params, batches, "cuda")
+    host_losses, host_master = _train_tiny(cfg, params, batches, "cpu")
+    again_losses, again_master = _train_tiny(cfg, params, batches, "cuda")
+    loss_rel = ((dev_losses - host_losses).abs() / host_losses.abs()).max().item()
+    param_err = (dev_master - host_master).abs().max().item()
+    bitwise = torch.equal(dev_losses, again_losses) and \
+        torch.equal(dev_master, again_master)
+    log(f"[tiny train] fp32, 5 steps, card vs host: losses "
+        f"{dev_losses.tolist()} vs {host_losses.tolist()}, max relative "
+        f"loss err {loss_rel:.3e} (tol 1e-5), master max_abs_err "
+        f"{param_err:.3e} (tol 1e-4); second card run bitwise equal "
+        f"{bitwise}")
+    if not (loss_rel <= 1e-5 and param_err <= 1e-4 and bitwise):
+        raise AssertionError("tiny training: card and host disagree, or two "
+                             "card runs differ")
+    return {"loss_rel_err": loss_rel, "master_max_abs_err": param_err,
+            "bitwise_repeat": bitwise}
+
+
+def run_training(warmup=2, steps=10):
+    """Phase 6: the full-width training path; every launch count is reset
+    before it and read after it.  Returns (results, counts, engine,
+    batch)."""
+    cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
+                              dtype=torch.bfloat16, remat=True,
+                              remat_policy="attn_out")
+    ACCEL.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=from_gpt(cfg), config=TRAIN_CONFIG,
+        generator=torch.Generator(device="cuda").manual_seed(2024))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (TRAIN_MICRO_BATCH, cfg.max_seq_len + 1))}
+    row = {"tokens": batch["tokens"][:1]}
+    card_row = float(engine.eval_loss(row))
+    host_cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
+    host_params = {k: ({kk: vv.detach().cpu() for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.detach().cpu())
+                   for k, v in engine.state["master"].items()}
+    with torch.no_grad():
+        host_row = float(gpt.loss_fn(host_params,
+                                     {"tokens": torch.from_numpy(row["tokens"])},
+                                     host_cfg))
+    del host_params
+    row_rel = abs(card_row - host_row) / abs(host_row)
+    log(f"[train] one row before the first step: bf16 card loss "
+        f"{card_row:.5f}, fp32 host loss {host_row:.5f}, relative diff "
+        f"{row_rel:.4f} (tol 0.02)")
+    if not row_rel <= 0.02:
+        raise AssertionError(f"full-width bf16 loss off the fp32 host: {row_rel}")
+
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for i in range(warmup + steps):
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch_fused(batch)
+        ACCEL.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    counts = kernels.launch_counts()
+    losses = [float(x) for x in losses]
+    n_steps = warmup + steps
+    tokens = TRAIN_MICRO_BATCH * cfg.max_seq_len
+    mean_s = sum(times) / len(times)
+    res = {"config": "GPT-2 350M seq 1024 bf16 remat attn_out, Adam lr 1e-4 "
+                     "wd 0.01, ZeRO 1, micro 16, gas 1",
+           "losses": losses, "step_ms_p50": 1e3 * pct(times, 50),
+           "step_ms_mean": 1e3 * mean_s, "samples_per_s": TRAIN_MICRO_BATCH / mean_s,
+           "tokens_per_s": tokens / mean_s,
+           "mfu": tokens / mean_s * gpt.flops_per_token(cfg) / BF16_FLOPS,
+           "flops_per_token": gpt.flops_per_token(cfg),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+           # what remat "attn_out" keeps per layer: the block input x and
+           # the attention's O (bf16 [B, S, d]) and lse (fp32 [B, H, S])
+           "remat_bytes_per_layer": (2 * TRAIN_MICRO_BATCH * cfg.max_seq_len
+                                     * cfg.d_model * 2 + TRAIN_MICRO_BATCH
+                                     * cfg.n_head * cfg.max_seq_len * 4),
+           "row_loss_card_bf16": card_row, "row_loss_host_fp32": host_row}
+    log(f"[train] GPT-2 350M seq 1024 bf16, micro-batch 16, {warmup} warm-up "
+        f"+ {steps} timed steps: step_ms p50 {res['step_ms_p50']:.2f} mean "
+        f"{res['step_ms_mean']:.2f}, samples_per_s {res['samples_per_s']:.2f}, "
+        f"tokens_per_s {res['tokens_per_s']:.0f}, MFU {res['mfu']:.4f} (of "
+        f"989 TFLOP/s), max_memory_allocated {res['max_memory_allocated_gib']:.2f} "
+        f"GiB, remat keeps {res['remat_bytes_per_layer']} bytes per layer; "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[train] launches per step {res['launches_per_step']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: {losses}")
+    want = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
+            "flash_bwd_dkv": cfg.n_layer, "fused_adam": 1}
+    wrong = {k: counts[k] for k, n in want.items() if counts[k] != n * n_steps}
+    if wrong:
+        raise AssertionError(f"launches per step off {want}: {wrong} over "
+                             f"{n_steps} steps")
+    return res, counts, engine, batch
 
 
 def main() -> int:
@@ -483,9 +825,13 @@ def main() -> int:
     result["build_s"] = t_build
 
     checks = [check_flash(4, 512), check_flash(1, 128), check_decode(),
-              check_chunk(128), check_chunk(640)]
+              check_chunk(128), check_chunk(640),
+              *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
+              check_fused_adam()]
+    check_adam_skip()
     result["sweep_worst_rel_err"] = check_sweep()
     check_tiny_end_to_end()
+    result["tiny_training"] = check_tiny_training()
 
     cfg = gpt.GPT2_350M
     params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(1234),
@@ -505,6 +851,15 @@ def main() -> int:
     result["full_width_logits"] = check_full_width_logits(engine, cfg,
                                                           params_host)
     result["profile"] = profile_generate(engine, cfg)
+    del engine
+    torch.cuda.empty_cache()
+
+    result["training"], train_counts, trainer, batch = run_training()
+    result["launches"]["training"] = train_counts
+    counts = {k: counts[k] + train_counts[k] for k in counts}
+    result["training_profile"] = device_profile(
+        "train 2 steps", lambda: [trainer.train_batch_fused(batch)
+                                  for _ in range(2)])
 
     first = {}
     for row in checks:
@@ -522,7 +877,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    log(f"[launches] generate {gen_counts}, serving {serve_counts}")
+    log(f"[launches] generate {gen_counts}, serving {serve_counts}, "
+        f"training {train_counts}")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

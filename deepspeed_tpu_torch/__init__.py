@@ -7,14 +7,20 @@ never JAX or ``deepspeed_tpu``.
 
 Ported so far: the serving path of GPT-2 — ``init_inference`` →
 ``InferenceEngine.generate``, and the continuous-batching ``SlotBatcher``
-(``serving``).
+(``serving``) — and its training path: ``initialize`` →
+``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
+(``runtime``).
 """
 
 from __future__ import annotations
 
+import os
+
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .models import gpt
+from .runtime.engine import DeepSpeedEngine
+from .runtime.model import ModelSpec, from_gpt
 
 __version__ = "0.1.0"
 
@@ -40,4 +46,46 @@ def init_inference(model=None, config=None, device=None, **kwargs
     return InferenceEngine(model_config, params, inf_config, device=device)
 
 
-__all__ = ["DeepSpeedInferenceConfig", "InferenceEngine", "init_inference"]
+def initialize(args=None, model: ModelSpec = None, optimizer=None,
+               model_parameters=None, training_data=None, lr_scheduler=None,
+               config=None, config_params=None, device=None,
+               generator=None):
+    """Build a :class:`DeepSpeedEngine` (reference
+    ``deepspeed/__init__.py`` ``initialize``); returns ``(engine,
+    optimizer, None, lr_scheduler)``.
+
+    ``model`` is a ``ModelSpec`` (``runtime.model.from_gpt``); ``config``
+    a DeepSpeed config dict or path.  The params come from
+    ``model.params`` or ``model.init_fn(generator)`` (default: a
+    generator on the device seeded with 0).  ``device=None`` runs on CUDA
+    and raises when there is none; pass ``device="cpu"`` for the plain
+    PyTorch path.  The autotuner, the pipeline engine and the data loader
+    are not ported and raise ``NotImplementedError``."""
+    if config is None and args is not None and \
+            getattr(args, "deepspeed_config", None) is not None:
+        config = args.deepspeed_config
+    config = config if config is not None else config_params
+    if not isinstance(model, ModelSpec):
+        raise TypeError("initialize takes model=ModelSpec "
+                        "(deepspeed_tpu_torch.runtime.model.from_gpt)")
+    at = config.get("autotuning", {}) if isinstance(config, dict) else {}
+    if (isinstance(at, dict) and at.get("enabled")) or \
+            os.environ.get("DS_AUTOTUNING", "").strip():
+        raise NotImplementedError("the autotuner is not ported yet "
+                                  "(ROADMAP.md Queue 1)")
+    if model.meta.get("pipeline"):
+        raise NotImplementedError("the pipeline engine is not ported yet "
+                                  "(ROADMAP.md Queue 1)")
+    if training_data is not None or model_parameters is not None:
+        raise NotImplementedError("training_data and model_parameters are "
+                                  "not ported yet: pass batches to "
+                                  "forward/train_batch_fused and the "
+                                  "params through the ModelSpec")
+    engine = DeepSpeedEngine(model=model, config=config, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, device=device,
+                             generator=generator)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+__all__ = ["DeepSpeedEngine", "DeepSpeedInferenceConfig", "InferenceEngine",
+           "ModelSpec", "from_gpt", "init_inference", "initialize"]

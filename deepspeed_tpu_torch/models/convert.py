@@ -1,9 +1,10 @@
-"""Weight and config conversion from the JAX package's GPT.
+"""Weight and config conversion between the JAX package's GPT and the port.
 
 The port keeps the JAX parameter tree and layouts, so conversion is a
-re-wrap: :func:`from_jax_params` takes the tree as numpy arrays (what
-``jax.device_get(params)`` returns) and builds the same tree of torch
-tensors.  Nothing here imports JAX.
+re-wrap both ways: :func:`from_jax_params` takes the tree as numpy arrays
+(what ``jax.device_get(params)`` returns) and builds the same tree of
+torch tensors; :func:`to_numpy_params` turns a port tree back into numpy
+arrays, so trained weights compare either way.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ _CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
                   "d_ff", "vocab_round_to", "attn_softmax_scale", "pos_embed",
                   "activation", "parallel_residual", "local_attention_window",
                   "tie_word_embeddings", "lm_head_bias", "pos_offset",
-                  "embed_layernorm")
+                  "embed_layernorm", "dropout", "remat", "remat_policy",
+                  "loss_chunk")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -35,14 +37,31 @@ def from_jax_params(tree: Mapping[str, Any], device=None,
     ``device``.  Float arrays (bfloat16 included) become ``dtype`` (fp32
     when None); integer arrays keep their type."""
     def leaf(x):
+        # a copy: jax.device_get hands out read-only arrays
         a = np.asarray(x)
         if np.issubdtype(a.dtype, np.integer):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+            return torch.from_numpy(np.array(a)).to(device)
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device=device, dtype=dtype or torch.float32)
 
     return {k: from_jax_params(v, device, dtype) if isinstance(v, Mapping)
             else leaf(v) for k, v in tree.items()}
+
+
+def to_numpy_params(tree: Mapping[str, Any]) -> dict:
+    """Nested dict of tensors → the same nested dict of numpy arrays
+    (16-bit floats widened to fp32; a list of per-layer tensors stacked on
+    dim 0)."""
+    def leaf(x):
+        if isinstance(x, (list, tuple)):
+            x = torch.stack(list(x))
+        x = x.detach().cpu()
+        if x.is_floating_point() and x.dtype != torch.float32:
+            x = x.float()
+        return x.numpy()
+
+    return {k: to_numpy_params(v) if isinstance(v, Mapping) else leaf(v)
+            for k, v in tree.items()}
 
 
 def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:

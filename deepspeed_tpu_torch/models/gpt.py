@@ -4,7 +4,16 @@ Only the GPT-2 variant is ported: learned positions, pre-LN blocks with a
 serial residual, tanh-GeLU MLP, tied embedding head.  The other
 architecture variants of the JAX ``GPTConfig`` (rotary/ALiBi positions,
 relu, parallel residual, banded windows, untied or biased heads, position
-offsets, embedding LayerNorm) raise ``NotImplementedError``.
+offsets, embedding LayerNorm), dropout and the ``"dots"`` remat policy
+raise ``NotImplementedError``.
+
+Training: :func:`loss_fn` (mean next-token cross-entropy, optionally over
+``loss_chunk``-token chunks of the head) is differentiable through the
+flash kernels' ``torch.autograd.Function``.  With ``remat`` each block is
+recomputed in the backward from its saved input (``_RematBlock``);
+``remat_policy="attn_out"`` also keeps each block's attention output O and
+its fp32 logsumexp, so the recompute replays the attention from them and
+the backward never re-runs the forward kernel (JAX ``gpt.py:609-631``).
 
 Parameters keep the JAX package's tree and layouts, so converting its
 weights is a re-wrap (``convert.from_jax_params``): ``wte`` [V_pad, d],
@@ -22,8 +31,11 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ..ops.kernels.flash_attention import flash_attention
+from ..utils.logging import logger
+
+from ..ops.kernels.flash_attention import flash_attention, flash_attention_qkv
 
 Params = Dict[str, Any]
 
@@ -50,6 +62,14 @@ class GPTConfig:
     lm_head_bias: bool = False
     pos_offset: int = 0
     embed_layernorm: bool = False
+    # training: only dropout 0.0 is ported; remat recomputes each block in
+    # the backward ("nothing": saves the block input; "attn_out": also the
+    # attention output and lse); loss_chunk > 0 computes the head's logits
+    # one chunk of the sequence at a time
+    dropout: float = 0.0
+    remat: bool = False
+    remat_policy: str = "nothing"
+    loss_chunk: int = 0
 
     def __post_init__(self):
         ported = {"pos_embed": "learned", "activation": "gelu",
@@ -61,6 +81,16 @@ class GPTConfig:
                 raise NotImplementedError(
                     f"GPTConfig.{name}={getattr(self, name)!r}: only the "
                     f"GPT-2 variant ({name}={want!r}) is ported yet")
+        if self.dropout != 0.0:
+            raise NotImplementedError(
+                f"GPTConfig.dropout={self.dropout!r}: only dropout 0.0 is "
+                "ported yet")
+        if self.remat_policy == "dots":
+            raise NotImplementedError(
+                "GPTConfig.remat_policy='dots' is not ported yet (the port "
+                "has 'nothing' and 'attn_out')")
+        if self.remat_policy not in ("nothing", "attn_out"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.d_model % self.n_head:
             raise ValueError(f"d_model {self.d_model} is not a multiple of "
                              f"n_head {self.n_head}")
@@ -168,15 +198,20 @@ def _attention(q, k, v, config: GPTConfig):
                            sm_scale=config.attn_softmax_scale)[0]
 
 
-def qkv_proj(x, p: Params, config: GPTConfig):
-    """LN1 + qkv projection: [B, S, d] → (q, k, v) each [B, S, H, Dh],
-    strided views of one [B, S, 3, H, Dh] product."""
+def qkv_packed(x, p: Params, config: GPTConfig):
+    """LN1 + qkv projection: [B, S, d] → the packed [B, S, 3, H, Dh]."""
     cdt = config.dtype
     B, S, d = x.shape
     h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     qkv = h @ p["wqkv"].to(cdt).reshape(d, -1)
-    qkv = qkv.view(B, S, 3, config.n_head, config.head_dim) \
+    return qkv.view(B, S, 3, config.n_head, config.head_dim) \
         + p["bqkv"].to(cdt)
+
+
+def qkv_proj(x, p: Params, config: GPTConfig):
+    """LN1 + qkv projection: [B, S, d] → (q, k, v) each [B, S, H, Dh],
+    strided views of one [B, S, 3, H, Dh] product."""
+    qkv = qkv_packed(x, p, config)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -207,11 +242,28 @@ def embed(params: Params, tokens, config: GPTConfig, positions=None):
     """Token + learned position embedding.  ``positions``: [S] shared or
     [B, S] per row (ragged decode)."""
     cdt = config.dtype
-    x = params["wte"].to(cdt)[tokens]
+    x = F.embedding(tokens, params["wte"].to(cdt))
     if positions is None:
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    pe = params["wpe"].to(cdt)[positions]
+    pe = F.embedding(positions, params["wpe"].to(cdt))
     return x + (pe if pe.dim() == x.dim() else pe[None])
+
+
+class _HeadLogits(torch.autograd.Function):
+    """fp32 logits from 16-bit operands on CUDA (``torch.mm`` with
+    ``out_dtype``); the backward takes the logits' gradient in the operand
+    dtype, as a mixed-precision matmul's backward does."""
+
+    @staticmethod
+    def forward(ctx, h2, head):
+        ctx.save_for_backward(h2, head)
+        return torch.mm(h2, head.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, head = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        return g @ head, g.t() @ h2
 
 
 def _head_logits(params: Params, h, config: GPTConfig):
@@ -222,7 +274,7 @@ def _head_logits(params: Params, h, config: GPTConfig):
     head = params["wte"].to(cdt)
     h2 = h.to(cdt).reshape(-1, h.shape[-1])
     if h2.is_cuda and cdt != torch.float32:
-        logits = torch.mm(h2, head.t(), out_dtype=torch.float32)
+        logits = _HeadLogits.apply(h2, head)
     else:
         # the same products (exact in fp32) with fp32 accumulation
         logits = h2.float() @ head.float().t()
@@ -236,17 +288,135 @@ def lm_logits(params: Params, x, config: GPTConfig):
         config)
 
 
+#: a block's parameters, in the order ``_RematBlock`` takes them
+LAYER_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
+              "ln2_scale", "ln2_bias", "wi", "bi", "wo_mlp", "bo_mlp")
+
+
+def _block(x, p: Params, config: GPTConfig, saved=None):
+    """One transformer block on [B, S, d] → (output, (O, lse)).  The
+    packed qkv goes to the differentiable flash op; ``saved`` = (O, lse)
+    replays an earlier forward's attention without the kernel."""
+    qkv = qkv_packed(x, p, config)
+    o, lse = flash_attention_qkv(qkv, causal=True,
+                                 sm_scale=config.attn_softmax_scale,
+                                 saved=saved)
+    return block_tail(x, o, p, config), (o, lse)
+
+
+class _RematBlock(torch.autograd.Function):
+    """Activation remat of one block (JAX ``jax.checkpoint`` per block).
+
+    The forward runs the block without recording a graph and keeps the
+    block input; under ``remat_policy="attn_out"`` also the attention's O
+    [B, S, H, Dh] and lse [B, H, S] fp32.  The backward re-runs the block
+    with gradients from the input and takes its gradient; with O and lse
+    kept, the attention is replayed from them, so the forward kernel runs
+    once per block and step instead of twice."""
+
+    @staticmethod
+    def forward(ctx, x, config, *leaves):
+        y, (o, lse) = _block(x, dict(zip(LAYER_KEYS, leaves)), config)
+        keep = (o, lse) if config.remat_policy == "attn_out" else ()
+        ctx.save_for_backward(x, *keep, *leaves)
+        ctx.config, ctx.n_keep = config, len(keep)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        n = ctx.n_keep
+        x, keep, leaves = saved[0], saved[1:1 + n], saved[1 + n:]
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            x_in = x.detach().requires_grad_(needs[0])
+            ps = [t.detach().requires_grad_(need)
+                  for t, need in zip(leaves, needs[2:])]
+            y, _ = _block(x_in, dict(zip(LAYER_KEYS, ps)), ctx.config,
+                          saved=tuple(keep) or None)
+        inputs = [t for t in (x_in, *ps) if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, inputs, gy, allow_unused=True))
+        return ((next(grads) if x_in.requires_grad else None), None,
+                *(next(grads) if t.requires_grad else None for t in ps))
+
+
 def backbone(params: Params, tokens, config: GPTConfig):
     """Embed + transformer stack: tokens [B, S] → hidden [B, S, d]
-    (before the final LayerNorm)."""
+    (before the final LayerNorm).  A stacked block weight may also be a
+    list of per-layer tensors (the engine's per-layer autograd leaves)."""
     x = embed(params, tokens, config)
+    remat = config.remat and torch.is_grad_enabled()
     for idx in range(config.n_layer):
         p = layer_params(params, idx)
-        q, k, v = qkv_proj(x, p, config)
-        x = block_tail(x, _attention(q, k, v, config), p, config)
+        if remat:
+            x = _RematBlock.apply(x, config, *(p[k] for k in LAYER_KEYS))
+        else:
+            x = _block(x, p, config)[0]
     return x
 
 
 def apply(params: Params, tokens, config: GPTConfig):
     """Forward pass: tokens [B, S] → logits [B, S, padded_vocab] fp32."""
     return lm_logits(params, backbone(params, tokens, config), config)
+
+
+# -------------------------------------------------------------------- train
+
+def _token_nll(logits, targets):
+    """Per-token masked NLL sums: (sum nll, count). targets < 0 are masked
+    (the -100 convention)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        targets.long().clamp(min=0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def _chunk_nll(h, wte, targets, config: GPTConfig):
+    return _token_nll(_head_logits({"wte": wte}, h, config), targets)
+
+
+def loss_fn(params: Params, batch, config: GPTConfig):
+    """Mean next-token cross-entropy. batch: {'tokens': [B, S+1]} or
+    {'input_ids', 'labels'} (labels < 0 masked)."""
+    unported = sorted(k for k in batch if k.startswith("_"))
+    if unported:
+        raise NotImplementedError(f"batch keys {unported} (dropout and "
+                                  "layer drop) are not ported yet")
+    if "input_ids" in batch:
+        inputs, targets = batch["input_ids"], batch["labels"]
+    else:
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    chunk = config.loss_chunk
+    if not chunk:
+        tot, cnt = _token_nll(apply(params, inputs, config), targets)
+        return tot / torch.clamp(cnt, min=1.0)
+    S = inputs.shape[1]
+    if S % chunk:
+        # largest divisor of S that fits the requested chunk
+        eff = next(c for c in range(min(chunk, S), 0, -1) if S % c == 0)
+        logger.warning(f"loss_chunk={chunk} does not divide seq {S}; "
+                       f"using chunk {eff}")
+        chunk = eff
+    x = backbone(params, inputs, config)
+    h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(S // chunk):
+        hc, tc = h[:, i * chunk:(i + 1) * chunk], targets[:, i * chunk:(i + 1) * chunk]
+        if torch.is_grad_enabled():
+            # the chunk's logits are recomputed in the backward
+            t_i, c_i = torch.utils.checkpoint.checkpoint(
+                _chunk_nll, hc, params["wte"], tc, config, use_reentrant=False)
+        else:
+            t_i, c_i = _chunk_nll(hc, params["wte"], tc, config)
+        tot, cnt = tot + t_i, cnt + c_i
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def flops_per_token(config: GPTConfig) -> float:
+    """6N + attention flops per token (for MFU accounting)."""
+    d, L, S = config.d_model, config.n_layer, config.max_seq_len
+    n_params = (config.padded_vocab * d + S * d + L * (12 * d * d + 13 * d) + 2 * d)
+    return 6.0 * n_params + 12.0 * L * d * S

@@ -6,12 +6,18 @@ wrapper's count of kernel launches."""
 
 from .decode_attention import (cached_attention, cached_attention_reference,
                                chunk_attn, decode_attn)
-from .flash_attention import (flash_attention, flash_attention_reference,
-                              flash_fwd, mha_reference)
+from .flash_attention import (flash_attention, flash_attention_backward,
+                              flash_attention_backward_reference,
+                              flash_attention_qkv, flash_attention_reference,
+                              flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+                              mha_reference)
+from .fused_adam import (adam_hyper, fused_adam, fused_adam_kernel,
+                         fused_adam_reference, fused_adam_step)
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
-           "chunk_attn": chunk_attn}
+           "chunk_attn": chunk_attn, "flash_bwd_dq": flash_bwd_dq,
+           "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": fused_adam_kernel}
 
 
 def launch_counts() -> dict:
@@ -23,7 +29,11 @@ def reset_launch_counts() -> None:
         type(k).launches = 0
 
 
-__all__ = ["KERNELS", "cached_attention", "cached_attention_reference",
-           "chunk_attn", "decode_attn", "flash_attention",
-           "flash_attention_reference", "flash_fwd",
-           "launch_counts", "mha_reference", "reset_launch_counts"]
+__all__ = ["KERNELS", "adam_hyper", "cached_attention",
+           "cached_attention_reference", "chunk_attn", "decode_attn",
+           "flash_attention", "flash_attention_backward",
+           "flash_attention_backward_reference", "flash_attention_qkv",
+           "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_fwd", "fused_adam", "fused_adam_kernel",
+           "fused_adam_reference", "fused_adam_step", "launch_counts",
+           "mha_reference", "reset_launch_counts"]

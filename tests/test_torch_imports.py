@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 15
+    # 24 modules of the serving slice, 14 of the training slice (runtime,
+    # optimizers, timers, the fused-Adam kernel)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 38
 
 
 def test_init_inference_without_cuda_raises(monkeypatch):
@@ -56,3 +58,24 @@ def test_cuda_only_paths_refuse_mixed_devices():
     assert on_cuda(a, a) is False
     with pytest.raises(ValueError, match="no kernel or plain path"):
         on_cuda(torch.zeros(2, device="meta"))
+
+
+def test_initialize_without_cuda_raises(monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.runtime.model import from_gpt
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt.GPTConfig(vocab_size=64, max_seq_len=16, n_layer=1, n_head=2,
+                        d_model=32, dtype=torch.float32)
+    config = {"train_micro_batch_size_per_gpu": 2}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=from_gpt(cfg), config=config)
+    engine, opt, loader, sched = deepspeed_tpu_torch.initialize(
+        model=from_gpt(cfg), config=config, device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    assert engine.device.type == "cpu" and loader is None and sched is None
+    assert engine.state["master"]["wte"].device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="autotuner"):
+        deepspeed_tpu_torch.initialize(
+            model=from_gpt(cfg), device="cpu",
+            config={**config, "autotuning": {"enabled": True}})
