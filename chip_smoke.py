@@ -11,17 +11,20 @@ imports JAX.  In order it
 2. holds each kernel against its plain PyTorch version at the shapes its
    slice gives it, in bf16 (plain computed in fp32 from the same inputs),
    and times kernel, plain version, a one-call PyTorch yardstick the port
-   never calls (``scaled_dot_product_attention``, its backward, fused
-   ``AdamW``) and the card's bound for the work; then sweeps every dtype
-   and head dim the attention kernels take: every cache frontier of a
-   small ragged batch, and odd, cross-length and no-key causal shapes for
-   the flash forward and backward; and checks that a skipped Adam step
-   leaves its state bitwise unchanged;
+   never calls (``scaled_dot_product_attention`` with or without a mask,
+   its backward, fused ``AdamW``) and the card's bound for the work; the
+   block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
+   layout, block 64) beside the dense flash trio at the same shape; then
+   sweeps every dtype and head dim the attention kernels take: every cache
+   frontier of a small ragged batch, odd, cross-length and no-key causal
+   shapes for the flash forward and backward, and every block-sparse block
+   size, causal or not, with an empty row, and five layout kinds; and
+   checks that a skipped Adam step leaves its state bitwise unchanged;
 3. checks a tiny fp32 model end to end on the card against the same model
    on the host (plain kernels): equal greedy tokens, logits within 1e-3;
-   and trains it 5 steps through ``initialize`` on both: losses within
-   1e-5 relative, master params within 1e-4, and two card runs bitwise
-   equal;
+   and trains it 5 steps through ``initialize`` on both, dense and under a
+   block-sparse layout: losses within 1e-5 relative, master params within
+   1e-4, and two card runs bitwise equal;
 4. with every launch count at 0, drives the serving path at full width:
    GPT-2 350M (24 layers, bf16, random weights from a seed) through
    ``init_inference`` → ``generate``, then a ``SlotBatcher`` answering 16
@@ -36,7 +39,11 @@ imports JAX.  In order it
    one batch; reads the counts; checks the card's bf16 loss of one row
    against the host's fp32 loss, finite and falling losses; reports step
    time, tokens/s, MFU and peak memory, and profiles 2 steps;
-7. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
+7. the same for the sparse training path: the same model at seq 4096
+   under the Fixed block-sparse layout (block 64), micro-batch 4, with the
+   live-pair attention FLOPs beside MFU; then a few steps of that model
+   with dense causal flash, for comparison;
+8. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises: no result line, non-zero exit.  The numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -48,6 +55,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -59,12 +67,18 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import gpt
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops import kernels
-from deepspeed_tpu_torch.ops.kernels import (adam_hyper, build,
-                                             cached_attention_reference,
-                                             flash_attention_backward_reference,
-                                             flash_attention_reference,
-                                             fused_adam_reference)
+from deepspeed_tpu_torch.ops.kernels import (
+    adam_hyper, block_sparse_attention_backward_reference,
+    block_sparse_attention_reference, build, cached_attention_reference,
+    flash_attention_backward_reference, flash_attention_reference,
+    fused_adam_reference, sparse_plan)
+from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import BLOCKS
+from deepspeed_tpu_torch.ops.kernels.flash_attention import \
+    aligned_do_and_delta
 from deepspeed_tpu_torch.ops.kernels.utils import HEAD_DIMS
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
+    FixedSparsityConfig, VariableSparsityConfig)
 from deepspeed_tpu_torch.runtime.model import from_gpt
 from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
 
@@ -92,7 +106,16 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
            "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd_dkv.cu",
                              "deepspeed_tpu/ops/pallas/flash_attention.py:304"),
            "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
-                          "deepspeed_tpu/ops/pallas/fused_adam.py:29")}
+                          "deepspeed_tpu/ops/pallas/fused_adam.py:29"),
+           "block_sparse_fwd": (
+               "deepspeed_tpu_torch/csrc/block_sparse_fwd.cu",
+               "deepspeed_tpu/ops/pallas/block_sparse_attention.py:107"),
+           "block_sparse_bwd_dq": (
+               "deepspeed_tpu_torch/csrc/block_sparse_bwd_dq.cu",
+               "deepspeed_tpu/ops/pallas/block_sparse_attention.py:193"),
+           "block_sparse_bwd_dkv": (
+               "deepspeed_tpu_torch/csrc/block_sparse_bwd_dkv.cu",
+               "deepspeed_tpu/ops/pallas/block_sparse_attention.py:229")}
 
 
 def log(msg: str) -> None:
@@ -463,6 +486,241 @@ def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
                for a, r in zip((dq, dk, dv), ref))
 
 
+# ------------------------------------------------------- block-sparse
+
+def fixed_layout_config(heads=16, block=64):
+    """The sparse training slice's layout: Fixed, 4 local blocks, 1 global,
+    unidirectional, a different layout per head, 4 global patterns."""
+    return FixedSparsityConfig(num_heads=heads, block=block,
+                               num_local_blocks=4, num_global_blocks=1,
+                               attention="unidirectional",
+                               different_layout_per_head=True,
+                               num_different_global_patterns=4)
+
+
+def _sparse_sets(n, B, S, H, D, gen, dtype=torch.bfloat16):
+    """``n`` sets of (q, k, v) strided views of [B, S, 3, H, D] and a dO."""
+    sets = []
+    for _ in range(n):
+        qkv = torch.randn((B, S, 3, H, D), generator=gen, device="cuda",
+                          dtype=torch.float32).to(dtype)
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda",
+                         dtype=torch.float32).to(dtype)
+        sets.append((qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do))
+    return sets
+
+
+def _bwd_runner(fn, sets, stats, *args):
+    """``run(i)``: the backward kernel ``fn`` on set ``i`` of
+    (q, k, v, dO) and its (O, lse, delta)."""
+    def run(i):
+        q, k, v, do = sets[i % len(sets)]
+        _, lse, delta = stats[i % len(sets)]
+        return fn(q, k, v, do, lse, delta, *args)
+    return run
+
+
+def _forward_stats(fwd, sets, *args):
+    """(O, lse, delta) of the forward kernel ``fwd`` on each set."""
+    stats = []
+    for q, k, v, do in sets:
+        o, lse = fwd(q, k, v, *args)
+        stats.append((o, lse, aligned_do_and_delta(do, o)[1]))
+    return stats
+
+
+def check_block_sparse(B=4, S=4096, H=16, D=64):
+    """The three block-sparse kernels at the sparse training slice's shape
+    (GPT-2 350M's heads, seq 4096, the Fixed layout at block 64), bf16,
+    against the fp32 plain versions on the same inputs (the forward
+    kernel's O and lse feed the backward pair).  Plain ms is the plain
+    forward, or the whole plain backward; library ms is
+    ``scaled_dot_product_attention`` with the expanded [H, S, S] boolean
+    mask, forward or its backward (dq, dk, dv together).  Also times the
+    port's dense causal flash trio at the same shape: what the sparsity
+    buys."""
+    cfg = fixed_layout_config(H)
+    plan = sparse_plan(cfg.make_layout(S), cfg.block, True, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    n = 4                                   # 200 MB of inputs: past the L2
+    sets = _sparse_sets(n, B, S, H, D, gen)
+    scale = 1.0 / math.sqrt(D)
+    stats = _forward_stats(kernels.block_sparse_fwd, sets, plan, scale)
+    q, k, v, do = sets[0]
+    o, lse, delta = stats[0]
+    dq = kernels.block_sparse_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    dk, dv = kernels.block_sparse_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    o32, lse32 = block_sparse_attention_reference(q.float(), k.float(),
+                                                  v.float(), plan, scale)
+    fwd_err = (o.float() - o32).abs().max().item()
+    fwd_tol = BF16_REL_TOL * max(1.0, o32.abs().max().item())
+    lse_err = (lse - lse32).abs().max().item()
+    del o32, lse32
+    ref = block_sparse_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), plan,
+        scale)
+    ACCEL.synchronize()
+    errs = [(a.float() - r).abs().max().item() for a, r in zip((dq, dk, dv), ref)]
+    tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
+    del ref
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"block_sparse_fwd lse err {lse_err} > 1e-3")
+
+    ms_fwd = time_ms(lambda i: kernels.block_sparse_fwd(*sets[i % n][:3],
+                                                        plan, scale), 20)
+    ms_dq = time_ms(_bwd_runner(kernels.block_sparse_bwd_dq, sets, stats,
+                                plan, scale), 10)
+    ms_dkv = time_ms(_bwd_runner(kernels.block_sparse_bwd_dkv, sets, stats,
+                                 plan, scale), 10)
+    plain_fwd = eager_ms(lambda: block_sparse_attention_reference(
+        q, k, v, plan, scale), 2, 1)
+    plain_bwd = eager_ms(lambda: block_sparse_attention_backward_reference(
+        q, k, v, o, lse, do, plan, scale), 2, 1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bmask = plan.mask()[None]
+    lib_fwd = time_ms(lambda i: sdpa(*(t.transpose(1, 2) for t in sets[i % n][:3]),
+                                     attn_mask=bmask), 10)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, attn_mask=bmask)
+    lib_bwd = eager_ms(lambda: torch.autograd.grad(out, leaves,
+                                                   do.transpose(1, 2),
+                                                   retain_graph=True), 5)
+    del out, leaves
+    dense_stats = _forward_stats(kernels.flash_fwd, sets, True, scale)
+    dense = {"flash_fwd": time_ms(lambda i: kernels.flash_fwd(
+        *sets[i % n][:3], True, scale), 5),
+        "flash_bwd_dq": time_ms(_bwd_runner(kernels.flash_bwd_dq, sets,
+                                            dense_stats, True, scale), 3),
+        "flash_bwd_dkv": time_ms(_bwd_runner(kernels.flash_bwd_dkv, sets,
+                                             dense_stats, True, scale), 3)}
+    pairs = B * plan.live_pairs
+    elem = B * S * H * D * 2                          # one bf16 [B, S, H, D]
+    stat_bytes = B * H * S * 4
+    shape = (f"B{B} S{S} H{H} D{D} bf16 causal, Fixed block {cfg.block} "
+             f"({plan.live_blocks} live blocks, {plan.live_pairs} pairs per "
+             f"row)")
+    log(f"[block-sparse] {shape}: lse err {lse_err:.2e} (tol 1e-3); dense "
+        f"causal flash at the same shape: flash_fwd {dense['flash_fwd']:.4f} "
+        f"ms, flash_bwd_dq {dense['flash_bwd_dq']:.4f} ms, flash_bwd_dkv "
+        f"{dense['flash_bwd_dkv']:.4f} ms ({B * H * S * (S + 1) // 2} pairs)")
+    rows = [_report("block_sparse_fwd", shape, fwd_err, fwd_tol, ms_fwd,
+                    plain_fwd, lib_fwd, 4 * elem + stat_bytes, 4 * D * pairs),
+            _report("block_sparse_bwd_dq", shape, errs[0], tols[0], ms_dq,
+                    plain_bwd, lib_bwd, 5 * elem + 2 * stat_bytes,
+                    6 * D * pairs),
+            _report("block_sparse_bwd_dkv", shape, max(errs[1:]),
+                    min(tols[1:]), ms_dkv, plain_bwd, lib_bwd,
+                    6 * elem + 2 * stat_bytes, 8 * D * pairs)]
+    for row in rows:
+        row["dense_flash_ms_same_shape"] = dense
+    return rows
+
+
+def _sparse_errs(q, k, v, do, plan, causal_rows_empty=()):
+    """Worst relative error of the three kernels (O, dq, dk, dv) against
+    the fp32 plain versions, and the lse error; raises on a non-finite
+    output or a non-zero output or dq on a row with no live block."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ((o, lse, delta),) = _forward_stats(kernels.block_sparse_fwd,
+                                        [(q, k, v, do)], plan, scale)
+    dq = kernels.block_sparse_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    dk, dv = kernels.block_sparse_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    o32, lse32 = block_sparse_attention_reference(q.float(), k.float(),
+                                                  v.float(), plan, scale)
+    ref = block_sparse_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), plan,
+        scale)
+    outs = (o, dq, dk, dv)
+    if not all(torch.isfinite(t).all() for t in outs):
+        raise AssertionError(f"block-sparse {tuple(q.shape)} block "
+                             f"{plan.block}: non-finite output")
+    for lo, hi in causal_rows_empty:
+        if o[:, lo:hi].any() or dq[:, lo:hi].any():
+            raise AssertionError("block-sparse: a row with no live block has "
+                                 "O or dq != 0")
+    fin = torch.isfinite(lse32)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        raise AssertionError("block-sparse: lse = -inf on other rows than "
+                             "the plain version's")
+    lse_err = (lse[fin] - lse32[fin]).abs().max().item() if fin.any() else 0.0
+    err = max(((a.float() - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
+              for a, r in zip(outs, (o32, *ref)))
+    return err, lse_err
+
+
+def check_sparse_sweep(B=2, H=2, S=256):
+    """Every layout block {16, 32, 64, 128} x head dim x dtype x causal, on
+    a random half-full layout whose second block row is empty, within the
+    sweep's relative tolerance; then the Fixed, BigBird, Variable (with an
+    emptied row), BSLongformer and Dense layouts in bf16, and the Dense
+    layout against the dense ``flash_fwd``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(4)
+    worst = {}
+    for dt, tol in SWEEP_TOL.items():
+        for D in HEAD_DIMS:
+            errs = []
+            for block in BLOCKS:
+                n = S // block
+                lay = rng.integers(0, 2, (H, n, n))
+                lay[:, 0, 0] = 1
+                lay[:, 1] = 0                           # an empty row
+                for causal in (True, False):
+                    plan = sparse_plan(lay, block, causal, "cuda")
+                    q, k, v, do = _sparse_sets(1, B, S, H, D, gen, dt)[0]
+                    errs.append(_sparse_errs(q, k, v, do, plan,
+                                             [(block, 2 * block)]))
+            err, lse_err = max(e for e, _ in errs), max(l for _, l in errs)
+            worst[f"{str(dt)[6:]} D{D}"] = err
+            log(f"[sparse sweep] {str(dt)[6:]} D{D}: blocks {BLOCKS} x "
+                f"causal/not, empty row: worst relative err {err:.3e} (tol "
+                f"{tol:.0e}), lse err {lse_err:.2e} (tol 1e-3), empty rows "
+                f"zero")
+            if not (err <= tol and lse_err <= 1e-3):
+                raise AssertionError(f"sparse sweep {dt} D{D}: err {err}, "
+                                     f"lse err {lse_err}")
+    S, H, block, D = 512, 4, 32, 64
+    var = VariableSparsityConfig(num_heads=H, block=block, num_random_blocks=1,
+                                 local_window_blocks=[2, 4],
+                                 global_block_indices=[3],
+                                 different_layout_per_head=True)
+    var_lay = var.make_layout(S)
+    var_lay[:, 5] = 0                                   # an empty row
+    layouts = {
+        "fixed": fixed_layout_config(H, block).make_layout(S),
+        "bigbird": BigBirdSparsityConfig(
+            num_heads=H, block=block, num_random_blocks=2,
+            different_layout_per_head=True).make_layout(S),
+        "variable_empty_row": var_lay,
+        "bslongformer": BSLongformerSparsityConfig(
+            num_heads=H, block=block, num_sliding_window_blocks=3,
+            global_block_indices=[0, 9]).make_layout(S),
+        "dense": DenseSparsityConfig(num_heads=H, block=block).make_layout(S)}
+    for name, lay in layouts.items():
+        for causal in (True, False):
+            plan = sparse_plan(lay, block, causal, "cuda")
+            q, k, v, do = _sparse_sets(1, B, S, H, D, gen)[0]
+            err, lse_err = _sparse_errs(q, k, v, do, plan,
+                                        [(5 * block, 6 * block)]
+                                        if name == "variable_empty_row" else [])
+            msg = ""
+            if name == "dense":
+                scale = 1.0 / math.sqrt(D)
+                o = kernels.block_sparse_fwd(q, k, v, plan, scale)[0].float()
+                of = kernels.flash_fwd(q, k, v, causal, scale)[0].float()
+                rel = ((o - of).abs().max() / of.abs().max().clamp(min=1.0)).item()
+                msg = f", vs flash_fwd {rel:.3e}"
+                err = max(err, rel)
+            worst[f"{name} {'causal' if causal else 'full'}"] = err
+            log(f"[sparse sweep] {name} S{S} H{H} D{D} block {block} bf16 "
+                f"{'causal' if causal else 'full'}: relative err {err:.3e} "
+                f"(tol 1e-02), lse err {lse_err:.2e}{msg}")
+            if not (err <= SWEEP_TOL[torch.bfloat16] and lse_err <= 1e-3):
+                raise AssertionError(f"sparse sweep {name}: err {err}, lse "
+                                     f"err {lse_err}")
+    return worst
+
+
 # ------------------------------------------------------------- models
 
 def scaled_params(cfg, seed, device, std_factor):
@@ -690,16 +948,21 @@ def _leaves(tree):
             for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
-def check_tiny_training():
+def check_tiny_training(sparse=False):
     """The training path in fp32 on the card (kernels) vs on the host
     (plain versions) from the same params and batches; then a second card
-    run, bitwise equal to the first."""
+    run, bitwise equal to the first.  ``sparse``: under a Fixed
+    block-sparse layout (block 16) at seq 128."""
     cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=128, n_layer=2, n_head=4,
                         d_model=256, dtype=torch.float32, remat=True,
-                        remat_policy="attn_out")
+                        remat_policy="attn_out",
+                        sparse_attention=FixedSparsityConfig(
+                            num_heads=4, block=16, num_local_blocks=2,
+                            attention="unidirectional") if sparse else None)
     params = gpt.init(cfg, torch.Generator().manual_seed(8))
     rng = np.random.default_rng(10)
-    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 97))}
+    seq = 129 if sparse else 97
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, seq))}
                for _ in range(5)]
     dev_losses, dev_master = _train_tiny(cfg, params, batches, "cuda")
     host_losses, host_master = _train_tiny(cfg, params, batches, "cpu")
@@ -708,34 +971,131 @@ def check_tiny_training():
     param_err = (dev_master - host_master).abs().max().item()
     bitwise = torch.equal(dev_losses, again_losses) and \
         torch.equal(dev_master, again_master)
-    log(f"[tiny train] fp32, 5 steps, card vs host: losses "
+    label = "tiny train sparse" if sparse else "tiny train"
+    log(f"[{label}] fp32, 5 steps, card vs host: losses "
         f"{dev_losses.tolist()} vs {host_losses.tolist()}, max relative "
         f"loss err {loss_rel:.3e} (tol 1e-5), master max_abs_err "
         f"{param_err:.3e} (tol 1e-4); second card run bitwise equal "
         f"{bitwise}")
     if not (loss_rel <= 1e-5 and param_err <= 1e-4 and bitwise):
-        raise AssertionError("tiny training: card and host disagree, or two "
+        raise AssertionError(f"{label}: card and host disagree, or two "
                              "card runs differ")
     return {"loss_rel_err": loss_rel, "master_max_abs_err": param_err,
             "bitwise_repeat": bitwise}
 
 
+#: the sparse training slice: the same model and optimizer at seq 4096
+#: under the Fixed layout (block 64), micro-batch 4: 16,384 tokens per step
+SPARSE_MICRO_BATCH = 4
+SPARSE_SEQ = 4096
+
+
 def run_training(warmup=2, steps=10):
-    """Phase 6: the full-width training path; every launch count is reset
-    before it and read after it.  Returns (results, counts, engine,
-    batch)."""
+    """Phase 6: the full-width training path at bench.py's configuration;
+    every launch count is reset before it and read after it.  Returns
+    (results, counts, engine, batch)."""
     cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
                               dtype=torch.bfloat16, remat=True,
                               remat_policy="attn_out")
+    want = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
+            "flash_bwd_dkv": cfg.n_layer, "fused_adam": 1}
+    return _train_full_width("train", cfg, TRAIN_MICRO_BATCH, want, warmup,
+                             steps, row_seq=cfg.max_seq_len)
+
+
+def run_sparse_training(warmup=2, steps=10):
+    """Phase 7: the sparse training slice, GPT-2 350M at seq 4096 under
+    the Fixed block-sparse layout, micro-batch 4; counts reset before and
+    read after.  The one-row bf16-vs-fp32 host check runs at seq 1024
+    under the same layout config (the host's plain attention at 4096 would
+    take minutes)."""
+    cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=SPARSE_SEQ,
+                              dtype=torch.bfloat16, remat=True,
+                              remat_policy="attn_out",
+                              sparse_attention=fixed_layout_config())
+    want = {"block_sparse_fwd": cfg.n_layer, "block_sparse_bwd_dq": cfg.n_layer,
+            "block_sparse_bwd_dkv": cfg.n_layer, "fused_adam": 1,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    res, counts, engine, batch = _train_full_width(
+        "sparse train", cfg, SPARSE_MICRO_BATCH, want, warmup, steps,
+        row_seq=1024)
+    plan = kernels.config_plan(cfg.sparse_attention, SPARSE_SEQ, True, "cuda")
+    D, n = cfg.head_dim, SPARSE_SEQ // plan.block
+    # attention FLOPs per step on live pairs: forward 4·D, dq 6·D, dk/dv
+    # 8·D per pair (remat attn_out runs the forward once)
+    live = cfg.n_layer * SPARSE_MICRO_BATCH * plan.live_pairs * 18 * D
+    dense_term = 12.0 * cfg.n_layer * cfg.d_model * cfg.max_seq_len * \
+        SPARSE_MICRO_BATCH * cfg.max_seq_len
+    res.update({"live_blocks_per_row": plan.live_blocks,
+                "live_pairs_per_row": plan.live_pairs,
+                "attention_flops_per_step_live_pairs": live,
+                "attention_flops_per_step_dense_term": dense_term,
+                "causal_block_density": plan.live_blocks / (
+                    cfg.n_head * n * (n + 1) / 2)})
+    log(f"[sparse train] {plan.live_blocks} live blocks per row "
+        f"({res['causal_block_density']:.3f} of the causal triangle), "
+        f"attention FLOPs per step on live pairs {live:.4e} vs the dense "
+        f"term of flops_per_token {dense_term:.4e}")
+    return res, counts, engine, batch
+
+
+def run_dense_at_sparse_shape(warmup=1, steps=3):
+    """The same model, seq and micro-batch with dense causal flash: what
+    the sparse layout buys end to end.  Not a main path; its launches are
+    not counted."""
+    cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=SPARSE_SEQ,
+                              dtype=torch.bfloat16, remat=True,
+                              remat_policy="attn_out")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=from_gpt(cfg),
+        config={**TRAIN_CONFIG,
+                "train_micro_batch_size_per_gpu": SPARSE_MICRO_BATCH},
+        generator=torch.Generator(device="cuda").manual_seed(2024))
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SPARSE_MICRO_BATCH, cfg.max_seq_len + 1))}
+    losses, times = _timed_steps(engine, batch, warmup, steps)
+    res = {"step_ms_p50": 1e3 * pct(times, 50),
+           "step_ms_mean": 1e3 * sum(times) / len(times),
+           "tokens_per_s": SPARSE_MICRO_BATCH * SPARSE_SEQ * len(times)
+           / sum(times), "losses": losses}
+    log(f"[dense train] same model at seq {SPARSE_SEQ}, micro-batch "
+        f"{SPARSE_MICRO_BATCH}, dense causal flash: step_ms p50 "
+        f"{res['step_ms_p50']:.2f} mean {res['step_ms_mean']:.2f}, "
+        f"tokens_per_s {res['tokens_per_s']:.0f}")
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def _timed_steps(engine, batch, warmup, steps):
+    losses, times = [], []
+    for i in range(warmup + steps):
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.train_batch_fused(batch)
+        ACCEL.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    return [float(x) for x in losses], times
+
+
+def _train_full_width(label, cfg, micro, want, warmup, steps, row_seq):
+    """``initialize`` → ``train_batch_fused`` at full width on one batch:
+    one row's bf16 loss against the fp32 host before the first step, then
+    ``warmup`` + ``steps`` timed steps with every launch count reset before
+    and read after; checks finite, falling losses and the launches per
+    step in ``want``.  Returns (results, counts, engine, batch)."""
     ACCEL.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=from_gpt(cfg), config=TRAIN_CONFIG,
+        model=from_gpt(cfg),
+        config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": micro},
         generator=torch.Generator(device="cuda").manual_seed(2024))
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
-                                    (TRAIN_MICRO_BATCH, cfg.max_seq_len + 1))}
-    row = {"tokens": batch["tokens"][:1]}
+                                    (micro, cfg.max_seq_len + 1))}
+    row = {"tokens": batch["tokens"][:1, :row_seq + 1]}
     card_row = float(engine.eval_loss(row))
     host_cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
     host_params = {k: ({kk: vv.detach().cpu() for kk, vv in v.items()}
@@ -747,31 +1107,26 @@ def run_training(warmup=2, steps=10):
                                      host_cfg))
     del host_params
     row_rel = abs(card_row - host_row) / abs(host_row)
-    log(f"[train] one row before the first step: bf16 card loss "
-        f"{card_row:.5f}, fp32 host loss {host_row:.5f}, relative diff "
-        f"{row_rel:.4f} (tol 0.02)")
+    log(f"[{label}] one row of {row_seq} tokens before the first step: bf16 "
+        f"card loss {card_row:.5f}, fp32 host loss {host_row:.5f}, relative "
+        f"diff {row_rel:.4f} (tol 0.02)")
     if not row_rel <= 0.02:
-        raise AssertionError(f"full-width bf16 loss off the fp32 host: {row_rel}")
+        raise AssertionError(f"{label}: full-width bf16 loss off the fp32 "
+                             f"host: {row_rel}")
 
     kernels.reset_launch_counts()
-    losses, times = [], []
-    for i in range(warmup + steps):
-        ACCEL.synchronize()
-        t0 = time.perf_counter()
-        loss = engine.train_batch_fused(batch)
-        ACCEL.synchronize()
-        if i >= warmup:
-            times.append(time.perf_counter() - t0)
-        losses.append(loss)
+    losses, times = _timed_steps(engine, batch, warmup, steps)
     counts = kernels.launch_counts()
-    losses = [float(x) for x in losses]
     n_steps = warmup + steps
-    tokens = TRAIN_MICRO_BATCH * cfg.max_seq_len
+    tokens = micro * cfg.max_seq_len
     mean_s = sum(times) / len(times)
-    res = {"config": "GPT-2 350M seq 1024 bf16 remat attn_out, Adam lr 1e-4 "
-                     "wd 0.01, ZeRO 1, micro 16, gas 1",
+    layout = "" if cfg.sparse_attention is None else \
+        ", Fixed block-sparse block 64"
+    res = {"config": f"GPT-2 350M seq {cfg.max_seq_len} bf16 remat attn_out"
+                     f"{layout}, Adam lr 1e-4 wd 0.01, ZeRO 1, micro {micro}, "
+                     f"gas 1",
            "losses": losses, "step_ms_p50": 1e3 * pct(times, 50),
-           "step_ms_mean": 1e3 * mean_s, "samples_per_s": TRAIN_MICRO_BATCH / mean_s,
+           "step_ms_mean": 1e3 * mean_s, "samples_per_s": micro / mean_s,
            "tokens_per_s": tokens / mean_s,
            "mfu": tokens / mean_s * gpt.flops_per_token(cfg) / BF16_FLOPS,
            "flops_per_token": gpt.flops_per_token(cfg),
@@ -779,26 +1134,27 @@ def run_training(warmup=2, steps=10):
            "launches_per_step": {k: v / n_steps for k, v in counts.items()},
            # what remat "attn_out" keeps per layer: the block input x and
            # the attention's O (bf16 [B, S, d]) and lse (fp32 [B, H, S])
-           "remat_bytes_per_layer": (2 * TRAIN_MICRO_BATCH * cfg.max_seq_len
-                                     * cfg.d_model * 2 + TRAIN_MICRO_BATCH
+           "remat_bytes_per_layer": (2 * micro * cfg.max_seq_len
+                                     * cfg.d_model * 2 + micro
                                      * cfg.n_head * cfg.max_seq_len * 4),
            "row_loss_card_bf16": card_row, "row_loss_host_fp32": host_row}
-    log(f"[train] GPT-2 350M seq 1024 bf16, micro-batch 16, {warmup} warm-up "
-        f"+ {steps} timed steps: step_ms p50 {res['step_ms_p50']:.2f} mean "
+    log(f"[{label}] GPT-2 350M seq {cfg.max_seq_len}{layout} bf16, "
+        f"micro-batch {micro}, {warmup} warm-up + {steps} timed steps: "
+        f"step_ms p50 {res['step_ms_p50']:.2f} mean "
         f"{res['step_ms_mean']:.2f}, samples_per_s {res['samples_per_s']:.2f}, "
         f"tokens_per_s {res['tokens_per_s']:.0f}, MFU {res['mfu']:.4f} (of "
-        f"989 TFLOP/s), max_memory_allocated {res['max_memory_allocated_gib']:.2f} "
-        f"GiB, remat keeps {res['remat_bytes_per_layer']} bytes per layer; "
+        f"989 TFLOP/s, flops_per_token {res['flops_per_token']:.4e}), "
+        f"max_memory_allocated {res['max_memory_allocated_gib']:.2f} GiB, "
+        f"remat keeps {res['remat_bytes_per_layer']} bytes per layer; "
         f"losses {[round(x, 4) for x in losses]}")
-    log(f"[train] launches per step {res['launches_per_step']}")
+    log(f"[{label}] launches per step {res['launches_per_step']}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training losses not finite and falling: {losses}")
-    want = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
-            "flash_bwd_dkv": cfg.n_layer, "fused_adam": 1}
+        raise AssertionError(f"{label}: losses not finite and falling: "
+                             f"{losses}")
     wrong = {k: counts[k] for k, n in want.items() if counts[k] != n * n_steps}
     if wrong:
-        raise AssertionError(f"launches per step off {want}: {wrong} over "
-                             f"{n_steps} steps")
+        raise AssertionError(f"{label}: launches per step off {want}: {wrong} "
+                             f"over {n_steps} steps")
     return res, counts, engine, batch
 
 
@@ -819,19 +1175,24 @@ def main() -> int:
     t_build = build.build_all()
     log(f"[build] kernels {build.sources()} ready in {t_build:.1f} s")
     for name, rep in build.ptxas_reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", rep)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                  rep))
+        log(f"[ptxas] {name}: {len(regs)} kernels, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+            f"{spills} bytes")
     result["build_s"] = t_build
 
     checks = [check_flash(4, 512), check_flash(1, 128), check_decode(),
               check_chunk(128), check_chunk(640),
               *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
-              check_fused_adam()]
+              check_fused_adam(), *check_block_sparse()]
     check_adam_skip()
     result["sweep_worst_rel_err"] = check_sweep()
+    result["sparse_sweep_worst_rel_err"] = check_sparse_sweep()
     check_tiny_end_to_end()
     result["tiny_training"] = check_tiny_training()
+    result["tiny_training_sparse"] = check_tiny_training(sparse=True)
 
     cfg = gpt.GPT2_350M
     params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(1234),
@@ -860,6 +1221,19 @@ def main() -> int:
     result["training_profile"] = device_profile(
         "train 2 steps", lambda: [trainer.train_batch_fused(batch)
                                   for _ in range(2)])
+    del trainer
+    torch.cuda.empty_cache()
+
+    result["sparse_training"], sparse_counts, trainer, batch = \
+        run_sparse_training()
+    result["launches"]["sparse_training"] = sparse_counts
+    counts = {k: counts[k] + sparse_counts[k] for k in counts}
+    result["sparse_training_profile"] = device_profile(
+        "sparse train 2 steps", lambda: [trainer.train_batch_fused(batch)
+                                         for _ in range(2)])
+    del trainer
+    torch.cuda.empty_cache()
+    result["dense_at_sparse_shape"] = run_dense_at_sparse_shape()
 
     first = {}
     for row in checks:
@@ -877,8 +1251,9 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
+    log(smi)
     log(f"[launches] generate {gen_counts}, serving {serve_counts}, "
-        f"training {train_counts}")
+        f"training {train_counts}, sparse training {sparse_counts}")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -9,11 +9,13 @@ arrays, so trained weights compare either way.  Nothing here imports JAX.
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from ..ops.sparse_attention import sparsity_config
 from . import gpt
 
 _CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
@@ -70,4 +72,24 @@ def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
     fields = {f: getattr(jax_config, f) for f in _CONFIG_FIELDS}
     return gpt.GPTConfig(
         dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),
+        sparse_attention=sparsity_from_jax(jax_config.sparse_attention),
         **fields)
+
+
+def sparsity_from_jax(jax_sparsity):
+    """The port's ``SparsityConfig`` subclass of the same name as a JAX
+    package instance, built by its constructor from the instance's
+    attributes (so the same checks run) and then holding all of them;
+    None stays None, and a class the port does not have raises."""
+    if jax_sparsity is None:
+        return None
+    name = type(jax_sparsity).__name__
+    cls = getattr(sparsity_config, name, None)
+    if not (isinstance(cls, type)
+            and issubclass(cls, sparsity_config.SparsityConfig)):
+        raise TypeError(f"sparse_attention: no port of {name}")
+    attrs = dict(vars(jax_sparsity))
+    params = inspect.signature(cls.__init__).parameters
+    port = cls(**{k: v for k, v in attrs.items() if k in params})
+    port.__dict__.update(attrs)
+    return port

@@ -9,8 +9,9 @@ raise ``NotImplementedError``.
 
 Training: :func:`loss_fn` (mean next-token cross-entropy, optionally over
 ``loss_chunk``-token chunks of the head) is differentiable through the
-flash kernels' ``torch.autograd.Function``.  With ``remat`` each block is
-recomputed in the backward from its saved input (``_RematBlock``);
+flash kernels' ``torch.autograd.Function`` (the block-sparse kernels'
+under ``sparse_attention``, JAX ``gpt.py:416-421``).  With ``remat`` each
+block is recomputed in the backward from its saved input (``_RematBlock``);
 ``remat_policy="attn_out"`` also keeps each block's attention output O and
 its fp32 logsumexp, so the recompute replays the attention from them and
 the backward never re-runs the forward kernel (JAX ``gpt.py:609-631``).
@@ -35,7 +36,11 @@ import torch.utils.checkpoint
 
 from ..utils.logging import logger
 
+from ..ops.kernels.block_sparse_attention import (block_sparse_attention,
+                                                  block_sparse_attention_qkv,
+                                                  config_plan)
 from ..ops.kernels.flash_attention import flash_attention, flash_attention_qkv
+from ..ops.sparse_attention.sparsity_config import SparsityConfig
 
 Params = Dict[str, Any]
 
@@ -70,6 +75,9 @@ class GPTConfig:
     remat: bool = False
     remat_policy: str = "nothing"
     loss_chunk: int = 0
+    # block-sparse attention (the port's SparsityConfig): every layer's
+    # attention visits only the layout's live blocks, causal
+    sparse_attention: Optional[SparsityConfig] = None
 
     def __post_init__(self):
         ported = {"pos_embed": "learned", "activation": "gelu",
@@ -91,6 +99,12 @@ class GPTConfig:
                 "has 'nothing' and 'attn_out')")
         if self.remat_policy not in ("nothing", "attn_out"):
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        if self.sparse_attention is not None and not isinstance(
+                self.sparse_attention, SparsityConfig):
+            raise TypeError(
+                f"GPTConfig.sparse_attention must be a deepspeed_tpu_torch "
+                f"SparsityConfig, got {type(self.sparse_attention)!r} "
+                "(convert.config_from_jax maps the JAX package's classes)")
         if self.d_model % self.n_head:
             raise ValueError(f"d_model {self.d_model} is not a multiple of "
                              f"n_head {self.n_head}")
@@ -193,9 +207,20 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
 
 def _attention(q, k, v, config: GPTConfig):
     """Causal MHA on [B, S, H, D] through the flash kernel (CUDA) or its
-    plain version (CPU)."""
+    plain version (CPU); block-sparse when ``config.sparse_attention`` is
+    set."""
+    if config.sparse_attention is not None:
+        return block_sparse_attention(q, k, v, _sparse_plan(config, q),
+                                      config.sparse_attention.block)[0]
     return flash_attention(q, k, v, causal=True,
                            sm_scale=config.attn_softmax_scale)[0]
+
+
+def _sparse_plan(config: GPTConfig, x):
+    """The cached causal plan of ``config.sparse_attention`` at x's length
+    (x: [B, S, ...]) on x's device.  Like the JAX model (``gpt.py:416-421``)
+    the sparse path takes the default 1/sqrt(Dh) scale."""
+    return config_plan(config.sparse_attention, x.shape[1], True, x.device)
 
 
 def qkv_packed(x, p: Params, config: GPTConfig):
@@ -295,12 +320,17 @@ LAYER_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
 
 def _block(x, p: Params, config: GPTConfig, saved=None):
     """One transformer block on [B, S, d] → (output, (O, lse)).  The
-    packed qkv goes to the differentiable flash op; ``saved`` = (O, lse)
-    replays an earlier forward's attention without the kernel."""
+    packed qkv goes to the differentiable flash op, or the block-sparse
+    one under ``config.sparse_attention``; ``saved`` = (O, lse) replays an
+    earlier forward's attention without the kernel."""
     qkv = qkv_packed(x, p, config)
-    o, lse = flash_attention_qkv(qkv, causal=True,
-                                 sm_scale=config.attn_softmax_scale,
-                                 saved=saved)
+    if config.sparse_attention is not None:
+        o, lse = block_sparse_attention_qkv(qkv, _sparse_plan(config, qkv),
+                                            saved=saved)
+    else:
+        o, lse = flash_attention_qkv(qkv, causal=True,
+                                     sm_scale=config.attn_softmax_scale,
+                                     saved=saved)
     return block_tail(x, o, p, config), (o, lse)
 
 

@@ -4,6 +4,14 @@ A wrapper launches its kernel on CUDA tensors and runs the plain version
 on CPU tensors (``utils.on_cuda``); ``launch_counts`` reads every
 wrapper's count of kernel launches."""
 
+from .block_sparse_attention import (block_sparse_attention,
+                                     block_sparse_attention_backward,
+                                     block_sparse_attention_backward_reference,
+                                     block_sparse_attention_qkv,
+                                     block_sparse_attention_reference,
+                                     block_sparse_bwd_dkv, block_sparse_bwd_dq,
+                                     block_sparse_fwd, config_plan,
+                                     make_index_tables, sparse_plan)
 from .decode_attention import (cached_attention, cached_attention_reference,
                                chunk_attn, decode_attn)
 from .flash_attention import (flash_attention, flash_attention_backward,
@@ -17,7 +25,10 @@ from .fused_adam import (adam_hyper, fused_adam, fused_adam_kernel,
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
            "chunk_attn": chunk_attn, "flash_bwd_dq": flash_bwd_dq,
-           "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": fused_adam_kernel}
+           "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": fused_adam_kernel,
+           "block_sparse_fwd": block_sparse_fwd,
+           "block_sparse_bwd_dq": block_sparse_bwd_dq,
+           "block_sparse_bwd_dkv": block_sparse_bwd_dkv}
 
 
 def launch_counts() -> dict:
@@ -29,11 +40,17 @@ def reset_launch_counts() -> None:
         type(k).launches = 0
 
 
-__all__ = ["KERNELS", "adam_hyper", "cached_attention",
+__all__ = ["KERNELS", "adam_hyper", "block_sparse_attention",
+           "block_sparse_attention_backward",
+           "block_sparse_attention_backward_reference",
+           "block_sparse_attention_qkv", "block_sparse_attention_reference",
+           "block_sparse_bwd_dkv", "block_sparse_bwd_dq", "block_sparse_fwd",
+           "cached_attention", "config_plan",
            "cached_attention_reference", "chunk_attn", "decode_attn",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_qkv",
            "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_fwd", "fused_adam", "fused_adam_kernel",
            "fused_adam_reference", "fused_adam_step", "launch_counts",
-           "mha_reference", "reset_launch_counts"]
+           "make_index_tables", "mha_reference", "reset_launch_counts",
+           "sparse_plan"]

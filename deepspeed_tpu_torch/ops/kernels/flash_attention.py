@@ -10,7 +10,8 @@ the TPU tiling gates (``_pick_block``, ``FLASH_MIN_SEQ``) do not carry
 over.
 
 The gradient is a ``torch.autograd.Function`` (the JAX ``custom_vjp`` at
-``flash_attention.py:510``) that saves q, k, v, O and lse.  Its backward
+``flash_attention.py:510``) that saves q, k, v, O and lse
+(:class:`AttentionFn`, shared with the block-sparse kernels).  Its backward
 computes delta = rowsum(dO·O) in plain torch, as the JAX package does
 outside Pallas, then runs the two-kernel backward: ``flash_bwd_dq``
 (``csrc/flash_bwd_dq.cu``, replacing ``_bwd_dq_kernel``) and
@@ -22,13 +23,13 @@ qkv projection and writes dq, dk and dv into one gradient of that shape.
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from . import build
-from .utils import DTYPE_CODES, check_kernel_inputs, on_cuda
+from .utils import (DTYPE_CODES, check_kernel_inputs, check_stats, on_cuda,
+                    softmax_scale, strides3)
 
 
 def mha_reference(q, k, v, causal: bool = True,
@@ -44,12 +45,21 @@ def flash_attention_reference(q, k, v, causal: bool = True,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`flash_attention`: (O, lse [B, H, Sq]
     fp32, -inf on rows with no visible key)."""
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    scale = softmax_scale(q.shape[-1], sm_scale)
+    mask = _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
+    return masked_attention_reference(q, k, v, mask, scale)
+
+
+def masked_attention_reference(q, k, v, mask: Optional[torch.Tensor],
+                               scale: float
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax attention on [B, S, H, D] under a visibility mask ([Sq, Sk]
+    or [H, Sq, Sk] bool, None = every key): scores in fp32, p rounded to
+    the input dtype before P·V, rows with no visible key give zeros and
+    lse = -inf."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        s = s.masked_fill(~_causal_mask(Sq, Sk, q.device), float("-inf"))
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(s - m)
@@ -71,17 +81,26 @@ def _causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
 def flash_attention_backward_reference(q, k, v, o, lse, do, causal: bool,
                                        scale: float):
     """The plain version of the two backward kernels: (dq, dk, dv) in the
-    input dtype from the saved O and lse, with the JAX kernels' rounding
-    (``flash_attention.py:283-287, 359-367``): scores in fp32,
-    p = exp(s·scale − lse), dV from p rounded to the input dtype, and
-    dS = round(p·(dP − delta)·scale).  Rows with no visible key (lse =
-    −inf) give zero gradients."""
+    input dtype from the saved O and lse (see
+    :func:`masked_attention_backward_reference`)."""
+    mask = _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
+    return masked_attention_backward_reference(q, k, v, o, lse, do, mask,
+                                               scale)
+
+
+def masked_attention_backward_reference(q, k, v, o, lse, do,
+                                        mask: Optional[torch.Tensor],
+                                        scale: float):
+    """(dq, dk, dv) of :func:`masked_attention_reference` from its saved O
+    and lse, with the JAX kernels' rounding (``flash_attention.py:283-287,
+    359-367``): scores in fp32, p = exp(s·scale − lse), dV from p rounded
+    to the input dtype, and dS = round(p·(dP − delta)·scale).  Rows with no
+    visible key (lse = −inf) give zero gradients."""
     dtype = q.dtype
-    Sq, Sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     vis = torch.isfinite(lse)[..., None].expand_as(s)
-    if causal:
-        vis = vis & _causal_mask(Sq, Sk, q.device)
+    if mask is not None:
+        vis = vis & mask
     safe_lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
     p = torch.where(vis, torch.exp(s - safe_lse[..., None]),
                     torch.zeros_like(s))
@@ -147,7 +166,7 @@ class _FlashBwdDq:
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                     DTYPE_CODES[dtype], B, Sq, Sk, H, D,
-                    *_strides3(q, k, v, do, dq), float(scale),
+                    *strides3(q, k, v, do, dq), float(scale),
                     int(bool(causal)),
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_dq", status)
@@ -176,7 +195,7 @@ class _FlashBwdDkv:
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), DTYPE_CODES[dtype], B, Sq, Sk, H, D,
-                    *_strides3(q, k, v, do, dk, dv), float(scale),
+                    *strides3(q, k, v, do, dk, dv), float(scale),
                     int(bool(causal)),
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_dkv", status)
@@ -193,18 +212,8 @@ def _check_bwd(name, q, k, v, do, lse, delta):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, dO "
                          f"{tuple(do.shape)}")
-    for t in (lse, delta):
-        if (t.dtype != torch.float32 or t.shape != (B, H, Sq)
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: lse and delta must be contiguous fp32 "
-                             f"[B, H, Sq] = {(B, H, Sq)}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+    check_stats(name, (B, H, Sq), lse, delta)
     return dtype, (B, Sq, Sk, H, D)
-
-
-def _strides3(*tensors):
-    """The (batch, seq, head) strides of each [B, S, H, D] tensor."""
-    return [s for t in tensors for s in t.stride()[:3]]
 
 
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -223,6 +232,16 @@ def _forward(q, k, v, causal, scale):
     return flash_attention_reference(q, k, v, causal, scale)
 
 
+def aligned_do_and_delta(do, o):
+    """dO as the kernels take it (unit-stride head dim, 16-byte aligned
+    rows; copied only when it is not) and delta = rowsum(dO·O) in fp32
+    [B, H, S], computed outside the kernels as the JAX package does."""
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
+            st % (16 // do.element_size()) for st in do.stride()[:-1]):
+        do = do.contiguous()
+    return do, (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
                              out: Optional[Sequence[torch.Tensor]] = None):
     """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the two
@@ -236,10 +255,7 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
         for dst, g in zip(out, grads):
             dst.copy_(g)
         return tuple(out)
-    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
-            st % (16 // do.element_size()) for st in do.stride()[:-1]):
-        do = do.contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    do, delta = aligned_do_and_delta(do, o)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale,
                       out=None if out is None else out[0])
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
@@ -247,42 +263,40 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
     return dq, dk, dv
 
 
-class _Flash(torch.autograd.Function):
-    """Attention over separate q, k, v [B, S, H, D]; gradients in three
-    tensors."""
+class AttentionFn(torch.autograd.Function):
+    """Attention over separate q, k, v [B, S, H, D] given its two halves:
+    ``fwd(q, k, v)`` → (O, lse) and ``bwd(q, k, v, o, lse, do, out=None)``
+    → (dq, dk, dv).  Saves q, k, v, O and lse; lse has no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = _forward(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, fwd: Callable, bwd: Callable):
+        o, lse = fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.bwd = bwd
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
-                                              ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        return (*ctx.bwd(q, k, v, o, lse, do), None, None)
 
 
-class _FlashQKV(torch.autograd.Function):
-    """Self-attention over the packed [B, S, 3, H, D] qkv product; its
-    gradient is one tensor of that shape, which the backward kernels write
-    in place through strided views.  ``saved`` = (O, lse) from an earlier
-    forward of the same qkv replays that forward without a kernel launch
-    (the remat policy ``attn_out``)."""
+class PackedAttentionFn(torch.autograd.Function):
+    """Self-attention over the packed [B, S, 3, H, D] qkv product, halves
+    as in :class:`AttentionFn`; its gradient is one tensor of that shape,
+    which the backward kernels write in place through strided views.
+    ``saved`` = (O, lse) from an earlier forward of the same qkv replays
+    that forward without a kernel launch (the remat policy ``attn_out``)."""
 
     @staticmethod
-    def forward(ctx, qkv, causal, scale, saved):
+    def forward(ctx, qkv, fwd: Callable, bwd: Callable, saved):
         if saved is None:
-            o, lse = _forward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                              causal, scale)
+            o, lse = fwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
         else:
             o, lse = (t.detach() for t in saved)
         ctx.save_for_backward(qkv, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.bwd = bwd
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -290,14 +304,15 @@ class _FlashQKV(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         qkv, o, lse = ctx.saved_tensors
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        flash_attention_backward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                                 o, lse, do, ctx.causal, ctx.scale,
-                                 out=dqkv.unbind(2))
+        ctx.bwd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], o, lse, do,
+                out=dqkv.unbind(2))
         return dqkv, None, None, None
 
 
-def _scale(D: int, sm_scale: Optional[float]) -> float:
-    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+def _halves(causal: bool, scale: float):
+    return (lambda q, k, v: _forward(q, k, v, causal, scale),
+            lambda q, k, v, o, lse, do, out=None: flash_attention_backward(
+                q, k, v, o, lse, do, causal, scale, out=out))
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -306,7 +321,8 @@ def flash_attention(q, k, v, causal: bool = True,
     """Memory-linear attention. q, k, v: [B, S, H, D] → (O [B, Sq, H, D],
     lse [B, H, Sq] fp32).  Causal masking is end-aligned (a query attends
     to the last ``Sq`` positions of ``Sk``).  Differentiable in q, k, v."""
-    return _Flash.apply(q, k, v, causal, _scale(q.shape[-1], sm_scale))
+    return AttentionFn.apply(q, k, v, *_halves(
+        causal, softmax_scale(q.shape[-1], sm_scale)))
 
 
 def flash_attention_qkv(qkv, causal: bool = True,
@@ -316,5 +332,5 @@ def flash_attention_qkv(qkv, causal: bool = True,
     """Self-attention on the packed qkv [B, S, 3, H, D] → (O, lse), with
     one [B, S, 3, H, D] gradient.  ``saved`` = (O, lse) of an earlier
     forward on the same qkv skips the forward kernel (activation remat)."""
-    return _FlashQKV.apply(qkv, causal, _scale(qkv.shape[-1], sm_scale),
-                           saved)
+    return PackedAttentionFn.apply(qkv, *_halves(
+        causal, softmax_scale(qkv.shape[-1], sm_scale)), saved)

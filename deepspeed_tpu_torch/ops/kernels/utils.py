@@ -9,6 +9,9 @@ fallback from a kernel that fails to build or launch.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 #: the C interface's dtype codes (``csrc/common.cuh`` ``DType``)
@@ -57,3 +60,24 @@ def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> torch.dtype:
             raise ValueError(f"{name}: rows must be 16-byte aligned "
                              f"(strides {t.stride()}, ptr {t.data_ptr()})")
     return dtype
+
+
+def check_stats(name: str, shape, *stats: torch.Tensor) -> None:
+    """The backward kernels' lse and delta: contiguous fp32 of ``shape``
+    ([B, H, Sq])."""
+    for t in stats:
+        if (t.dtype != torch.float32 or t.shape != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: lse and delta must be contiguous fp32 "
+                             f"[B, H, Sq] = {tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def strides3(*tensors: torch.Tensor) -> list:
+    """The (batch, seq, head) strides of each [B, S, H, D] tensor, in the
+    order the kernels' C interfaces take them."""
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def softmax_scale(D: int, sm_scale: Optional[float]) -> float:
+    return sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)

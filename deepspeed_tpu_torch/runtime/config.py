@@ -5,7 +5,8 @@ the reference's ``deepspeed/runtime/config.py``: ``DeepSpeedConfig`` :717,
 the batch algebra ``_set_batch_related_parameters`` :954).  It reads the
 sections the training path runs: the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``steps_per_print`` and ``zero_optimization`` (stage 0 or 1).  Any other
+``steps_per_print``, ``zero_optimization`` (stage 0 or 1) and
+``sparse_attention`` (kept raw, as the JAX package keeps it).  Any other
 top-level section raises :class:`DeepSpeedConfigError`: a config that asks
 for checkpointing, telemetry or another unported feature must not train
 silently without it.  HF-style ``"auto"`` values resolve as in the JAX
@@ -39,7 +40,7 @@ PORTED_SECTIONS = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.STEPS_PER_PRINT, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.OPTIMIZER, C.SCHEDULER,
-    ZERO_OPTIMIZATION})
+    C.SPARSE_ATTENTION, ZERO_OPTIMIZATION})
 _FP16_KEYS = frozenset({C.FP16_ENABLED, C.FP16_AUTO_CAST, C.FP16_LOSS_SCALE,
                         C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
                         C.FP16_HYSTERESIS, C.FP16_MIN_LOSS_SCALE,
@@ -160,6 +161,10 @@ class DeepSpeedConfig:
         sched = pd.get(C.SCHEDULER)
         self.scheduler_name = sched.get(C.TYPE) if sched else None
         self.scheduler_params = dict(sched.get(C.SCHEDULER_PARAMS, {})) if sched else None
+
+        # kept raw, as the JAX package does (its config.py:343); the model
+        # takes its SparsityConfig from GPTConfig.sparse_attention
+        self.sparse_attention = pd.get(C.SPARSE_ATTENTION, None)
 
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(ZERO_OPTIMIZATION, {}))
         self.zero_optimization_stage = self.zero_config.stage

@@ -1,0 +1,205 @@
+"""The port's block-sparse attention (plain path, CPU) against the JAX
+package's: ``block_sparse_attention`` run in Pallas interpret mode (block
+128, the TPU kernel's tiling) and ``sparse_mha_reference`` (blocks 16, 32,
+64, where the JAX wrapper takes its dense path).  Forward and
+``torch.autograd`` gradients of the port against ``jax.grad``; fp32,
+tolerances 2e-5 (forward) and 3e-5 (gradients), the JAX package's own
+(``tests/unit/ops/test_sparse_attention.py``)."""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from deepspeed_tpu.ops import sparse_attention as jsa
+from deepspeed_tpu_torch.ops import sparse_attention as psa
+from deepspeed_tpu_torch.ops.kernels import (block_sparse_attention,
+                                             block_sparse_attention_qkv,
+                                             mha_reference, sparse_plan)
+
+#: the modules (each package's ``ops`` exports a function of that name)
+jbsa = importlib.import_module("deepspeed_tpu.ops.pallas.block_sparse_attention")
+pbsa = importlib.import_module(
+    "deepspeed_tpu_torch.ops.kernels.block_sparse_attention")
+
+FWD_TOL = 2e-5
+GRAD_TOL = 3e-5
+
+
+@pytest.fixture()
+def pallas_interpret(monkeypatch):
+    """Route the JAX kernels through Pallas interpret mode."""
+    monkeypatch.setenv("DS_TPU_PALLAS_INTERPRET", "1")
+    yield
+
+
+def _inputs(B, S, H, D, seed):
+    """q, k, v and the output weight (the gradient's dO), numpy fp32."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, H, D)).astype(np.float32)
+            for _ in range(4)]
+
+
+def _jax(fn, q, k, v, w, layout, block, causal):
+    """Forward and ``jax.grad`` of sum(fn(...) * w)."""
+    def f(q, k, v):
+        return fn(q, k, v, layout, block=block, causal=causal)
+
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    out, vjp = jax.jit(lambda *a: jax.vjp(f, *a))(*args)
+    grads = jax.jit(vjp)(jnp.asarray(w))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _port(q, k, v, w, layout, block, causal):
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out, lse = block_sparse_attention(*leaves, layout, block, causal)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(w))
+    return out.detach().numpy(), [g.numpy() for g in grads], lse
+
+
+def _assert_close(port, ref):
+    (out, grads), (rout, rgrads) = port, ref
+    np.testing.assert_allclose(out, rout, atol=FWD_TOL, rtol=FWD_TOL)
+    for g, r, name in zip(grads, rgrads, ("dq", "dk", "dv")):
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, r, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)
+
+
+def _fixed(S, H, block, causal):
+    return jsa.FixedSparsityConfig(
+        num_heads=H, block=block, num_local_blocks=2, num_global_blocks=1,
+        different_layout_per_head=True, num_different_global_patterns=2,
+        attention="unidirectional" if causal else "bidirectional"
+    ).make_layout(S)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [256, 512])
+def test_matches_jax_pallas_kernel(pallas_interpret, S, causal):
+    q, k, v, w = _inputs(1, S, 2, 64, seed=S + causal)
+    lay = _fixed(S, 2, 128, causal)
+    ref = _jax(jbsa.block_sparse_attention, q, k, v, w, lay, 128, causal)
+    out, grads, _ = _port(q, k, v, w, lay, 128, causal)
+    _assert_close((out, grads), ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block", [16, 32, 64])
+def test_matches_jax_reference_small_blocks(block, causal):
+    """BigBird with random blocks (a different layout per head): the JAX
+    wrapper's dense path at blocks below its 128-lane gate."""
+    S = 8 * block
+    q, k, v, w = _inputs(2, S, 3, 32, seed=block + causal)
+    lay = jsa.BigBirdSparsityConfig(
+        num_heads=3, block=block, different_layout_per_head=True,
+        num_random_blocks=1, num_sliding_window_blocks=3,
+        attention="unidirectional" if causal else "bidirectional"
+    ).make_layout(S)
+    ref = _jax(jbsa.sparse_mha_reference, q, k, v, w, lay, block, causal)
+    out, grads, _ = _port(q, k, v, w, lay, block, causal)
+    _assert_close((out, grads), ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_empty_row_gives_zeros_not_nan(causal):
+    """Row 1 of the layout has no live block (the JAX test's index-table
+    layout): O = 0, lse = -inf, gradients finite and zero for its
+    queries; the rest equals the JAX reference."""
+    lay = np.zeros((1, 4, 4), np.int64)
+    lay[0, 0, 0] = 1
+    lay[0, 2, [0, 2]] = 1
+    lay[0, 3, [1, 3]] = 1
+    q, k, v, w = _inputs(2, 64, 2, 32, seed=5)
+    ref = _jax(jbsa.sparse_mha_reference, q, k, v, w, lay, 16, causal)
+    out, grads, lse = _port(q, k, v, w, lay, 16, causal)
+    _assert_close((out, grads), ref)
+    assert not out[:, 16:32].any()
+    assert torch.isneginf(lse[:, :, 16:32]).all()
+    assert torch.isfinite(lse[:, :, :16]).all()
+    assert not grads[0][:, 16:32].any()
+
+
+def test_dense_layout_equals_mha_reference():
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(2, 96, 2, 32, seed=3))
+    lay = psa.DenseSparsityConfig(num_heads=2, block=32).make_layout(96)
+    out, _ = block_sparse_attention(q, k, v, lay, 32, causal=True)
+    torch.testing.assert_close(out, mha_reference(q, k, v, causal=True),
+                               atol=FWD_TOL, rtol=FWD_TOL)
+
+
+def test_plan_cache_builds_once():
+    """The index tables of one layout are built once over two calls, and
+    once per (config, length) through ``config_plan``."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(1, 64, 2, 32, seed=4))
+    lay = np.random.default_rng(11).integers(0, 2, (2, 4, 4))
+    before = pbsa.plan_builds
+    for _ in range(2):
+        block_sparse_attention(q, k, v, lay, 16, causal=True)
+    assert pbsa.plan_builds == before + 1
+    assert sparse_plan(lay.copy(), 16, True, "cpu") is \
+        sparse_plan(lay, 16, True, "cpu")
+    cfg = psa.FixedSparsityConfig(num_heads=2, block=16, num_local_blocks=2)
+    first = pbsa.config_plan(cfg, 64, True, "cpu")
+    assert pbsa.config_plan(cfg, 64, True, "cpu") is first
+    assert pbsa.plan_builds == before + 2
+    assert first.live_pairs == int(first.mask().sum())
+
+
+def test_sparse_self_attention_matches_jax(pallas_interpret):
+    q, k, v, _ = _inputs(1, 256, 2, 64, seed=8)
+    kw = dict(num_heads=2, block=128, num_local_blocks=2,
+              attention="unidirectional")
+    jattn = jsa.SparseSelfAttention(jsa.FixedSparsityConfig(**kw))
+    pattn = psa.SparseSelfAttention(psa.FixedSparsityConfig(**kw))
+    want = np.asarray(jattn(*(jnp.asarray(x) for x in (q, k, v))))
+    got = pattn(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
+    assert pattn.causal and pattn.get_layout(256) is pattn.get_layout(256)
+    assert pattn.density(256) == jattn.density(256)
+    with pytest.raises(AssertionError, match="heads"):
+        pattn(*(torch.zeros(1, 256, 3, 64) for _ in range(3)))
+
+
+def test_packed_qkv_gradient_and_replay():
+    """``block_sparse_attention_qkv`` on [B, S, 3, H, D]: one gradient of
+    that shape equal to the three separate gradients; ``saved`` (O, lse)
+    replays the forward, without a forward call, with the same
+    gradient."""
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.standard_normal((2, 64, 3, 2, 32))
+                           .astype(np.float32))
+    do = torch.from_numpy(rng.standard_normal((2, 64, 2, 32))
+                          .astype(np.float32))
+    lay = np.tril(rng.integers(0, 2, (2, 4, 4))) | np.eye(4, dtype=np.int64)
+    plan = sparse_plan(lay, 16, True, "cpu")
+    leaf = qkv.clone().requires_grad_(True)
+    o, lse = block_sparse_attention_qkv(leaf, plan)
+    (dqkv,) = torch.autograd.grad(o, leaf, do)
+    sep = [qkv[:, :, i].clone().requires_grad_(True) for i in range(3)]
+    o2, _ = block_sparse_attention(*sep, plan, 16)
+    torch.testing.assert_close(o, o2, atol=0, rtol=0)
+    want = torch.stack(torch.autograd.grad(o2, sep, do), dim=2)
+    torch.testing.assert_close(dqkv, want, atol=GRAD_TOL, rtol=GRAD_TOL)
+    replay = qkv.clone().requires_grad_(True)
+    o3, _ = block_sparse_attention_qkv(replay, plan,
+                                       saved=(o.detach(), lse))
+    assert torch.equal(o3, o.detach())
+    torch.testing.assert_close(torch.autograd.grad(o3, replay, do)[0], dqkv,
+                               atol=0, rtol=0)
+
+
+def test_wrong_heads_or_length_raise():
+    q = torch.zeros(1, 64, 2, 32)
+    plan = sparse_plan(np.ones((3, 4, 4)), 16, True, "cpu")
+    with pytest.raises(ValueError, match="heads"):
+        block_sparse_attention(q, q, q, plan, 16)
+    with pytest.raises(ValueError, match="S 64"):
+        block_sparse_attention(torch.zeros(1, 48, 3, 32),
+                               *(torch.zeros(1, 48, 3, 32) for _ in range(2)),
+                               plan, 16)

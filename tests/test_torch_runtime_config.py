@@ -96,6 +96,19 @@ def test_sections_parse_like_jax():
         assert getattr(got, name) == getattr(want, name), name
 
 
+@pytest.mark.parametrize("section", [
+    {"mode": "fixed", "block": 16, "num_local_blocks": 4}, None])
+def test_sparse_attention_section_kept_raw_like_jax(section):
+    """The top-level ``sparse_attention`` section is read and kept as it
+    is (JAX ``runtime/config.py:343``), absent as None."""
+    d = {"train_batch_size": 8}
+    if section is not None:
+        d["sparse_attention"] = section
+    want = JConfig(d, mesh_manager=make_mesh(dp=8))
+    got = DeepSpeedConfig(d, world_size=8)
+    assert got.sparse_attention == want.sparse_attention == section
+
+
 @pytest.mark.parametrize("d,exc,match", [
     ({"train_batch_size": 8, "checkpoint": {}}, DeepSpeedConfigError,
      "not ported"),
