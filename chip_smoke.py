@@ -14,17 +14,22 @@ imports JAX.  In order it
    never calls (``scaled_dot_product_attention`` with or without a mask,
    its backward, fused ``AdamW``) and the card's bound for the work; the
    block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
-   layout, block 64) beside the dense flash trio at the same shape; then
-   sweeps every dtype and head dim the attention kernels take: every cache
-   frontier of a small ragged batch, odd, cross-length and no-key causal
-   shapes for the flash forward and backward, and every block-sparse block
-   size, causal or not, with an empty row, and five layout kinds; and
-   checks that a skipped Adam step leaves its state bitwise unchanged;
+   layout, block 64) beside the dense flash trio at the same shape; the
+   two fused-LAMB kernels over BERT-large's 335,902,592 parameters in its
+   24 leaf segments (no library call computes LAMB); the flash trio at the
+   BERT slice's shape (B64 S128 H16 D64, non-causal, ragged ``kv_lens``)
+   beside SDPA with the key-padding mask; then sweeps every dtype and head
+   dim the attention kernels take: every cache frontier of a small ragged
+   batch, odd, cross-length and no-key causal shapes for the flash forward
+   and backward, every block-sparse block size, causal or not, with an
+   empty row, and five layout kinds, and key lengths 0, 1, a partial tile,
+   a tile edge and S; and checks that a skipped Adam or LAMB step leaves
+   its state bitwise unchanged;
 3. checks a tiny fp32 model end to end on the card against the same model
    on the host (plain kernels): equal greedy tokens, logits within 1e-3;
-   and trains it 5 steps through ``initialize`` on both, dense and under a
-   block-sparse layout: losses within 1e-5 relative, master params within
-   1e-4, and two card runs bitwise equal;
+   and trains it 5 steps through ``initialize`` on both, dense GPT, GPT
+   under a block-sparse layout and BERT MLM under LAMB: losses within 1e-5
+   relative, master params within 1e-4, and two card runs bitwise equal;
 4. with every launch count at 0, drives the serving path at full width:
    GPT-2 350M (24 layers, bf16, random weights from a seed) through
    ``init_inference`` → ``generate``, then a ``SlotBatcher`` answering 16
@@ -43,7 +48,12 @@ imports JAX.  In order it
    under the Fixed block-sparse layout (block 64), micro-batch 4, with the
    live-pair attention FLOPs beside MFU; then a few steps of that model
    with dense causal flash, for comparison;
-8. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
+8. the same for the BERT slice: BERT-large MLM at seq 128 (bf16, remat,
+   the flash trio with per-row key lengths) under the BERT tutorial's LAMB
+   (lr 11e-3, clip 1.0), micro-batch 64 of right-padded rows, with step
+   time, live and padded tokens/s, MFU, peak memory, launches per step
+   (48/24/24 flash, 1 and 1 LAMB, 0 Adam) and a profile of 2 steps;
+9. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises: no result line, non-zero exit.  The numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -64,27 +74,30 @@ import numpy as np
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.models import gpt
+from deepspeed_tpu_torch.models import bert, gpt
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.ops.kernels import (
     adam_hyper, block_sparse_attention_backward_reference,
     block_sparse_attention_reference, build, cached_attention_reference,
     flash_attention_backward_reference, flash_attention_reference,
-    fused_adam_reference, sparse_plan)
+    fused_adam_reference, fused_lamb_reference, lamb_hyper, sparse_plan)
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import BLOCKS
 from deepspeed_tpu_torch.ops.kernels.flash_attention import \
     aligned_do_and_delta
+from deepspeed_tpu_torch.ops.kernels.fused_lamb import lamb_plan
 from deepspeed_tpu_torch.ops.kernels.utils import HEAD_DIMS
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, VariableSparsityConfig)
-from deepspeed_tpu_torch.runtime.model import from_gpt
+from deepspeed_tpu_torch.runtime.model import from_bert, from_gpt
 from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
 
-#: H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
+#: H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor FLOP/s and
+#: fp32 FLOP/s outside the tensor cores (the optimizers' elementwise math)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 #: kernel vs plain (fp32) tolerance in bf16: 5x bf16's half-ulp (2^-9) of
 #: the output's magnitude; the kernel rounds O (and, in flash_fwd, p) to
 #: bf16 where the fp32 plain version does not
@@ -115,7 +128,11 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
                "deepspeed_tpu/ops/pallas/block_sparse_attention.py:193"),
            "block_sparse_bwd_dkv": (
                "deepspeed_tpu_torch/csrc/block_sparse_bwd_dkv.cu",
-               "deepspeed_tpu/ops/pallas/block_sparse_attention.py:229")}
+               "deepspeed_tpu/ops/pallas/block_sparse_attention.py:229"),
+           "fused_lamb_phase1": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
+                                 "deepspeed_tpu/ops/pallas/fused_lamb.py:78"),
+           "fused_lamb_phase2": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
+                                 "deepspeed_tpu/ops/pallas/fused_lamb.py:102")}
 
 
 def log(msg: str) -> None:
@@ -183,16 +200,20 @@ def _qkv_views(n, B, S, H, D, gen):
     return sets
 
 
-def _report(name, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+def _report(name, shape, err, tol, ms, plain_ms, lib_ms, nbytes, flops,
+            peak_flops=BF16_FLOPS):
+    """One kernel's row; ``lib_ms`` None where no PyTorch call computes
+    the same function."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     row = {"name": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "flops": flops}
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
     log(f"[kernel] {name} {shape}: max_abs_err {err:.3e} (tol {tol:.3e}) "
         f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{lib_ms:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+        f"{lib} bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
     if not err <= tol:
         raise AssertionError(f"{name} {shape}: max_abs_err {err} > tol {tol}")
     return row
@@ -344,6 +365,121 @@ def check_adam_skip(n=1_000_003):
         raise AssertionError("fused_adam with skip changed its state")
 
 
+#: the BERT slice's model: bench.py's BERT-large at seq 128, bf16, remat
+BERT_LARGE_128 = dataclasses.replace(bert.BERT_LARGE, max_seq_len=128,
+                                     dtype=torch.bfloat16, remat=True)
+#: the BERT tutorial's seq-128 LAMB (DeepSpeedExamples bing_bert
+#: deepspeed_bsz64k_lamb_config_seq128.json)
+LAMB_PARAMS = {"lr": 11e-3, "weight_decay": 0.01, "bias_correction": False,
+               "max_coeff": 0.3, "min_coeff": 0.01}
+#: fused_lamb vs its plain version (times max(1, |ref|)): the same fp32
+#: arithmetic, the kernel with contracted multiply-adds and its norms
+#: summed in another order
+LAMB_TOL = 1e-5
+
+
+def bert_segments(cfg):
+    """(offset, numel) of every leaf of ``bert.init(cfg)`` in the engine's
+    order, and each leaf's init kind ("n" normal 0.02, "1" ones, "0"
+    zeros), from the shapes alone."""
+    d, v, L, f = cfg.d_model, cfg.padded_vocab, cfg.n_layer, cfg.ffn_dim
+    leaves = [(v * d, "n"), (cfg.max_seq_len * d, "n"),
+              (cfg.type_vocab_size * d, "n"), (d, "1"), (d, "0"),
+              (L * d * 3 * d, "n"), (L * 3 * d, "0"), (L * d * d, "n"),
+              (L * d, "0"), (L * d, "1"), (L * d, "0"), (L * d * f, "n"),
+              (L * f, "0"), (L * f * d, "n"), (L * d, "0"), (L * d, "1"),
+              (L * d, "0"), (d * d, "n"), (d, "0"), (d, "1"), (d, "0"),
+              (v, "0"), (d * d, "n"), (d, "0")]
+    segments, off = [], 0
+    for numel, _ in leaves:
+        segments.append((off, numel))
+        off += numel
+    return segments, [kind for _, kind in leaves]
+
+
+def check_fused_lamb():
+    """The two ``fused_lamb`` kernels over BERT-large's 335,902,592 fp32
+    elements in its 24 leaf segments (init-like values: zero biases give
+    trust 1, LayerNorm scales and matrices clamp), with the bf16 copy,
+    against the fp32 plain version; no PyTorch call computes LAMB, so no
+    library time."""
+    segs, kinds = bert_segments(BERT_LARGE_128)
+    n = segs[-1][0] + segs[-1][1]
+    if n != 335_902_592:
+        raise AssertionError(f"BERT-large has {n} parameters")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    p = torch.empty(n, device="cuda")
+    for (off, numel), kind in zip(segs, kinds):
+        if kind == "n":
+            p[off:off + numel].normal_(0.0, 0.02, generator=gen)
+        else:
+            p[off:off + numel].fill_(float(kind))
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-5
+    pc = p.to(torch.bfloat16)
+    hyper = lamb_hyper(LAMB_PARAMS["lr"], 0.9, 0.999, 1e-8, 0.01, 3,
+                       bias_correction=False,
+                       max_coeff=LAMB_PARAMS["max_coeff"],
+                       min_coeff=LAMB_PARAMS["min_coeff"], device="cuda")
+    ref = [t.clone() for t in (p, g, m, v)]
+    kernels.fused_lamb(p, g, m, v, hyper, segs, p_compute=pc)
+    fused_lamb_reference(*ref, hyper, segs)
+    ACCEL.synchronize()
+    err_mv = max((a - r).abs().max().item() for a, r in ((m, ref[2]), (v, ref[3])))
+    err_p = (p - ref[0]).abs().max().item()
+    tol = LAMB_TOL * max(1.0, max(r.abs().max().item()
+                                  for r in (ref[0], ref[2], ref[3])))
+    if not (torch.equal(pc, p.to(torch.bfloat16)) and not g.any()):
+        raise AssertionError("fused_lamb: bf16 copy or zeroed gradient wrong")
+    plan = lamb_plan(tuple(segs), p.device)
+    ratio = plan.ratio.cpu()
+    hi, lo = LAMB_PARAMS["max_coeff"], LAMB_PARAMS["min_coeff"]
+    log(f"[lamb] trust ratios of the 24 segments: {int((ratio == 1).sum())} "
+        f"at 1 (a zero norm), {int((ratio == hi).sum())} at max_coeff, "
+        f"{int((ratio == lo).sum())} at min_coeff, the rest "
+        f"{[round(x, 4) for x in ratio.tolist() if x not in (1.0, hi, lo)]}")
+    del ref
+    g.normal_(generator=gen)
+    ms1 = time_ms(lambda i: kernels.fused_lamb_phase1(p, g, m, v, hyper, plan), 10)
+    ms2 = time_ms(lambda i: kernels.fused_lamb_phase2(p, m, v, hyper, plan,
+                                                      pc), 10)
+    plain_ms = eager_ms(lambda: fused_lamb_reference(p, g, m, v, hyper, segs,
+                                                     pc), 2, 1)
+    del p, g, m, v, pc
+    torch.cuda.empty_cache()
+    shape = f"n {n} fp32 in 24 BERT-large segments, bf16 copy"
+    rows = [_report("fused_lamb_phase1", shape, err_mv, tol, ms1, plain_ms,
+                    None, 28 * n, 20 * n, FP32_FLOPS),
+            _report("fused_lamb_phase2", shape, err_p, tol, ms2, plain_ms,
+                    None, 18 * n, 9 * n, FP32_FLOPS)]
+    log(f"[lamb] both phases {ms1 + ms2:.4f} ms against the step's bound "
+        f"{46 * n / HBM_BYTES_PER_S * 1e3:.4f} ms (46 bytes per element)")
+    return rows
+
+
+def check_lamb_skip(n=1_000_003):
+    """A skipped LAMB step (``skip`` set) leaves p, m, v and the bf16 copy
+    bitwise unchanged and zeroes the gradient; segments at odd offsets,
+    one empty."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    p, g, m, v = (torch.randn(n, generator=gen, device="cuda") for _ in range(4))
+    v = v.abs()
+    pc = p.to(torch.bfloat16)
+    before = [t.clone() for t in (p, m, v, pc)]
+    segs = [(0, 333_333), (333_333, 0), (333_333, n - 333_333)]
+    kernels.fused_lamb(p, g, m, v, lamb_hyper(1e-3, 0.9, 0.999, 1e-8, 0.01, 1,
+                                              device="cuda"),
+                       segs, p_compute=pc,
+                       skip=torch.ones((), dtype=torch.bool, device="cuda"))
+    ACCEL.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((p, m, v, pc), before))
+    log(f"[lamb skip] n {n}: state bitwise unchanged {same}, gradient zeroed "
+        f"{not g.any().item()}")
+    if not same or g.any():
+        raise AssertionError("fused_lamb with skip changed its state")
+
+
 def _caches(B, Smax, H, D, gen, min_bytes=200 << 20):
     """A [L, B, Smax, H, D] K and V pair with enough layers that rotating
     through them keeps each launch's cache reads out of the 50 MB L2."""
@@ -404,6 +540,157 @@ def check_chunk(pos, Sq=128, Smax=1024, H=16, D=64):
             <= qpos[:, None])[None, None]                    # [1, 1, Sq, Smax]
     return _cache_check("chunk_attn", kernels.chunk_attn, q, ck, cv, L, pos,
                         mask, Sq)
+
+
+def bert_seq_lens(B, S, rng, short_prob=0.1):
+    """The BERT slice's row lengths (Google BERT create_pretraining_data.py,
+    short_seq_prob 0.1): a share ``short_prob`` of rows takes a length
+    uniform in 5..S, the others S."""
+    return np.where(rng.random(B) < 1 - short_prob, S,
+                    rng.integers(5, S + 1, B))
+
+
+def mlm_batch(B, S, vocab, rng, short_prob=0.1):
+    """Right-padded MLM traffic: lengths as :func:`bert_seq_lens`; 15% of
+    live positions masked ([MASK] = 1) and labelled, -100 elsewhere (pads
+    included); token types 0 up to a random split, then 1; ``seq_lens``."""
+    lens = bert_seq_lens(B, S, rng, short_prob)
+    tokens = rng.integers(3, vocab, (B, S))
+    live = np.arange(S)[None, :] < lens[:, None]
+    pick = live & (rng.random((B, S)) < 0.15)
+    labels = np.where(pick, tokens, -100)
+    tokens = np.where(pick, 1, np.where(live, tokens, 0))
+    split = rng.integers(1, lens)
+    ttype = (np.arange(S)[None, :] >= split[:, None]).astype(np.int64)
+    return {"tokens": tokens, "mlm_labels": labels, "token_type_ids": ttype,
+            "seq_lens": lens}
+
+
+def check_flash_kv_lens(B=64, S=128, H=16, D=64):
+    """The flash trio at the BERT slice's shape (micro-batch 64, seq 128,
+    BERT-large's heads), non-causal with this slice's ragged ``kv_lens``,
+    bf16, against the fp32 plain versions; the dk and dv of padding keys
+    must be exactly 0.  Plain ms is the plain forward, or the whole plain
+    backward; library ms is ``scaled_dot_product_attention`` with the
+    expanded [B, 1, 1, S] key-padding mask, forward or its backward.  The
+    bound counts the live key rows only (padding rows need not be read)."""
+    lens_np = bert_seq_lens(B, S, np.random.default_rng(0))
+    lens = torch.as_tensor(lens_np, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    n = 4                                   # 134 MB of inputs: past the L2
+    sets = _sparse_sets(n, B, S, H, D, gen)
+    scale = 1.0 / math.sqrt(D)
+    stats = _forward_stats(lambda q, k, v: kernels.flash_fwd(
+        q, k, v, False, scale, lens), sets)
+    q, k, v, do = sets[0]
+    o, lse, delta = stats[0]
+    dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, False, scale,
+                              kv_lens=lens)
+    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, False, scale,
+                                   kv_lens=lens)
+    o32, lse32 = flash_attention_reference(q.float(), k.float(), v.float(),
+                                           False, scale, lens)
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(), False,
+        scale, lens)
+    ACCEL.synchronize()
+    fwd_err = (o.float() - o32).abs().max().item()
+    fwd_tol = BF16_REL_TOL * max(1.0, o32.abs().max().item())
+    lse_err = (lse - lse32).abs().max().item()
+    errs = [(a.float() - r).abs().max().item() for a, r in zip((dq, dk, dv), ref)]
+    tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
+    pad = torch.arange(S, device="cuda")[None, :] >= lens[:, None]
+    pad_zero = not (dk[pad].any() or dv[pad].any())
+    del o32, lse32, ref
+    if not (lse_err <= 1e-3 and pad_zero):
+        raise AssertionError(f"flash kv_lens: lse err {lse_err}, padding "
+                             f"dk/dv zero {pad_zero}")
+    ms_fwd = time_ms(lambda i: kernels.flash_fwd(*sets[i % n][:3], False,
+                                                 scale, lens), 20)
+    ms_dq = time_ms(_bwd_runner(kernels.flash_bwd_dq, sets, stats, False,
+                                scale, None, lens), 20)
+    ms_dkv = time_ms(_bwd_runner(kernels.flash_bwd_dkv, sets, stats, False,
+                                 scale, None, lens), 20)
+    plain_fwd = eager_ms(lambda: flash_attention_reference(
+        q, k, v, False, scale, lens), 5)
+    plain_bwd = eager_ms(lambda: flash_attention_backward_reference(
+        q, k, v, o, lse, do, False, scale, lens), 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kmask = (~pad)[:, None, None, :]
+    lib_fwd = time_ms(lambda i: sdpa(*(t.transpose(1, 2) for t in sets[i % n][:3]),
+                                     attn_mask=kmask), 20)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, attn_mask=kmask)
+    lib_bwd = eager_ms(lambda: torch.autograd.grad(out, leaves,
+                                                   do.transpose(1, 2),
+                                                   retain_graph=True), 20)
+    del out, leaves
+    live = int(lens_np.sum())
+    pairs = H * S * live                    # every query row sees its row's keys
+    elem = B * S * H * D * 2                # one bf16 [B, S, H, D]
+    live_kv = live * H * D * 2              # one bf16 K or V, live rows
+    stat_bytes = B * H * S * 4
+    shape = (f"B{B} S{S} H{H} D{D} bf16 non-causal, kv_lens "
+             f"({int((lens_np < S).sum())} short rows, {live} live keys)")
+    log(f"[flash kv_lens] {shape}: lse err {lse_err:.2e} (tol 1e-3), padding "
+        f"keys' dk and dv exactly 0 {pad_zero}")
+    return [_report("flash_fwd", shape, fwd_err, fwd_tol, ms_fwd, plain_fwd,
+                    lib_fwd, 2 * elem + 2 * live_kv + stat_bytes,
+                    4 * D * pairs),
+            _report("flash_bwd_dq", shape, errs[0], tols[0], ms_dq, plain_bwd,
+                    lib_bwd, 3 * elem + 2 * live_kv + 2 * stat_bytes,
+                    6 * D * pairs),
+            _report("flash_bwd_dkv", shape, max(errs[1:]), min(tols[1:]),
+                    ms_dkv, plain_bwd, lib_bwd,
+                    4 * elem + 2 * live_kv + 2 * stat_bytes, 8 * D * pairs)]
+
+
+def check_kv_lens_sweep(B=5, S=128, H=2):
+    """Every dtype and head dim the flash trio is built for, with lengths
+    0 (clamped to 1), 1, a partial tile, a tile edge and S, causal or
+    not: forward and backward within the sweep's relative tolerance, lse
+    within 1e-3, and the dk and dv of padding keys exactly 0."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    lens = torch.tensor([0, 1, 37, 64, S], dtype=torch.int32, device="cuda")
+    pad = torch.arange(S, device="cuda")[None, :] >= lens.clamp(min=1)[:, None]
+    worst = {}
+    for dt, tol in SWEEP_TOL.items():
+        for D in HEAD_DIMS:
+            rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                             device="cuda").to(dt)
+            scale = 1.0 / math.sqrt(D)
+            err, lse_err = 0.0, 0.0
+            for causal in (False, True):
+                q, k, v, do = (rnd(B, S, H, D) for _ in range(4))
+                o, lse = kernels.flash_fwd(q, k, v, causal, scale, lens)
+                _, delta = aligned_do_and_delta(do, o)
+                dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                          scale, kv_lens=lens)
+                dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal, scale, kv_lens=lens)
+                o32, lse32 = flash_attention_reference(
+                    q.float(), k.float(), v.float(), causal, scale, lens)
+                ref = flash_attention_backward_reference(
+                    q.float(), k.float(), v.float(), o.float(), lse,
+                    do.float(), causal, scale, lens)
+                outs = (o, dq, dk, dv)
+                if not all(torch.isfinite(t).all() for t in outs):
+                    raise AssertionError(f"kv_lens sweep {dt} D{D}: non-finite")
+                if dk[pad].any() or dv[pad].any():
+                    raise AssertionError("kv_lens sweep: padding dk/dv != 0")
+                err = max(err, *(((a.float() - r).abs().max()
+                                  / r.abs().max().clamp(min=1.0)).item()
+                                 for a, r in zip(outs, (o32, *ref))))
+                lse_err = max(lse_err, (lse - lse32).abs().max().item())
+            worst[f"{str(dt)[6:]} D{D}"] = err
+            log(f"[kv_lens sweep] {str(dt)[6:]} D{D}: lens "
+                f"{lens.tolist()} of S{S}, causal and not: worst relative "
+                f"err {err:.3e} (tol {tol:.0e}), lse err {lse_err:.2e} (tol "
+                f"1e-3), padding keys' dk and dv zero")
+            if not (err <= tol and lse_err <= 1e-3):
+                raise AssertionError(f"kv_lens sweep {dt} D{D}: err {err}, "
+                                     f"lse err {lse_err}")
+    return worst
 
 
 #: kernel vs fp32 plain tolerance of the sweep, per input dtype (times
@@ -930,13 +1217,13 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_MICRO_BATCH,
                 "bf16": {"enabled": True}}
 
 
-def _train_tiny(cfg, params, batches, device):
+def _train_tiny(spec, batches, device, optimizer=None):
     """5 steps of ``train_batch_fused``; (losses, final fp32 master)."""
-    spec = dataclasses.replace(from_gpt(cfg), params=params)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=spec, device=device,
         config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 4,
-                "gradient_clipping": 1.0, "bf16": {"enabled": False}})
+                "gradient_clipping": 1.0, "bf16": {"enabled": False},
+                **({"optimizer": optimizer} if optimizer else {})})
     losses = [engine.train_batch_fused(b) for b in batches]
     master = torch.cat([t.detach().reshape(-1).cpu() for t in
                         _leaves(engine.state["master"])])
@@ -948,30 +1235,44 @@ def _leaves(tree):
             for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
-def check_tiny_training(sparse=False):
+def check_tiny_training(sparse=False, bert_model=False):
     """The training path in fp32 on the card (kernels) vs on the host
     (plain versions) from the same params and batches; then a second card
-    run, bitwise equal to the first.  ``sparse``: under a Fixed
-    block-sparse layout (block 16) at seq 128."""
-    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=128, n_layer=2, n_head=4,
-                        d_model=256, dtype=torch.float32, remat=True,
-                        remat_policy="attn_out",
-                        sparse_attention=FixedSparsityConfig(
-                            num_heads=4, block=16, num_local_blocks=2,
-                            attention="unidirectional") if sparse else None)
-    params = gpt.init(cfg, torch.Generator().manual_seed(8))
+    run, bitwise equal to the first.  ``sparse``: GPT under a Fixed
+    block-sparse layout (block 16) at seq 128.  ``bert_model``: BERT MLM
+    at seq 64 on right-padded batches (``seq_lens``) under the tutorial's
+    LAMB with lr 1e-3."""
     rng = np.random.default_rng(10)
-    seq = 129 if sparse else 97
-    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, seq))}
-               for _ in range(5)]
-    dev_losses, dev_master = _train_tiny(cfg, params, batches, "cuda")
-    host_losses, host_master = _train_tiny(cfg, params, batches, "cpu")
-    again_losses, again_master = _train_tiny(cfg, params, batches, "cuda")
+    optimizer = None
+    if bert_model:
+        cfg = bert.BertConfig(vocab_size=512, max_seq_len=64, n_layer=2,
+                              n_head=4, d_model=256, dtype=torch.float32,
+                              remat=True)
+        spec = dataclasses.replace(
+            from_bert(cfg), params=bert.init(cfg, torch.Generator().manual_seed(8)))
+        batches = [mlm_batch(4, 64, cfg.vocab_size, rng) for _ in range(5)]
+        optimizer = {"type": "Lamb", "params": {**LAMB_PARAMS, "lr": 1e-3}}
+    else:
+        cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=128, n_layer=2,
+                            n_head=4, d_model=256, dtype=torch.float32,
+                            remat=True, remat_policy="attn_out",
+                            sparse_attention=FixedSparsityConfig(
+                                num_heads=4, block=16, num_local_blocks=2,
+                                attention="unidirectional") if sparse else None)
+        spec = dataclasses.replace(
+            from_gpt(cfg), params=gpt.init(cfg, torch.Generator().manual_seed(8)))
+        seq = 129 if sparse else 97
+        batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, seq))}
+                   for _ in range(5)]
+    dev_losses, dev_master = _train_tiny(spec, batches, "cuda", optimizer)
+    host_losses, host_master = _train_tiny(spec, batches, "cpu", optimizer)
+    again_losses, again_master = _train_tiny(spec, batches, "cuda", optimizer)
     loss_rel = ((dev_losses - host_losses).abs() / host_losses.abs()).max().item()
     param_err = (dev_master - host_master).abs().max().item()
     bitwise = torch.equal(dev_losses, again_losses) and \
         torch.equal(dev_master, again_master)
-    label = "tiny train sparse" if sparse else "tiny train"
+    label = ("tiny train bert lamb" if bert_model else
+             "tiny train sparse" if sparse else "tiny train")
     log(f"[{label}] fp32, 5 steps, card vs host: losses "
         f"{dev_losses.tolist()} vs {host_losses.tolist()}, max relative "
         f"loss err {loss_rel:.3e} (tol 1e-5), master max_abs_err "
@@ -1067,6 +1368,104 @@ def run_dense_at_sparse_shape(warmup=1, steps=3):
     return res
 
 
+def _host_tree(tree):
+    """A copy of a tree of (device) tensors on the host."""
+    return {k: _host_tree(v) if isinstance(v, dict) else v.detach().cpu()
+            for k, v in tree.items()}
+
+
+#: the BERT slice: micro-batch 64 of right-padded MLM rows at seq 128
+BERT_MICRO_BATCH = 64
+
+
+def run_bert_training(warmup=2, steps=10):
+    """The BERT slice's main path: ``initialize(model=from_bert(BERT-large
+    seq 128, bf16, remat), config=<the tutorial's LAMB, clip 1.0,
+    micro-batch 64, bf16>)`` → ``train_batch_fused``, ``warmup`` + ``steps``
+    timed steps on one seeded right-padded MLM batch; every launch count is
+    reset before and read after.  One row's bf16 loss is held against the
+    fp32 host loss before the first step.  Returns (results, counts,
+    engine, batch)."""
+    cfg = BERT_LARGE_128
+    ACCEL.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=from_bert(cfg),
+        config={"train_micro_batch_size_per_gpu": BERT_MICRO_BATCH,
+                "gradient_accumulation_steps": 1,
+                "steps_per_print": 1 << 30,
+                "optimizer": {"type": "Lamb", "params": LAMB_PARAMS},
+                "gradient_clipping": 1.0, "bf16": {"enabled": True}},
+        generator=torch.Generator(device="cuda").manual_seed(2024))
+    if list(engine.state["opt_state"]["segments"]) != bert_segments(cfg)[0]:
+        raise AssertionError("the engine's LAMB segments are not BERT-large's "
+                             "24 leaves")
+    batch = mlm_batch(BERT_MICRO_BATCH, cfg.max_seq_len, cfg.vocab_size,
+                      np.random.default_rng(0))
+    row = {k: v[:1] for k, v in batch.items()}
+    card_row = float(engine.eval_loss(row))
+    host_params = _host_tree(engine.state["master"])
+    host_cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
+    with torch.no_grad():
+        host_row = float(bert.loss_fn(
+            host_params, {k: torch.from_numpy(np.asarray(v)) for k, v in row.items()},
+            host_cfg))
+    del host_params
+    row_rel = abs(card_row - host_row) / abs(host_row)
+    log(f"[bert train] one row ({int(row['seq_lens'][0])} tokens, "
+        f"{int((row['mlm_labels'] >= 0).sum())} labelled) before the first "
+        f"step: bf16 card loss {card_row:.5f}, fp32 host loss {host_row:.5f}, "
+        f"relative diff {row_rel:.4f} (tol 0.02)")
+    if not row_rel <= 0.02:
+        raise AssertionError(f"bert train: full-width bf16 loss off the fp32 "
+                             f"host: {row_rel}")
+
+    kernels.reset_launch_counts()
+    losses, times = _timed_steps(engine, batch, warmup, steps)
+    counts = kernels.launch_counts()
+    n_steps = warmup + steps
+    live = int(batch["seq_lens"].sum())
+    padded = BERT_MICRO_BATCH * cfg.max_seq_len
+    mean_s = sum(times) / len(times)
+    flops_tok = bert.flops_per_token(cfg)
+    res = {"config": "BERT-large seq 128 bf16 remat, flash with per-row "
+                     "kv_lens, LAMB lr 11e-3 wd 0.01 no bias correction "
+                     "clamp [0.01, 0.3], clip 1.0, micro 64, gas 1",
+           "losses": losses, "step_ms_p50": 1e3 * pct(times, 50),
+           "step_ms_mean": 1e3 * mean_s,
+           "samples_per_s": BERT_MICRO_BATCH / mean_s,
+           "tokens_per_s_live": live / mean_s,
+           "tokens_per_s_padded": padded / mean_s,
+           "live_tokens_per_step": live, "padded_tokens_per_step": padded,
+           "mfu": padded / mean_s * flops_tok / BF16_FLOPS,
+           "flops_per_token": flops_tok,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+           "row_loss_card_bf16": card_row, "row_loss_host_fp32": host_row}
+    log(f"[bert train] BERT-large seq {cfg.max_seq_len} bf16 remat, LAMB, "
+        f"micro-batch {BERT_MICRO_BATCH} ({live} live of {padded} tokens), "
+        f"{warmup} warm-up + {steps} timed steps: step_ms p50 "
+        f"{res['step_ms_p50']:.2f} mean {res['step_ms_mean']:.2f}, "
+        f"samples_per_s {res['samples_per_s']:.2f}, tokens_per_s live "
+        f"{res['tokens_per_s_live']:.0f} padded "
+        f"{res['tokens_per_s_padded']:.0f}, MFU {res['mfu']:.4f} (of 989 "
+        f"TFLOP/s, flops_per_token {flops_tok:.4e}, padded tokens), "
+        f"max_memory_allocated {res['max_memory_allocated_gib']:.2f} GiB; "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[bert train] launches per step {res['launches_per_step']}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert train: losses not finite and falling: "
+                             f"{losses}")
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
+            "flash_bwd_dkv": cfg.n_layer, "fused_lamb_phase1": 1,
+            "fused_lamb_phase2": 1, "fused_adam": 0, "block_sparse_fwd": 0}
+    wrong = {k: counts[k] for k, n in want.items() if counts[k] != n * n_steps}
+    if wrong:
+        raise AssertionError(f"bert train: launches per step off {want}: "
+                             f"{wrong} over {n_steps} steps")
+    return res, counts, engine, batch
+
+
 def _timed_steps(engine, batch, warmup, steps):
     losses, times = [], []
     for i in range(warmup + steps):
@@ -1098,9 +1497,7 @@ def _train_full_width(label, cfg, micro, want, warmup, steps, row_seq):
     row = {"tokens": batch["tokens"][:1, :row_seq + 1]}
     card_row = float(engine.eval_loss(row))
     host_cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
-    host_params = {k: ({kk: vv.detach().cpu() for kk, vv in v.items()}
-                       if isinstance(v, dict) else v.detach().cpu())
-                   for k, v in engine.state["master"].items()}
+    host_params = _host_tree(engine.state["master"])
     with torch.no_grad():
         host_row = float(gpt.loss_fn(host_params,
                                      {"tokens": torch.from_numpy(row["tokens"])},
@@ -1186,13 +1583,17 @@ def main() -> int:
     checks = [check_flash(4, 512), check_flash(1, 128), check_decode(),
               check_chunk(128), check_chunk(640),
               *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
-              check_fused_adam(), *check_block_sparse()]
+              check_fused_adam(), *check_block_sparse(), *check_fused_lamb(),
+              *check_flash_kv_lens()]
     check_adam_skip()
+    check_lamb_skip()
     result["sweep_worst_rel_err"] = check_sweep()
     result["sparse_sweep_worst_rel_err"] = check_sparse_sweep()
+    result["kv_lens_sweep_worst_rel_err"] = check_kv_lens_sweep()
     check_tiny_end_to_end()
     result["tiny_training"] = check_tiny_training()
     result["tiny_training_sparse"] = check_tiny_training(sparse=True)
+    result["tiny_training_bert"] = check_tiny_training(bert_model=True)
 
     cfg = gpt.GPT2_350M
     params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(1234),
@@ -1235,6 +1636,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     result["dense_at_sparse_shape"] = run_dense_at_sparse_shape()
 
+    result["bert_training"], bert_counts, trainer, batch = run_bert_training()
+    result["launches"]["bert_training"] = bert_counts
+    counts = {k: counts[k] + bert_counts[k] for k in counts}
+    result["bert_training_profile"] = device_profile(
+        "bert train 2 steps", lambda: [trainer.train_batch_fused(batch)
+                                       for _ in range(2)])
+    del trainer
+    torch.cuda.empty_cache()
+
     first = {}
     for row in checks:
         first.setdefault(row["name"], row)
@@ -1253,7 +1663,8 @@ def main() -> int:
         json.dump(result, f, indent=1)
     log(smi)
     log(f"[launches] generate {gen_counts}, serving {serve_counts}, "
-        f"training {train_counts}, sparse training {sparse_counts}")
+        f"training {train_counts}, sparse training {sparse_counts}, bert "
+        f"training {bert_counts}")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

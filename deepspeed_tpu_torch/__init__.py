@@ -7,9 +7,11 @@ never JAX or ``deepspeed_tpu``.
 
 Ported so far: the serving path of GPT-2 — ``init_inference`` →
 ``InferenceEngine.generate``, and the continuous-batching ``SlotBatcher``
-(``serving``) — and its training path: ``initialize`` →
+(``serving``) — and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
-(``runtime``).
+(``runtime``), for GPT-2 (dense or block-sparse attention, Adam) and for
+BERT masked-LM pre-training (right-padded batches through the flash
+kernels' per-row key lengths, Adam or LAMB).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .models import gpt
 from .runtime.engine import DeepSpeedEngine
-from .runtime.model import ModelSpec, from_gpt
+from .runtime.model import ModelSpec, from_bert, from_gpt
 
 __version__ = "0.1.0"
 
@@ -54,8 +56,9 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
     ``deepspeed/__init__.py`` ``initialize``); returns ``(engine,
     optimizer, None, lr_scheduler)``.
 
-    ``model`` is a ``ModelSpec`` (``runtime.model.from_gpt``); ``config``
-    a DeepSpeed config dict or path.  The params come from
+    ``model`` is a ``ModelSpec`` (``runtime.model.from_gpt`` or
+    ``from_bert``); ``config`` a DeepSpeed config dict or path, whose
+    ``optimizer`` section may name Adam/AdamW, LAMB or SGD.  The params come from
     ``model.params`` or ``model.init_fn(generator)`` (default: a
     generator on the device seeded with 0).  ``device=None`` runs on CUDA
     and raises when there is none; pass ``device="cpu"`` for the plain
@@ -67,7 +70,8 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
     config = config if config is not None else config_params
     if not isinstance(model, ModelSpec):
         raise TypeError("initialize takes model=ModelSpec "
-                        "(deepspeed_tpu_torch.runtime.model.from_gpt)")
+                        "(deepspeed_tpu_torch.runtime.model.from_gpt or "
+                        "from_bert)")
     at = config.get("autotuning", {}) if isinstance(config, dict) else {}
     if (isinstance(at, dict) and at.get("enabled")) or \
             os.environ.get("DS_AUTOTUNING", "").strip():
@@ -88,4 +92,5 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
 
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedInferenceConfig", "InferenceEngine",
-           "ModelSpec", "from_gpt", "init_inference", "initialize"]
+           "ModelSpec", "from_bert", "from_gpt", "init_inference",
+           "initialize"]

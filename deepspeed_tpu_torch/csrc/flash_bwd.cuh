@@ -11,7 +11,10 @@
 // [B, H, Sq]), as the JAX package computes it outside Pallas.  Causal
 // masking is end-aligned (key j visible to query i iff j <= i + Sk - Sq);
 // a row that sees no key (causal Sq > Sk) has lse = -inf and is masked
-// before the exponential, so its gradients come out 0, not NaN.
+// before the exponential, so its gradients come out 0, not NaN.  With
+// kv_lens, key j of row b is visible only if j < max(1, kv_lens[b]) too:
+// k-tiles wholly past that length are never loaded, and the dK and dV of
+// padding keys are exactly 0.
 //
 // Neither kernel uses atomics: each output element is written by exactly
 // one CTA, so one step's gradients are bitwise repeatable on the card.
@@ -35,7 +38,13 @@ struct BwdArgs {
     long long dv_sb, dv_ss, dv_sh;
     float scale;
     int causal;
+    const int* kv_lens;   // optional [B]: keys at or past max(1, kv_lens[b]) are padding
 };
+
+// the end of row b's live keys: Sk, or max(1, kv_lens[b]) clamped to Sk
+__device__ __forceinline__ int key_limit(const BwdArgs& a, int b) {
+    return a.kv_lens != nullptr ? min(a.Sk, max(1, a.kv_lens[b])) : a.Sk;
+}
 
 // rows [r0, r0 + ROWS) of a strided [S, D] head slice into shared memory as
 // fp32, with 16-byte loads (neighbouring threads on neighbouring addresses);

@@ -46,11 +46,14 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     const int b = blockIdx.z;
     const int k0 = blockIdx.x * BK;
     const int kj = k0 + r;
-    const bool key_ok = kj < a.Sk;
+    const int klim = key_limit(a, b);             // keys at or past it are padding
+    // a live key; padding keys load nothing and keep dK = dV = 0
+    const bool key_ok = kj < klim;
     const int off = a.Sk - a.Sq;
-    // the first query that sees any key of this tile is k0 - off
+    // the first query that sees any key of this tile is k0 - off; a tile
+    // of padding keys only skips the loop and writes zeros
     int qstart = a.causal ? max(0, k0 - off) : 0;
-    qstart = (qstart / BQ) * BQ;
+    qstart = k0 >= klim ? a.Sq : (qstart / BQ) * BQ;
 
     const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + (long long)kj * a.k_ss + h * a.k_sh;
     const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + (long long)kj * a.v_ss + h * a.v_sh;
@@ -109,7 +112,7 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
         }
     }
 
-    if (!key_ok) return;
+    if (kj >= a.Sk) return;
     T* dkp = static_cast<T*>(a.dk) + b * a.dk_sb + (long long)kj * a.dk_ss + h * a.dk_sh;
     T* dvp = static_cast<T*>(a.dv) + b * a.dv_sb + (long long)kj * a.dv_ss + h * a.dv_sh;
 #pragma unroll
@@ -128,8 +131,8 @@ static cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                             const float* lse, const float* delta, void* dk, void* dv,
-                             int dtype, int B, int Sq, int Sk, int H, int D,
+                             const float* lse, const float* delta, const int* kv_lens,
+                             void* dk, void* dv, int dtype, int B, int Sq, int Sk, int H, int D,
                              long long q_sb, long long q_ss, long long q_sh,
                              long long k_sb, long long k_ss, long long k_sh,
                              long long v_sb, long long v_ss, long long v_sh,
@@ -140,7 +143,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
     if (B == 0 || Sk == 0 || H == 0) return 0;
     BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, Sq, Sk, H,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-              0, 0, 0, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal};
+              0, 0, 0, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal, kv_lens};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     DS_BWD_DISPATCH(launch_dkv)
 }

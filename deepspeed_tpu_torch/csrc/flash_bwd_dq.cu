@@ -43,10 +43,11 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     const int qi = q0 + r;
     const bool row_ok = qi < a.Sq;
     const int off = a.Sk - a.Sq;
-    int kend = a.Sk;
+    const int klim = key_limit(a, b);             // keys at or past it are padding
+    int kend = klim;
     if (a.causal) {
         const int last_row = min(a.Sq, q0 + BQ) - 1;
-        kend = max(0, min(a.Sk, last_row + off + 1));
+        kend = max(0, min(klim, last_row + off + 1));
     }
 
     const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)qi * a.q_ss + h * a.q_sh;
@@ -67,8 +68,8 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 
     for (int k0 = 0; k0 < kend; k0 += BK) {
         __syncthreads();                          // the previous tile is consumed
-        load_rows<T, D, BK>(ks, kp, a.k_ss, k0, a.Sk);
-        load_rows<T, D, BK>(vs, vp, a.v_ss, k0, a.Sk);
+        load_rows<T, D, BK>(ks, kp, a.k_ss, k0, klim);
+        load_rows<T, D, BK>(vs, vp, a.v_ss, k0, klim);
         __syncthreads();
 #pragma unroll 4
         for (int j = 0; j < BK; ++j) {
@@ -84,7 +85,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
                 dp += __shfl_xor_sync(0xffffffffu, dp, o);
             }
             const int kj = k0 + j;
-            const bool vis = row_ok && kj < a.Sk && (!a.causal || kj <= qi + off);
+            const bool vis = row_ok && kj < klim && (!a.causal || kj <= qi + off);
             float ds = 0.f;
             if (vis) {
                 const float p = expf(s * a.scale - lse);
@@ -111,8 +112,8 @@ static cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                            const float* lse, const float* delta, void* dq,
-                            int dtype, int B, int Sq, int Sk, int H, int D,
+                            const float* lse, const float* delta, const int* kv_lens,
+                            void* dq, int dtype, int B, int Sq, int Sk, int H, int D,
                             long long q_sb, long long q_ss, long long q_sh,
                             long long k_sb, long long k_ss, long long k_sh,
                             long long v_sb, long long v_ss, long long v_sh,
@@ -122,7 +123,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
     if (B == 0 || Sq == 0 || H == 0) return 0;
     BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Sq, Sk, H,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-              dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, scale, causal};
+              dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, scale, causal, kv_lens};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     DS_BWD_DISPATCH(launch_dq)
 }

@@ -36,12 +36,18 @@ struct TileArgs {
     // CHUNK only: absolute position of query 0, per row (pos) or shared
     const int* pos;
     int pos_scalar;
+    // flash only, optional: per-row key lengths [B] (keys at or past
+    // max(1, kv_lens[b]) are padding)
+    const int* kv_lens;
 };
 
 // CHUNK = false: flash_attention.py _fwd_kernel semantics.  Causal is
-//   end-aligned (key j visible to query i iff j <= i + Sk - Sq); the
+//   end-aligned (key j visible to query i iff j <= i + Sk - Sq); with
+//   kv_lens, key j of row b is visible only if j < max(1, kv_lens[b]) as
+//   well, and the k-tiles wholly past that length are never loaded; the
 //   running max starts at -inf; p is rounded to T before P.V; O and the
-//   fp32 logsumexp are written.
+//   fp32 logsumexp are written.  Every loop bound depends on b and the
+//   q-tile only, so it is uniform over the CTA.
 // CHUNK = true: decode_attention.py _chunk_kernel semantics.  Query i sits
 //   at absolute position pos[b] + i and sees cache slots <= pos[b] + i;
 //   q is scaled before the product; the running max starts at M_FLOOR;
@@ -77,10 +83,12 @@ attn_tile_kernel(const TileArgs a) {
         masked = a.causal != 0;
     }
     const int qpos = qi + off;                    // last visible key of the row
-    int kend = a.Sk;
+    // keys at or past klim are padding: never visible, never loaded
+    const int klim = (!CHUNK && a.kv_lens != nullptr) ? min(a.Sk, max(1, a.kv_lens[b])) : a.Sk;
+    int kend = klim;
     if (masked) {
         const int last_row = min(a.Sq, q0 + BQ) - 1;
-        kend = max(0, min(a.Sk, last_row + off + 1));
+        kend = max(0, min(klim, last_row + off + 1));
     }
 
     const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)qi * a.q_ss + h * a.q_sh;
@@ -106,7 +114,7 @@ attn_tile_kernel(const TileArgs a) {
         for (int id = tid; id < BK * VPR; id += DS_TILE_THREADS) {
             const int j = id / VPR, vv = id % VPR;
             float kf[VEC], vf[VEC];
-            if (k0 + j < a.Sk) {
+            if (k0 + j < klim) {
                 const uint4 kr = *reinterpret_cast<const uint4*>(kp + (long long)(k0 + j) * a.k_ss + vv * VEC);
                 const uint4 vr = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + j) * a.v_ss + vv * VEC);
                 widen16(kr, kf, T());
@@ -137,7 +145,7 @@ attn_tile_kernel(const TileArgs a) {
             for (int o = TPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
             if (!CHUNK) part *= a.scale;
             const int kj = k0 + j;
-            const bool vis = kj < a.Sk && (!masked || kj <= qpos);
+            const bool vis = kj < klim && (!masked || kj <= qpos);
             s[j] = vis ? part : -INFINITY;
             tile_max = fmaxf(tile_max, s[j]);
         }

@@ -40,26 +40,6 @@ __device__ __forceinline__ void adam_elem(float& p, float g, float& m, float& v,
     p = p - hp.lr * update;
 }
 
-// four consecutive elements of T as one 16- or 8-byte store
-template <typename T> __device__ __forceinline__ void store_vec4(T* dst, const float4& f);
-template <> __device__ __forceinline__ void store_vec4<float>(float* dst, const float4& f) {
-    *reinterpret_cast<float4*>(dst) = f;
-}
-template <> __device__ __forceinline__ void store_vec4<__nv_bfloat16>(__nv_bfloat16* dst, const float4& f) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(f.x, f.y), hi = __floats2bfloat162_rn(f.z, f.w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = packed;
-}
-template <> __device__ __forceinline__ void store_vec4<__half>(__half* dst, const float4& f) {
-    __half2 lo = __floats2half2_rn(f.x, f.y), hi = __floats2half2_rn(f.z, f.w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = packed;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(DS_ADAM_THREADS)
 fused_adam_kernel(float* __restrict__ p, float* __restrict__ g, float* __restrict__ m,

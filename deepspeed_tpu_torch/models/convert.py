@@ -1,4 +1,5 @@
-"""Weight and config conversion between the JAX package's GPT and the port.
+"""Weight and config conversion between the JAX package's models (GPT,
+BERT) and the port.
 
 The port keeps the JAX parameter tree and layouts, so conversion is a
 re-wrap both ways: :func:`from_jax_params` takes the tree as numpy arrays
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.sparse_attention import sparsity_config
-from . import gpt
+from . import bert, gpt
 
 _CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
                   "d_ff", "vocab_round_to", "attn_softmax_scale", "pos_embed",
@@ -73,6 +74,21 @@ def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
     return gpt.GPTConfig(
         dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),
         sparse_attention=sparsity_from_jax(jax_config.sparse_attention),
+        **fields)
+
+
+_BERT_CONFIG_FIELDS = ("vocab_size", "max_seq_len", "type_vocab_size",
+                       "n_layer", "n_head", "d_model", "d_ff",
+                       "layer_norm_eps", "dropout", "attn_dropout", "remat",
+                       "use_flash_attention", "vocab_round_to")
+
+
+def bert_config_from_jax(jax_config, dtype=None) -> bert.BertConfig:
+    """The port's ``BertConfig`` with the fields of a JAX ``BertConfig``;
+    ``dtype`` defaults to the JAX config's compute dtype."""
+    fields = {f: getattr(jax_config, f) for f in _BERT_CONFIG_FIELDS}
+    return bert.BertConfig(
+        dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),
         **fields)
 
 

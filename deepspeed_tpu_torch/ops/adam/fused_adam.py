@@ -12,37 +12,12 @@ plain torch over the same flat buffers.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict
 
 import torch
 
 from ..kernels.fused_adam import adam_hyper_values, fused_adam
-from ..optimizer import TpuOptimizer, register_optimizer
-
-
-class _DeviceScalars:
-    """Scalars copied to the device without a host synchronisation: a
-    pinned staging buffer and an asynchronous copy on the current stream.
-    The engine reads its overflow flag at the end of every step, so the
-    previous step's copy has finished before the staging buffer is
-    rewritten."""
-
-    def __init__(self):
-        self._host: Optional[torch.Tensor] = None
-        self._dev: Optional[torch.Tensor] = None
-
-    def __call__(self, values: List[float], device: torch.device) -> torch.Tensor:
-        if device.type != "cuda":
-            return torch.tensor(values, dtype=torch.float32, device=device)
-        if self._dev is None or self._dev.device != device \
-                or self._dev.numel() != len(values):
-            self._host = torch.empty(len(values), dtype=torch.float32,
-                                     pin_memory=True)
-            self._dev = torch.empty(len(values), dtype=torch.float32,
-                                    device=device)
-        self._host.copy_(torch.tensor(values, dtype=torch.float32))
-        self._dev.copy_(self._host, non_blocking=True)
-        return self._dev
+from ..optimizer import DeviceScalars, TpuOptimizer, register_optimizer
 
 
 @register_optimizer("adam", "adamw", "fusedadam")
@@ -61,9 +36,9 @@ class FusedAdam(TpuOptimizer):
         self.eps = eps
         self.adam_w_mode = adam_w_mode
         self.bias_correction = bias_correction
-        self._scalars = _DeviceScalars()
+        self._scalars = DeviceScalars()
 
-    def init(self, master: torch.Tensor) -> Dict[str, Any]:
+    def init(self, master: torch.Tensor, segments=None) -> Dict[str, Any]:
         return {"step": 0, "exp_avg": torch.zeros_like(master),
                 "exp_avg_sq": torch.zeros_like(master)}
 
@@ -88,7 +63,7 @@ class SGD(TpuOptimizer):
         self.momentum = momentum
         self.nesterov = nesterov
 
-    def init(self, master: torch.Tensor) -> Dict[str, Any]:
+    def init(self, master: torch.Tensor, segments=None) -> Dict[str, Any]:
         state: Dict[str, Any] = {"step": 0}
         if self.momentum != 0.0:
             state["momentum"] = torch.zeros_like(master)

@@ -21,6 +21,8 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               mha_reference)
 from .fused_adam import (adam_hyper, fused_adam, fused_adam_kernel,
                          fused_adam_reference, fused_adam_step)
+from .fused_lamb import (fused_lamb, fused_lamb_phase1, fused_lamb_phase2,
+                         fused_lamb_reference, lamb_hyper)
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
@@ -28,7 +30,9 @@ KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
            "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": fused_adam_kernel,
            "block_sparse_fwd": block_sparse_fwd,
            "block_sparse_bwd_dq": block_sparse_bwd_dq,
-           "block_sparse_bwd_dkv": block_sparse_bwd_dkv}
+           "block_sparse_bwd_dkv": block_sparse_bwd_dkv,
+           "fused_lamb_phase1": fused_lamb_phase1,
+           "fused_lamb_phase2": fused_lamb_phase2}
 
 
 def launch_counts() -> dict:
@@ -51,6 +55,8 @@ __all__ = ["KERNELS", "adam_hyper", "block_sparse_attention",
            "flash_attention_backward_reference", "flash_attention_qkv",
            "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_fwd", "fused_adam", "fused_adam_kernel",
-           "fused_adam_reference", "fused_adam_step", "launch_counts",
+           "fused_adam_reference", "fused_adam_step", "fused_lamb",
+           "fused_lamb_phase1", "fused_lamb_phase2", "fused_lamb_reference",
+           "lamb_hyper", "launch_counts",
            "make_index_tables", "mha_reference", "reset_launch_counts",
            "sparse_plan"]

@@ -109,10 +109,12 @@ def _load_all() -> None:
             _libs[n] = ctypes.CDLL(str(BUILD_DIR / f"{n}.{_digest(n)}.so"))
 
 
-def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point ``name`` of ``csrc/<name>.cu`` with its argument
-    types declared; it returns a ``cudaError_t`` as an int."""
-    fn = getattr(load(name), name)
+def function(name: str, argtypes: list, symbol: str = None
+             ) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` (default ``name``) of
+    ``csrc/<name>.cu`` with its argument types declared; it returns a
+    ``cudaError_t`` as an int."""
+    fn = getattr(load(name), symbol or name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

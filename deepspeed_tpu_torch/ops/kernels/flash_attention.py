@@ -1,8 +1,12 @@
 """Flash attention, forward and backward: the port of
 ``ops/pallas/flash_attention.py``.
 
-``flash_attention(q, k, v, causal, sm_scale)`` on [B, S, H, D] returns
-``(O, lse)``: O in the input dtype, lse [B, H, Sq] fp32.  CUDA tensors go
+``flash_attention(q, k, v, causal, sm_scale, kv_lens)`` on [B, S, H, D]
+returns ``(O, lse)``: O in the input dtype, lse [B, H, Sq] fp32.
+``kv_lens`` [B] (optional; the right-padded MLM batch) hides the keys of
+row b at or past max(1, kv_lens[b]), with causal where both are given;
+query rows past the length still attend to the live keys, as in JAX
+(``flash_attention.py:582-637``).  CUDA tensors go
 to the hand-written ``flash_fwd`` kernel (``csrc/flash_fwd.cu``, replacing
 the TPU ``_fwd_kernel``), which reads q, k, v through their strides; CPU
 tensors go to the plain version beside it.  Every shape takes the kernel:
@@ -33,30 +37,33 @@ from .utils import (DTYPE_CODES, check_kernel_inputs, check_stats, on_cuda,
 
 
 def mha_reference(q, k, v, causal: bool = True,
-                  sm_scale: Optional[float] = None) -> torch.Tensor:
+                  sm_scale: Optional[float] = None,
+                  kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense softmax attention, the plain version [B, S, H, D]: scores in
-    fp32, causal end-aligned, p rounded to the input dtype before P·V,
-    rows with no visible key give zeros."""
-    return flash_attention_reference(q, k, v, causal, sm_scale)[0]
+    fp32, causal end-aligned, keys past ``kv_lens`` hidden, p rounded to
+    the input dtype before P·V, rows with no visible key give zeros."""
+    return flash_attention_reference(q, k, v, causal, sm_scale, kv_lens)[0]
 
 
 def flash_attention_reference(q, k, v, causal: bool = True,
-                              sm_scale: Optional[float] = None
+                              sm_scale: Optional[float] = None,
+                              kv_lens: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`flash_attention`: (O, lse [B, H, Sq]
     fp32, -inf on rows with no visible key)."""
     scale = softmax_scale(q.shape[-1], sm_scale)
-    mask = _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
-    return masked_attention_reference(q, k, v, mask, scale)
+    return masked_attention_reference(
+        q, k, v, _visibility(q.shape[1], k.shape[1], causal, kv_lens,
+                             q.device), scale)
 
 
 def masked_attention_reference(q, k, v, mask: Optional[torch.Tensor],
                                scale: float
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Softmax attention on [B, S, H, D] under a visibility mask ([Sq, Sk]
-    or [H, Sq, Sk] bool, None = every key): scores in fp32, p rounded to
-    the input dtype before P·V, rows with no visible key give zeros and
-    lse = -inf."""
+    """Softmax attention on [B, S, H, D] under a visibility mask (bool,
+    broadcast against the [B, H, Sq, Sk] scores; None = every key): scores
+    in fp32, p rounded to the input dtype before P·V, rows with no visible
+    key give zeros and lse = -inf."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if mask is not None:
         s = s.masked_fill(~mask, float("-inf"))
@@ -78,14 +85,30 @@ def _causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
     return torch.ones(Sq, Sk, dtype=torch.bool, device=device).tril(Sk - Sq)
 
 
+def _visibility(Sq: int, Sk: int, causal: bool,
+                kv_lens: Optional[torch.Tensor], device
+                ) -> Optional[torch.Tensor]:
+    """The visibility mask that broadcasts against [B, H, Sq, Sk]
+    scores: causal [Sq, Sk], and with ``kv_lens`` [B] the keys of row b
+    before max(1, kv_lens[b]) ([B, 1, 1 or Sq, Sk]); None: every key."""
+    mask = _causal_mask(Sq, Sk, device) if causal else None
+    if kv_lens is None:
+        return mask
+    lens = torch.clamp(kv_lens.to(device=device, dtype=torch.long), min=1)
+    live = (torch.arange(Sk, device=device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return live if mask is None else live & mask
+
+
 def flash_attention_backward_reference(q, k, v, o, lse, do, causal: bool,
-                                       scale: float):
+                                       scale: float,
+                                       kv_lens: Optional[torch.Tensor] = None):
     """The plain version of the two backward kernels: (dq, dk, dv) in the
     input dtype from the saved O and lse (see
     :func:`masked_attention_backward_reference`)."""
-    mask = _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
-    return masked_attention_backward_reference(q, k, v, o, lse, do, mask,
-                                               scale)
+    return masked_attention_backward_reference(
+        q, k, v, o, lse, do,
+        _visibility(q.shape[1], k.shape[1], causal, kv_lens, q.device), scale)
 
 
 def masked_attention_backward_reference(q, k, v, o, lse, do,
@@ -113,13 +136,28 @@ def masked_attention_backward_reference(q, k, v, o, lse, do,
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
 
 
+def _lens_arg(name: str, kv_lens: Optional[torch.Tensor], B: int, device):
+    """``kv_lens`` as the kernels read it: contiguous int32 [B] on the
+    inputs' device (None stays None)."""
+    if kv_lens is None:
+        return None
+    if kv_lens.shape != (B,) or kv_lens.is_floating_point():
+        raise ValueError(f"{name}: kv_lens must be an integer [B] = [{B}] "
+                         f"tensor, got {kv_lens.dtype} {tuple(kv_lens.shape)}")
+    if kv_lens.device != device:
+        raise ValueError(f"{name}: kv_lens on {kv_lens.device}, inputs on "
+                         f"{device}")
+    return kv_lens.to(torch.int32).contiguous()
+
+
 class _FlashFwd:
     """The ``flash_fwd`` kernel's wrapper; ``launches`` counts kernel
     launches (never plain-version calls)."""
 
     launches = 0
 
-    def __call__(self, q, k, v, causal: bool, scale: float
+    def __call__(self, q, k, v, causal: bool, scale: float,
+                 kv_lens: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = check_kernel_inputs("flash_fwd", q, k, v)
         B, Sq, H, D = q.shape
@@ -127,11 +165,13 @@ class _FlashFwd:
         if k.shape != (B, Sk, H, D) or v.shape != k.shape:
             raise ValueError(f"flash_fwd: shapes q {tuple(q.shape)}, k "
                              f"{tuple(k.shape)}, v {tuple(v.shape)}")
+        lens = _lens_arg("flash_fwd", kv_lens, B, q.device)
         o = torch.empty((B, Sq, H, D), dtype=dtype, device=q.device)
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         fn = build.function("flash_fwd", _ARGTYPES)
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    lse.data_ptr(), DTYPE_CODES[dtype], B, Sq, Sk, H, D,
+                    lse.data_ptr(), None if lens is None else lens.data_ptr(),
+                    DTYPE_CODES[dtype], B, Sq, Sk, H, D,
                     q.stride(0), q.stride(1), q.stride(2),
                     k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
@@ -143,7 +183,7 @@ class _FlashFwd:
         return o, lse
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 flash_fwd = _FlashFwd()
@@ -156,15 +196,18 @@ class _FlashBwdDq:
     launches = 0
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype, (B, Sq, Sk, H, D) = _check_bwd("flash_bwd_dq", q, k, v, do,
                                               lse, delta)
+        lens = _lens_arg("flash_bwd_dq", kv_lens, B, q.device)
         dq = torch.empty_like(q, memory_format=torch.contiguous_format) \
             if out is None else out
         check_kernel_inputs("flash_bwd_dq", q, dq)
         fn = build.function("flash_bwd_dq", _DQ_ARGTYPES)
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(),
+                    None if lens is None else lens.data_ptr(), dq.data_ptr(),
                     DTYPE_CODES[dtype], B, Sq, Sk, H, D,
                     *strides3(q, k, v, do, dq), float(scale),
                     int(bool(causal)),
@@ -181,10 +224,12 @@ class _FlashBwdDkv:
     launches = 0
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
-                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 kv_lens: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype, (B, Sq, Sk, H, D) = _check_bwd("flash_bwd_dkv", q, k, v, do,
                                               lse, delta)
+        lens = _lens_arg("flash_bwd_dkv", kv_lens, B, q.device)
         if out is None:
             dk = torch.empty_like(k, memory_format=torch.contiguous_format)
             dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -193,7 +238,8 @@ class _FlashBwdDkv:
         check_kernel_inputs("flash_bwd_dkv", k, dk, dv)
         fn = build.function("flash_bwd_dkv", _DKV_ARGTYPES)
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(),
+                    None if lens is None else lens.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), DTYPE_CODES[dtype], B, Sq, Sk, H, D,
                     *strides3(q, k, v, do, dk, dv), float(scale),
                     int(bool(causal)),
@@ -216,20 +262,20 @@ def _check_bwd(name, q, k, v, do, lse, delta):
     return dtype, (B, Sq, Sk, H, D)
 
 
-_DQ_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                 + [ctypes.c_longlong] * 15
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_DKV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+_DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 18
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 flash_bwd_dq = _FlashBwdDq()
 flash_bwd_dkv = _FlashBwdDkv()
 
 
-def _forward(q, k, v, causal, scale):
+def _forward(q, k, v, causal, scale, kv_lens=None):
     if on_cuda(q, k, v):
-        return flash_fwd(q, k, v, causal, scale)
-    return flash_attention_reference(q, k, v, causal, scale)
+        return flash_fwd(q, k, v, causal, scale, kv_lens)
+    return flash_attention_reference(q, k, v, causal, scale, kv_lens)
 
 
 def aligned_do_and_delta(do, o):
@@ -243,13 +289,14 @@ def aligned_do_and_delta(do, o):
 
 
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
-                             out: Optional[Sequence[torch.Tensor]] = None):
+                             out: Optional[Sequence[torch.Tensor]] = None,
+                             kv_lens: Optional[torch.Tensor] = None):
     """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the two
     kernels write into ``out`` (three [B, S, H, D] views) when given;
     on the CPU the plain version runs and is copied into ``out``."""
     if not on_cuda(q, k, v, o, lse, do):
         grads = flash_attention_backward_reference(q, k, v, o, lse, do,
-                                                   causal, scale)
+                                                   causal, scale, kv_lens)
         if out is None:
             return grads
         for dst, g in zip(out, grads):
@@ -257,9 +304,10 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
         return tuple(out)
     do, delta = aligned_do_and_delta(do, o)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale,
-                      out=None if out is None else out[0])
+                      out=None if out is None else out[0], kv_lens=kv_lens)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
-                           out=None if out is None else (out[1], out[2]))
+                           out=None if out is None else (out[1], out[2]),
+                           kv_lens=kv_lens)
     return dq, dk, dv
 
 
@@ -309,28 +357,32 @@ class PackedAttentionFn(torch.autograd.Function):
         return dqkv, None, None, None
 
 
-def _halves(causal: bool, scale: float):
-    return (lambda q, k, v: _forward(q, k, v, causal, scale),
+def _halves(causal: bool, scale: float, kv_lens=None):
+    return (lambda q, k, v: _forward(q, k, v, causal, scale, kv_lens),
             lambda q, k, v, o, lse, do, out=None: flash_attention_backward(
-                q, k, v, o, lse, do, causal, scale, out=out))
+                q, k, v, o, lse, do, causal, scale, out=out, kv_lens=kv_lens))
 
 
 def flash_attention(q, k, v, causal: bool = True,
-                    sm_scale: Optional[float] = None
+                    sm_scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Memory-linear attention. q, k, v: [B, S, H, D] → (O [B, Sq, H, D],
     lse [B, H, Sq] fp32).  Causal masking is end-aligned (a query attends
-    to the last ``Sq`` positions of ``Sk``).  Differentiable in q, k, v."""
+    to the last ``Sq`` positions of ``Sk``); ``kv_lens`` [B] hides keys at
+    or past max(1, kv_lens[b]).  Differentiable in q, k, v."""
     return AttentionFn.apply(q, k, v, *_halves(
-        causal, softmax_scale(q.shape[-1], sm_scale)))
+        causal, softmax_scale(q.shape[-1], sm_scale), kv_lens))
 
 
 def flash_attention_qkv(qkv, causal: bool = True,
                         sm_scale: Optional[float] = None,
-                        saved: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        saved: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        kv_lens: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-attention on the packed qkv [B, S, 3, H, D] → (O, lse), with
     one [B, S, 3, H, D] gradient.  ``saved`` = (O, lse) of an earlier
-    forward on the same qkv skips the forward kernel (activation remat)."""
+    forward on the same qkv skips the forward kernel (activation remat);
+    ``kv_lens`` as in :func:`flash_attention`."""
     return PackedAttentionFn.apply(qkv, *_halves(
-        causal, softmax_scale(qkv.shape[-1], sm_scale)), saved)
+        causal, softmax_scale(qkv.shape[-1], sm_scale), kv_lens), saved)

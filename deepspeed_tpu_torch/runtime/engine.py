@@ -9,7 +9,10 @@ State lives in flat buffers on one device:
   precision or ZeRO stage ≥ 1 (``engine.py:525``) it is a second buffer,
   else the master itself;
 - ``grad_acc``: the fp32 gradient accumulator, one buffer;
-- the optimizer's state over the master (Adam: two fp32 moment buffers).
+- the optimizer's state over the master (Adam and LAMB: two fp32 moment
+  buffers).  The optimizer also gets each parameter leaf's (offset,
+  numel): LAMB takes one trust ratio per leaf, whole layer stacks
+  included, as the JAX optimizer takes one per pytree leaf.
 
 The trees in ``engine.state`` are views of those buffers in the model's
 layout.  The loss differentiates with respect to views of ``params``:
@@ -24,9 +27,10 @@ the compute dtype, is added to the fp32 accumulator (``engine.py:1080-
 ``engine.py:1200-1233``): the global norm of the unscaled accumulator, the
 overflow flag (a non-finite norm, when the fp16 scaler is on), the clip
 coefficient, then one optimizer step over the flat buffers (the
-``fused_adam`` kernel for Adam) that multiplies the gradient by
-coefficient / scale, skips on overflow without touching any state,
-refreshes the compute copy and zeroes the accumulator.  The loss scale
+``fused_adam`` kernel for Adam, the two ``fused_lamb`` kernels for LAMB)
+that multiplies the gradient by coefficient / scale, skips on overflow
+without touching any state, refreshes the compute copy and zeroes the
+accumulator.  The loss scale
 then moves on the device, and the host reads the overflow flag once per
 step, to count a skipped step and to step the LR schedule only when the
 step was taken (``engine.py:1884-1901``).
@@ -45,6 +49,7 @@ import torch
 
 from ..accelerator import get_accelerator
 from ..ops import adam as _adam  # noqa: F401 — registers adam/adamw/sgd
+from ..ops import lamb as _lamb  # noqa: F401 — registers lamb/fusedlamb
 from ..ops.optimizer import TpuOptimizer, get_optimizer_class
 from ..utils.logging import log_dist
 from ..utils.timer import ThroughputTimer
@@ -216,7 +221,8 @@ class DeepSpeedEngine:
         self._flat = {"master": master, "params": params, "grad_acc": grad_acc}
         self.state: Dict[str, Any] = {
             "params": self._tree(params), "master": self._tree(master),
-            "opt_state": self.optimizer.init(master),
+            "opt_state": self.optimizer.init(
+                master, [(off, shape.numel()) for _, shape, off in self._layout]),
             "grad_acc": self._tree(grad_acc),
             "scale": ls.init_state(self.scaler_config, dev),
         }

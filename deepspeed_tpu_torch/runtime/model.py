@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``runtime/model.py``: the engine trains a
 loss function over a tree (nested dict) of parameter tensors.
-``from_gpt`` adapts the port's GPT.
+``from_gpt`` adapts the port's GPT (next-token loss) and ``from_bert`` its
+BERT encoder (masked-LM loss; the counterpart of ``bert.model_spec``).
 """
 
 from __future__ import annotations
@@ -47,5 +48,24 @@ def from_gpt(config, dtype=None) -> ModelSpec:
                                            device=generator.device),
         apply_fn=lambda params, tokens: gpt.apply(params, tokens, config),
         name="gpt",
+        meta={"config": config, "layer_stacked": ("blocks",)},
+    )
+
+
+def from_bert(config, dtype=None) -> ModelSpec:
+    """Adapt ``deepspeed_tpu_torch.models.bert`` to a ModelSpec: the loss
+    is the masked-LM cross-entropy of a batch {"tokens", "mlm_labels",
+    optional "token_type_ids", "attention_mask", "seq_lens"}."""
+    from ..models import bert
+
+    if dtype is not None:
+        config = dataclasses.replace(config, dtype=dtype)
+
+    return ModelSpec(
+        loss_fn=lambda params, batch: bert.loss_fn(params, batch, config),
+        init_fn=lambda generator: bert.init(config, generator,
+                                            device=generator.device),
+        apply_fn=lambda params, tokens: bert.apply(params, tokens, config),
+        name="bert",
         meta={"config": config, "layer_stacked": ("blocks",)},
     )

@@ -34,8 +34,19 @@ def test_every_module_imports_without_jax():
     assert res.returncode == 0, res.stderr
     # 24 modules of the serving slice, 14 of the training slice (runtime,
     # optimizers, timers, the fused-Adam kernel), 4 of block-sparse
-    # attention (ops/sparse_attention and its kernel module)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 42
+    # attention (ops/sparse_attention and its kernel module), 4 of BERT
+    # under LAMB (models/bert, ops/lamb and the fused-LAMB kernel module)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 46
+
+
+def test_bert_and_lamb_modules_are_importable():
+    from deepspeed_tpu_torch import from_bert
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import FusedLamb
+    from deepspeed_tpu_torch.ops.kernels import KERNELS
+    assert callable(from_bert) and bert.BERT_LARGE.n_layer == 24
+    assert FusedLamb.__module__ == "deepspeed_tpu_torch.ops.lamb.fused_lamb"
+    assert {"fused_lamb_phase1", "fused_lamb_phase2"} <= set(KERNELS)
 
 
 def test_init_inference_without_cuda_raises(monkeypatch):
@@ -76,6 +87,14 @@ def test_initialize_without_cuda_raises(monkeypatch):
         generator=torch.Generator().manual_seed(0))
     assert engine.device.type == "cpu" and loader is None and sched is None
     assert engine.state["master"]["wte"].device.type == "cpu"
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.runtime.model import from_bert
+    bcfg = bert.BertConfig(vocab_size=64, max_seq_len=16, n_layer=1,
+                           n_head=2, d_model=32, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=from_bert(bcfg), config=config)
+    with pytest.raises(TypeError, match="from_bert"):
+        deepspeed_tpu_torch.initialize(model=bcfg, config=config)
     with pytest.raises(NotImplementedError, match="autotuner"):
         deepspeed_tpu_torch.initialize(
             model=from_gpt(cfg), device="cpu",
