@@ -18,15 +18,22 @@ imports JAX.  In order it
    two fused-LAMB kernels over BERT-large's 335,902,592 parameters in its
    24 leaf segments (no library call computes LAMB); the flash trio at the
    BERT slice's shape (B64 S128 H16 D64, non-causal, ragged ``kv_lens``)
-   beside SDPA with the key-padding mask; then sweeps every dtype and head
+   beside SDPA with the key-padding mask; the quantizer at GPT-2 350M's
+   four int8 leaves in bf16 (bitwise equal to its plain version; no
+   library call) and the int8-cache ``decode_attn``/``chunk_attn`` at the
+   bf16 rows' shapes (against the plain version on the dequantized cache,
+   SDPA on the bf16 cache as yardstick); then sweeps every dtype and head
    dim the attention kernels take: every cache frontier of a small ragged
-   batch, odd, cross-length and no-key causal shapes for the flash forward
-   and backward, every block-sparse block size, causal or not, with an
-   empty row, and five layout kinds, and key lengths 0, 1, a partial tile,
-   a tile edge and S; and checks that a skipped Adam or LAMB step leaves
-   its state bitwise unchanged;
+   batch (bf16 and int8 caches), odd, cross-length and no-key causal
+   shapes for the flash forward and backward, every block-sparse block
+   size, causal or not, with an empty row, and five layout kinds, and key
+   lengths 0, 1, a partial tile, a tile edge and S; sweeps the quantizer
+   over input dtype x bits x mode x group size (bitwise) and checks its
+   stochastic rounding in distribution; and checks that a skipped Adam or
+   LAMB step leaves its state bitwise unchanged;
 3. checks a tiny fp32 model end to end on the card against the same model
-   on the host (plain kernels): equal greedy tokens, logits within 1e-3;
+   on the host (plain kernels): equal greedy tokens, logits within 1e-3,
+   and again with int8 weights and an int8 cache;
    and trains it 5 steps through ``initialize`` on both, dense GPT, GPT
    under a block-sparse layout and BERT MLM under LAMB: losses within 1e-5
    relative, master params within 1e-4, and two card runs bitwise equal;
@@ -35,8 +42,16 @@ imports JAX.  In order it
    ``init_inference`` → ``generate``, then a ``SlotBatcher`` answering 16
    requests; reads the counts, and checks full-width logits against an
    fp32 host forward and each greedy request against a rerun alone;
-5. profiles a short ``generate`` (kernel time on the card against the
+   profiles a short ``generate`` (kernel time on the card against the
    host's wall time);
+5. the same for int8 serving (``dtype="int8"``, ``kv_cache_dtype="int8"``:
+   int8 weights and KV cache, bf16 compute), counts at 0 before the
+   engine is built: parameter and KV bytes per token against the bf16
+   engine's, exact launches of ``generate`` (quantizer 48 and
+   ``decode_attn_int8`` 24 per step), logits against an fp32 host forward
+   of the same dequantized weights, batched = alone, agreement with the
+   bf16 run (reported), peak memory, a profile, and decode ms per token
+   of the bf16 and int8 engines timed in turns;
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -77,15 +92,21 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import bert, gpt
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops import kernels
+from deepspeed_tpu_torch.inference.quantization import (Int8Param,
+                                                        param_bytes,
+                                                        quantize_params_int8)
+from deepspeed_tpu_torch.models import gpt_inference
 from deepspeed_tpu_torch.ops.kernels import (
     adam_hyper, block_sparse_attention_backward_reference,
     block_sparse_attention_reference, build, cached_attention_reference,
-    flash_attention_backward_reference, flash_attention_reference,
-    fused_adam_reference, fused_lamb_reference, lamb_hyper, sparse_plan)
+    dequantize_kv, flash_attention_backward_reference,
+    flash_attention_reference, fused_adam_reference, fused_lamb_reference,
+    lamb_hyper, quantize, quantize_kv, quantize_rows, sparse_plan)
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import BLOCKS
 from deepspeed_tpu_torch.ops.kernels.flash_attention import \
     aligned_do_and_delta
 from deepspeed_tpu_torch.ops.kernels.fused_lamb import lamb_plan
+from deepspeed_tpu_torch.ops.kernels.quantizer import _quantize_ref
 from deepspeed_tpu_torch.ops.kernels.utils import HEAD_DIMS
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
@@ -132,7 +153,15 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
            "fused_lamb_phase1": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
                                  "deepspeed_tpu/ops/pallas/fused_lamb.py:78"),
            "fused_lamb_phase2": ("deepspeed_tpu_torch/csrc/fused_lamb.cu",
-                                 "deepspeed_tpu/ops/pallas/fused_lamb.py:102")}
+                                 "deepspeed_tpu/ops/pallas/fused_lamb.py:102"),
+           "quantizer": ("deepspeed_tpu_torch/csrc/quantizer.cu",
+                         "deepspeed_tpu/ops/pallas/quantizer.py:89"),
+           "decode_attn_int8": (
+               "deepspeed_tpu_torch/csrc/decode_attn.cu",
+               "deepspeed_tpu/ops/pallas/decode_attention.py:101"),
+           "chunk_attn_int8": (
+               "deepspeed_tpu_torch/csrc/chunk_attn.cu",
+               "deepspeed_tpu/ops/pallas/decode_attention.py:218")}
 
 
 def log(msg: str) -> None:
@@ -490,20 +519,50 @@ def _caches(B, Smax, H, D, gen, min_bytes=200 << 20):
     return mk(), mk(), L
 
 
-def _cache_check(name, kernel, q, ck, cv, L, pos, mask, Sq):
+def _int8_cache(ck, cv):
+    """The bf16 caches [L, B, Smax, H, D] with their int8 form appended:
+    (K, V, K codes, V codes, K scales, V scales), quantized per head
+    vector by ``quantize_kv``."""
+    out = [ck, cv]
+    for c in (ck, cv):
+        codes, scale = quantize_kv(c.view(-1, *c.shape[2:]))
+        out.append((codes.view(c.shape), scale.view(c.shape[:-1] + (1,))))
+    return (ck, cv, out[2][0], out[3][0], out[2][1], out[3][1])
+
+
+def _cache_check(name, kernel, q, cache, pos, mask, Sq):
     """Shared half of the decode/chunk checks: error vs the fp32 plain
-    version on layer 0, then kernel/plain/SDPA times rotating layers."""
+    version on layer 0, then kernel/plain/SDPA times rotating layers.
+    ``cache``: bf16 (K, V) [L, B, Smax, H, D], or for the int8 kernels
+    ``_int8_cache``'s six tensors: the kernel reads the codes and scales,
+    the plain version the dequantized cache (as the CPU path does), SDPA
+    the bf16 cache."""
+    int8 = len(cache) == 6
+    ck, cv = cache[:2]
+    kv = cache[2:] if int8 else cache            # what the kernel reads
+    L = ck.shape[0]
     B, H, D = q.shape[0], q.shape[2], q.shape[3]
     scale = 1.0 / math.sqrt(D)
-    out = kernel(q, ck[0], cv[0], pos, scale)
-    ref = cached_attention_reference(q.float(), ck[0].float(), cv[0].float(),
+
+    def run(i):
+        layer = [t[i % L] for t in kv]
+        return kernel(q, *layer[:2], pos, scale, *layer[2:])
+
+    def dense(i, dtype):
+        if not int8:
+            return ck[i % L].to(dtype), cv[i % L].to(dtype)
+        kq, vq, ks, vs = (t[i % L] for t in kv)
+        return dequantize_kv(kq, ks, dtype), dequantize_kv(vq, vs, dtype)
+
+    out = run(0)
+    ref = cached_attention_reference(q.float(), *dense(0, torch.float32),
                                      pos, scale)
     ACCEL.synchronize()
     err = (out.float() - ref).abs().max().item()
     tol = BF16_REL_TOL * max(1.0, ref.abs().max().item())
-    ms = time_ms(lambda i: kernel(q, ck[i % L], cv[i % L], pos, scale), 50)
+    ms = time_ms(run, 50)
     plain_ms = time_ms(lambda i: cached_attention_reference(
-        q, ck[i % L], cv[i % L], pos, scale), 10)
+        q, *dense(i, q.dtype), pos, scale), 10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda i: sdpa(
         q.transpose(1, 2), ck[i % L].transpose(1, 2),
@@ -512,34 +571,164 @@ def _cache_check(name, kernel, q, ck, cv, L, pos, mask, Sq):
         np.full((B,), pos)
     rows = int(sum(min(ck.shape[2], p + Sq) for p in pos_host))   # live rows
     visible = int(sum(p * Sq + Sq * (Sq + 1) // 2 for p in pos_host))
-    nbytes = rows * H * D * 2 * 2 + 2 * B * Sq * H * D * 2
-    shape = (f"B{B} Sq{Sq} Smax{ck.shape[2]} H{H} D{D} bf16 pos "
+    # K and V of a live row: bf16, or int8 codes and two fp32 scales
+    row_bytes = H * (2 * D + 8) if int8 else H * D * 2 * 2
+    nbytes = rows * row_bytes + 2 * B * Sq * H * D * 2
+    kind = "int8 cache, bf16 q" if int8 else "bf16"
+    shape = (f"B{B} Sq{Sq} Smax{ck.shape[2]} H{H} D{D} {kind} pos "
              f"{pos_host.tolist()}")
     return _report(name, shape, err, tol, ms, plain_ms, lib_ms, nbytes,
                    4 * D * H * visible)
 
 
-def check_decode(B=8, Smax=1024, H=16, D=64):
+def check_decode(B=8, Smax=1024, H=16, D=64, int8=False):
+    """``decode_attn`` on a bf16 cache, or with ``int8`` its int8-cache
+    variant on the same data quantized."""
     gen = torch.Generator(device="cuda").manual_seed(11)
-    ck, cv, L = _caches(B, Smax, H, D, gen)
+    ck, cv, _ = _caches(B, Smax, H, D, gen)
     pos = torch.as_tensor(np.random.default_rng(3).integers(0, Smax, B)
                           .astype(np.int32)).cuda()
     q = _qkv_views(1, B, 1, H, D, gen)[0][0]
     mask = (torch.arange(Smax, device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]        # [B, 1, 1, Smax]
-    return _cache_check("decode_attn", kernels.decode_attn, q, ck, cv, L, pos,
+    if int8:
+        return _cache_check("decode_attn_int8", kernels.decode_attn_int8, q,
+                            _int8_cache(ck, cv), pos, mask, 1)
+    return _cache_check("decode_attn", kernels.decode_attn, q, (ck, cv), pos,
                         mask, 1)
 
 
-def check_chunk(pos, Sq=128, Smax=1024, H=16, D=64):
+def check_chunk(pos, Sq=128, Smax=1024, H=16, D=64, int8=False):
+    """``chunk_attn`` on a bf16 cache, or its int8-cache variant."""
     gen = torch.Generator(device="cuda").manual_seed(pos)
-    ck, cv, L = _caches(1, Smax, H, D, gen)
+    ck, cv, _ = _caches(1, Smax, H, D, gen)
     q = _qkv_views(1, 1, Sq, H, D, gen)[0][0]
     qpos = pos + torch.arange(Sq, device="cuda")
     mask = (torch.arange(Smax, device="cuda")[None, :]
             <= qpos[:, None])[None, None]                    # [1, 1, Sq, Smax]
-    return _cache_check("chunk_attn", kernels.chunk_attn, q, ck, cv, L, pos,
+    if int8:
+        return _cache_check("chunk_attn_int8", kernels.chunk_attn_int8, q,
+                            _int8_cache(ck, cv), pos, mask, Sq)
+    return _cache_check("chunk_attn", kernels.chunk_attn, q, (ck, cv), pos,
                         mask, Sq)
+
+
+#: GPT-2 350M's int8 leaves as ``quantize_leaf`` hands them to the
+#: kernel: (name, rows, group size) of ``w.reshape(-1, w.shape[-1])``
+QUANT_LEAVES = (("wqkv", 24 * 1024 * 3 * 16, 64), ("wo", 24 * 16 * 64, 1024),
+                ("wi", 24 * 1024, 4096), ("wo_mlp", 24 * 4096, 1024))
+#: fp32 operations per element of the quantizer: |x| and max, subtract,
+#: divide, round, two clamps
+QUANT_FLOPS = 6
+
+
+def _quant_err(x, bits, symmetric, seed=None, offsets=True):
+    """The kernel's codes, scales (and offsets) against the plain
+    version's on the same input: the largest absolute difference, after
+    checking that every output is bitwise equal."""
+    got = quantize_rows(x, bits, symmetric, seed, offsets)
+    ref = _quantize_ref(x, bits, symmetric, seed)
+    err = 0.0
+    for a, r in zip(got, ref):
+        if a is None:
+            continue
+        err = max(err, (a.float() - r.float()).abs().max().item())
+        if not torch.equal(a, r):
+            raise AssertionError(
+                f"quantizer {tuple(x.shape)} {x.dtype} bits {bits} "
+                f"symmetric {symmetric} seed {seed}: not bitwise equal to "
+                f"the plain version (max diff {err})")
+    return err
+
+
+def check_quantizer():
+    """The ``quantizer`` kernel at GPT-2 350M's four int8 leaves in bf16,
+    as the engine quantizes them (symmetric, 8 bits, no offsets): codes
+    and scales bitwise equal to the plain version; one row for the four
+    launches together first, then one per leaf.  No PyTorch call computes
+    grouped absmax quantization (library: none)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, err, ms, plain_ms, nbytes, flops = [], 0.0, 0.0, 0.0, 0, 0
+    for name, n_rows, gsize in QUANT_LEAVES:
+        x = (torch.randn((n_rows, gsize), generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16)
+        e = _quant_err(x, 8, True, offsets=False)
+        t = time_ms(lambda i: quantize_rows(x, 8, True, offsets=False), 10)
+        tp = time_ms(lambda i: _quantize_ref(x, 8, True), 2)
+        b = x.numel() * 3 + n_rows * 4      # bf16 in, int8 codes, fp32 scale
+        f = QUANT_FLOPS * x.numel()
+        rows.append(_report("quantizer", f"{name} [{n_rows}, {gsize}] bf16 "
+                            "symmetric 8-bit", e, 0.0, t, tp, None, b, f,
+                            FP32_FLOPS))
+        err, ms, plain_ms = max(err, e), ms + t, plain_ms + tp
+        nbytes, flops = nbytes + b, flops + f
+        del x
+    total = _report("quantizer", "GPT-2 350M wqkv+wo+wi+wo_mlp (4 launches) "
+                    "bf16 symmetric 8-bit", err, 0.0, ms, plain_ms, None,
+                    nbytes, flops, FP32_FLOPS)
+    return [total] + rows
+
+
+def check_quantizer_sweep(groups=67):
+    """Every input dtype x bits {8, 4, 2} x symmetric/asymmetric x group
+    size {1, 64, 100, 1024, 4096, 5000} (8 lanes, a warp and a CTA per
+    group), each with an all-zero and a constant group: kernel = plain
+    version bitwise, offsets included; then the strided K view of a qkv
+    projection through ``quantize_kv``, and stochastic rounding."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = 0
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for bits in (8, 4, 2):
+            for symmetric in (True, False):
+                for gsize in (1, 64, 100, 1024, 4096, 5000):
+                    x = torch.randn((groups, gsize), generator=gen,
+                                    device="cuda") * 3
+                    x[1] = 0.0
+                    x[2] = 1.5
+                    _quant_err(x.to(dt), bits, symmetric)
+                    cases += 1
+    qkv = torch.randn((2, 37, 3, 16, 64), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    codes, scale = quantize_kv(qkv[:, :, 1])
+    ref = _quantize_ref(qkv[:, :, 1], 8, True)
+    if not (torch.equal(codes, ref[0])
+            and torch.equal(scale[..., 0], ref[1])):
+        raise AssertionError("quantize_kv on a strided K view differs from "
+                             "the plain version")
+    res = {"deterministic_cases_bitwise": cases + 1}
+    x = torch.randn((1000, 1000), generator=gen, device="cuda")
+    for symmetric in (True, False):
+        det, scale, offset = quantize(x, 1000, 8, symmetric)
+
+        def sr(seed):
+            return quantize(x, 1000, 8, symmetric, stochastic=True,
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(seed))
+
+        a, b, c = sr(1), sr(1), sr(2)
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        differs = not torch.equal(a[0], c[0])
+        step = (a[0].int() - det.int()).abs().max().item()
+        moved = (a[0] != det).float().mean().item()
+        back = kernels.dequantize(a[0], a[1], None if symmetric else a[2])
+        bias = ((back - x) / a[1][:, None]).mean().item()
+        plain_err = _quant_err(x, 8, symmetric, seed=987654321)
+        key = "symmetric" if symmetric else "asymmetric"
+        res[key] = {"same_seed_bitwise": same, "other_seed_differs": differs,
+                    "max_step_from_deterministic": step,
+                    "share_rounded_other_way": moved, "mean_error": bias,
+                    "kernel_vs_plain_max_err": plain_err}
+        log(f"[quantizer sr] {key} 10^6 elements: same seed bitwise {same}, "
+            f"other seed differs {differs}, max step from deterministic "
+            f"{step}, share moved {moved:.3f}, mean (deq - x)/scale "
+            f"{bias:.2e} (tol 1e-2), kernel = plain (same seed) bitwise")
+        if not (same and differs and step <= 1 and abs(bias) <= 0.01):
+            raise AssertionError(f"stochastic rounding ({key}): {res[key]}")
+    log(f"[quantizer sweep] {cases} cases (bf16/fp16/fp32 x bits 8/4/2 x "
+        "symmetric/asymmetric x gsize 1/64/100/1024/4096/5000, zero and "
+        "constant groups) and a strided K view: codes, scales, offsets "
+        "bitwise equal to the plain version")
+    return res
 
 
 def bert_seq_lens(B, S, rng, short_prob=0.1):
@@ -702,8 +891,10 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
     """Every dtype and head dim the kernels are built for, over every
     frontier: ``decode_attn`` and ``chunk_attn`` at each pos in
     0..S-Sq-1 with ragged per-row positions (frontiers that split a
-    warp's key groups once hung ``decode_attn``), and ``flash_fwd`` at an
-    odd width.  Returns the worst error per (dtype, D)."""
+    warp's key groups once hung ``decode_attn``), and their int8-cache
+    variants on the same cache quantized (against the plain version on
+    the dequantized cache), and ``flash_fwd`` at an odd width.  Returns
+    the worst error per (dtype, D)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
     for dt, tol in SWEEP_TOL.items():
@@ -713,7 +904,11 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
             ck, cv = rnd(B, S, H, D), rnd(B, S, H, D)
             q1, qc = rnd(B, 1, H, D), rnd(B, Sq, H, D)
             err = torch.zeros((), device="cuda")
+            err8 = torch.zeros((), device="cuda")
             scale = 1.0 / math.sqrt(D)
+            (kq, ks), (vq, vs) = quantize_kv(ck), quantize_kv(cv)
+            k8, v8 = (dequantize_kv(kq, ks, torch.float32),
+                      dequantize_kv(vq, vs, torch.float32))
             for p in range(S - Sq):
                 pos = torch.tensor([p, (p * 7) % (S - Sq), S - Sq - 1 - p],
                                    dtype=torch.int32, device="cuda")
@@ -724,6 +919,13 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
                     out = kernel(q, ck, cv, pos, scale).float()
                     err = torch.maximum(err, (out - ref).abs().max()
                                         / ref.abs().max().clamp(min=1.0))
+                for kernel, q in ((kernels.decode_attn_int8, q1),
+                                  (kernels.chunk_attn_int8, qc)):
+                    ref = cached_attention_reference(q.float(), k8, v8, pos,
+                                                     scale)
+                    out = kernel(q, kq, vq, pos, scale, ks, vs).float()
+                    err8 = torch.maximum(err8, (out - ref).abs().max()
+                                         / ref.abs().max().clamp(min=1.0))
             qf, kf, vf = rnd(2, 77, 3, D), rnd(2, 77, 3, D), rnd(2, 77, 3, D)
             of, lse = kernels.flash_fwd(qf, kf, vf, True, scale)
             rf, rl = flash_attention_reference(qf.float(), kf.float(),
@@ -734,13 +936,17 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
             bwd_err = max(_bwd_sweep_err(rnd, Sq_, Sk_, D, causal)
                           for Sq_, Sk_, causal in BWD_SWEEP)
             worst[f"{str(dt)[6:]} D{D}"] = max(err.item(), bwd_err)
+            worst[f"{str(dt)[6:]} D{D} int8 cache"] = err8.item()
             log(f"[sweep] {str(dt)[6:]} D{D}: pos 0..{S - Sq - 1} ragged, "
-                f"worst relative err {err.item():.3e} (tol {tol:.0e}), "
+                f"worst relative err {err.item():.3e}, int8 cache "
+                f"{err8.item():.3e} (tol {tol:.0e}), "
                 f"flash lse err {lse_err:.2e} (tol 1e-3); flash backward "
                 f"{BWD_SWEEP} worst relative err {bwd_err:.3e} (tol "
                 f"{tol:.0e}), no-key rows zero")
-            if not (err.item() <= tol and lse_err <= 1e-3 and bwd_err <= tol):
+            if not (err.item() <= tol and err8.item() <= tol
+                    and lse_err <= 1e-3 and bwd_err <= tol):
                 raise AssertionError(f"sweep {dt} D{D}: err {err.item()} "
+                                     f"int8 err {err8.item()} "
                                      f"lse err {lse_err} bwd err {bwd_err}")
     return worst
 
@@ -1044,7 +1250,51 @@ def check_tiny_end_to_end():
         raise AssertionError("tiny fp32 model: card and host disagree")
 
 
-def run_generate(engine, cfg):
+def check_tiny_int8():
+    """int8 weights and an int8 KV cache on the card (the quantizer and
+    both int8 attention kernels) against the same model on the host
+    (plain versions), in fp32 compute: ``dtype="int8"`` computes in bf16,
+    so each side quantizes its fp32 engine's weights with
+    ``quantize_params_int8``.  Equal codes and scales, equal greedy
+    tokens through ``generate`` and through a ``SlotBatcher`` with chunked
+    prefill, forward logits within 1e-3."""
+    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2, n_head=4,
+                        d_model=256, dtype=torch.float32)
+    params = scaled_params(cfg, 5, "cpu", 15.0)
+    conf = {"dtype": "float32", "kv_cache_dtype": "int8"}
+    dev = deepspeed_tpu_torch.init_inference((cfg, params), conf)
+    host = deepspeed_tpu_torch.init_inference((cfg, params), conf,
+                                              device="cpu")
+    dev.params = quantize_params_int8(dev.params)[0]
+    host.params = quantize_params_int8(host.params)[0]
+    for name, w in dev.params["blocks"].items():
+        if isinstance(w, Int8Param):
+            h = host.params["blocks"][name]
+            if not (torch.equal(w.q.cpu(), h.q)
+                    and torch.equal(w.scale.cpu(), h.scale)):
+                raise AssertionError(f"tiny int8: {name} codes or scales "
+                                     "differ between card and host")
+    toks = np.random.default_rng(9).integers(0, 512, (3, 40))
+    lens = [40, 23, 9]
+    a = dev.generate(toks, max_new_tokens=24, prompt_lens=lens).cpu().numpy()
+    b = host.generate(toks, max_new_tokens=24, prompt_lens=lens).numpy()
+    err = (dev.forward(toks).cpu() - host.forward(toks)).abs().max().item()
+    served = []
+    for eng in (dev, host):
+        bat = SlotBatcher(eng, ServingConfig(slots=2, max_len=128,
+                                             prefill_chunk=16))
+        bat.admit(1, toks[0], None, True, 1.0)
+        served.append([int(bat.tick()[1]) for _ in range(12)])
+    log(f"[tiny int8] int8 weights + int8 cache, fp32 compute: codes and "
+        f"scales equal, greedy tokens equal: {bool((a == b).all())}, "
+        f"batcher (chunk 16) tokens equal: {served[0] == served[1]}, forward "
+        f"max_abs_err {err:.3e} (tol 1e-3), distinct tokens per row "
+        f"{[len(set(r)) for r in a.tolist()]}")
+    if not (a == b).all() or served[0] != served[1] or not err <= 1e-3:
+        raise AssertionError("tiny int8 model: card and host disagree")
+
+
+def run_generate(engine, cfg, label="bf16"):
     """Phase 3: 4 ragged prompts right-padded to 512, 64 greedy tokens."""
     rng = np.random.default_rng(21)
     toks = rng.integers(0, cfg.vocab_size, (4, 512))
@@ -1064,8 +1314,9 @@ def run_generate(engine, cfg):
         raise AssertionError(f"generate output {out.shape} out of range")
     res = {"prefill_ms": t1 * 1e3, "decode_ms_per_token": (t64 - t1) / 63 * 1e3,
            "tokens_per_s": 4 * 64 / t64, "total_ms": t64 * 1e3,
-           "distinct_tokens_per_row": [len(set(r)) for r in out.tolist()]}
-    log(f"[generate] GPT-2 350M bf16, 4 prompts (lens {lens}) x 64 greedy "
+           "distinct_tokens_per_row": [len(set(r)) for r in out.tolist()],
+           "tokens": out.tolist()}
+    log(f"[generate] GPT-2 350M {label}, 4 prompts (lens {lens}) x 64 greedy "
         f"tokens: prefill_ms {res['prefill_ms']:.2f}, decode_ms_per_token "
         f"{res['decode_ms_per_token']:.3f}, tokens_per_s "
         f"{res['tokens_per_s']:.1f}")
@@ -1149,21 +1400,23 @@ def run_serving(engine, cfg):
     return res, counts
 
 
-def check_full_width_logits(engine, cfg, params_fp32):
-    """bf16 on the card vs fp32 on the host, one short prompt."""
+def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
+    """The card's logits vs an fp32 forward on the host of
+    ``params_fp32``, one short prompt; returns (result, card logits)."""
     toks = np.random.default_rng(33).integers(0, cfg.vocab_size, (1, 32))
     host = deepspeed_tpu_torch.init_inference(
         (cfg, params_fp32), {"dtype": "float32"}, device="cpu")
     ref = host.forward(toks)[..., :cfg.vocab_size]
+    del host
     out = engine.forward(toks).cpu()[..., :cfg.vocab_size]
     rel = ((out - ref).norm() / ref.norm()).item()
     agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"[generate] full-width logits bf16 card vs fp32 host: finite "
+    log(f"[generate] full-width logits {label} card vs fp32 host: finite "
         f"{bool(torch.isfinite(out).all())}, rel_l2_err {rel:.4f} (tol "
         f"0.05), argmax agreement {agree:.3f}")
     if not torch.isfinite(out).all() or not rel <= 0.05:
         raise AssertionError(f"full-width logits disagree: rel err {rel}")
-    return {"rel_l2_err": rel, "argmax_agreement": agree}
+    return {"rel_l2_err": rel, "argmax_agreement": agree}, out
 
 
 def device_profile(label, run):
@@ -1194,12 +1447,135 @@ def device_profile(label, run):
     return res
 
 
-def profile_generate(engine, cfg):
+def profile_generate(engine, cfg, label="generate 4x16 tokens"):
     """Where ``generate``'s time goes: a 16-token run of phase 3's batch."""
     toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
     lens = [512, 384, 200, 77]
-    return device_profile("generate 4x16 tokens", lambda: engine.generate(
+    return device_profile(label, lambda: engine.generate(
         toks, max_new_tokens=16, prompt_lens=lens).cpu())
+
+
+def kv_bytes_per_token(model_config, kv_dtype=None):
+    """KV-cache bytes per token per row: every buffer of a one-row cache
+    (K, V and, int8, their scales) over its slots."""
+    cache = gpt_inference.init_cache(model_config, 1, 16, device="cuda",
+                                     kv_dtype=kv_dtype)
+    return sum(b.numel() * b.element_size() for b in cache.buffers()) // 16
+
+
+def _dequantized_host(params):
+    """The engine's weights as fp32 on the host, int8 leaves dequantized."""
+    return {k: _dequantized_host(v) if isinstance(v, dict)
+            else v.to(torch.float32).cpu() for k, v in params.items()}
+
+
+def compare_decode(engines, cfg, rounds=4, n=33):
+    """Decode ms per token of each engine in ``engines`` (label →
+    engine) on phase 3's batch, timed in turns (a, b, b, a, ...) so that
+    the host's drift between runs falls on both; returns every sample."""
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
+    lens = [512, 384, 200, 77]
+
+    def per_token(engine):
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(toks, max_new_tokens=1, prompt_lens=lens).cpu()
+        t1 = time.perf_counter()
+        engine.generate(toks, max_new_tokens=n, prompt_lens=lens).cpu()
+        t2 = time.perf_counter()
+        return ((t2 - t1) - (t1 - t0)) / (n - 1) * 1e3
+
+    items = list(engines.items())
+    samples = {label: [] for label in engines}
+    for r in range(rounds):
+        for label, engine in (items if r % 2 == 0 else items[::-1]):
+            samples[label].append(per_token(engine))
+    return samples
+
+
+def run_int8_serving(cfg, params_host, bf16):
+    """Phase 5: the int8 slice at full width, every launch count at 0
+    before the engine is built: ``init_inference(..., dtype="int8",
+    kv_cache_dtype="int8")`` (4 quantizer launches), then phase 3's
+    ``generate`` and phase 4's ``SlotBatcher``; bytes against the bf16
+    engine, logits against an fp32 host forward of the same dequantized
+    weights, agreement with the bf16 run and decode ms per token against
+    the bf16 engine timed in turns (``bf16``: its engine, tokens and
+    logits).  Returns (results, counts)."""
+    kernels.reset_launch_counts()
+    engine = deepspeed_tpu_torch.init_inference(
+        (cfg, params_host), {"dtype": "int8", "kv_cache_dtype": "int8"})
+    init_counts = kernels.launch_counts()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"param_bytes": param_bytes(engine.params),
+           "param_bytes_bf16": bf16["param_bytes"],
+           "kv_bytes_per_token": kv_bytes_per_token(engine.model_config,
+                                                    "int8"),
+           "kv_bytes_per_token_bf16": kv_bytes_per_token(engine.model_config)}
+    log(f"[int8] GPT-2 350M int8 weights: {res['param_bytes']:,} parameter "
+        f"bytes against {res['param_bytes_bf16']:,} in bf16 "
+        f"({res['param_bytes'] / res['param_bytes_bf16']:.3f}x); KV cache "
+        f"{res['kv_bytes_per_token']:,} bytes per token per row against "
+        f"{res['kv_bytes_per_token_bf16']:,} "
+        f"({res['kv_bytes_per_token'] / res['kv_bytes_per_token_bf16']:.3f}"
+        f"x); quantizer launches at init {init_counts['quantizer']}")
+    kernels.reset_launch_counts()
+    res["generate"] = run_generate(engine, cfg, "int8 weights + int8 cache")
+    gen_counts = kernels.launch_counts()
+    res["serving"], serve_counts = run_serving(engine, cfg)
+    res["serving"]["peak_above_resident_gib"] = \
+        (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    counts = {k: init_counts[k] + gen_counts[k] + serve_counts[k]
+              for k in init_counts}
+    res["launches"] = {"init": init_counts, "generate": gen_counts,
+                       "serving": serve_counts}
+    res["full_width_logits"], logits = check_full_width_logits(
+        engine, cfg, _dequantized_host(engine.params),
+        "int8 (fp32 host on the dequantized weights)")
+    a = np.asarray(res["generate"]["tokens"])
+    b = np.asarray(bf16["tokens"])
+    res["vs_bf16"] = {
+        "greedy_token_agreement": float((a == b).mean()),
+        "first_divergence_per_row": [
+            int(np.argmax(r != s)) if (r != s).any() else None
+            for r, s in zip(a, b)],
+        "max_abs_logit_diff": (logits - bf16["logits"]).abs().max().item(),
+        "argmax_agreement": (logits.argmax(-1) == bf16["logits"].argmax(-1))
+        .float().mean().item()}
+    log(f"[int8] vs bf16 (report only): greedy token agreement "
+        f"{res['vs_bf16']['greedy_token_agreement']:.3f}, first divergence "
+        f"per row {res['vs_bf16']['first_divergence_per_row']}, largest "
+        f"logit difference {res['vs_bf16']['max_abs_logit_diff']:.4f}, "
+        f"argmax agreement {res['vs_bf16']['argmax_agreement']:.3f}; "
+        f"generate and serving peak memory above the resident "
+        f"{res['serving']['peak_above_resident_gib']:.3f} GiB (KV caches, "
+        f"activations, dequantized weights); launches generate "
+        f"{gen_counts}, serving {serve_counts}")
+    # generate: 5 prefills and 64 decode steps (run_generate), each
+    # quantizing K and V in every layer; decode_attn_int8 once a layer
+    # per step; the bf16-cache kernels never
+    L = cfg.n_layer
+    want = {"quantizer": 2 * L * (5 + 64), "decode_attn_int8": L * 64,
+            "decode_attn": 0, "chunk_attn": 0}
+    bad = [k for k, n in want.items() if gen_counts[k] != n]
+    if init_counts["quantizer"] != 4 or bad or serve_counts["decode_attn"] \
+            or serve_counts["chunk_attn"] \
+            or not serve_counts["chunk_attn_int8"]:
+        raise AssertionError(f"int8 launches: init {init_counts}, generate "
+                             f"{gen_counts} (want {want}), serving "
+                             f"{serve_counts}")
+    res["profile"] = profile_generate(engine, cfg,
+                                      "int8 generate 4x16 tokens")
+    turns = compare_decode({"bf16": bf16["engine"], "int8": engine}, cfg)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    res["decode_ms_per_token_in_turns"] = {"samples": turns, "median": med}
+    log(f"[int8] decode ms per token in turns (bf16, int8, int8, bf16, "
+        f"...; 4 ragged rows, 32 steps): bf16 "
+        f"{[round(x, 3) for x in turns['bf16']]} median {med['bf16']:.3f}, "
+        f"int8 {[round(x, 3) for x in turns['int8']]} median "
+        f"{med['int8']:.3f} ({med['int8'] / med['bf16']:.2f}x)")
+    return res, counts
 
 
 # ------------------------------------------------------------- training
@@ -1584,13 +1960,17 @@ def main() -> int:
               check_chunk(128), check_chunk(640),
               *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
               check_fused_adam(), *check_block_sparse(), *check_fused_lamb(),
-              *check_flash_kv_lens()]
+              *check_flash_kv_lens(), *check_quantizer(),
+              check_decode(int8=True), check_chunk(128, int8=True),
+              check_chunk(640, int8=True)]
     check_adam_skip()
     check_lamb_skip()
+    result["quantizer_sweep"] = check_quantizer_sweep()
     result["sweep_worst_rel_err"] = check_sweep()
     result["sparse_sweep_worst_rel_err"] = check_sparse_sweep()
     result["kv_lens_sweep_worst_rel_err"] = check_kv_lens_sweep()
     check_tiny_end_to_end()
+    check_tiny_int8()
     result["tiny_training"] = check_tiny_training()
     result["tiny_training_sparse"] = check_tiny_training(sparse=True)
     result["tiny_training_bert"] = check_tiny_training(bert_model=True)
@@ -1605,15 +1985,30 @@ def main() -> int:
                    for k, v in params.items()}
     del params
     kernels.reset_launch_counts()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     result["generate"] = run_generate(engine, cfg)
     gen_counts = kernels.launch_counts()
     result["serving"], serve_counts = run_serving(engine, cfg)
+    result["serving"]["peak_above_resident_gib"] = \
+        (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    log(f"[serving] bf16 generate and serving peak memory above the "
+        f"resident {result['serving']['peak_above_resident_gib']:.3f} GiB "
+        f"(KV caches, activations)")
     counts = {k: gen_counts[k] + serve_counts[k] for k in gen_counts}
     result["launches"] = {"generate": gen_counts, "serving": serve_counts}
-    result["full_width_logits"] = check_full_width_logits(engine, cfg,
-                                                          params_host)
+    result["full_width_logits"], bf16_logits = check_full_width_logits(
+        engine, cfg, params_host)
     result["profile"] = profile_generate(engine, cfg)
+    bf16 = {"engine": engine, "param_bytes": param_bytes(engine.params),
+            "logits": bf16_logits, "tokens": result["generate"]["tokens"]}
     del engine
+
+    result["int8_serving"], int8_counts = run_int8_serving(cfg, params_host,
+                                                           bf16)
+    result["launches"]["int8_serving"] = int8_counts
+    counts = {k: counts[k] + int8_counts[k] for k in counts}
+    del params_host, bf16
     torch.cuda.empty_cache()
 
     result["training"], train_counts, trainer, batch = run_training()
@@ -1662,9 +2057,9 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     log(smi)
-    log(f"[launches] generate {gen_counts}, serving {serve_counts}, "
-        f"training {train_counts}, sparse training {sparse_counts}, bert "
-        f"training {bert_counts}")
+    log(f"[launches] generate {gen_counts}, serving {serve_counts}, int8 "
+        f"serving {int8_counts}, training {train_counts}, sparse training "
+        f"{sparse_counts}, bert training {bert_counts}")
     missing = [k for k, n in counts.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -7,7 +7,8 @@ never JAX or ``deepspeed_tpu``.
 
 Ported so far: the serving path of GPT-2 — ``init_inference`` →
 ``InferenceEngine.generate``, and the continuous-batching ``SlotBatcher``
-(``serving``) — and the training path: ``initialize`` →
+(``serving``), in bf16/fp16/fp32 or with int8 weights and an int8 KV
+cache — and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
 (``runtime``), for GPT-2 (dense or block-sparse attention, Adam) and for
 BERT masked-LM pre-training (right-padded batches through the flash
@@ -35,8 +36,12 @@ def init_inference(model=None, config=None, device=None, **kwargs
     ``model`` is a ``(GPTConfig, params)`` tuple of the port's GPT (params
     from ``models.gpt.init`` or ``models.convert.from_jax_params``);
     ``config`` a ``DeepSpeedInferenceConfig`` dict, with remaining kwargs
-    merged into it.  ``device=None`` runs on CUDA and raises when there is
-    none; pass ``device="cpu"`` for the plain PyTorch path."""
+    merged into it: ``dtype="int8"`` serves int8 weights (codes and
+    per-vector scales of the bf16-cast weights) with bf16 compute,
+    ``kv_cache_dtype="int8"`` caches K/V as int8 codes and per-vector
+    scales; either works alone.  ``device=None`` runs on CUDA and raises
+    when there is none; pass ``device="cpu"`` for the plain PyTorch
+    path."""
     cfg_dict = dict(config or {})
     cfg_dict.update(kwargs)
     inf_config = DeepSpeedInferenceConfig.from_dict(cfg_dict)

@@ -1,5 +1,5 @@
 // Shared helpers of the port's attention kernels: dtype codes, 16-byte
-// vector loads that widen to fp32, narrowing stores.
+// vector loads that widen to fp32 (int8 cache codes too), narrowing stores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -7,6 +7,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // dtype codes of the C interface (ops/kernels/utils.py DTYPE_CODES)
 enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
@@ -55,6 +57,23 @@ __device__ __forceinline__ void widen16(const uint4& r, float* out, __nv_bfloat1
         float2 f = __bfloat1622float2(h[i]);
         out[2 * i] = f.x; out[2 * i + 1] = f.y;
     }
+}
+
+// 16 int8 codes as fp32 (exact); the caller multiplies by the row's scale
+__device__ __forceinline__ void widen16(const uint4& r, float* out, int8_t) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(c[i]);
+}
+
+// N consecutive elements of T (16-byte aligned, N a multiple of
+// VecWidth<T>) as fp32, one 16-byte load per VecWidth<T> elements
+template <typename T, int N>
+__device__ __forceinline__ void load_widen(const T* p, float* out) {
+    constexpr int V = VecWidth<T>::value;
+#pragma unroll
+    for (int i = 0; i < N / V; ++i)
+        widen16(*reinterpret_cast<const uint4*>(p + i * V), out + i * V, T());
 }
 
 // four consecutive elements of T (8 or 16 bytes, aligned) as fp32

@@ -14,6 +14,11 @@
 // [B, S, H, D] activations and the [B, S_max, H, D] layer view of the KV
 // cache are used in place, with no transpose copy.
 //
+// With an int8 cache (chunk_attn_int8) K and V arrive as int8 codes and
+// one fp32 scale per head vector; the tile load dequantizes them as
+// code * scale in fp32 (JAX _chunk_kernel's order, decode_attention.py
+// :258-260) on their way into shared memory, and nothing after it changes.
+//
 // This first version multiplies with fp32 FMAs, not tensor cores: it is
 // bound by the FMA issue rate, well above the card's least time for the
 // same work (the bytes over 3.35 TB/s at the slice's shapes).  mma/wgmma
@@ -39,6 +44,10 @@ struct TileArgs {
     // flash only, optional: per-row key lengths [B] (keys at or past
     // max(1, kv_lens[b]) are padding)
     const int* kv_lens;
+    // int8 cache only (C = int8_t): per-vector scales [B, S_max, H, 1]
+    const float* k_scale; const float* v_scale;
+    long long ks_sb, ks_ss, ks_sh;
+    long long vs_sb, vs_ss, vs_sh;
 };
 
 // CHUNK = false: flash_attention.py _fwd_kernel semantics.  Causal is
@@ -52,14 +61,17 @@ struct TileArgs {
 //   at absolute position pos[b] + i and sees cache slots <= pos[b] + i;
 //   q is scaled before the product; the running max starts at M_FLOOR;
 //   p stays fp32; only O is written.
-template <typename T, int D, bool CHUNK>
+// T is the type of q and O; C the type of the K and V it reads (T, or
+// int8_t codes with k_scale/v_scale, CHUNK only).
+template <typename T, int D, bool CHUNK, typename C = T>
 __global__ void __launch_bounds__(DS_TILE_THREADS)
 attn_tile_kernel(const TileArgs a) {
+    constexpr bool Q8 = std::is_same<C, int8_t>::value;
     constexpr int TPR = D / 16;                   // lanes per query row
     constexpr int BQ = DS_TILE_THREADS / TPR;     // query rows per CTA
     constexpr int BK = D <= 64 ? 64 : 32;         // keys per k-tile
     constexpr int NCH = 4;                        // float4 chunks per lane
-    constexpr int VEC = VecWidth<T>::value;
+    constexpr int VEC = VecWidth<C>::value;
     constexpr int VPR = D / VEC;                  // 16-byte vectors per row
     __shared__ float4 ks[BK][D / 4];
     __shared__ float4 vs[BK][D / 4];
@@ -92,8 +104,8 @@ attn_tile_kernel(const TileArgs a) {
     }
 
     const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)qi * a.q_ss + h * a.q_sh;
-    const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-    const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+    const C* kp = static_cast<const C*>(a.k) + b * a.k_sb + h * a.k_sh;
+    const C* vp = static_cast<const C*>(a.v) + b * a.v_sb + h * a.v_sh;
 
     float4 q[NCH];
 #pragma unroll
@@ -117,8 +129,14 @@ attn_tile_kernel(const TileArgs a) {
             if (k0 + j < klim) {
                 const uint4 kr = *reinterpret_cast<const uint4*>(kp + (long long)(k0 + j) * a.k_ss + vv * VEC);
                 const uint4 vr = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + j) * a.v_ss + vv * VEC);
-                widen16(kr, kf, T());
-                widen16(vr, vf, T());
+                widen16(kr, kf, C());
+                widen16(vr, vf, C());
+                if constexpr (Q8) {
+                    const float kscl = a.k_scale[b * a.ks_sb + (long long)(k0 + j) * a.ks_ss + h * a.ks_sh];
+                    const float vscl = a.v_scale[b * a.vs_sb + (long long)(k0 + j) * a.vs_ss + h * a.vs_sh];
+#pragma unroll
+                    for (int e = 0; e < VEC; ++e) { kf[e] *= kscl; vf[e] *= vscl; }
+                }
             } else {
 #pragma unroll
                 for (int e = 0; e < VEC; ++e) { kf[e] = 0.f; vf[e] = 0.f; }
@@ -189,22 +207,26 @@ attn_tile_kernel(const TileArgs a) {
         a.lse[((long long)b * a.H + h) * a.Sq + qi] = m + logf(lf);
 }
 
-template <typename T, int D, bool CHUNK>
+template <typename T, int D, bool CHUNK, typename C>
 static cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
     constexpr int BQ = DS_TILE_THREADS / (D / 16);
     const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-    attn_tile_kernel<T, D, CHUNK><<<grid, DS_TILE_THREADS, 0, stream>>>(a);
+    attn_tile_kernel<T, D, CHUNK, C><<<grid, DS_TILE_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
 }
 
-template <bool CHUNK>
+// Q8: the K and V it reads are int8 codes (chunk_attn_int8)
+template <bool CHUNK, bool Q8 = false>
 static cudaError_t dispatch_tile(int dtype, int D, const TileArgs& a, cudaStream_t stream) {
 #define DS_TILE_D(T)                                                      \
-    switch (D) {                                                          \
-        case 32: return launch_tile<T, 32, CHUNK>(a, stream);             \
-        case 64: return launch_tile<T, 64, CHUNK>(a, stream);             \
-        case 128: return launch_tile<T, 128, CHUNK>(a, stream);           \
-        default: return cudaErrorInvalidValue;                            \
+    {                                                                     \
+        using C = typename std::conditional<Q8, int8_t, T>::type;         \
+        switch (D) {                                                      \
+            case 32: return launch_tile<T, 32, CHUNK, C>(a, stream);      \
+            case 64: return launch_tile<T, 64, CHUNK, C>(a, stream);      \
+            case 128: return launch_tile<T, 128, CHUNK, C>(a, stream);    \
+            default: return cudaErrorInvalidValue;                        \
+        }                                                                 \
     }
     switch (dtype) {
         case kF32: DS_TILE_D(float)

@@ -1,10 +1,12 @@
 """Inference config (reference ``inference/config.py``
-``DeepSpeedInferenceConfig``): serving dtype, KV-cache dtype,
-tensor parallelism and ``max_out_tokens``.
+``DeepSpeedInferenceConfig``): serving dtype (``"int8"``: int8 weights
+with bf16 compute), KV-cache dtype (``"int8"``: int8 codes with one fp32
+scale per head vector), quantization, tensor parallelism and
+``max_out_tokens``.
 
 Options the JAX package has and this port does not yet (tensor
-parallelism, int8 weights, the int8 KV cache, quantization, MoE) raise
-at construction; none is ignored.
+parallelism, ``quant.int8_compute``, weights of other than 8 bits, MoE)
+raise at construction; none is ignored.
 """
 
 from __future__ import annotations
@@ -19,13 +21,37 @@ from ..runtime.config_utils import DeepSpeedConfigModel
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16, "fp16": torch.float16,
            "half": torch.float16,
-           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "int8": torch.int8}
+
+
+@dataclasses.dataclass
+class QuantizationConfig(DeepSpeedConfigModel):
+    #: accepted for reference parity: ``dtype="int8"`` selects int8 weights
+    enabled: bool = False
+    #: only 8 is ported (int8 codes); other widths raise
+    bits: int = 8
+    #: int8 x int8 -> int32 GEMMs (JAX ``ops/int8.py``): not ported, raises
+    int8_compute: bool = False
+
+    def __post_init__(self):
+        if self.int8_compute:
+            raise NotImplementedError(
+                "quant.int8_compute (int8 x int8 -> int32 GEMMs) is not "
+                'ported yet; dtype="int8" serves int8 weights with bf16 '
+                "compute")
+        if self.bits != 8:
+            raise NotImplementedError(
+                f"quant.bits={self.bits}: only 8-bit weights are served")
 
 
 @dataclasses.dataclass
 class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
+    #: "int8" stores the big matmul weights as int8 codes and per-vector
+    #: scales and computes in bf16 (weight-only int8)
     dtype: str = "bfloat16"
-    #: "auto" caches K/V in the compute dtype (the only cache ported)
+    #: "auto" caches K/V in the compute dtype; "int8" as int8 codes with one
+    #: fp32 scale per head vector
     kv_cache_dtype: str = "auto"
     tensor_parallel: Dict = dataclasses.field(default_factory=dict)
     quant: Dict = dataclasses.field(default_factory=dict)
@@ -39,24 +65,18 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if isinstance(self.tensor_parallel, int):
             self.tensor_parallel = {"tp_size": self.tensor_parallel}
         dtype = str(self.dtype).replace("torch.", "")
-        if dtype == "int8":
-            raise NotImplementedError(
-                'dtype="int8" (int8 weight serving) is not ported yet')
         if dtype not in _DTYPES:
             raise ValueError(f"dtype={self.dtype!r} (want one of "
                              f"{sorted(_DTYPES)})")
-        if self.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                'kv_cache_dtype="int8" (the int8 KV cache) is not ported yet')
-        if self.kv_cache_dtype != "auto":
+        if self.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r} (want 'auto')")
+                f"kv_cache_dtype={self.kv_cache_dtype!r} (want 'auto' or "
+                "'int8')")
         if self.tp_size > 1:
             raise NotImplementedError(
                 f"tensor_parallel.tp_size={self.tp_size}: tensor-parallel "
                 "serving is not ported yet")
-        if self.quant.get("enabled") or self.quant.get("int8_compute"):
-            raise NotImplementedError("quantized serving is not ported yet")
+        self.quantization = QuantizationConfig.from_dict(self.quant or {})
         if self.moe:
             raise NotImplementedError("MoE serving is not ported yet")
         if self.max_out_tokens < 1:

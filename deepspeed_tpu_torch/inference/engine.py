@@ -1,7 +1,12 @@
 """Inference engine: the port of ``inference/engine.py``.
 
 ``InferenceEngine`` holds a GPT-2 model's weights in the serving dtype on
-one device and offers ``forward`` and ``generate``.  ``generate`` runs one
+one device and offers ``forward`` and ``generate``.  ``dtype="int8"``
+serves int8 weights with bf16 compute: the weights are cast to bf16, then
+the big matmul weights are quantized to int8 codes with per-vector scales
+(``inference/quantization.py``, the ``quantizer`` kernel on CUDA);
+``kv_cache_dtype="int8"`` gives ``generate`` (and a ``SlotBatcher`` over
+the engine) int8 KV caches.  ``generate`` runs one
 prefill and then a decode loop; where the JAX engine compiles the loop
 into one ``lax.while_loop``, the port runs it as a Python loop that
 launches the model's kernels eagerly.  The all-rows-finished early exit
@@ -19,9 +24,33 @@ import torch
 
 from ..accelerator import get_accelerator
 from ..models import gpt, gpt_inference
+from ..utils.logging import logger
 from .bucketing import bucket_max_new_tokens, tile_cache_len
 from .config import DeepSpeedInferenceConfig
+from .quantization import quantize_params_int8
 from .sampling import filter_logits, sample
+
+
+def _serving_dtype(config: DeepSpeedInferenceConfig):
+    """(compute dtype, weight_int8): ``dtype="int8"`` means weight-only
+    int8 serving, with the weights stored as int8 codes and per-vector
+    scales and the compute in bf16."""
+    dtype = config.torch_dtype
+    if dtype == torch.int8:
+        return torch.bfloat16, True
+    return dtype, False
+
+
+def _shard_and_quantize(params: dict, weight_int8: bool) -> dict:
+    """The one-device half of the JAX engine's ``_shard_and_quantize``
+    (tensor parallelism raises at config time): the int8 conversion of the
+    already-cast weights."""
+    if not weight_int8:
+        return params
+    params, n_q = quantize_params_int8(params)
+    logger.info(f"[inference] int8 weight-only serving: {n_q} weights "
+                "stored as int8 codes + per-vector scales")
+    return params
 
 
 class InferenceEngine:
@@ -32,9 +61,12 @@ class InferenceEngine:
                  config: DeepSpeedInferenceConfig, device=None):
         self.device = get_accelerator().resolve_device(device)
         self._config = config
-        dtype = config.torch_dtype
+        dtype, self._weight_int8 = _serving_dtype(config)
+        self._kv_dtype = "int8" if config.kv_cache_dtype == "int8" else None
         self.model_config = dataclasses.replace(model_config, dtype=dtype)
-        self.params = _to_device(params, self.device, dtype)
+        # cast first, then quantize: the codes of the bf16-cast weights
+        self.params = _shard_and_quantize(
+            _to_device(params, self.device, dtype), self._weight_int8)
         # sampled generate() calls without a generator draw from a seed
         # sequence, so two calls differ unless the caller pins one
         self._seed_seq = 0
@@ -100,7 +132,8 @@ class InferenceEngine:
                                  cfg.max_seq_len)
         if do_sample and generator is None:
             generator = self._next_generator()
-        cache = gpt_inference.init_cache(cfg, B, max_len, device=self.device)
+        cache = gpt_inference.init_cache(cfg, B, max_len, device=self.device,
+                                         kv_dtype=self._kv_dtype)
         last_pos = torch.as_tensor(lens - 1).to(self.device)
         # logits at the last prompt token predict the first new token
         last, cache = gpt_inference.prefill(self.params, tokens, cfg, cache,

@@ -5,7 +5,10 @@ The port keeps the JAX parameter tree and layouts, so conversion is a
 re-wrap both ways: :func:`from_jax_params` takes the tree as numpy arrays
 (what ``jax.device_get(params)`` returns) and builds the same tree of
 torch tensors; :func:`to_numpy_params` turns a port tree back into numpy
-arrays, so trained weights compare either way.  Nothing here imports JAX.
+arrays, so trained weights compare either way.  A JAX ``Int8Param`` leaf
+(int8 serving: codes and scales) becomes the port's
+:class:`~deepspeed_tpu_torch.inference.quantization.Int8Param`.  Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ..inference.quantization import Int8Param
 from ..ops.sparse_attention import sparsity_config
 from . import bert, gpt
 
@@ -38,8 +42,14 @@ def from_jax_params(tree: Mapping[str, Any], device=None,
                     dtype: torch.dtype | None = None) -> dict:
     """Nested dict of numpy arrays → the same nested dict of tensors on
     ``device``.  Float arrays (bfloat16 included) become ``dtype`` (fp32
-    when None); integer arrays keep their type."""
+    when None); integer arrays keep their type; an ``Int8Param`` (duck
+    typed: ``q`` and ``scale``) keeps int8 codes and fp32 scales."""
     def leaf(x):
+        if hasattr(x, "q") and hasattr(x, "scale"):
+            return Int8Param(
+                q=torch.from_numpy(np.array(x.q, dtype=np.int8)).to(device),
+                scale=torch.from_numpy(np.array(x.scale, dtype=np.float32))
+                .to(device))
         # a copy: jax.device_get hands out read-only arrays
         a = np.asarray(x)
         if np.issubdtype(a.dtype, np.integer):

@@ -12,6 +12,13 @@ package's functional updates, **the port writes the cache in place**:
 :class:`KVCache` object.  Attention over the cache reads the layer view
 ``cache.k[l]`` ([B, S_max, H, D]) through its strides, with no copy.
 
+An int8 cache (``init_cache(..., kv_dtype="int8")``) holds int8 codes and
+one fp32 scale per head vector (``k_scale``/``v_scale`` [L, B, S_max, H,
+1]): each layer quantizes its new K and V per vector (``quantize_kv``)
+before writing codes and scales, and extend/decode read the cache back
+through the kernels' int8 variants.  Prefill attends over the fresh,
+unquantized K/V, as in the JAX package.
+
 ``cache.length`` is a host int (the max frontier).  Ragged calls take
 per-row ``lengths`` as host integers (a list, numpy array or CPU tensor);
 they are copied to the device once per call for the kernels, so a decode
@@ -27,7 +34,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.kernels.decode_attention import cached_attention
+from ..ops.kernels.decode_attention import cached_attention, quantize_kv
 from . import gpt
 
 Lengths = Union[Sequence[int], np.ndarray, torch.Tensor]
@@ -35,9 +42,11 @@ Lengths = Union[Sequence[int], np.ndarray, torch.Tensor]
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor        # [L, B, S_max, H, D]
+    k: torch.Tensor        # [L, B, S_max, H, D] (int8 codes when int8)
     v: torch.Tensor        # [L, B, S_max, H, D]
     length: int = 0        # tokens cached (max frontier)
+    k_scale: Optional[torch.Tensor] = None   # [L, B, S_max, H, 1] fp32
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def batch(self) -> int:
@@ -47,11 +56,37 @@ class KVCache:
     def max_len(self) -> int:
         return self.k.shape[2]
 
+    @property
+    def int8(self) -> bool:
+        return self.k_scale is not None
+
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """k, v and (int8) their scales, in that order."""
+        return (self.k, self.v) + ((self.k_scale, self.v_scale)
+                                   if self.int8 else ())
+
+    def scales(self, idx: int) -> dict:
+        """Layer ``idx``'s ``k_scale``/``v_scale`` keywords for
+        ``cached_attention`` (empty for a cache in the compute dtype)."""
+        if not self.int8:
+            return {}
+        return {"k_scale": self.k_scale[idx], "v_scale": self.v_scale[idx]}
+
 
 def init_cache(config: gpt.GPTConfig, batch: int, max_len: int,
-               device=None) -> KVCache:
-    """A zeroed cache in the compute dtype on ``device``."""
+               device=None, kv_dtype=None) -> KVCache:
+    """A zeroed cache on ``device``: in the compute dtype, or with
+    ``kv_dtype`` "int8" (or ``torch.int8``) int8 codes and fp32 scales."""
     shape = (config.n_layer, batch, max_len, config.n_head, config.head_dim)
+    if kv_dtype in ("int8", torch.int8):
+        scale = shape[:-1] + (1,)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(scale, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(scale, dtype=torch.float32, device=device))
+    if kv_dtype is not None:
+        raise ValueError(f"kv_dtype={kv_dtype!r} (want None or 'int8')")
     return KVCache(k=torch.zeros(shape, dtype=config.dtype, device=device),
                    v=torch.zeros(shape, dtype=config.dtype, device=device))
 
@@ -74,13 +109,21 @@ def _host_lengths(lengths: Lengths) -> np.ndarray:
 
 def _layers(x, params, cache: KVCache, config: gpt.GPTConfig, write, attn):
     """The layer loop every cache-filling path shares: ``write(buf, val)``
-    stores this step's K or V into a layer of the cache in place;
-    ``attn(q, k, v, layer)`` computes the sublayer's attention."""
+    stores this step's K or V (an int8 cache: codes, then scales) into a
+    layer of the cache in place; ``attn(q, k, v, layer)`` computes the
+    sublayer's attention."""
     for idx in range(config.n_layer):
         p = gpt.layer_params(params, idx)
         q, k, v = gpt.qkv_proj(x, p, config)
-        write(cache.k[idx], k)
-        write(cache.v[idx], v)
+        if cache.int8:
+            for val, buf, sbuf in ((k, cache.k, cache.k_scale),
+                                   (v, cache.v, cache.v_scale)):
+                codes, scale = quantize_kv(val)
+                write(buf[idx], codes)
+                write(sbuf[idx], scale)
+        else:
+            write(cache.k[idx], k)
+            write(cache.v[idx], v)
         x = gpt.block_tail(x, attn(q, k, v, idx), p, config)
     return x
 
@@ -160,7 +203,7 @@ def extend(params, tokens: torch.Tensor, config: gpt.GPTConfig,
 
     def attn(q, k, v, idx):
         return cached_attention(q, cache.k[idx], cache.v[idx], pos,
-                                sm_scale=_scale(config))
+                                sm_scale=_scale(config), **cache.scales(idx))
 
     x = _layers(x, params, cache, config, write, attn)
     cache.length = top + Sc
@@ -184,9 +227,10 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
         pos = torch.as_tensor(host, dtype=torch.int32).to(dev)
         positions = pos.long()[:, None]                          # [B, 1]
         rows = torch.arange(B, device=dev)
+        slots = positions[:, 0]
 
         def write(buf, val):
-            buf[rows, pos.long()] = val[:, 0]
+            buf[rows, slots] = val[:, 0]
     else:
         top = pos = cache.length
         positions = torch.tensor([pos], device=dev)
@@ -200,7 +244,7 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
 
     def attn(q, k, v, idx):
         return cached_attention(q, cache.k[idx], cache.v[idx], pos,
-                                sm_scale=_scale(config))
+                                sm_scale=_scale(config), **cache.scales(idx))
 
     x = _layers(x, params, cache, config, write, attn)
     cache.length = top + 1
@@ -214,27 +258,33 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
 
 
 def write_slot(cache: KVCache, row: int, src: KVCache) -> KVCache:
-    """Copy a batch-1 cache into slot ``row`` of a multi-slot cache, in
-    place.  ``src.max_len`` must not exceed the slot cache's; ``length``
-    keeps max-frontier semantics (the batcher tracks per-row lengths)."""
+    """Copy a batch-1 cache (K/V and, int8, their scales) into slot
+    ``row`` of a multi-slot cache, in place.  Both caches must have the
+    same KV dtype and ``src.max_len`` must not exceed the slot cache's;
+    ``length`` keeps max-frontier semantics (the batcher tracks per-row
+    lengths)."""
     if src.batch != 1:
         raise ValueError(f"write_slot takes a batch-1 cache, got {src.batch}")
+    if src.int8 != cache.int8:
+        raise ValueError(f"write_slot dtype mismatch: src int8={src.int8}, "
+                         f"cache int8={cache.int8}")
     if src.max_len > cache.max_len:
         raise ValueError(
             f"write_slot src max_len {src.max_len} exceeds the slot "
             f"cache's {cache.max_len}")
     n = src.max_len
-    cache.k[:, row:row + 1, :n] = src.k
-    cache.v[:, row:row + 1, :n] = src.v
+    for dst, s in zip(cache.buffers(), src.buffers()):
+        dst[:, row:row + 1, :n] = s
     cache.length = max(cache.length, src.length)
     return cache
 
 
 def reset_slot(cache: KVCache, row: int) -> KVCache:
-    """Zero slot ``row``'s K/V in place: a retired conversation's K/V
-    never bleeds into the next tenant, even through a masked read."""
-    cache.k[:, row].zero_()
-    cache.v[:, row].zero_()
+    """Zero slot ``row``'s K/V (and scales) in place: a retired
+    conversation's K/V never bleeds into the next tenant, even through a
+    masked read."""
+    for buf in cache.buffers():
+        buf[:, row].zero_()
     return cache
 
 
@@ -242,6 +292,8 @@ def read_slot(cache: KVCache, row: int, length: Optional[int] = None
               ) -> KVCache:
     """Slot ``row`` as a new batch-1 cache (a copy: later writes to the
     slot cache do not reach it).  ``length`` is the row's true frontier."""
-    return KVCache(k=cache.k[:, row:row + 1].clone(),
-                   v=cache.v[:, row:row + 1].clone(),
-                   length=int(length if length is not None else cache.length))
+    k, v, *scales = (b[:, row:row + 1].clone() for b in cache.buffers())
+    return KVCache(k=k, v=v,
+                   length=int(length if length is not None else cache.length),
+                   k_scale=scales[0] if scales else None,
+                   v_scale=scales[1] if scales else None)

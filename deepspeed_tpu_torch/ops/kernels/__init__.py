@@ -13,7 +13,8 @@ from .block_sparse_attention import (block_sparse_attention,
                                      block_sparse_fwd, config_plan,
                                      make_index_tables, sparse_plan)
 from .decode_attention import (cached_attention, cached_attention_reference,
-                               chunk_attn, decode_attn)
+                               chunk_attn, chunk_attn_int8, decode_attn,
+                               decode_attn_int8, dequantize_kv, quantize_kv)
 from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_backward_reference,
                               flash_attention_qkv, flash_attention_reference,
@@ -23,6 +24,8 @@ from .fused_adam import (adam_hyper, fused_adam, fused_adam_kernel,
                          fused_adam_reference, fused_adam_step)
 from .fused_lamb import (fused_lamb, fused_lamb_phase1, fused_lamb_phase2,
                          fused_lamb_reference, lamb_hyper)
+from .quantizer import (dequantize, fake_quantize, quantize, quantize_rows,
+                        quantizer_kernel)
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
@@ -32,7 +35,9 @@ KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
            "block_sparse_bwd_dq": block_sparse_bwd_dq,
            "block_sparse_bwd_dkv": block_sparse_bwd_dkv,
            "fused_lamb_phase1": fused_lamb_phase1,
-           "fused_lamb_phase2": fused_lamb_phase2}
+           "fused_lamb_phase2": fused_lamb_phase2, "quantizer": quantizer_kernel,
+           "decode_attn_int8": decode_attn_int8,
+           "chunk_attn_int8": chunk_attn_int8}
 
 
 def launch_counts() -> dict:
@@ -50,7 +55,9 @@ __all__ = ["KERNELS", "adam_hyper", "block_sparse_attention",
            "block_sparse_attention_qkv", "block_sparse_attention_reference",
            "block_sparse_bwd_dkv", "block_sparse_bwd_dq", "block_sparse_fwd",
            "cached_attention", "config_plan",
-           "cached_attention_reference", "chunk_attn", "decode_attn",
+           "cached_attention_reference", "chunk_attn", "chunk_attn_int8",
+           "decode_attn", "decode_attn_int8", "dequantize", "dequantize_kv",
+           "fake_quantize",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_qkv",
            "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
@@ -58,5 +65,6 @@ __all__ = ["KERNELS", "adam_hyper", "block_sparse_attention",
            "fused_adam_reference", "fused_adam_step", "fused_lamb",
            "fused_lamb_phase1", "fused_lamb_phase2", "fused_lamb_reference",
            "lamb_hyper", "launch_counts",
-           "make_index_tables", "mha_reference", "reset_launch_counts",
+           "make_index_tables", "mha_reference", "quantize", "quantize_kv",
+           "quantize_rows", "quantizer_kernel", "reset_launch_counts",
            "sparse_plan"]

@@ -12,8 +12,14 @@ both read the cache's layer view through its strides, with no
 ``block_k in {256, 128}`` tiling gate does not carry over).  On CPU
 tensors the plain version runs.
 
-The TPU kernels' int8-cache (``k_scale``/``v_scale``), banded-window and
-ALiBi options are not ported yet and raise ``NotImplementedError``.
+The int8 cache: with ``k_scale``/``v_scale`` ([B, S_max, H, 1] fp32) the
+cache holds int8 codes (:func:`quantize_kv`: symmetric per head vector);
+on CUDA ``decode_attn_int8`` and ``chunk_attn_int8`` (the same sources'
+int8 entry points, the TPU kernels' ``quantized`` option) dequantize in
+registers, on the CPU the plain version dequantizes first
+(:func:`dequantize_kv`) and runs the dense math, as the JAX package's
+fallback does.  The banded-window and ALiBi options are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,9 +31,26 @@ from typing import Optional, Union
 import torch
 
 from . import build
+from .quantizer import quantize_rows
 from .utils import DTYPE_CODES, check_kernel_inputs, on_cuda
 
 Pos = Union[int, torch.Tensor]
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 codes [..., D] and per-vector scales [..., 1] → ``dtype``."""
+    return (codes.float() * scale).to(dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """x [..., D] → (int8 codes [..., D], fp32 scale [..., 1]): symmetric
+    per-vector quantization of K or V head vectors (absmax / 127, 1e-12
+    floor, round half to even, clip to ±127), the 8-bit symmetric
+    deterministic branch of the quantizer.  On CUDA one ``quantizer``
+    launch reads x through its strides (at most three leading dims)."""
+    codes, scale, _ = quantize_rows(x, 8, True, offsets=False)
+    return codes, scale.unsqueeze(-1)
 
 
 def cached_attention_reference(q, cache_k, cache_v, pos: Pos,
@@ -71,8 +94,28 @@ def _check_pos(name: str, pos: Pos, B: int, device: torch.device,
     return None, pos
 
 
-def _check_cache(name, q, cache_k, cache_v):
-    dtype = check_kernel_inputs(name, q, cache_k, cache_v)
+def _check_cache(name, q, cache_k, cache_v, scales=None):
+    """q and a cache of q's dtype, or with ``scales`` (k_scale, v_scale)
+    an int8 cache: codes of q's head layout with 16-byte aligned rows and
+    fp32 scales of the cache's shape with a last dim of 1.  Returns q's
+    dtype."""
+    if scales is None:
+        dtype = check_kernel_inputs(name, q, cache_k, cache_v)
+    else:
+        dtype = check_kernel_inputs(name, q)
+        for t in (cache_k, cache_v):
+            if t.dtype != torch.int8:
+                raise TypeError(f"{name}: the cache must hold int8 codes, "
+                                f"got {t.dtype}")
+            if t.dim() != 4 or t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                    any(st % 16 for st in t.stride()[:-1]):
+                raise ValueError(f"{name}: cache rows must be contiguous and "
+                                 f"16-byte aligned (strides {t.stride()})")
+        want = tuple(cache_k.shape[:-1]) + (1,)
+        for t in scales:
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name}: scales must be fp32 {want}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
     B, _, H, D = q.shape
     if cache_k.shape[0] != B or cache_k.shape[2:] != (H, D) or \
             cache_v.shape != cache_k.shape:
@@ -81,71 +124,122 @@ def _check_cache(name, q, cache_k, cache_v):
     return dtype
 
 
-class _DecodeAttn:
-    """The ``decode_attn`` kernel's wrapper; ``launches`` counts kernel
-    launches (never plain-version calls)."""
+_POS_TAIL = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_SCALES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 6
+
+
+class _CacheKernel:
+    """Shared launch path of the cache kernels' wrappers; ``launches``
+    counts kernel launches (never plain-version calls).  The int8
+    variants (``int8 = True``) take ``k_scale, v_scale`` after ``scale``
+    and hand the C entry point their pointers and (b, s, h) strides."""
+
+    source = ""
+    symbol = ""
+    argtypes: list = []
+    int8 = False
+
+    def _scale_args(self, scales) -> tuple:
+        if len(scales) != (2 if self.int8 else 0):
+            raise TypeError(f"{self.symbol} takes "
+                            f"{'k_scale, v_scale' if self.int8 else 'no scales'}"
+                            f", got {len(scales)} scale tensors")
+        if not scales:
+            return ()
+        k_scale, v_scale = scales
+        return (k_scale.data_ptr(), v_scale.data_ptr(),
+                *k_scale.stride()[:3], *v_scale.stride()[:3])
+
+    def _launch(self, args) -> None:
+        fn = build.function(self.source, self.argtypes, self.symbol)
+        build.check_status(self.source, fn(*args))
+        type(self).launches += 1
+
+
+class _DecodeAttn(_CacheKernel):
+    """The ``decode_attn`` kernel's wrapper."""
 
     launches = 0
+    source = symbol = "decode_attn"
+    argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 10 + _POS_TAIL)
 
-    def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float):
-        dtype = _check_cache("decode_attn", q, cache_k, cache_v)
+    def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float,
+                 *scales):
+        extra = self._scale_args(scales)
+        dtype = _check_cache(self.symbol, q, cache_k, cache_v,
+                             scales if self.int8 else None)
         B, Sq, H, D = q.shape
         if Sq != 1:
-            raise ValueError(f"decode_attn takes one query per row, got {Sq}")
-        pos_ptr, pos_scalar = _check_pos("decode_attn", pos, B, q.device, 1,
+            raise ValueError(f"{self.symbol} takes one query per row, got "
+                             f"{Sq}")
+        pos_ptr, pos_scalar = _check_pos(self.symbol, pos, B, q.device, 1,
                                          cache_k.shape[1])
         o = torch.empty((B, 1, H, D), dtype=dtype, device=q.device)
-        fn = build.function("decode_attn", _DECODE_ARGTYPES)
-        status = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                    o.data_ptr(), DTYPE_CODES[dtype], B, H, D,
-                    q.stride(0), q.stride(2),
-                    cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
-                    cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
-                    o.stride(0), o.stride(2), pos_ptr, pos_scalar,
-                    float(scale),
-                    torch.cuda.current_stream(q.device).cuda_stream)
-        build.check_status("decode_attn", status)
-        _DecodeAttn.launches += 1
+        self._launch((q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                      o.data_ptr(), DTYPE_CODES[dtype], B, H, D,
+                      q.stride(0), q.stride(2),
+                      cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
+                      cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
+                      o.stride(0), o.stride(2), *extra, pos_ptr, pos_scalar,
+                      float(scale),
+                      torch.cuda.current_stream(q.device).cuda_stream))
         return o
 
 
-class _ChunkAttn:
-    """The ``chunk_attn`` kernel's wrapper; ``launches`` counts kernel
-    launches (never plain-version calls)."""
+class _ChunkAttn(_CacheKernel):
+    """The ``chunk_attn`` kernel's wrapper."""
 
     launches = 0
+    source = symbol = "chunk_attn"
+    argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                + [ctypes.c_longlong] * 12 + _POS_TAIL)
 
-    def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float):
-        dtype = _check_cache("chunk_attn", q, cache_k, cache_v)
+    def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float,
+                 *scales):
+        extra = self._scale_args(scales)
+        dtype = _check_cache(self.symbol, q, cache_k, cache_v,
+                             scales if self.int8 else None)
         B, Sq, H, D = q.shape
         Smax = cache_k.shape[1]
-        pos_ptr, pos_scalar = _check_pos("chunk_attn", pos, B, q.device, Sq,
+        pos_ptr, pos_scalar = _check_pos(self.symbol, pos, B, q.device, Sq,
                                          Smax)
         o = torch.empty((B, Sq, H, D), dtype=dtype, device=q.device)
-        fn = build.function("chunk_attn", _CHUNK_ARGTYPES)
-        status = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                    o.data_ptr(), DTYPE_CODES[dtype], B, Sq, Smax, H, D,
-                    q.stride(0), q.stride(1), q.stride(2),
-                    cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
-                    cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
-                    o.stride(0), o.stride(1), o.stride(2),
-                    pos_ptr, pos_scalar, float(scale),
-                    torch.cuda.current_stream(q.device).cuda_stream)
-        build.check_status("chunk_attn", status)
-        _ChunkAttn.launches += 1
+        self._launch((q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                      o.data_ptr(), DTYPE_CODES[dtype], B, Sq, Smax, H, D,
+                      q.stride(0), q.stride(1), q.stride(2),
+                      cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
+                      cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
+                      o.stride(0), o.stride(1), o.stride(2), *extra,
+                      pos_ptr, pos_scalar, float(scale),
+                      torch.cuda.current_stream(q.device).cuda_stream))
         return o
 
 
-_DECODE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                    + [ctypes.c_longlong] * 10
-                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p])
-_CHUNK_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+class _DecodeAttnInt8(_DecodeAttn):
+    """The ``decode_attn_int8`` kernel's wrapper (``decode_attn`` over an
+    int8 cache): ``(q, codes_k, codes_v, pos, scale, k_scale, v_scale)``."""
+
+    launches = 0
+    symbol = "decode_attn_int8"
+    argtypes = _DecodeAttn.argtypes[:-4] + _SCALES + _POS_TAIL
+    int8 = True
+
+
+class _ChunkAttnInt8(_ChunkAttn):
+    """The ``chunk_attn_int8`` kernel's wrapper (``chunk_attn`` over an
+    int8 cache): ``(q, codes_k, codes_v, pos, scale, k_scale, v_scale)``."""
+
+    launches = 0
+    symbol = "chunk_attn_int8"
+    argtypes = _ChunkAttn.argtypes[:-4] + _SCALES + _POS_TAIL
+    int8 = True
+
+
 decode_attn = _DecodeAttn()
 chunk_attn = _ChunkAttn()
+decode_attn_int8 = _DecodeAttnInt8()
+chunk_attn_int8 = _ChunkAttnInt8()
 
 
 def cached_attention(q, cache_k, cache_v, pos: Pos,
@@ -153,10 +247,13 @@ def cached_attention(q, cache_k, cache_v, pos: Pos,
                      k_scale=None, v_scale=None, window=None, slopes=None
                      ) -> torch.Tensor:
     """q [B, Sq, H, D] over a padded cache [B, S_max, H, D], visibility
-    <= pos + i; ``pos`` an int or an int32 [B] tensor on q's device."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("cached_attention: the int8 KV cache "
-                                  "(k_scale/v_scale) is not ported yet")
+    <= pos + i; ``pos`` an int or an int32 [B] tensor on q's device.  With
+    ``k_scale``/``v_scale`` ([B, S_max, H, 1] fp32) the cache holds int8
+    codes."""
+    int8 = k_scale is not None or v_scale is not None
+    if int8 and (k_scale is None or v_scale is None):
+        raise ValueError("cached_attention: an int8 cache needs both "
+                         "k_scale and v_scale")
     if window is not None:
         raise NotImplementedError("cached_attention: banded-window "
                                   "attention is not ported yet")
@@ -164,7 +261,14 @@ def cached_attention(q, cache_k, cache_v, pos: Pos,
         raise NotImplementedError("cached_attention: ALiBi slopes are not "
                                   "ported yet")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if on_cuda(q, cache_k, cache_v):
-        kernel = decode_attn if q.shape[1] == 1 else chunk_attn
-        return kernel(q, cache_k, cache_v, pos, scale)
+    scales = (k_scale, v_scale) if int8 else ()
+    if on_cuda(q, cache_k, cache_v, *scales):
+        if int8:
+            kernel = decode_attn_int8 if q.shape[1] == 1 else chunk_attn_int8
+        else:
+            kernel = decode_attn if q.shape[1] == 1 else chunk_attn
+        return kernel(q, cache_k, cache_v, pos, scale, *scales)
+    if int8:
+        cache_k = dequantize_kv(cache_k, k_scale, q.dtype)
+        cache_v = dequantize_kv(cache_v, v_scale, q.dtype)
     return cached_attention_reference(q, cache_k, cache_v, pos, scale)

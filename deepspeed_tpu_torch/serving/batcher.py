@@ -62,10 +62,13 @@ class SlotBatcher:
         self._wide = False
         self.top_k, self.top_p = int(config.top_k), float(config.top_p)
         B = self.slots
+        # the engine's KV dtype (an int8 cache holds codes and scales)
+        kv = engine._kv_dtype
         self.cache = gpt_inference.init_cache(cfg, B, self.max_len,
-                                              device=self.device)
+                                              device=self.device, kv_dtype=kv)
         self._scratch = gpt_inference.init_cache(cfg, 1, self.max_len,
-                                                 device=self.device)
+                                                 device=self.device,
+                                                 kv_dtype=kv)
         self.lengths = np.zeros((B,), np.int64)
         self.greedy = np.ones((B,), bool)
         self.temp = np.ones((B,), np.float32)
@@ -106,8 +109,7 @@ class SlotBatcher:
         cache = self._scratch
         start = 0
         if prefix is not None:
-            cache.k.copy_(prefix.cache.k)
-            cache.v.copy_(prefix.cache.v)
+            gpt_inference.write_slot(cache, 0, prefix.cache)
             start = cache.length = prefix.length
         S = int(tokens.shape[0])
         padded = np.zeros((-(-S // C) * C,), np.int64)
@@ -131,7 +133,7 @@ class SlotBatcher:
     def build_prefix(self, tokens: np.ndarray) -> PrefixEntry:
         """Prefill a shared prefix once into a cache of its own."""
         cache, _vec, frontier = self._chunked_prefill(np.asarray(tokens))
-        own = KVCache(k=cache.k.clone(), v=cache.v.clone(), length=frontier)
+        own = gpt_inference.read_slot(cache, 0, frontier)
         return PrefixEntry(cache=own, length=frontier)
 
     # ----------------------------------------------------------- admission

@@ -68,8 +68,10 @@ def test_cached_attention_untiled_shapes_match_reference(Smax, Sq, pos):
 
 
 @pytest.mark.parametrize("option", [
-    {"k_scale": 1, "v_scale": 1}, {"window": 4}, {"slopes": 1}])
+    {"k_scale": 1, "v_scale": 1, "window": 4}, {"window": 4},
+    {"slopes": 1}])
 def test_unported_options_raise(option):
+    """The window and ALiBi options raise, on the int8 cache too."""
     q, ck, cv = (torch.from_numpy(a) for a in _inputs(1, 1, 16, 2, 32, 0))
     with pytest.raises(NotImplementedError, match="not ported"):
         cached_attention(q, ck, cv, 3, **option)

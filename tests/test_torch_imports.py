@@ -35,8 +35,9 @@ def test_every_module_imports_without_jax():
     # 24 modules of the serving slice, 14 of the training slice (runtime,
     # optimizers, timers, the fused-Adam kernel), 4 of block-sparse
     # attention (ops/sparse_attention and its kernel module), 4 of BERT
-    # under LAMB (models/bert, ops/lamb and the fused-LAMB kernel module)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 46
+    # under LAMB (models/bert, ops/lamb and the fused-LAMB kernel module),
+    # 2 of int8 serving (the quantizer kernel module, inference/quantization)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 48
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -47,6 +48,18 @@ def test_bert_and_lamb_modules_are_importable():
     assert callable(from_bert) and bert.BERT_LARGE.n_layer == 24
     assert FusedLamb.__module__ == "deepspeed_tpu_torch.ops.lamb.fused_lamb"
     assert {"fused_lamb_phase1", "fused_lamb_phase2"} <= set(KERNELS)
+
+
+def test_int8_serving_modules_are_importable():
+    from deepspeed_tpu_torch.inference.quantization import (
+        QUANTIZE_LEAVES, Int8Param, quantize_params_int8)
+    from deepspeed_tpu_torch.ops.kernels import KERNELS, quantize, quantize_kv
+    assert {"quantizer", "decode_attn_int8", "chunk_attn_int8"} <= \
+        set(KERNELS)
+    assert QUANTIZE_LEAVES >= {"wqkv", "wo", "wi", "wo_mlp"}
+    assert callable(quantize) and callable(quantize_kv)
+    assert callable(quantize_params_int8) and Int8Param.__module__ == \
+        "deepspeed_tpu_torch.inference.quantization"
 
 
 def test_init_inference_without_cuda_raises(monkeypatch):

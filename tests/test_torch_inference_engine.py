@@ -2,7 +2,8 @@
 the JAX package's engine on a tiny fp32 model: greedy tokens equal for
 uniform and ragged prompts and under ``eos_token_id``; ``filter_logits``
 equal over a grid; sampling reproducible under a fixed generator; the
-config options that are not ported raise."""
+config options that are not ported raise (int8 serving:
+``test_torch_int8_serving.py``)."""
 
 import numpy as np
 import pytest
@@ -101,8 +102,8 @@ def test_sampled_generate_is_reproducible(engines):
 
 
 @pytest.mark.parametrize("config,match", [
-    ({"dtype": "int8"}, "int8"),
-    ({"kv_cache_dtype": "int8"}, "int8 KV cache"),
+    ({"dtype": "int8", "quant": {"int8_compute": True}}, "int8"),
+    ({"moe": {"enabled": True}}, "MoE"),
     ({"tensor_parallel": {"tp_size": 2}}, "tensor-parallel"),
 ])
 def test_unported_config_options_raise(engines, config, match):
