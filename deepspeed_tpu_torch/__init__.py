@@ -8,7 +8,10 @@ never JAX or ``deepspeed_tpu``.
 Ported so far: the serving path of GPT-2 — ``init_inference`` →
 ``InferenceEngine.generate``, and the continuous-batching ``SlotBatcher``
 (``serving``), in bf16/fp16/fp32 or with int8 weights and an int8 KV
-cache — and the training path: ``initialize`` →
+cache; text-to-image serving of Stable-Diffusion-shaped models —
+``init_inference(model=<diffusers state dict>)`` → ``DSUNet``/``DSVAE``
+→ ``inference.diffusion_pipeline.DiffusionPipeline`` (guided DDIM, VAE
+decode); and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
 (``runtime``), for GPT-2 (dense or block-sparse attention, Adam) and for
 BERT masked-LM pre-training (right-padded batches through the flash
@@ -18,7 +21,11 @@ kernels' per-row key lengths, Adam or LAMB).
 from __future__ import annotations
 
 import os
+from collections.abc import Mapping
 
+import torch
+
+from .accelerator import get_accelerator
 from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .models import gpt
@@ -28,29 +35,49 @@ from .runtime.model import ModelSpec, from_bert, from_gpt
 __version__ = "0.1.0"
 
 
-def init_inference(model=None, config=None, device=None, **kwargs
-                   ) -> InferenceEngine:
-    """Build an :class:`InferenceEngine` (reference
-    ``deepspeed/__init__.py`` ``init_inference``).
+def init_inference(model=None, config=None, device=None, **kwargs):
+    """Build an :class:`InferenceEngine`, or a served UNet or VAE
+    (reference ``deepspeed/__init__.py`` ``init_inference``).
 
     ``model`` is a ``(GPTConfig, params)`` tuple of the port's GPT (params
-    from ``models.gpt.init`` or ``models.convert.from_jax_params``);
-    ``config`` a ``DeepSpeedInferenceConfig`` dict, with remaining kwargs
-    merged into it: ``dtype="int8"`` serves int8 weights (codes and
-    per-vector scales of the bf16-cast weights) with bf16 compute,
-    ``kv_cache_dtype="int8"`` caches K/V as int8 codes and per-vector
-    scales; either works alone.  ``device=None`` runs on CUDA and raises
-    when there is none; pass ``device="cpu"`` for the plain PyTorch
-    path."""
+    from ``models.gpt.init`` or ``models.convert.from_jax_params``), or a
+    diffusers state dict (or a module with ``state_dict()``) that
+    ``module_inject.UNetPolicy`` or ``VAEPolicy`` matches, which returns a
+    ``DSUNet`` or ``DSVAE`` on the device.  ``config`` is a
+    ``DeepSpeedInferenceConfig`` dict, with remaining kwargs merged into
+    it: ``dtype`` is the compute dtype; ``dtype="int8"`` serves a GPT's
+    int8 weights (codes and per-vector scales of the bf16-cast weights)
+    with bf16 compute and a UNet or VAE in bf16; ``kv_cache_dtype="int8"``
+    caches K/V as int8 codes and per-vector scales; ``n_head`` and
+    ``groups`` (default 8 and 32, SD 1.x) set what a diffusers state dict
+    cannot tell.  ``device=None`` runs on CUDA and raises when there is
+    none; pass ``device="cpu"`` for the plain PyTorch path."""
     cfg_dict = dict(config or {})
     cfg_dict.update(kwargs)
+    extra = {k: cfg_dict.pop(k) for k in ("n_head", "groups")
+             if k in cfg_dict}
     inf_config = DeepSpeedInferenceConfig.from_dict(cfg_dict)
-    if not (isinstance(model, tuple) and len(model) == 2
-            and isinstance(model[0], gpt.GPTConfig)):
-        raise TypeError("init_inference takes model=(GPTConfig, params) of "
-                        "deepspeed_tpu_torch.models.gpt")
-    model_config, params = model
-    return InferenceEngine(model_config, params, inf_config, device=device)
+    if isinstance(model, tuple) and len(model) == 2 \
+            and isinstance(model[0], gpt.GPTConfig):
+        model_config, params = model
+        return InferenceEngine(model_config, params, inf_config,
+                               device=device)
+    sd = model if isinstance(model, Mapping) else (
+        model.state_dict() if hasattr(model, "state_dict") else None)
+    if sd is not None:
+        from .module_inject import GENERIC_POLICIES
+        dtype = inf_config.torch_dtype
+        if dtype == torch.int8:     # weight-only int8 is GPT-only
+            dtype = torch.bfloat16
+        for policy in GENERIC_POLICIES:
+            if policy.match(sd):
+                return policy.apply(
+                    sd, dtype=dtype,
+                    enable_cuda_graph=inf_config.enable_cuda_graph,
+                    device=get_accelerator().resolve_device(device), **extra)
+    raise TypeError("init_inference takes model=(GPTConfig, params) of "
+                    "deepspeed_tpu_torch.models.gpt, or a diffusers UNet or "
+                    "VAE state dict")
 
 
 def initialize(args=None, model: ModelSpec = None, optimizer=None,

@@ -1,4 +1,6 @@
 from .config import DeepSpeedInferenceConfig
+from .diffusion_pipeline import DiffusionPipeline, ddim_alphas
 from .engine import InferenceEngine
 
-__all__ = ["DeepSpeedInferenceConfig", "InferenceEngine"]
+__all__ = ["DeepSpeedInferenceConfig", "DiffusionPipeline",
+           "InferenceEngine", "ddim_alphas"]

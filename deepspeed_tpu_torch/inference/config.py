@@ -58,6 +58,9 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     moe: Dict = dataclasses.field(default_factory=dict)
     #: accepted for reference parity; neither engine reads it
     max_out_tokens: int = 1024
+    #: accepted for reference parity: DSUNet/DSVAE run eagerly, CUDA-graph
+    #: capture is not ported yet
+    enable_cuda_graph: bool = False
 
     DEPRECATED_FIELDS = {"mp_size": "tensor_parallel"}
 

@@ -1,14 +1,18 @@
 """Weight and config conversion between the JAX package's models (GPT,
-BERT) and the port.
+BERT, the diffusion UNet and VAE) and the port.
 
 The port keeps the JAX parameter tree and layouts, so conversion is a
 re-wrap both ways: :func:`from_jax_params` takes the tree as numpy arrays
 (what ``jax.device_get(params)`` returns) and builds the same tree of
-torch tensors; :func:`to_numpy_params` turns a port tree back into numpy
-arrays, so trained weights compare either way.  A JAX ``Int8Param`` leaf
-(int8 serving: codes and scales) becomes the port's
-:class:`~deepspeed_tpu_torch.inference.quantization.Int8Param`.  Nothing
-here imports JAX.
+torch tensors, through nested dicts and lists; :func:`to_numpy_params`
+turns a port tree back into numpy arrays, so trained weights compare
+either way.  A JAX ``Int8Param`` leaf (int8 serving: codes and scales)
+becomes the port's
+:class:`~deepspeed_tpu_torch.inference.quantization.Int8Param`.  The one
+layout that differs is the diffusion models' convolution weights: HWIO in
+the JAX tree, OIHW (PyTorch's) in the port's, transposed once here by
+:func:`diffusion_from_jax` and :func:`diffusion_to_numpy`.  Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -40,10 +44,10 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def from_jax_params(tree: Mapping[str, Any], device=None,
                     dtype: torch.dtype | None = None) -> dict:
-    """Nested dict of numpy arrays → the same nested dict of tensors on
-    ``device``.  Float arrays (bfloat16 included) become ``dtype`` (fp32
-    when None); integer arrays keep their type; an ``Int8Param`` (duck
-    typed: ``q`` and ``scale``) keeps int8 codes and fp32 scales."""
+    """Nested dicts and lists of numpy arrays → the same tree of tensors
+    on ``device``.  Float arrays (bfloat16 included) become ``dtype``
+    (fp32 when None); integer arrays keep their type; an ``Int8Param``
+    (duck typed: ``q`` and ``scale``) keeps int8 codes and fp32 scales."""
     def leaf(x):
         if hasattr(x, "q") and hasattr(x, "scale"):
             return Int8Param(
@@ -57,14 +61,20 @@ def from_jax_params(tree: Mapping[str, Any], device=None,
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         return t.to(device=device, dtype=dtype or torch.float32)
 
-    return {k: from_jax_params(v, device, dtype) if isinstance(v, Mapping)
-            else leaf(v) for k, v in tree.items()}
+    def node(v):
+        if isinstance(v, Mapping):
+            return {k: node(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)) and not hasattr(v, "q"):
+            return [node(x) for x in v]
+        return leaf(v)
+
+    return node(tree)
 
 
 def to_numpy_params(tree: Mapping[str, Any]) -> dict:
-    """Nested dict of tensors → the same nested dict of numpy arrays
-    (16-bit floats widened to fp32; a list of per-layer tensors stacked on
-    dim 0)."""
+    """Nested dicts of tensors → the same tree of numpy arrays (16-bit
+    floats widened to fp32).  A list of dicts stays a list (the diffusion
+    trees' blocks); a list of per-layer tensors is stacked on dim 0."""
     def leaf(x):
         if isinstance(x, (list, tuple)):
             x = torch.stack(list(x))
@@ -73,13 +83,52 @@ def to_numpy_params(tree: Mapping[str, Any]) -> dict:
             x = x.float()
         return x.numpy()
 
-    return {k: to_numpy_params(v) if isinstance(v, Mapping) else leaf(v)
-            for k, v in tree.items()}
+    def node(v):
+        if isinstance(v, Mapping):
+            return {k: node(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)) and v and isinstance(v[0], Mapping):
+            return [node(x) for x in v]
+        return leaf(v)
+
+    return node(tree)
+
+
+def _map_conv_weights(tree, fn):
+    """``fn`` applied to every 4-D leaf of a diffusion tree (its
+    convolution weights: the linears are 2-D, the rest 1-D)."""
+    if isinstance(tree, Mapping):
+        return {k: _map_conv_weights(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_conv_weights(v, fn) for v in tree]
+    return fn(tree) if tree.ndim == 4 else tree
+
+
+def diffusion_from_jax(tree: Mapping[str, Any], device=None,
+                       dtype: torch.dtype | None = None) -> dict:
+    """A JAX ``unet_init``/``vae_init`` tree (numpy arrays) → the port's
+    tree: :func:`from_jax_params`, then each HWIO convolution weight
+    transposed once to a contiguous OIHW tensor."""
+    return _map_conv_weights(from_jax_params(tree, device, dtype),
+                             lambda w: w.permute(3, 2, 0, 1).contiguous())
+
+
+def diffusion_to_numpy(tree: Mapping[str, Any]) -> dict:
+    """Inverse of :func:`diffusion_from_jax`: the JAX tree's layout (HWIO
+    convolutions) as numpy arrays."""
+    return _map_conv_weights(to_numpy_params(tree),
+                             lambda w: np.ascontiguousarray(
+                                 w.transpose(2, 3, 1, 0)))
 
 
 def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
     """The port's ``GPTConfig`` with the fields of a JAX ``GPTConfig``;
-    ``dtype`` defaults to the JAX config's compute dtype."""
+    ``dtype`` defaults to the JAX config's compute dtype.  A field of the
+    JAX config the port does not have raises rather than being dropped."""
+    bits = getattr(jax_config, "act_quant_bits", None)
+    if bits is not None:
+        raise NotImplementedError(
+            f"GPTConfig.act_quant_bits={bits!r}: activation fake-quant "
+            "(quantize_activation) is not ported yet; only None is")
     fields = {f: getattr(jax_config, f) for f in _CONFIG_FIELDS}
     return gpt.GPTConfig(
         dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),

@@ -22,10 +22,18 @@ from .flash_attention import (flash_attention, flash_attention_backward,
                               mha_reference)
 from .fused_adam import (adam_hyper, fused_adam, fused_adam_kernel,
                          fused_adam_reference, fused_adam_step)
+from .fused_bias_gelu import (bias_gelu_backward_reference,
+                              bias_gelu_bwd, bias_gelu_dropout,
+                              bias_gelu_forward_reference, bias_gelu_fwd,
+                              keep_mask)
 from .fused_lamb import (fused_lamb, fused_lamb_phase1, fused_lamb_phase2,
                          fused_lamb_reference, lamb_hyper)
 from .quantizer import (dequantize, fake_quantize, quantize, quantize_rows,
                         quantizer_kernel)
+from .spatial import (nhwc_bias_add, nhwc_bias_add_add,
+                      nhwc_bias_add_bias_add, nhwc_bias_add_reference,
+                      spatial_add_kernel, spatial_bias_add_kernel,
+                      spatial_kernel)
 
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
@@ -37,7 +45,11 @@ KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
            "fused_lamb_phase1": fused_lamb_phase1,
            "fused_lamb_phase2": fused_lamb_phase2, "quantizer": quantizer_kernel,
            "decode_attn_int8": decode_attn_int8,
-           "chunk_attn_int8": chunk_attn_int8}
+           "chunk_attn_int8": chunk_attn_int8,
+           "nhwc_bias_add": spatial_kernel,
+           "nhwc_bias_add_add": spatial_add_kernel,
+           "nhwc_bias_add_bias_add": spatial_bias_add_kernel,
+           "bias_gelu_fwd": bias_gelu_fwd, "bias_gelu_bwd": bias_gelu_bwd}
 
 
 def launch_counts() -> dict:
@@ -49,7 +61,10 @@ def reset_launch_counts() -> None:
         type(k).launches = 0
 
 
-__all__ = ["KERNELS", "adam_hyper", "block_sparse_attention",
+__all__ = ["KERNELS", "adam_hyper", "bias_gelu_backward_reference",
+           "bias_gelu_bwd", "bias_gelu_dropout",
+           "bias_gelu_forward_reference", "bias_gelu_fwd",
+           "block_sparse_attention",
            "block_sparse_attention_backward",
            "block_sparse_attention_backward_reference",
            "block_sparse_attention_qkv", "block_sparse_attention_reference",
@@ -64,7 +79,10 @@ __all__ = ["KERNELS", "adam_hyper", "block_sparse_attention",
            "flash_fwd", "fused_adam", "fused_adam_kernel",
            "fused_adam_reference", "fused_adam_step", "fused_lamb",
            "fused_lamb_phase1", "fused_lamb_phase2", "fused_lamb_reference",
-           "lamb_hyper", "launch_counts",
-           "make_index_tables", "mha_reference", "quantize", "quantize_kv",
+           "keep_mask", "lamb_hyper", "launch_counts",
+           "make_index_tables", "mha_reference", "nhwc_bias_add",
+           "nhwc_bias_add_add", "nhwc_bias_add_bias_add",
+           "nhwc_bias_add_reference", "quantize", "quantize_kv",
            "quantize_rows", "quantizer_kernel", "reset_launch_counts",
-           "sparse_plan"]
+           "sparse_plan", "spatial_add_kernel", "spatial_bias_add_kernel",
+           "spatial_kernel"]

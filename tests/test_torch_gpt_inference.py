@@ -186,3 +186,26 @@ def test_unported_variants_raise():
         gpt.GPTConfig(parallel_residual=True)
     with pytest.raises(NotImplementedError, match="activation"):
         gpt.GPTConfig(activation="relu")
+
+
+def test_config_from_jax_refuses_act_quant_bits():
+    """A JAX config with activation fake-quant raises rather than
+    converting to a port config that silently serves without it."""
+    import dataclasses
+    jcfg, _ = tiny_configs()
+    with pytest.raises(NotImplementedError, match="act_quant_bits=4"):
+        convert.config_from_jax(dataclasses.replace(jcfg, act_quant_bits=4))
+
+
+def test_config_from_jax_with_act_quant_bits_none_converts(model):
+    """``act_quant_bits=None`` (the default) still converts, and the
+    converted model gives the JAX logits."""
+    import dataclasses
+    jcfg, jp, _, tp = model
+    jcfg = dataclasses.replace(jcfg, act_quant_bits=None)
+    tcfg = convert.config_from_jax(jcfg)
+    toks = _tokens(2, 16, 3)
+    np.testing.assert_allclose(
+        gpt.apply(tp, _t(toks), tcfg).numpy(),
+        np.asarray(jgpt.apply(jp, jnp.asarray(toks), jcfg)),
+        atol=TOL, rtol=TOL)

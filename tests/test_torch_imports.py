@@ -36,8 +36,11 @@ def test_every_module_imports_without_jax():
     # optimizers, timers, the fused-Adam kernel), 4 of block-sparse
     # attention (ops/sparse_attention and its kernel module), 4 of BERT
     # under LAMB (models/bert, ops/lamb and the fused-LAMB kernel module),
-    # 2 of int8 serving (the quantizer kernel module, inference/quantization)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 48
+    # 2 of int8 serving (the quantizer kernel module, inference/quantization),
+    # 10 of diffusion serving (the spatial and bias-GeLU kernel modules,
+    # models/diffusion, inference/diffusion_pipeline, model_implementations
+    # and its diffusers unet/vae, module_inject and its policies)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 58
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -60,6 +63,38 @@ def test_int8_serving_modules_are_importable():
     assert callable(quantize) and callable(quantize_kv)
     assert callable(quantize_params_int8) and Int8Param.__module__ == \
         "deepspeed_tpu_torch.inference.quantization"
+
+
+def test_diffusion_modules_are_importable():
+    from deepspeed_tpu_torch.inference import DiffusionPipeline
+    from deepspeed_tpu_torch.model_implementations.diffusers import (DSUNet,
+                                                                     DSVAE)
+    from deepspeed_tpu_torch.models import diffusion
+    from deepspeed_tpu_torch.module_inject import (GENERIC_POLICIES,
+                                                   UNetPolicy, VAEPolicy)
+    from deepspeed_tpu_torch.ops.kernels import (KERNELS, bias_gelu_dropout,
+                                                 nhwc_bias_add)
+    assert {"nhwc_bias_add", "nhwc_bias_add_add", "nhwc_bias_add_bias_add",
+            "bias_gelu_fwd", "bias_gelu_bwd"} <= set(KERNELS)
+    assert GENERIC_POLICIES == [UNetPolicy, VAEPolicy]
+    assert diffusion.SD15_UNET.block_channels == (320, 640, 1280, 1280)
+    assert callable(DiffusionPipeline) and callable(DSUNet)
+    assert callable(DSVAE) and callable(bias_gelu_dropout)
+    assert callable(nhwc_bias_add)
+
+
+def test_diffusion_entry_without_cuda_raises(monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import diffusion
+    from tests.torch_diffusers_export import export_vae_sd
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = diffusion.VAEConfig(block_channels=(8, 16), groups=4)
+    sd = export_vae_sd(diffusion.vae_init(cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.init_inference(model=sd, groups=4)
+    vae = deepspeed_tpu_torch.init_inference(model=sd, groups=4,
+                                             device="cpu")
+    assert vae.device.type == "cpu"
 
 
 def test_init_inference_without_cuda_raises(monkeypatch):
