@@ -8,13 +8,22 @@ imports JAX.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
+   reports each tensor-core instantiation of ``flash_fwd`` and
+   ``flash_bwd_dkv`` (bf16, fp16; D 32, 64, 128) with its registers and
+   spill stores (``[ptxas]``, failing if bf16 D64 spills) and its count
+   of HGMMA (wgmma) and UTMALDG (TMA load) instructions from
+   ``cuobjdump -sass`` (``[sass]``, failing where either is 0);
 2. holds each kernel against its plain PyTorch version at the shapes its
    slice gives it, in bf16 (plain computed in fp32 from the same inputs),
    and times kernel, plain version, a one-call PyTorch yardstick the port
    never calls (``scaled_dot_product_attention`` with or without a mask,
    its backward, fused ``AdamW``) and the card's bound for the work; the
+   flash forward at B4 S512, B1 S128 and the GPT step's B16 S1024, the
+   backward pair at B16 S1024 and B1 S128 (two ``flash_bwd_dkv`` launches
+   bitwise equal); the
    block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
-   layout, block 64) beside the dense flash trio at the same shape; the
+   layout, block 64) beside the dense flash trio at the same shape, with
+   its bounds and SDPA's causal forward and backward there; the
    two fused-LAMB kernels over BERT-large's 335,902,592 parameters in its
    24 leaf segments (no library call computes LAMB); the flash trio at the
    BERT slice's shape (B64 S128 H16 D64, non-causal, ragged ``kv_lens``)
@@ -24,10 +33,12 @@ imports JAX.  In order it
    bf16 rows' shapes (against the plain version on the dequantized cache,
    SDPA on the bf16 cache as yardstick); then sweeps every dtype and head
    dim the attention kernels take: every cache frontier of a small ragged
-   batch (bf16 and int8 caches), odd, cross-length and no-key causal
-   shapes for the flash forward and backward, every block-sparse block
+   batch (bf16 and int8 caches), odd, cross-length, no-key causal and
+   tile-edge shapes (S 63, 64, 65, 127, 129) for the flash forward and
+   backward, every block-sparse block
    size, causal or not, with an empty row, and five layout kinds, and key
-   lengths 0, 1, a partial tile, a tile edge and S; sweeps the quantizer
+   lengths 0, 1, a partial tile, 63, 64, 65 and S at S 128 and 129;
+   sweeps the quantizer
    over input dtype x bits x mode x group size (bitwise) and checks its
    stochastic rounding in distribution; checks that a skipped Adam or
    LAMB step leaves its state bitwise unchanged; holds the three NHWC
@@ -105,6 +116,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -206,6 +218,73 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the tensor-core kernels' sources and their instantiations that must
+#: run on wgmma (HGMMA) fed by TMA (UTMALDG)
+TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc"}
+TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
+
+
+def _tc_instance(mangled: str):
+    """(kernel, dtype, D) of a mangled tensor-core kernel name, or None."""
+    for kernel in TC_SOURCES.values():
+        m = re.search(kernel + r"I(13__nv_bfloat16|6__half)Li(\d+)E", mangled)
+        if m:
+            return kernel, TC_TYPES[m.group(1).lstrip("0123456789")], int(m.group(2))
+    return None
+
+
+def check_ptxas_tc():
+    """Registers and spill stores of each tensor-core instantiation from
+    the build's ``-Xptxas -v`` report; fails if the bf16 D64 ones spill
+    (D128 may, and is reported)."""
+    rows = {}
+    for src in TC_SOURCES:
+        rep = build.ptxas_reports.get(src, "")
+        for part in re.split(r"Compiling entry function '", rep)[1:]:
+            inst = _tc_instance(part.split("'")[0])
+            if inst is None:
+                continue
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            rows[inst] = (int(regs.group(1)) if regs else -1,
+                          int(spill.group(1)) if spill else 0)
+    for (kernel, dt, D), (regs, spill) in sorted(rows.items()):
+        log(f"[ptxas] {kernel}<{dt}, D{D}>: {regs} registers, spill stores "
+            f"{spill} bytes")
+    for kernel in TC_SOURCES.values():
+        if rows.get((kernel, "bf16", 64), (0, 1))[1] != 0:
+            raise AssertionError(f"{kernel} bf16 D64 spills or was not built")
+    return {f"{k}<{dt},{D}>": {"registers": r, "spill_stores": sp}
+            for (k, dt, D), (r, sp) in rows.items()}
+
+
+def check_sass():
+    """The count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+    each tensor-core instantiation, from ``cuobjdump -sass`` of the built
+    libraries; fails if a bf16 or fp16 one has none of either."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts = {}
+    for src in TC_SOURCES:
+        lib = build.BUILD_DIR / f"{src}.{build._digest(src)}.so"
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        for part in re.split(r"Function : ", sass)[1:]:
+            inst = _tc_instance(part.split()[0])
+            if inst is not None:
+                counts[inst] = (len(re.findall(r"\bHGMMA\.", part)),
+                                len(re.findall(r"\bUTMALDG\.", part)))
+    for (kernel, dt, D), (hg, tma) in sorted(counts.items()):
+        log(f"[sass] {kernel}<{dt}, D{D}>: HGMMA {hg}, UTMALDG {tma}")
+    want = [(k, dt, D) for k in TC_SOURCES.values() for dt in TC_TYPES.values()
+            for D in HEAD_DIMS]
+    bad = [w for w in want if min(counts.get(w, (0, 0))) == 0]
+    if bad:
+        raise AssertionError(f"no wgmma or no TMA in {bad}")
+    return {f"{k}<{dt},{D}>": {"HGMMA": hg, "UTMALDG": tma}
+            for (k, dt, D), (hg, tma) in counts.items()}
 
 
 def time_ms(fn, n: int, warmup: int = 2) -> float:
@@ -337,10 +416,17 @@ def check_flash_bwd(B, S, H=16, D=64):
     q, k, v, do, o, lse, delta = sets[0]
     dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
     dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    dk2, dv2 = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
     ref = flash_attention_backward_reference(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(), True,
         scale)
     ACCEL.synchronize()
+    repeat = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+    log(f"[flash_bwd_dkv repeat] B{B} S{S}: two launches give bitwise equal "
+        f"dk and dv {repeat}")
+    if not repeat:
+        raise AssertionError("flash_bwd_dkv: two launches differ")
+    del dk2, dv2
     errs = [(a.float() - r).abs().max().item() for a, r in zip((dq, dk, dv), ref)]
     tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
 
@@ -874,14 +960,13 @@ def check_flash_kv_lens(B=64, S=128, H=16, D=64):
                     4 * elem + 2 * live_kv + 2 * stat_bytes, 8 * D * pairs)]
 
 
-def check_kv_lens_sweep(B=5, S=128, H=2):
+def check_kv_lens_sweep(H=2):
     """Every dtype and head dim the flash trio is built for, with lengths
-    0 (clamped to 1), 1, a partial tile, a tile edge and S, causal or
-    not: forward and backward within the sweep's relative tolerance, lse
-    within 1e-3, and the dk and dv of padding keys exactly 0."""
+    0 (clamped to 1), 1, a partial tile, both sides of and on a 64-key
+    tile edge and S, causal or not, at S 128 and 129: forward and backward
+    within the sweep's relative tolerance, lse within 1e-3, and the dk and
+    dv of padding keys exactly 0."""
     gen = torch.Generator(device="cuda").manual_seed(17)
-    lens = torch.tensor([0, 1, 37, 64, S], dtype=torch.int32, device="cuda")
-    pad = torch.arange(S, device="cuda")[None, :] >= lens.clamp(min=1)[:, None]
     worst = {}
     for dt, tol in SWEEP_TOL.items():
         for D in HEAD_DIMS:
@@ -889,7 +974,13 @@ def check_kv_lens_sweep(B=5, S=128, H=2):
                                              device="cuda").to(dt)
             scale = 1.0 / math.sqrt(D)
             err, lse_err = 0.0, 0.0
-            for causal in (False, True):
+            for S, causal in ((128, False), (128, True), (129, False),
+                              (129, True)):
+                lens = torch.tensor([0, 1, 37, 63, 64, 65, S],
+                                    dtype=torch.int32, device="cuda")
+                B = len(lens)
+                pad = (torch.arange(S, device="cuda")[None, :]
+                       >= lens.clamp(min=1)[:, None])
                 q, k, v, do = (rnd(B, S, H, D) for _ in range(4))
                 o, lse = kernels.flash_fwd(q, k, v, causal, scale, lens)
                 _, delta = aligned_do_and_delta(do, o)
@@ -913,7 +1004,8 @@ def check_kv_lens_sweep(B=5, S=128, H=2):
                 lse_err = max(lse_err, (lse - lse32).abs().max().item())
             worst[f"{str(dt)[6:]} D{D}"] = err
             log(f"[kv_lens sweep] {str(dt)[6:]} D{D}: lens "
-                f"{lens.tolist()} of S{S}, causal and not: worst relative "
+                f"{lens.tolist()[:-1]} and S of S 128 and 129, causal and "
+                f"not: worst relative "
                 f"err {err:.3e} (tol {tol:.0e}), lse err {lse_err:.2e} (tol "
                 f"1e-3), padding keys' dk and dv zero")
             if not (err <= tol and lse_err <= 1e-3):
@@ -980,9 +1072,9 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
             log(f"[sweep] {str(dt)[6:]} D{D}: pos 0..{S - Sq - 1} ragged, "
                 f"worst relative err {err.item():.3e}, int8 cache "
                 f"{err8.item():.3e} (tol {tol:.0e}), "
-                f"flash lse err {lse_err:.2e} (tol 1e-3); flash backward "
-                f"{BWD_SWEEP} worst relative err {bwd_err:.3e} (tol "
-                f"{tol:.0e}), no-key rows zero")
+                f"flash lse err {lse_err:.2e} (tol 1e-3); flash forward and "
+                f"backward {BWD_SWEEP} worst relative err {bwd_err:.3e} (tol "
+                f"{tol:.0e}), lse within 1e-3, no-key rows zero")
             if not (err.item() <= tol and err8.item() <= tol
                     and lse_err <= 1e-3 and bwd_err <= tol):
                 raise AssertionError(f"sweep {dt} D{D}: err {err.item()} "
@@ -992,19 +1084,32 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
 
 
 #: (Sq, Sk, causal) of the backward sweep: odd, cross-length, Sq > Sk
-#: (rows with no visible key), full
+#: (rows with no visible key), full; then the edges of the tensor-core
+#: kernels' tiles (64 keys, 128 queries in the forward; 128 keys, 64 or
+#: 32 queries in flash_bwd_dkv), and Sq > Sk by more than a tile
 BWD_SWEEP = ((77, 77, True), (40, 100, True), (100, 40, True),
-             (77, 77, False))
+             (77, 77, False), (63, 63, True), (64, 64, False),
+             (65, 65, True), (127, 127, True), (129, 129, False),
+             (129, 129, True), (65, 129, True), (129, 63, True))
 
 
 def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
-    """Worst relative error of dq, dk, dv against the fp32 plain backward;
-    raises on a non-finite gradient or a non-zero gradient of a row that
-    sees no key."""
+    """Worst relative error of O, dq, dk, dv against the fp32 plain
+    forward and backward; raises on an lse off by more than 1e-3, a
+    non-finite gradient or a non-zero gradient of a row that sees no
+    key."""
     q, do = rnd(B, Sq, H, D), rnd(B, Sq, H, D)
     k, v = rnd(B, Sk, H, D), rnd(B, Sk, H, D)
     scale = 1.0 / math.sqrt(D)
     o, lse = kernels.flash_fwd(q, k, v, causal, scale)
+    o32, lse32 = flash_attention_reference(q.float(), k.float(), v.float(),
+                                           causal, scale)
+    fin = torch.isfinite(lse32)
+    if not (torch.equal(torch.isfinite(lse), fin) and
+            (lse[fin] - lse32[fin]).abs().max().item() <= 1e-3):
+        raise AssertionError(f"flash_fwd Sq{Sq} Sk{Sk} D{D}: lse off")
+    fwd_err = ((o.float() - o32).abs().max()
+               / o32.abs().max().clamp(min=1.0)).item()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
@@ -1015,8 +1120,9 @@ def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
         raise AssertionError(f"flash backward Sq{Sq} Sk{Sk} D{D}: non-finite")
     if causal and Sq > Sk and dq[:, :Sq - Sk].any():
         raise AssertionError("flash backward: a row with no key has dq != 0")
-    return max(((a.float() - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
-               for a, r in zip((dq, dk, dv), ref))
+    return max(fwd_err, *(((a.float() - r).abs().max()
+                           / r.abs().max().clamp(min=1.0)).item()
+                          for a, r in zip((dq, dk, dv), ref)))
 
 
 # ------------------------------------------------------- block-sparse
@@ -1129,13 +1235,31 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
     pairs = B * plan.live_pairs
     elem = B * S * H * D * 2                          # one bf16 [B, S, H, D]
     stat_bytes = B * H * S * 4
+    # the dense trio's yardsticks and bounds (operations: 4, 6, 8 D FLOPs
+    # per causal pair) at the same shape
+    dense_pairs = B * H * S * (S + 1) // 2
+    dense["sdpa_fwd"] = time_ms(lambda i: sdpa(
+        *(t.transpose(1, 2) for t in sets[i % n][:3]), is_causal=True), 5)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, is_causal=True)
+    dense["sdpa_bwd"] = eager_ms(lambda: torch.autograd.grad(
+        out, leaves, do.transpose(1, 2), retain_graph=True), 5)
+    del out, leaves
+    for name, per_pair in (("flash_fwd", 4), ("flash_bwd_dq", 6),
+                           ("flash_bwd_dkv", 8)):
+        dense[f"{name}_bound_ms"] = per_pair * D * dense_pairs / BF16_FLOPS * 1e3
     shape = (f"B{B} S{S} H{H} D{D} bf16 causal, Fixed block {cfg.block} "
              f"({plan.live_blocks} live blocks, {plan.live_pairs} pairs per "
              f"row)")
     log(f"[block-sparse] {shape}: lse err {lse_err:.2e} (tol 1e-3); dense "
         f"causal flash at the same shape: flash_fwd {dense['flash_fwd']:.4f} "
-        f"ms, flash_bwd_dq {dense['flash_bwd_dq']:.4f} ms, flash_bwd_dkv "
-        f"{dense['flash_bwd_dkv']:.4f} ms ({B * H * S * (S + 1) // 2} pairs)")
+        f"ms (bound {dense['flash_fwd_bound_ms']:.4f}), flash_bwd_dq "
+        f"{dense['flash_bwd_dq']:.4f} ms (bound "
+        f"{dense['flash_bwd_dq_bound_ms']:.4f}), flash_bwd_dkv "
+        f"{dense['flash_bwd_dkv']:.4f} ms (bound "
+        f"{dense['flash_bwd_dkv_bound_ms']:.4f}), all bound by operations; "
+        f"SDPA causal forward {dense['sdpa_fwd']:.4f} ms, its backward "
+        f"{dense['sdpa_bwd']:.4f} ms ({dense_pairs} pairs)")
     rows = [_report("block_sparse_fwd", shape, fwd_err, fwd_tol, ms_fwd,
                     plain_fwd, lib_fwd, 4 * elem + stat_bytes, 4 * D * pairs),
             _report("block_sparse_bwd_dq", shape, errs[0], tols[0], ms_dq,
@@ -1459,6 +1583,10 @@ def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
     return {"rel_l2_err": rel, "argmax_agreement": agree}, out
 
 
+#: the flash trio's kernels, by a substring of their names in a profile
+FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_kernel")
+
+
 def device_profile(label, run, shares=()):
     """``run()`` under ``torch.profiler``: kernel time on the card, by
     kernel, against the host's wall time of the same run (profiler
@@ -1482,12 +1610,12 @@ def device_profile(label, run, shares=()):
            "device_busy_share": device_ms / wall_ms,
            "top_kernels_ms": [[k[:80], v] for k, v in top]}
     for sub in shares:
-        res[f"share_{sub}"] = sum(ms for k, ms in by_kernel.items()
-                                  if sub in k) / device_ms
+        res[f"ms_{sub}"] = sum(ms for k, ms in by_kernel.items() if sub in k)
+        res[f"share_{sub}"] = res[f"ms_{sub}"] / device_ms
     log(f"[profile] {label}: wall {wall_ms:.1f} ms, kernel time on the card "
         f"{device_ms:.1f} ms (busy share {res['device_busy_share']:.3f})"
-        + "".join(f", {sub} share {res[f'share_{sub}']:.4f}"
-                  for sub in shares))
+        + "".join(f", {sub} {res[f'ms_{sub}']:.3f} ms (share "
+                  f"{res[f'share_{sub}']:.4f})" for sub in shares))
     for name, ms in res["top_kernels_ms"]:
         log(f"[profile]   {ms:8.3f} ms  {name}")
     return res
@@ -2450,8 +2578,11 @@ def main() -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
             f"{spills} bytes")
     result["build_s"] = t_build
+    result["ptxas_tensor_core"] = check_ptxas_tc()
+    result["sass_tensor_core"] = check_sass()
 
-    checks = [check_flash(4, 512), check_flash(1, 128), check_decode(),
+    checks = [check_flash(4, 512), check_flash(1, 128), check_flash(16, 1024),
+              check_decode(),
               check_chunk(128), check_chunk(640),
               *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
               check_fused_adam(), *check_block_sparse(), *check_fused_lamb(),
@@ -2513,7 +2644,7 @@ def main() -> int:
     counts = {k: counts[k] + train_counts[k] for k in counts}
     result["training_profile"] = device_profile(
         "train 2 steps", lambda: [trainer.train_batch_fused(batch)
-                                  for _ in range(2)])
+                                  for _ in range(2)], FLASH_KERNELS)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2533,7 +2664,7 @@ def main() -> int:
     counts = {k: counts[k] + bert_counts[k] for k in counts}
     result["bert_training_profile"] = device_profile(
         "bert train 2 steps", lambda: [trainer.train_batch_fused(batch)
-                                       for _ in range(2)])
+                                       for _ in range(2)], FLASH_KERNELS)
     del trainer
     torch.cuda.empty_cache()
 

@@ -1,8 +1,10 @@
 // Shared half of the flash-attention backward kernels (flash_bwd_dq.cu,
-// flash_bwd_dkv.cu): the argument block, the 16-byte tile loader and the
-// dtype x head-dim dispatch.
+// flash_bwd_dkv.cu): the argument block, and the 16-byte tile loader and
+// the dtype x head-dim dispatch of the FMA kernels (flash_bwd_dq in every
+// dtype, flash_bwd_dkv in fp32; flash_bwd_dkv in bf16 and fp16 runs
+// flash_bwd_dkv_tc on wgmma and TMA).
 //
-// Both kernels recompute the probabilities from the forward's fp32
+// The kernels recompute the probabilities from the forward's fp32
 // logsumexp, p = exp(s * scale - lse) with s = q.k in fp32, and use the
 // JAX package's rounding (flash_attention.py:359-367, :283-287): p rounded
 // to the input dtype T before dV += p^T.dO, and
@@ -16,7 +18,7 @@
 // k-tiles wholly past that length are never loaded, and the dK and dV of
 // padding keys are exactly 0.
 //
-// Neither kernel uses atomics: each output element is written by exactly
+// No kernel uses atomics: each output element is written by exactly
 // one CTA, so one step's gradients are bitwise repeatable on the card.
 #pragma once
 

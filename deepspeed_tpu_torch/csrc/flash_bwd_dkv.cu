@@ -6,30 +6,43 @@
 // see each key, with p and dS recomputed from the saved lse and delta
 // (flash_bwd.cuh).  dQ comes from flash_bwd_dq's separate sweep.
 //
-// One CTA of 128 threads owns a (b, h, k-tile) and walks the q-tiles from
-// the first one at or below the causal frontier (end-aligned: query i sees
-// key j iff j <= i + Sk - Sq) to the end.  A key row is held by TPR = D/16
-// neighbouring lanes, each owning four float4 chunks of k, v and of the
-// fp32 dK and dV accumulators, which are written once at the end.  Each
-// q-tile of Q, dO, lse and delta is loaded from device memory once,
-// widened to fp32 in shared memory (32 KB or less, static) and reused by
-// all BK key rows; a warp's reads of one query row broadcast to every key
-// row of the warp.  Per visible pair the kernel does 4*D FMAs (s = k.q,
-// dP = v.dO, dV += p*dO, dK += dS*q); the loops over queries are
-// CTA-uniform, so the full-mask shuffles never diverge.
-//
 // Bound on the H100: 8*D FLOPs per visible pair against the bytes of q,
 // k, v, dO, lse and delta read once and dK, dV written once; at the
 // training slice's shape (B 16, S 1024, H 16, D 64, causal) that is about
 // 340 FLOPs per byte, above the card's 295 bf16 FLOPs per byte, so the
-// least time is the operations over 989 TFLOP/s.  This first version
-// multiplies on fp32 FMAs, not tensor cores, and is bound by their issue
-// rate, far above that.
+// least time is the operations over 989 TFLOP/s.
+//
+// bf16 and fp16 (flash_bwd_dkv_tc): the Hopper design.  One CTA owns a
+// (b, h, 128-key) tile: two consumer warpgroups of 64 keys and a producer
+// warp.  K and V are loaded once with TMA; the q-tiles of Q and dO (64
+// rows, 32 at D 128) stream through a ring of shared-memory stages guarded
+// by full and empty mbarriers, from the first q-tile at or below the
+// causal frontier to the end.  The producer warp's lanes copy each
+// q-tile's lse (times log2 e) and delta into its stage, loaded one tile
+// ahead so their latency hides behind the wait for a free stage.  Per q-tile each
+// consumer computes, with keys as the 64 M rows (JAX :352-368 transposed):
+//   S^T = K.Q^T and dP^T = V.dO^T     (wgmma, both operands K-major)
+//   P^T = exp(S^T * scale - lse)      (a select, never -inf arithmetic:
+//                                      rows with no key have lse = -inf)
+//   dV += round_T(P^T).dO             (wgmma, A from registers, dO MN-major)
+//   dS^T = round_T(P^T (dP^T - delta) scale), from the unrounded P^T
+//   dK += dS^T.Q                      (wgmma, A from registers, Q MN-major)
+// with fp32 accumulators; only q-tiles that cross the causal, key-length
+// or Sq edge are masked.  Key tiles wholly past the key length write zeros
+// and load nothing.  No atomics: one CTA writes each dK and dV element
+// once, so the gradients are bitwise repeatable.  Low key tiles see the
+// most queries under causal masking and are scheduled first (the key-tile
+// index is the grid's slowest dimension).
+//
+// fp32 keeps the FMA kernel below (flash_dkv_fma): a CTA of 128 threads
+// per (b, h, k-tile), a key row on TPR = D/16 lanes, each q-tile widened
+// to fp32 in shared memory and reused by all key rows.
 #include "flash_bwd.cuh"
+#include "hopper.cuh"
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
-flash_bwd_dkv_kernel(const BwdArgs a) {
+flash_dkv_fma(const BwdArgs a) {
     constexpr int TPR = D / 16;                   // lanes per key row
     constexpr int BK = DS_BWD_THREADS / TPR;      // key rows per CTA
     constexpr int BQ = D <= 64 ? 64 : 32;         // query rows per q-tile
@@ -126,9 +139,262 @@ template <typename T, int D>
 static cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
     constexpr int BK = DS_BWD_THREADS / (D / 16);
     const dim3 grid((a.Sk + BK - 1) / BK, a.H, a.B);
-    flash_bwd_dkv_kernel<T, D><<<grid, DS_BWD_THREADS, 0, stream>>>(a);
+    flash_dkv_fma<T, D><<<grid, DS_BWD_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
 }
+
+namespace {
+
+constexpr int DKV_BK = 128;        // keys per CTA: two warpgroups of 64
+constexpr int DKV_THREADS = 288;   // two consumer warpgroups and the producer warp
+
+struct DkvParams {
+    CUtensorMap k, v;              // rows of 128 per box
+    CUtensorMap q, dout;           // rows of BQ per box
+    const float* lse; const float* delta;   // [B, H, Sq]
+    void* dk; void* dv;
+    const int* kv_lens;
+    int Sq, Sk, H;
+    long long dk_sb, dk_ss, dk_sh;
+    long long dv_sb, dv_ss, dv_sh;
+    float scale;
+    int causal;
+};
+
+template <int D>
+struct DkvCfg {
+    static constexpr int HALVES = D > 64 ? D / 64 : 1;     // TMA boxes per row
+    static constexpr int COLS = D < 64 ? D : 64;            // columns per box
+    static constexpr int ROWB = 2 * COLS;                   // bytes per box row
+    static constexpr int BQ = D > 64 ? 32 : 64;             // queries per q-tile
+    static constexpr int STAGES = D > 64 ? 2 : 3;
+    static constexpr int K_BYTES = HALVES * DKV_BK * ROWB;  // one of K, V
+    static constexpr int T_BYTES = HALVES * BQ * ROWB;      // one of Q, dO
+    static constexpr int TILE_OFF = 2 * K_BYTES;            // stage s: Q, then dO
+    static constexpr int STAT_OFF = TILE_OFF + STAGES * 2 * T_BYTES;   // stage s: lse, then delta
+    static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BQ * 4;
+    static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;   // + alignment slack
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tc(const __grid_constant__ DkvParams p) {
+    using C = DkvCfg<D>;
+    constexpr int BQ = C::BQ;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+    uint64_t* full = kv_bar + 1;
+    uint64_t* empty = full + C::STAGES;
+
+    const int h = blockIdx.x;
+    const int b = blockIdx.y;
+    const int k0 = blockIdx.z * DKV_BK;
+    const int klim = p.kv_lens != nullptr ? min(p.Sk, max(1, p.kv_lens[b])) : p.Sk;
+    T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
+    T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
+    if (k0 >= klim) {
+        // padding keys only: dK = dV = 0, nothing loaded
+        const int rows = min(DKV_BK, p.Sk - k0);
+        for (int id = threadIdx.x; id < rows * D; id += DKV_THREADS) {
+            const long long r = k0 + id / D;
+            dkp[r * p.dk_ss + id % D] = from_float<T>(0.f);
+            dvp[r * p.dv_ss + id % D] = from_float<T>(0.f);
+        }
+        return;
+    }
+    const int off = p.Sk - p.Sq;
+    // the first query that sees any key of this tile is k0 - off
+    const int qstart = ((p.causal ? max(0, k0 - off) : 0) / BQ) * BQ;
+    const int nq = qstart < p.Sq ? (p.Sq - qstart + BQ - 1) / BQ : 0;
+
+    if (threadIdx.x == 0) {
+        hopper::mbar_init(kv_bar, 1);
+        for (int s = 0; s < C::STAGES; ++s) {
+            hopper::mbar_init(&full[s], 32);      // the producer warp's lanes
+            hopper::mbar_init(&empty[s], 8);      // one arrival per consumer warp
+        }
+        hopper::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == 2) {
+        // producer warp: lane 0 issues the TMA loads, every lane copies
+        // lse and delta of the q-tile (zeros past Sq) and arrives
+        const int lane = threadIdx.x - 256;
+        if (nq == 0) return;
+        if (lane == 0) {
+            hopper::mbar_expect_tx(kv_bar, 2 * C::K_BYTES);
+            for (int hf = 0; hf < C::HALVES; ++hf) {
+                hopper::tma_load_4d(smem + hf * DKV_BK * C::ROWB, &p.k, kv_bar, hf * 64, h, k0, b);
+                hopper::tma_load_4d(smem + C::K_BYTES + hf * DKV_BK * C::ROWB, &p.v, kv_bar, hf * 64, h, k0, b);
+            }
+        }
+        // lse (times log2 e, as the consumers' exponentials take it) and
+        // delta of q-tile i, fetched one tile ahead so the loads' latency
+        // hides behind the wait for a free stage
+        constexpr int PER_LANE = BQ / 32;
+        const long long stat0 = ((long long)b * p.H + h) * p.Sq;
+        float lse_r[PER_LANE], delta_r[PER_LANE];
+        auto fetch = [&](int q0) {
+#pragma unroll
+            for (int j = 0; j < PER_LANE; ++j) {
+                const int q = q0 + lane + 32 * j;
+                const bool ok = q < p.Sq;
+                lse_r[j] = ok ? p.lse[stat0 + q] * hopper::LOG2E : 0.f;
+                delta_r[j] = ok ? p.delta[stat0 + q] : 0.f;
+            }
+        };
+        fetch(qstart);
+        for (int i = 0; i < nq; ++i) {
+            const int s = i % C::STAGES;
+            const int q0 = qstart + i * BQ;
+            hopper::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+            float* st = reinterpret_cast<float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
+#pragma unroll
+            for (int j = 0; j < PER_LANE; ++j) {
+                st[lane + 32 * j] = lse_r[j];
+                st[BQ + lane + 32 * j] = delta_r[j];
+            }
+            if (lane == 0) {
+                // the arrival that completes the phase carries the bytes
+                hopper::mbar_expect_tx(&full[s], 2 * C::T_BYTES);
+                uint8_t* qs = smem + C::TILE_OFF + s * 2 * C::T_BYTES;
+                for (int hf = 0; hf < C::HALVES; ++hf) {
+                    hopper::tma_load_4d(qs + hf * BQ * C::ROWB, &p.q, &full[s], hf * 64, h, q0, b);
+                    hopper::tma_load_4d(qs + C::T_BYTES + hf * BQ * C::ROWB, &p.dout, &full[s], hf * 64, h, q0, b);
+                }
+            } else {
+                hopper::mbar_arrive(&full[s]);
+            }
+            if (i + 1 < nq) fetch(q0 + BQ);
+        }
+        return;
+    }
+
+    // consumer warpgroup wg: keys kw .. kw + 63
+    const int t = threadIdx.x % 128;
+    const hopper::Frag fr(t);
+    const int kw = k0 + 64 * wg;
+    const int kj[2] = {kw + fr.row, kw + fr.row + 8};
+    float dk[C::HALVES][C::COLS / 2], dv[C::HALVES][C::COLS / 2];
+#pragma unroll
+    for (int hf = 0; hf < C::HALVES; ++hf)
+#pragma unroll
+        for (int e = 0; e < C::COLS / 2; ++e) { dk[hf][e] = 0.f; dv[hf][e] = 0.f; }
+    const uint32_t k_addr = hopper::smem_u32(smem) + 64 * wg * C::ROWB;
+    const uint32_t v_addr = k_addr + C::K_BYTES;
+    const float scale2 = p.scale * hopper::LOG2E;
+    float st[BQ / 2], dpt[BQ / 2];                // S^T, dP^T, then P^T, dS^T of one q-tile
+
+    if (nq > 0) hopper::mbar_wait(kv_bar, 0);
+    for (int i = 0; i < nq; ++i) {
+        const int s = i % C::STAGES;
+        const int q0 = qstart + i * BQ;
+        hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
+        const uint32_t q_addr = hopper::smem_u32(smem + C::TILE_OFF + s * 2 * C::T_BYTES);
+        const uint32_t do_addr = q_addr + C::T_BYTES;
+        const float* lse_s = reinterpret_cast<const float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
+        const float* delta_s = lse_s + BQ;
+
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            hopper::mma_ss<T, BQ>(st, hopper::tile_desc<C::ROWB>(k_addr + hopper::kstep<DKV_BK, C::ROWB>(kk)),
+                                  hopper::tile_desc<C::ROWB>(q_addr + hopper::kstep<BQ, C::ROWB>(kk)), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            hopper::mma_ss<T, BQ>(dpt, hopper::tile_desc<C::ROWB>(v_addr + hopper::kstep<DKV_BK, C::ROWB>(kk)),
+                                  hopper::tile_desc<C::ROWB>(do_addr + hopper::kstep<BQ, C::ROWB>(kk)), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait0();
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+
+        const bool crosses = (p.causal && kw + 63 > q0 + off) || kw + 64 > klim || q0 + BQ > p.Sq;
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) {
+            const int c = 8 * (e / 4) + fr.col + (e & 1);     // query q0 + c
+            float pe = hopper::ex2(fmaf(st[e], scale2, -lse_s[c]));
+            if (crosses) {
+                // a select, never -inf arithmetic: rows with no key have
+                // lse = -inf, and their pe is inf here
+                const int key = kj[(e >> 1) & 1];
+                const int qi = q0 + c;
+                const bool vis = key < klim && qi < p.Sq && (!p.causal || key <= qi + off);
+                pe = vis ? pe : 0.f;
+            }
+            st[e] = pe;
+            dpt[e] = pe * (dpt[e] - delta_s[c]) * p.scale;
+        }
+        uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+        hopper::to_operand<T, BQ>(st, pa);       // round_T(P^T)
+        hopper::to_operand<T, BQ>(dpt, dsa);     // round_T(dS^T), from the unrounded P^T
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf) {
+            hopper::fence_regs(dv[hf]);
+            hopper::fence_regs(dk[hf]);
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf)
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)
+                hopper::mma_rs<T, C::COLS>(dv[hf], pa[kk],
+                                           hopper::tile_desc<C::ROWB>(do_addr + hf * BQ * C::ROWB + kk * 16 * C::ROWB));
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf)
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)
+                hopper::mma_rs<T, C::COLS>(dk[hf], dsa[kk],
+                                           hopper::tile_desc<C::ROWB>(q_addr + hf * BQ * C::ROWB + kk * 16 * C::ROWB));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait0();
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf) {
+            hopper::fence_regs(dv[hf]);
+            hopper::fence_regs(dk[hf]);
+        }
+        if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int hf = 0; hf < C::HALVES; ++hf) {
+        hopper::store_frag<T, C::COLS>(dk[hf], dkp, p.dk_ss, kw, hf * 64, p.Sk, 1.f, 1.f, fr);
+        hopper::store_frag<T, C::COLS>(dv[hf], dvp, p.dv_ss, kw, hf * 64, p.Sk, 1.f, 1.f, fr);
+    }
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
+    using C = DkvCfg<D>;
+    DkvParams p{};
+    cudaError_t err = hopper::map_rows(&p.k, a.k, dtype, a.B, a.Sk, a.H, D, a.k_sb, a.k_ss, a.k_sh, DKV_BK);
+    if (err == cudaSuccess) err = hopper::map_rows(&p.v, a.v, dtype, a.B, a.Sk, a.H, D, a.v_sb, a.v_ss, a.v_sh, DKV_BK);
+    // with no queries nothing but K and V would be loaded, and not even
+    // those: every key tile writes zeros
+    if (a.Sq > 0) {
+        if (err == cudaSuccess)
+            err = hopper::map_rows(&p.q, a.q, dtype, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh, C::BQ);
+        if (err == cudaSuccess)
+            err = hopper::map_rows(&p.dout, a.dout, dtype, a.B, a.Sq, a.H, D, a.do_sb, a.do_ss, a.do_sh, C::BQ);
+    }
+    if (err != cudaSuccess) return err;
+    p.lse = a.lse; p.delta = a.delta;
+    p.dk = a.dk; p.dv = a.dv; p.kv_lens = a.kv_lens;
+    p.Sq = a.Sq; p.Sk = a.Sk; p.H = a.H;
+    p.dk_sb = a.dk_sb; p.dk_ss = a.dk_ss; p.dk_sh = a.dk_sh;
+    p.dv_sb = a.dv_sb; p.dv_ss = a.dv_ss; p.dv_sh = a.dv_sh;
+    p.scale = a.scale; p.causal = a.causal;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(flash_bwd_dkv_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid(a.H, a.B, (a.Sk + DKV_BK - 1) / DKV_BK);
+    flash_bwd_dkv_tc<T, D><<<grid, DKV_THREADS, C::SMEM, stream>>>(p);
+    return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, const int* kv_lens,
@@ -145,5 +411,18 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
               0, 0, 0, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal, kv_lens};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    DS_BWD_DISPATCH(launch_dkv)
+#define DS_DKV_D(T, LAUNCH, ...)                                        \
+    switch (D) {                                                         \
+        case 32: return static_cast<int>(LAUNCH<T, 32>(a, ##__VA_ARGS__, stream));   \
+        case 64: return static_cast<int>(LAUNCH<T, 64>(a, ##__VA_ARGS__, stream));   \
+        case 128: return static_cast<int>(LAUNCH<T, 128>(a, ##__VA_ARGS__, stream)); \
+        default: return static_cast<int>(cudaErrorInvalidValue);        \
+    }
+    switch (dtype) {
+        case kF32: DS_DKV_D(float, launch_dkv)
+        case kF16: DS_DKV_D(__half, launch_dkv_tc, dtype)
+        case kBF16: DS_DKV_D(__nv_bfloat16, launch_dkv_tc, dtype)
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef DS_DKV_D
 }

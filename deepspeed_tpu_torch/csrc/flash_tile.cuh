@@ -1,5 +1,7 @@
-// The q-tile attention loop shared by flash_fwd (prefill) and chunk_attn
-// (chunked prefill / extend over the padded KV cache).
+// The q-tile attention loop of chunk_attn (chunked prefill / extend over
+// the padded KV cache, bf16, fp16 or int8 cache) and of flash_fwd's fp32
+// instantiation.  flash_fwd in bf16 and fp16 runs flash_fwd_tc
+// (flash_fwd.cu, on wgmma and TMA) instead.
 //
 // One CTA of 128 threads owns a (b, h, q-tile).  A query row is held by
 // TPR = D/16 neighbouring lanes, each owning four float4 chunks of the
@@ -19,10 +21,10 @@
 // code * scale in fp32 (JAX _chunk_kernel's order, decode_attention.py
 // :258-260) on their way into shared memory, and nothing after it changes.
 //
-// This first version multiplies with fp32 FMAs, not tensor cores: it is
-// bound by the FMA issue rate, well above the card's least time for the
-// same work (the bytes over 3.35 TB/s at the slice's shapes).  mma/wgmma
-// and TMA are later work.
+// It multiplies with fp32 FMAs, not tensor cores: it is bound by the FMA
+// issue rate, well above the card's least time for the same work (the
+// bytes over 3.35 TB/s at the slice's shapes).  Moving chunk_attn onto the
+// Hopper building blocks of hopper.cuh is later work.
 #pragma once
 
 #include "common.cuh"

@@ -1,0 +1,330 @@
+// Hopper building blocks of the tensor-core attention kernels
+// (flash_fwd.cu, flash_bwd_dkv.cu): TMA tensor maps and loads, mbarriers,
+// and warpgroup matrix products (wgmma) on shared-memory tiles.
+//
+// Tiles.  A [rows, D] head slice of a 16-bit [B, S, H, D] tensor comes
+// into shared memory through one TMA box per 64 columns (one box of 32
+// columns at D 32): rows of 128 bytes under the 128-byte swizzle (64 bytes
+// under the 64-byte swizzle at D 32), each box at a 1024-byte aligned
+// base.  wgmma reads such a tile in two ways:
+//   K-major: the tile's rows are the M or N rows of the product and D is
+//     its depth (S = Q.K^T: both operands);
+//   MN-major (transposed B): the tile's rows are the depth and D the N
+//     columns (O += P.V: V, dK += dS^T.Q: Q).
+// Both swizzles group 8 rows into one 1024- (512-) byte atom; the
+// descriptor's two strides both hold that atom's size, which is the step
+// between 8-row groups in either use, and neither operand spans more than
+// one swizzle width in the other direction (products at N <= 64).
+//
+// Only the sources that include this header pay for <cuda.h>.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace hopper {
+
+// ------------------------------------------------------------ host side
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library links nothing beyond cudart
+static EncodeTiledFn encode_fn() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                             &q) == cudaSuccess &&
+            q == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A 4-D map over a strided 16-bit [B, S, H, D] tensor (strides in
+// elements), dims innermost first (D, H, S, B), box (min(D, 64), 1, rows,
+// 1): one [rows, 64] (or [rows, 32]) tile of one (b, h) head slice per
+// load.  Rows past S are zero-filled.  A dim of extent 1 gets a stride of
+// its own that TMA accepts, whatever the tensor's stride there.
+static cudaError_t map_rows(CUtensorMap* map, const void* base, int dtype, int B, int S, int H,
+                            int D, long long sb, long long ss, long long sh, int rows) {
+    EncodeTiledFn fn = encode_fn();
+    if (fn == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t esz = 2;
+    cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+    long long st[3] = {sh, ss, sb};
+    cuuint64_t strides[3];
+    cuuint64_t span = (cuuint64_t)D * esz;      // bytes one index of the dim covers at least
+    for (int i = 0; i < 3; ++i) {
+        strides[i] = dims[i + 1] == 1 ? ((span + 15) / 16) * 16 : (cuuint64_t)st[i] * esz;
+        span = strides[i] * dims[i + 1];
+    }
+    cuuint32_t box[4] = {(cuuint32_t)(D < 64 ? D : 64), 1, (cuuint32_t)rows, 1};
+    cuuint32_t estride[4] = {1, 1, 1, 1};
+    const CUresult r = fn(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                          4, const_cast<void*>(base), dims, strides, box, estride,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------- device side
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+// make the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t addr, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    return done;
+}
+
+// Wait until the phase of parity `parity` has completed.  A wait that
+// outlasts ~2^32 cycles (seconds) can only be a fault of the kernel's
+// barrier bookkeeping: it traps, so the launch fails with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    if (mbar_try_wait(addr, parity)) return;
+    const long long start = clock64();
+    while (!mbar_try_wait(addr, parity))
+        if (clock64() - start > (1ll << 32)) __trap();
+}
+
+// ---- TMA loads (completion counted in bytes on `bar`)
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// ---- wgmma
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x (the exponentials of the softmax, as exp(y) = 2^(y log2 e))
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// byte offset of depth step kk (16 columns) in a K-major tile of R rows
+// stored as boxes of 64 columns (D 128: step 4 starts the second box)
+template <int R, int ROWB>
+__device__ __forceinline__ uint32_t kstep(int kk) {
+    return (kk / 4) * R * ROWB + (kk % 4) * 32;
+}
+
+// The shared-memory matrix descriptor of a swizzled 16-bit tile with
+// ROWB-byte rows (128: 128-byte swizzle, 64: 64-byte swizzle), starting
+// at `addr`; both strides are the 8-row atom (see the header comment).
+template <int ROWB>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+    constexpr uint64_t atom = (8 * ROWB) >> 4;
+    constexpr uint64_t layout = ROWB == 128 ? 1 : 2;
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | (atom << 16) | (atom << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// two fp32 values rounded to T and packed low-first: one 32-bit A-operand
+// register of a 16-bit wgmma
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+#define DS_R16(d)                                                                            \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define DS_R32(d)                                                                            \
+    DS_R16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define DS_O16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define DS_O32                                                                              \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+    "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// D[64, N] (+)= A[64, 16] . B[16, N], A and B from shared memory, both
+// K-major; fp32 accumulators, N/2 a thread.  accumulate = 0 overwrites D.
+template <typename T, int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+    static_assert(N == 32 || N == 64, "wgmma widths of these kernels");
+    constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+    if constexpr (N == 64) {
+        if constexpr (BF)
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_O32
+                         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
+        else
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DS_O32
+                         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
+    } else {
+        if constexpr (BF)
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " DS_O16
+                         ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
+        else
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " DS_O16
+                         ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
+    }
+}
+
+// D[64, N] += A[64, 16] . B[16, N], A from registers (four packed pairs
+// in the accumulator's own layout), B from shared memory MN-major
+// (transposed: N contiguous)
+template <typename T, int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+    static_assert(N == 32 || N == 64, "wgmma widths of these kernels");
+    constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+    if constexpr (N == 64) {
+        if constexpr (BF)
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_O32
+                         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                         : DS_R32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        else
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DS_O32
+                         ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+                         : DS_R32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    } else {
+        if constexpr (BF)
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " DS_O16
+                         ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+                         : DS_R16(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        else
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " DS_O16
+                         ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+                         : DS_R16(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    }
+}
+
+#undef DS_R16
+#undef DS_R32
+#undef DS_O16
+#undef DS_O32
+
+// The [64, N] fp32 accumulator fragment of a warpgroup: thread t holds,
+// for each 8-column chunk j, (row, 8j + c), (row, 8j + c + 1),
+// (row + 8, 8j + c), (row + 8, 8j + c + 1) at d[4j .. 4j + 3], with
+// row = 16 * (t / 32) + (t % 32) / 4 and c = 2 * (t % 4).  A row's values
+// sit in one quad of lanes.
+struct Frag {
+    int row, col;
+    __device__ __forceinline__ explicit Frag(int t) : row(16 * (t >> 5) + ((t & 31) >> 2)), col(2 * (t & 3)) {}
+};
+
+// the sum (max) over the quad of lanes that holds a row
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// the A-operand registers of depth step kk (16 columns) of a [64, N]
+// accumulator rounded to T: columns 16kk.. are chunks 2kk and 2kk + 1
+template <typename T, int N>
+__device__ __forceinline__ void to_operand(const float (&d)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+        a[kk][0] = pack2<T>(d[8 * kk + 0], d[8 * kk + 1]);
+        a[kk][1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+        a[kk][2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+        a[kk][3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
+    }
+}
+
+// Store a warpgroup's [64, N] accumulator rows (rows r0 + fragment row,
+// columns c0 + ...) to a strided T matrix, times a per-row factor, rows
+// at or past `limit` skipped.
+template <typename T, int N>
+__device__ __forceinline__ void store_frag(const float (&d)[N / 2], T* base, long long row_stride,
+                                           int r0, int c0, int limit, float f0, float f1, const Frag& fr) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int r = r0 + fr.row + 8 * half;
+        if (r >= limit) continue;
+        const float f = half ? f1 : f0;
+        T* p = base + (long long)r * row_stride + c0 + fr.col;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+            *reinterpret_cast<uint32_t*>(p + 8 * j) = pack2<T>(d[4 * j + 2 * half] * f, d[4 * j + 2 * half + 1] * f);
+    }
+}
+
+}  // namespace hopper

@@ -8,8 +8,10 @@ row b at or past max(1, kv_lens[b]), with causal where both are given;
 query rows past the length still attend to the live keys, as in JAX
 (``flash_attention.py:582-637``).  CUDA tensors go
 to the hand-written ``flash_fwd`` kernel (``csrc/flash_fwd.cu``, replacing
-the TPU ``_fwd_kernel``), which reads q, k, v through their strides; CPU
-tensors go to the plain version beside it.  Every shape takes the kernel:
+the TPU ``_fwd_kernel``), which reads q, k, v through their strides: in
+bf16 and fp16 with wgmma tensor-core products on tiles that TMA loads
+(``csrc/hopper.cuh``), in fp32 on FMAs; CPU tensors go to the plain
+version beside it.  Every shape takes the kernel:
 the TPU tiling gates (``_pick_block``, ``FLASH_MIN_SEQ``) do not carry
 over.
 
@@ -19,7 +21,8 @@ The gradient is a ``torch.autograd.Function`` (the JAX ``custom_vjp`` at
 computes delta = rowsum(dO·O) in plain torch, as the JAX package does
 outside Pallas, then runs the two-kernel backward: ``flash_bwd_dq``
 (``csrc/flash_bwd_dq.cu``, replacing ``_bwd_dq_kernel``) and
-``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replacing ``_bwd_dkv_kernel``).
+``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replacing ``_bwd_dkv_kernel``;
+wgmma and TMA in bf16 and fp16, as the forward).
 :func:`flash_attention_qkv` takes the packed [B, S, 3, H, D] product of a
 qkv projection and writes dq, dk and dv into one gradient of that shape.
 """

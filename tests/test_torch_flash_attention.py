@@ -14,6 +14,14 @@ import torch
 from deepspeed_tpu_torch.ops.kernels import flash_attention as port_flash
 
 TOL = 1e-5
+#: low-precision inputs against the fp32 JAX reference on the same values
+#: (times max(1, |ref|)): the plain version rounds p and O to the input
+#: dtype, a few half-ulps of O (chip_smoke.py's kernel tolerances)
+LOW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+#: (Sq, Sk) at the edges of the tensor-core kernels' 64-key and
+#: 128-query tiles; (129, 63): causal rows with no key for over one tile
+EDGES = [(63, 63), (64, 64), (65, 65), (127, 127), (129, 129), (65, 129),
+         (129, 63)]
 
 
 @pytest.fixture()
@@ -60,7 +68,9 @@ def test_flash_matches_jax_pallas_kernel(pallas_interpret, S, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("Sq,Sk", [(8, 8), (16, 16), (8, 16)])
+@pytest.mark.parametrize("Sq,Sk", [(8, 8), (16, 16), (8, 16), (63, 63),
+                                   (64, 64), (65, 65), (127, 127),
+                                   (129, 129), (65, 127), (129, 63)])
 def test_flash_matches_jax_reference_short(Sq, Sk, causal):
     from deepspeed_tpu.ops.pallas.flash_attention import mha_reference
     q, k, v = _qkv(2, Sq, Sk, 3, 32, seed=Sq * 100 + Sk)
@@ -83,3 +93,28 @@ def test_flash_rows_without_keys_are_zero():
     np.testing.assert_allclose(o, np.asarray(ref), atol=TOL, rtol=TOL)
     assert not o[:, :4].any()
     assert np.isneginf(lse[:, :, :4]).all() and np.isfinite(lse[:, :, 4:]).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Sk", EDGES)
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_tile_edges_low_precision(dtype, D, Sq, Sk, causal):
+    """bf16 and fp16 through the plain version (what ``chip_smoke.py``
+    holds the kernel against) at the tile edges, against the JAX
+    reference in fp32 on the same rounded inputs; lse within 1e-5 of the
+    masked logsumexp (it is fp32 in both), -inf on rows with no key."""
+    from deepspeed_tpu.ops.pallas.flash_attention import mha_reference
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(1, Sq, Sk, 2, D, seed=Sq * 1000 + Sk + D))
+    o, lse = port_flash(q, k, v, causal=causal)
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    q32, k32, v32 = (x.float().numpy() for x in (q, k, v))
+    ref = np.asarray(mha_reference(jnp.asarray(q32), jnp.asarray(k32),
+                                   jnp.asarray(v32), causal=causal))
+    err = np.abs(o.float().numpy() - ref).max() / max(1.0, np.abs(ref).max())
+    assert err <= LOW_TOL[dtype], err
+    want = _lse_reference(q32, k32, causal)
+    np.testing.assert_allclose(lse.numpy(), want, atol=TOL, rtol=TOL)
+    if causal and Sq > Sk:
+        assert not o[:, :Sq - Sk].float().any()

@@ -21,6 +21,10 @@ from deepspeed_tpu_torch.ops.kernels import (flash_attention,
                                              flash_attention_reference)
 
 TOL = 1e-5
+#: low-precision gradients against fp32 JAX gradients of the same rounded
+#: inputs (times max(1, |ref|)): p, dS and the outputs are rounded to the
+#: input dtype in the plain version (chip_smoke.py's kernel tolerances)
+LOW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 
 @pytest.fixture()
@@ -73,7 +77,9 @@ def test_backward_matches_jax_pallas(pallas_interpret, S, path, causal):
 
 @pytest.mark.parametrize("Sq,Sk,causal", [
     (16, 16, True), (8, 24, True), (24, 8, True), (16, 16, False),
-    (8, 24, False)])
+    (8, 24, False), (63, 63, True), (64, 64, True), (65, 65, True),
+    (127, 127, False), (129, 129, True), (65, 129, True), (129, 63, True),
+    (63, 129, False)])
 def test_backward_matches_jax_reference_cross_length(Sq, Sk, causal):
     """Cross-length shapes (the JAX wrapper's dense path): end-aligned
     causal, including Sq > Sk, whose first Sq - Sk rows see no key and get
@@ -111,3 +117,29 @@ def test_packed_qkv_gradient_is_one_buffer():
     assert torch.equal(o3, o.detach())
     torch.testing.assert_close(torch.autograd.grad(o3, replay, do)[0], dqkv,
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal", [
+    (63, 63, True), (65, 65, False), (129, 129, True), (127, 65, False),
+    (129, 63, True), (65, 129, True)])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_backward_tile_edges_low_precision(dtype, D, Sq, Sk, causal):
+    """bf16 and fp16 through the plain backward (what ``chip_smoke.py``
+    holds ``flash_bwd_dkv`` against) at the kernels' tile edges, against
+    fp32 JAX gradients of the same rounded inputs; finite everywhere, and
+    zero dq on causal rows with no key."""
+    raw = _inputs(1, Sq, Sk, 2, D, seed=Sq * 1000 + Sk + D)
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in raw)
+    scale = 1.0 / math.sqrt(D)
+    o, lse = flash_attention_reference(q, k, v, causal, scale)
+    grads = flash_attention_backward(q, k, v, o, lse, do, causal, scale)
+    ref = _jax_grads(*(x.float().numpy() for x in (q, k, v, do)), causal)
+    for g, r, name in zip(grads, ref, ("dq", "dk", "dv")):
+        assert g.dtype == dtype
+        g = g.float().numpy()
+        assert np.isfinite(g).all(), name
+        err = np.abs(g - r).max() / max(1.0, np.abs(r).max())
+        assert err <= LOW_TOL[dtype], (name, err)
+    if Sq > Sk and causal:
+        assert not grads[0][:, :Sq - Sk].float().any()

@@ -115,6 +115,47 @@ def test_kv_lens_matches_jax_dense_path(causal, Sq, Sk):
                                    err_msg=f"d{name}")
 
 
+#: the low-precision cases' tolerance against fp32 JAX on the same rounded
+#: inputs (times max(1, |ref|)): outputs, p and dS rounded to the dtype
+LOW_TOL = {torch.float32: GRAD_TOL, torch.bfloat16: 1e-2,
+           torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kv_lens_tile_edges(dtype, D, causal):
+    """Key lengths 0, 1, 63 and 65 (both sides of a 64-key tile edge) at
+    S 129, the plain versions in fp32, bf16 and fp16 against the JAX
+    dense path in fp32 on the same rounded inputs; padding keys get
+    exactly zero dk and dv."""
+    from deepspeed_tpu.ops.pallas import flash_attention
+    B, S, H = 4, 129, 2
+    lens = np.asarray([0, 1, 63, 65], np.int32)
+    raw = _inputs(B, S, S, H, D, seed=D + causal)
+    q, k, v, w = (torch.from_numpy(x).to(dtype).float().numpy()
+                  for x in raw)
+    t = [torch.from_numpy(x).to(dtype).requires_grad_(True)
+         for x in (q, k, v)]
+    o, lse = port_flash.flash_attention(*t, causal=causal,
+                                        kv_lens=torch.from_numpy(lens))
+    (o.float() * torch.from_numpy(w)).sum().backward()
+    jo, jgrads = _jax(lambda a, b, c: flash_attention(
+        a, b, c, causal=causal, kv_lens=jnp.asarray(lens)), q, k, v, w)
+    tol = LOW_TOL[dtype]
+    for got, want, name in zip((o, *(x.grad for x in t)), (jo, *jgrads),
+                               ("o", "dq", "dk", "dv")):
+        assert got.dtype == dtype
+        err = (np.abs(got.detach().float().numpy() - want).max()
+               / max(1.0, np.abs(want).max()))
+        assert err <= tol, (name, err)
+    np.testing.assert_allclose(lse.numpy(), _masked_lse(q, k, lens, causal),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    for b, n in enumerate(np.maximum(lens, 1)):
+        assert not t[1].grad[b, n:].any() and not t[2].grad[b, n:].any()
+
+
 def test_packed_qkv_with_kv_lens_equals_separate():
     """``flash_attention_qkv`` on the packed [B, S, 3, H, D] product gives
     the O and the gradients of ``flash_attention`` on its three views."""
