@@ -8,19 +8,21 @@ imports JAX.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
-   reports each tensor-core instantiation of ``flash_fwd`` and
-   ``flash_bwd_dkv`` (bf16, fp16; D 32, 64, 128) with its registers and
-   spill stores (``[ptxas]``, failing if bf16 D64 spills) and its count
-   of HGMMA (wgmma) and UTMALDG (TMA load) instructions from
-   ``cuobjdump -sass`` (``[sass]``, failing where either is 0);
+   reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128) of
+   ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc`` and
+   ``chunk_attn_tc`` (the last also over the int8 cache) with its
+   registers and spill stores (``[ptxas]``, failing if a bf16 D64 one
+   spills) and its count of HGMMA (wgmma) and UTMALDG (TMA load)
+   instructions from ``cuobjdump -sass`` (``[sass]``, failing where
+   either is 0);
 2. holds each kernel against its plain PyTorch version at the shapes its
    slice gives it, in bf16 (plain computed in fp32 from the same inputs),
    and times kernel, plain version, a one-call PyTorch yardstick the port
    never calls (``scaled_dot_product_attention`` with or without a mask,
    its backward, fused ``AdamW``) and the card's bound for the work; the
    flash forward at B4 S512, B1 S128 and the GPT step's B16 S1024, the
-   backward pair at B16 S1024 and B1 S128 (two ``flash_bwd_dkv`` launches
-   bitwise equal); the
+   backward pair at B16 S1024 and B1 S128 (two launches of each bitwise
+   equal); the
    block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
    layout, block 64) beside the dense flash trio at the same shape, with
    its bounds and SDPA's causal forward and backward there; the
@@ -31,11 +33,14 @@ imports JAX.  In order it
    four int8 leaves in bf16 (bitwise equal to its plain version; no
    library call) and the int8-cache ``decode_attn``/``chunk_attn`` at the
    bf16 rows' shapes (against the plain version on the dequantized cache,
-   SDPA on the bf16 cache as yardstick); then sweeps every dtype and head
-   dim the attention kernels take: every cache frontier of a small ragged
-   batch (bf16 and int8 caches), odd, cross-length, no-key causal and
-   tile-edge shapes (S 63, 64, 65, 127, 129) for the flash forward and
-   backward, every block-sparse block
+   SDPA on the bf16 cache as yardstick; two ``chunk_attn`` and two
+   ``chunk_attn_int8`` launches bitwise equal); then sweeps every dtype
+   and head dim the attention kernels take: every cache frontier of a
+   small ragged batch (bf16 and int8 caches), the chunk at Sq 7, 63, 65
+   and 129 with a single live k-tile, pos + Sq = S_max and ragged rows,
+   odd, cross-length, no-key causal and tile-edge shapes (S 63, 64, 65,
+   127, 129, 255, 257) for the flash forward and backward, every
+   block-sparse block
    size, causal or not, with an empty row, and five layout kinds, and key
    lengths 0, 1, a partial tile, 63, 64, 65 and S at S 128 and 129;
    sweeps the quantizer
@@ -102,8 +107,10 @@ imports JAX.  In order it
    launch of each kernel per call, y and dx zero where the mask drops;
 11. prints the kernels line (``nhwc_bias_add_add`` and
    ``nhwc_bias_add_bias_add``, which no path of the JAX package calls,
-   are held in the check phase only and say so), then ``{"ok": true,
-   "device": ...}`` last.
+   are held in the check phase only and say so; ``bf16_fp16_kernel``
+   names the tensor-core kernel a wrapper launches on bf16 and fp16
+   tensors: ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
+   ``chunk_attn_tc``), then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises: no result line, non-zero exit.  The numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -221,23 +228,42 @@ def log(msg: str) -> None:
 
 
 #: the tensor-core kernels' sources and their instantiations that must
-#: run on wgmma (HGMMA) fed by TMA (UTMALDG)
-TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc"}
+#: run on wgmma (HGMMA) fed by TMA (UTMALDG); chunk_attn_tc also has an
+#: int8-cache instantiation ("bf16 int8", "fp16 int8") per dtype and D
+TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
+              "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc"}
 TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
+#: the kernel each wrapper launches on bf16 and fp16 tensors, for the
+#: kernels line
+TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
+            "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
+            "chunk_attn_int8": "chunk_attn_tc (int8 cache)"}
 
 
 def _tc_instance(mangled: str):
-    """(kernel, dtype, D) of a mangled tensor-core kernel name, or None."""
+    """(kernel, dtype, D) of a mangled tensor-core kernel name, or None;
+    the dtype of chunk_attn_tc's int8-cache instantiation ends in " int8"."""
     for kernel in TC_SOURCES.values():
-        m = re.search(kernel + r"I(13__nv_bfloat16|6__half)Li(\d+)E", mangled)
+        m = re.search(kernel + r"I(13__nv_bfloat16|6__half)Li(\d+)E(Lb([01])E)?",
+                      mangled)
         if m:
-            return kernel, TC_TYPES[m.group(1).lstrip("0123456789")], int(m.group(2))
+            dt = TC_TYPES[m.group(1).lstrip("0123456789")]
+            return kernel, dt + (" int8" if m.group(4) == "1" else ""), \
+                int(m.group(2))
     return None
+
+
+def _tc_wanted():
+    """Every (kernel, dtype, D) the tensor-core sources must hold."""
+    want = [(k, dt, D) for k in TC_SOURCES.values() for dt in TC_TYPES.values()
+            for D in HEAD_DIMS]
+    return want + [("chunk_attn_tc", dt + " int8", D)
+                   for dt in TC_TYPES.values() for D in HEAD_DIMS]
 
 
 def check_ptxas_tc():
     """Registers and spill stores of each tensor-core instantiation from
-    the build's ``-Xptxas -v`` report; fails if the bf16 D64 ones spill
+    the build's ``-Xptxas -v`` report; fails if a bf16 D64 one spills
     (D128 may, and is reported)."""
     rows = {}
     for src in TC_SOURCES:
@@ -253,9 +279,10 @@ def check_ptxas_tc():
     for (kernel, dt, D), (regs, spill) in sorted(rows.items()):
         log(f"[ptxas] {kernel}<{dt}, D{D}>: {regs} registers, spill stores "
             f"{spill} bytes")
-    for kernel in TC_SOURCES.values():
-        if rows.get((kernel, "bf16", 64), (0, 1))[1] != 0:
-            raise AssertionError(f"{kernel} bf16 D64 spills or was not built")
+    for kernel, dt, D in _tc_wanted():
+        if dt.startswith("bf16") and D == 64 and \
+                rows.get((kernel, dt, D), (0, 1))[1] != 0:
+            raise AssertionError(f"{kernel} {dt} D64 spills or was not built")
     return {f"{k}<{dt},{D}>": {"registers": r, "spill_stores": sp}
             for (k, dt, D), (r, sp) in rows.items()}
 
@@ -263,7 +290,9 @@ def check_ptxas_tc():
 def check_sass():
     """The count of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
     each tensor-core instantiation, from ``cuobjdump -sass`` of the built
-    libraries; fails if a bf16 or fp16 one has none of either."""
+    libraries; fails if a bf16 or fp16 one has none of either (the
+    int8-cache chunk_attn_tc loads Q and the int8 codes with TMA and
+    widens the codes in shared memory)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     counts = {}
@@ -278,9 +307,7 @@ def check_sass():
                                 len(re.findall(r"\bUTMALDG\.", part)))
     for (kernel, dt, D), (hg, tma) in sorted(counts.items()):
         log(f"[sass] {kernel}<{dt}, D{D}>: HGMMA {hg}, UTMALDG {tma}")
-    want = [(k, dt, D) for k in TC_SOURCES.values() for dt in TC_TYPES.values()
-            for D in HEAD_DIMS]
-    bad = [w for w in want if min(counts.get(w, (0, 0))) == 0]
+    bad = [w for w in _tc_wanted() if min(counts.get(w, (0, 0))) == 0]
     if bad:
         raise AssertionError(f"no wgmma or no TMA in {bad}")
     return {f"{k}<{dt},{D}>": {"HGMMA": hg, "UTMALDG": tma}
@@ -416,17 +443,20 @@ def check_flash_bwd(B, S, H=16, D=64):
     q, k, v, do, o, lse, delta = sets[0]
     dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
     dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    dq2 = kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
     dk2, dv2 = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
     ref = flash_attention_backward_reference(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(), True,
         scale)
     ACCEL.synchronize()
-    repeat = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
-    log(f"[flash_bwd_dkv repeat] B{B} S{S}: two launches give bitwise equal "
-        f"dk and dv {repeat}")
-    if not repeat:
-        raise AssertionError("flash_bwd_dkv: two launches differ")
-    del dk2, dv2
+    repeat = {"flash_bwd_dq": bool(torch.equal(dq, dq2)),
+              "flash_bwd_dkv": bool(torch.equal(dk, dk2)
+                                    and torch.equal(dv, dv2))}
+    log(f"[flash_bwd repeat] B{B} S{S}: two launches give bitwise equal dq "
+        f"{repeat['flash_bwd_dq']}, dk and dv {repeat['flash_bwd_dkv']}")
+    if not all(repeat.values()):
+        raise AssertionError(f"flash backward: two launches differ {repeat}")
+    del dq2, dk2, dv2
     errs = [(a.float() - r).abs().max().item() for a, r in zip((dq, dk, dv), ref)]
     tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
 
@@ -656,13 +686,14 @@ def _int8_cache(ck, cv):
     return (ck, cv, out[2][0], out[3][0], out[2][1], out[3][1])
 
 
-def _cache_check(name, kernel, q, cache, pos, mask, Sq):
+def _cache_check(name, kernel, q, cache, pos, mask, Sq, repeat=False):
     """Shared half of the decode/chunk checks: error vs the fp32 plain
     version on layer 0, then kernel/plain/SDPA times rotating layers.
     ``cache``: bf16 (K, V) [L, B, Smax, H, D], or for the int8 kernels
     ``_int8_cache``'s six tensors: the kernel reads the codes and scales,
     the plain version the dequantized cache (as the CPU path does), SDPA
-    the bf16 cache."""
+    the bf16 cache.  ``repeat``: fail unless a second launch on layer 0 is
+    bitwise equal to the first."""
     int8 = len(cache) == 6
     ck, cv = cache[:2]
     kv = cache[2:] if int8 else cache            # what the kernel reads
@@ -683,6 +714,12 @@ def _cache_check(name, kernel, q, cache, pos, mask, Sq):
     out = run(0)
     ref = cached_attention_reference(q.float(), *dense(0, torch.float32),
                                      pos, scale)
+    if repeat:
+        same = bool(torch.equal(out, run(0)))
+        log(f"[{name} repeat] Sq{Sq} pos {pos}: two launches give bitwise "
+            f"equal output {same}")
+        if not same:
+            raise AssertionError(f"{name}: two launches differ")
     ACCEL.synchronize()
     err = (out.float() - ref).abs().max().item()
     tol = BF16_REL_TOL * max(1.0, ref.abs().max().item())
@@ -734,9 +771,9 @@ def check_chunk(pos, Sq=128, Smax=1024, H=16, D=64, int8=False):
             <= qpos[:, None])[None, None]                    # [1, 1, Sq, Smax]
     if int8:
         return _cache_check("chunk_attn_int8", kernels.chunk_attn_int8, q,
-                            _int8_cache(ck, cv), pos, mask, Sq)
+                            _int8_cache(ck, cv), pos, mask, Sq, repeat=True)
     return _cache_check("chunk_attn", kernels.chunk_attn, q, (ck, cv), pos,
-                        mask, Sq)
+                        mask, Sq, repeat=True)
 
 
 #: GPT-2 350M's int8 leaves as ``quantize_leaf`` hands them to the
@@ -1083,14 +1120,70 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
     return worst
 
 
+#: chunk lengths of the chunk sweep: one q-tile short, full less one, one
+#: row into the second tile, one row into the third
+CHUNK_SWEEP_SQ = (7, 63, 65, 129)
+
+
+def check_chunk_sweep(Smax=576, B=3, H=2):
+    """``chunk_attn`` and ``chunk_attn_int8`` at the edges of
+    ``chunk_attn_tc``'s tiles (64 queries, 64 keys) and of its key split
+    over a cluster: every dtype and head dim, each chunk length of
+    ``CHUNK_SWEEP_SQ``, at pos 0 (a single live k-tile, fewer than the
+    cluster's ranks), pos + Sq = S_max, and ragged per-row positions (one
+    row at 0, one at the end); on the 16-bit cache and on its int8 form,
+    against the fp32 plain version (of the dequantized cache for int8).
+    S_max 576 is 9 k-tiles: clusters of 8 ranks at Sq 7 and 65, 4 at 129.
+    Returns the worst relative error per dtype and cache."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {}
+    for dt, tol in SWEEP_TOL.items():
+        err = {"cache": torch.zeros((), device="cuda"),
+               "int8 cache": torch.zeros((), device="cuda")}
+        for D in HEAD_DIMS:
+            rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                             device="cuda").to(dt)
+            ck, cv = rnd(B, Smax, H, D), rnd(B, Smax, H, D)
+            (kq, ks), (vq, vs) = quantize_kv(ck), quantize_kv(cv)
+            k8, v8 = (dequantize_kv(kq, ks, torch.float32),
+                      dequantize_kv(vq, vs, torch.float32))
+            scale = 1.0 / math.sqrt(D)
+            for Sq in CHUNK_SWEEP_SQ:
+                q = rnd(B, Sq, H, D)
+                ragged = torch.tensor([0, Smax - Sq, (Smax - Sq) // 2 + 3],
+                                      dtype=torch.int32, device="cuda")
+                for pos in (0, Smax - Sq, ragged):
+                    for key, out, kf, vf in (
+                            ("cache", kernels.chunk_attn(q, ck, cv, pos, scale),
+                             ck.float(), cv.float()),
+                            ("int8 cache", kernels.chunk_attn_int8(
+                                q, kq, vq, pos, scale, ks, vs), k8, v8)):
+                        ref = cached_attention_reference(q.float(), kf, vf,
+                                                         pos, scale)
+                        err[key] = torch.maximum(
+                            err[key], (out.float() - ref).abs().max()
+                            / ref.abs().max().clamp(min=1.0))
+        for key, e in err.items():
+            worst[f"{str(dt)[6:]} {key}"] = e.item()
+        log(f"[chunk sweep] {str(dt)[6:]} D{HEAD_DIMS} Sq {CHUNK_SWEEP_SQ} "
+            f"S_max {Smax}, pos 0 / S_max - Sq / ragged: worst relative err "
+            f"{err['cache'].item():.3e}, int8 cache "
+            f"{err['int8 cache'].item():.3e} (tol {tol:.0e})")
+        if not max(e.item() for e in err.values()) <= tol:
+            raise AssertionError(f"chunk sweep {dt}: {worst}")
+    return worst
+
+
 #: (Sq, Sk, causal) of the backward sweep: odd, cross-length, Sq > Sk
 #: (rows with no visible key), full; then the edges of the tensor-core
-#: kernels' tiles (64 keys, 128 queries in the forward; 128 keys, 64 or
-#: 32 queries in flash_bwd_dkv), and Sq > Sk by more than a tile
+#: kernels' tiles (64 keys, 128 queries in the forward and flash_bwd_dq;
+#: 128 keys, 64 or 32 queries in flash_bwd_dkv), Sq > Sk by more than a
+#: tile, and the edges of the second 128-query tile (Sq 255, 257)
 BWD_SWEEP = ((77, 77, True), (40, 100, True), (100, 40, True),
              (77, 77, False), (63, 63, True), (64, 64, False),
              (65, 65, True), (127, 127, True), (129, 129, False),
-             (129, 129, True), (65, 129, True), (129, 63, True))
+             (129, 129, True), (65, 129, True), (129, 63, True),
+             (255, 255, True), (257, 257, True), (257, 255, False))
 
 
 def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
@@ -1584,7 +1677,7 @@ def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
 
 
 #: the flash trio's kernels, by a substring of their names in a profile
-FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_kernel")
+FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc")
 
 
 def device_profile(label, run, shares=()):
@@ -2594,6 +2687,7 @@ def main() -> int:
     check_lamb_skip()
     result["quantizer_sweep"] = check_quantizer_sweep()
     result["sweep_worst_rel_err"] = check_sweep()
+    result["chunk_sweep_worst_rel_err"] = check_chunk_sweep()
     result["sparse_sweep_worst_rel_err"] = check_sparse_sweep()
     result["kv_lens_sweep_worst_rel_err"] = check_kv_lens_sweep()
     check_tiny_end_to_end()
@@ -2688,6 +2782,8 @@ def main() -> int:
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+        if name in TC_ENTRY:
+            line[-1]["bf16_fp16_kernel"] = TC_ENTRY[name]
         if name in CHECK_ONLY:
             line[-1]["paths"] = ("none: no path of the JAX package calls it; "
                                  "held in the check phase only")

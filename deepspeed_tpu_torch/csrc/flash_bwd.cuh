@@ -1,8 +1,8 @@
 // Shared half of the flash-attention backward kernels (flash_bwd_dq.cu,
-// flash_bwd_dkv.cu): the argument block, and the 16-byte tile loader and
-// the dtype x head-dim dispatch of the FMA kernels (flash_bwd_dq in every
-// dtype, flash_bwd_dkv in fp32; flash_bwd_dkv in bf16 and fp16 runs
-// flash_bwd_dkv_tc on wgmma and TMA).
+// flash_bwd_dkv.cu): the argument block, and the 16-byte tile loader of
+// the FMA kernels, which run fp32 (flash_bwd_dq_kernel, flash_dkv_fma).
+// bf16 and fp16 run flash_bwd_dq_tc and flash_bwd_dkv_tc on wgmma and TMA
+// (hopper.cuh).
 //
 // The kernels recompute the probabilities from the forward's fp32
 // logsumexp, p = exp(s * scale - lse) with s = q.k in fp32, and use the
@@ -79,23 +79,3 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b) {
 __device__ __forceinline__ void axpy4(float4& acc, float s, const float4& x) {
     acc.x += s * x.x; acc.y += s * x.y; acc.z += s * x.z; acc.w += s * x.w;
 }
-
-#define DS_BWD_DISPATCH(LAUNCH)                                           \
-    switch (dtype) {                                                      \
-        case kF32: switch (D) {                                           \
-            case 32: return LAUNCH<float, 32>(a, stream);                 \
-            case 64: return LAUNCH<float, 64>(a, stream);                 \
-            case 128: return LAUNCH<float, 128>(a, stream);               \
-            default: return cudaErrorInvalidValue; }                      \
-        case kF16: switch (D) {                                           \
-            case 32: return LAUNCH<__half, 32>(a, stream);                \
-            case 64: return LAUNCH<__half, 64>(a, stream);                \
-            case 128: return LAUNCH<__half, 128>(a, stream);              \
-            default: return cudaErrorInvalidValue; }                      \
-        case kBF16: switch (D) {                                          \
-            case 32: return LAUNCH<__nv_bfloat16, 32>(a, stream);         \
-            case 64: return LAUNCH<__nv_bfloat16, 64>(a, stream);         \
-            case 128: return LAUNCH<__nv_bfloat16, 128>(a, stream);       \
-            default: return cudaErrorInvalidValue; }                      \
-        default: return cudaErrorInvalidValue;                            \
-    }

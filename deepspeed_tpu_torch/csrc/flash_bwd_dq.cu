@@ -4,25 +4,45 @@
 // _bwd_dq_kernel (line 246): dQ = sum_k dS.K over the keys each query sees,
 // with dS recomputed from the saved lse and delta (flash_bwd.cuh).
 //
-// One CTA of 128 threads owns a (b, h, q-tile) and walks the k-tiles up to
-// its causal frontier.  A query row is held by TPR = D/16 neighbouring
-// lanes, each owning four float4 chunks of q, dO and the dQ accumulator
-// (chunk c*TPR + t), the layout of flash_tile.cuh: a warp's reads of a
-// shared K or V row broadcast to every row of the warp, with no bank
-// conflicts.  Each k-tile is loaded from device memory once, widened to
-// fp32 in shared memory and reused by all BQ rows.  Per visible pair the
-// kernel does 3*D FMAs (s = q.k, dP = dO.v, dQ += dS*k); the loops over
-// keys are CTA-uniform, so the full-mask shuffles that reduce s and dP
-// across a row's lanes never diverge.
-//
 // Bound on the H100: 6*D FLOPs per visible pair against the bytes of q,
 // k, v, dO, dQ, lse and delta read or written once; at the training
 // slice's shape (B 16, S 1024, H 16, D 64, causal) that is about 300
 // FLOPs per byte, just above the card's 295 bf16 FLOPs per byte, so the
-// least time is the operations over 989 TFLOP/s.  This first version
-// multiplies on fp32 FMAs, not tensor cores, and is bound by their issue
-// rate, far above that.
+// least time is the operations over 989 TFLOP/s.
+//
+// bf16 and fp16 (flash_bwd_dq_tc): the Hopper design, the counterpart of
+// flash_fwd_tc with the roles of JAX :246-301.  One CTA owns a (b, h,
+// 128-query) tile: two consumer warpgroups of 64 query rows and a
+// producer warp.  The producer loads the Q and dO tiles once with TMA
+// (4-D maps over the strided [B, S, H, D] views, so packed qkv and an
+// aligned dO load in place), then streams the K and V k-tiles (64 keys)
+// through a ring of shared-memory stages guarded by full and empty
+// mbarriers (3 stages at D <= 64, 2 at D 128), from key 0 to the causal
+// frontier or the key length: k-tiles past either are never loaded.
+// Each consumer thread reads its two rows' lse (times log2 e) and delta
+// into registers once, before the loop (rows past Sq get 0 and are
+// masked).  Per k-tile each consumer computes
+//   S = Q.K^T and dP = dO.V^T     (wgmma, both operands K-major)
+//   P = exp(S * scale - lse)      (a select, never -inf arithmetic: rows
+//                                  with no key have lse = -inf)
+//   dS = round_T(P (dP - delta) scale), from the unrounded P (JAX :286)
+//   dQ += dS.K                    (wgmma, dS from registers, the same K
+//                                  tile read MN-major)
+// with fp32 accumulators; only tiles that cross the causal, key-length or
+// Sq edge are masked (JAX _block_crosses_mask).  At D 128 dQ is two N=64
+// products over K's two 64-column boxes.  dQ is written once per element
+// through the strided dq view (no atomics: two launches are bitwise
+// equal), and the heaviest causal q-tiles run first (the q-tile index is
+// the grid's slowest dimension, reversed).
+//
+// fp32 keeps the FMA kernel below (flash_bwd_dq_kernel): wgmma transposes
+// only 16-bit operands, and dQ += dS.K reads K transposed.  One CTA of 128
+// threads owns a (b, h, q-tile) and walks the k-tiles up to its causal
+// frontier; a query row is held by TPR = D/16 neighbouring lanes, each
+// k-tile widened to fp32 in shared memory and reused by all BQ rows, 3*D
+// FMAs per visible pair.
 #include "flash_bwd.cuh"
+#include "hopper.cuh"
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
@@ -111,6 +131,207 @@ static cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+namespace {
+
+constexpr int DQ_BQ = 128;         // query rows per CTA: two warpgroups of 64
+constexpr int DQ_BK = 64;          // keys per k-tile
+constexpr int DQ_THREADS = 288;    // two consumer warpgroups and the producer warp
+
+struct DqParams {
+    CUtensorMap q, dout;           // rows of 128 per box
+    CUtensorMap k, v;              // rows of 64 per box
+    const float* lse; const float* delta;   // [B, H, Sq]
+    void* dq;
+    const int* kv_lens;
+    int Sq, Sk, H;
+    long long dq_sb, dq_ss, dq_sh;
+    float scale;
+    int causal;
+};
+
+template <int D>
+struct DqCfg {
+    static constexpr int HALVES = D > 64 ? D / 64 : 1;     // TMA boxes per row
+    static constexpr int COLS = D < 64 ? D : 64;            // columns per box
+    static constexpr int ROWB = 2 * COLS;                   // bytes per box row
+    static constexpr int STAGES = D > 64 ? 2 : 3;
+    static constexpr int Q_BYTES = HALVES * DQ_BQ * ROWB;   // one of Q, dO
+    static constexpr int KV_BYTES = HALVES * DQ_BK * ROWB;  // one of K, V
+    static constexpr int RING_OFF = 2 * Q_BYTES;            // stage s: K, then V
+    static constexpr int BAR_OFF = RING_OFF + STAGES * 2 * KV_BYTES;
+    static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;   // + alignment slack
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1) flash_bwd_dq_tc(const __grid_constant__ DqParams p) {
+    using C = DqCfg<D>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* qs = smem;                           // Q, then dO
+    uint8_t* kvs = smem + C::RING_OFF;
+    uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+    uint64_t* full = q_bar + 1;
+    uint64_t* empty = full + C::STAGES;
+
+    const int h = blockIdx.x;
+    const int b = blockIdx.y;
+    const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BQ;    // heaviest causal tiles first
+    const int off = p.Sk - p.Sq;
+    const int klim = p.kv_lens != nullptr ? min(p.Sk, max(1, p.kv_lens[b])) : p.Sk;
+    int kend = klim;
+    if (p.causal) kend = max(0, min(klim, min(p.Sq, q0 + DQ_BQ) + off));
+    const int ntiles = (kend + DQ_BK - 1) / DQ_BK;
+
+    if (threadIdx.x == 0) {
+        hopper::mbar_init(q_bar, 1);
+        for (int s = 0; s < C::STAGES; ++s) {
+            hopper::mbar_init(&full[s], 1);
+            hopper::mbar_init(&empty[s], 8);      // one arrival per consumer warp
+        }
+        hopper::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == 2) {
+        // producer: one thread issues every load
+        if (threadIdx.x == 256 && ntiles > 0) {
+            hopper::mbar_expect_tx(q_bar, 2 * C::Q_BYTES);
+            for (int hf = 0; hf < C::HALVES; ++hf) {
+                hopper::tma_load_4d(qs + hf * DQ_BQ * C::ROWB, &p.q, q_bar, hf * 64, h, q0, b);
+                hopper::tma_load_4d(qs + C::Q_BYTES + hf * DQ_BQ * C::ROWB, &p.dout, q_bar, hf * 64, h, q0, b);
+            }
+            for (int i = 0; i < ntiles; ++i) {
+                const int s = i % C::STAGES;
+                hopper::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+                hopper::mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+                uint8_t* ks = kvs + s * 2 * C::KV_BYTES;
+                for (int hf = 0; hf < C::HALVES; ++hf) {
+                    hopper::tma_load_4d(ks + hf * DQ_BK * C::ROWB, &p.k, &full[s], hf * 64, h, i * DQ_BK, b);
+                    hopper::tma_load_4d(ks + C::KV_BYTES + hf * DQ_BK * C::ROWB, &p.v, &full[s], hf * 64, h,
+                                        i * DQ_BK, b);
+                }
+            }
+        }
+        return;
+    }
+
+    // consumer warpgroup wg: query rows qw .. qw + 63
+    const int t = threadIdx.x % 128;
+    const hopper::Frag fr(t);
+    const int qw = q0 + 64 * wg;
+    const int qi[2] = {qw + fr.row, qw + fr.row + 8};
+    // lse (times log2 e, as ex2 takes it) and delta of the thread's two
+    // rows, fixed over the loop; rows past Sq get 0 and are masked
+    float lse2[2], dlt[2];
+    const long long stat0 = ((long long)b * p.H + h) * p.Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const bool ok = qi[r] < p.Sq;
+        lse2[r] = ok ? p.lse[stat0 + qi[r]] * hopper::LOG2E : 0.f;
+        dlt[r] = ok ? p.delta[stat0 + qi[r]] : 0.f;
+    }
+    float dq[C::HALVES][C::COLS / 2];
+#pragma unroll
+    for (int hf = 0; hf < C::HALVES; ++hf)
+#pragma unroll
+        for (int e = 0; e < C::COLS / 2; ++e) dq[hf][e] = 0.f;
+    const uint32_t q_addr = hopper::smem_u32(qs) + 64 * wg * C::ROWB;
+    const uint32_t do_addr = q_addr + C::Q_BYTES;
+    const float scale2 = p.scale * hopper::LOG2E;
+    float sc[DQ_BK / 2], dp[DQ_BK / 2];           // S and dP, then P and dS, of one k-tile
+
+    if (ntiles > 0) hopper::mbar_wait(q_bar, 0);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % C::STAGES;
+        hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
+        const uint32_t k_addr = hopper::smem_u32(kvs + s * 2 * C::KV_BYTES);
+        const uint32_t v_addr = k_addr + C::KV_BYTES;
+
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            hopper::mma_ss<T, DQ_BK>(sc, hopper::tile_desc<C::ROWB>(q_addr + hopper::kstep<DQ_BQ, C::ROWB>(kk)),
+                                     hopper::tile_desc<C::ROWB>(k_addr + hopper::kstep<DQ_BK, C::ROWB>(kk)), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+            hopper::mma_ss<T, DQ_BK>(dp, hopper::tile_desc<C::ROWB>(do_addr + hopper::kstep<DQ_BQ, C::ROWB>(kk)),
+                                     hopper::tile_desc<C::ROWB>(v_addr + hopper::kstep<DQ_BK, C::ROWB>(kk)), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait0();
+        hopper::fence_regs(sc);
+        hopper::fence_regs(dp);
+
+        const int k0 = i * DQ_BK;
+        const bool crosses = (p.causal && k0 + DQ_BK - 1 > qw + off) || k0 + DQ_BK > klim || qw + 64 > p.Sq;
+#pragma unroll
+        for (int e = 0; e < DQ_BK / 2; ++e) {
+            const int r = (e >> 1) & 1;
+            float pe = hopper::ex2(fmaf(sc[e], scale2, -lse2[r]));
+            if (crosses) {
+                // a select, never -inf arithmetic: rows with no key have
+                // lse = -inf, and their pe is inf here
+                const int kj = k0 + 8 * (e / 4) + fr.col + (e & 1);
+                const bool vis = kj < klim && qi[r] < p.Sq && (!p.causal || kj <= qi[r] + off);
+                pe = vis ? pe : 0.f;
+            }
+            dp[e] = pe * (dp[e] - dlt[r]) * p.scale;
+        }
+        uint32_t dsa[DQ_BK / 16][4];
+        hopper::to_operand<T, DQ_BK>(dp, dsa);    // round_T(dS), from the unrounded P
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf) hopper::fence_regs(dq[hf]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf)
+#pragma unroll
+            for (int kk = 0; kk < DQ_BK / 16; ++kk)
+                hopper::mma_rs<T, C::COLS>(dq[hf], dsa[kk],
+                                           hopper::tile_desc<C::ROWB>(k_addr + hf * DQ_BK * C::ROWB + kk * 16 * C::ROWB));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait0();
+#pragma unroll
+        for (int hf = 0; hf < C::HALVES; ++hf) hopper::fence_regs(dq[hf]);
+        if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int hf = 0; hf < C::HALVES; ++hf)
+        hopper::store_frag<T, C::COLS>(dq[hf], dqp, p.dq_ss, qw, hf * 64, p.Sq, 1.f, 1.f, fr);
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
+    using C = DqCfg<D>;
+    DqParams p{};
+    cudaError_t err = hopper::map_rows(&p.q, a.q, dtype, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh, DQ_BQ);
+    if (err == cudaSuccess)
+        err = hopper::map_rows(&p.dout, a.dout, dtype, a.B, a.Sq, a.H, D, a.do_sb, a.do_ss, a.do_sh, DQ_BQ);
+    // with no keys nothing but Q and dO would be loaded, and not even
+    // those: every row writes dQ = 0
+    if (a.Sk > 0) {
+        if (err == cudaSuccess)
+            err = hopper::map_rows(&p.k, a.k, dtype, a.B, a.Sk, a.H, D, a.k_sb, a.k_ss, a.k_sh, DQ_BK);
+        if (err == cudaSuccess)
+            err = hopper::map_rows(&p.v, a.v, dtype, a.B, a.Sk, a.H, D, a.v_sb, a.v_ss, a.v_sh, DQ_BK);
+    }
+    if (err != cudaSuccess) return err;
+    p.lse = a.lse; p.delta = a.delta;
+    p.dq = a.dq; p.kv_lens = a.kv_lens;
+    p.Sq = a.Sq; p.Sk = a.Sk; p.H = a.H;
+    p.dq_sb = a.dq_sb; p.dq_ss = a.dq_ss; p.dq_sh = a.dq_sh;
+    p.scale = a.scale; p.causal = a.causal;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(flash_bwd_dq_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid(a.H, a.B, (a.Sq + DQ_BQ - 1) / DQ_BQ);
+    flash_bwd_dq_tc<T, D><<<grid, DQ_THREADS, C::SMEM, stream>>>(p);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, const int* kv_lens,
                             void* dq, int dtype, int B, int Sq, int Sk, int H, int D,
@@ -125,5 +346,18 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
               dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, scale, causal, kv_lens};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    DS_BWD_DISPATCH(launch_dq)
+#define DS_DQ_D(T, LAUNCH, ...)                                         \
+    switch (D) {                                                         \
+        case 32: return static_cast<int>(LAUNCH<T, 32>(a, ##__VA_ARGS__, stream));   \
+        case 64: return static_cast<int>(LAUNCH<T, 64>(a, ##__VA_ARGS__, stream));   \
+        case 128: return static_cast<int>(LAUNCH<T, 128>(a, ##__VA_ARGS__, stream)); \
+        default: return static_cast<int>(cudaErrorInvalidValue);        \
+    }
+    switch (dtype) {
+        case kF32: DS_DQ_D(float, launch_dq)
+        case kF16: DS_DQ_D(__half, launch_dq_tc, dtype)
+        case kBF16: DS_DQ_D(__nv_bfloat16, launch_dq_tc, dtype)
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef DS_DQ_D
 }

@@ -248,7 +248,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
         TileArgs a{q, k, v, o, lse, B, Sq, Sk, H,
                    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                    scale, causal, nullptr, 0, kv_lens};
-        return static_cast<int>(dispatch_tile<false>(dtype, D, a, stream));
+        return static_cast<int>(dispatch_tile<false>(D, a, stream));
     }
     if (dtype != kF16 && dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
     FwdParams p{};

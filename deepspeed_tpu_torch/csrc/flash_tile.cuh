@@ -1,7 +1,9 @@
-// The q-tile attention loop of chunk_attn (chunked prefill / extend over
-// the padded KV cache, bf16, fp16 or int8 cache) and of flash_fwd's fp32
-// instantiation.  flash_fwd in bf16 and fp16 runs flash_fwd_tc
-// (flash_fwd.cu, on wgmma and TMA) instead.
+// The q-tile attention loop on fp32 FMAs, for the fp32 users that remain:
+// flash_fwd with fp32 inputs, and chunk_attn / chunk_attn_int8 with fp32
+// queries (over an fp32 or an int8 cache).  Their bf16 and fp16 paths run
+// on wgmma and TMA (flash_fwd_tc in flash_fwd.cu, chunk_attn_tc in
+// chunk_attn.cu), since wgmma reads a transposed operand (V) only in 16
+// bits.
 //
 // One CTA of 128 threads owns a (b, h, q-tile).  A query row is held by
 // TPR = D/16 neighbouring lanes, each owning four float4 chunks of the
@@ -21,10 +23,8 @@
 // code * scale in fp32 (JAX _chunk_kernel's order, decode_attention.py
 // :258-260) on their way into shared memory, and nothing after it changes.
 //
-// It multiplies with fp32 FMAs, not tensor cores: it is bound by the FMA
-// issue rate, well above the card's least time for the same work (the
-// bytes over 3.35 TB/s at the slice's shapes).  Moving chunk_attn onto the
-// Hopper building blocks of hopper.cuh is later work.
+// It multiplies with fp32 FMAs (67 TFLOP/s on the H100, no tensor cores)
+// and is bound by their issue rate.
 #pragma once
 
 #include "common.cuh"
@@ -217,24 +217,15 @@ static cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-// Q8: the K and V it reads are int8 codes (chunk_attn_int8)
+// the fp32 kernel at head dim D; Q8: the K and V it reads are int8 codes
+// (chunk_attn_int8)
 template <bool CHUNK, bool Q8 = false>
-static cudaError_t dispatch_tile(int dtype, int D, const TileArgs& a, cudaStream_t stream) {
-#define DS_TILE_D(T)                                                      \
-    {                                                                     \
-        using C = typename std::conditional<Q8, int8_t, T>::type;         \
-        switch (D) {                                                      \
-            case 32: return launch_tile<T, 32, CHUNK, C>(a, stream);      \
-            case 64: return launch_tile<T, 64, CHUNK, C>(a, stream);      \
-            case 128: return launch_tile<T, 128, CHUNK, C>(a, stream);    \
-            default: return cudaErrorInvalidValue;                        \
-        }                                                                 \
-    }
-    switch (dtype) {
-        case kF32: DS_TILE_D(float)
-        case kF16: DS_TILE_D(__half)
-        case kBF16: DS_TILE_D(__nv_bfloat16)
+static cudaError_t dispatch_tile(int D, const TileArgs& a, cudaStream_t stream) {
+    using C = typename std::conditional<Q8, int8_t, float>::type;
+    switch (D) {
+        case 32: return launch_tile<float, 32, CHUNK, C>(a, stream);
+        case 64: return launch_tile<float, 64, CHUNK, C>(a, stream);
+        case 128: return launch_tile<float, 128, CHUNK, C>(a, stream);
         default: return cudaErrorInvalidValue;
     }
-#undef DS_TILE_D
 }

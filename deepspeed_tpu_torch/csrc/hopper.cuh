@@ -1,6 +1,9 @@
 // Hopper building blocks of the tensor-core attention kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu): TMA tensor maps and loads, mbarriers,
-// and warpgroup matrix products (wgmma) on shared-memory tiles.
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, chunk_attn.cu): TMA
+// tensor maps and loads, mbarriers, warpgroup matrix products (wgmma) on
+// shared-memory tiles, the swizzled layout for tiles that threads write
+// themselves, and thread-block cluster helpers (rank, barrier, reads of a
+// peer CTA's shared memory) for chunk_attn's split over the keys.
 //
 // Tiles.  A [rows, D] head slice of a 16-bit [B, S, H, D] tensor comes
 // into shared memory through one TMA box per 64 columns (one box of 32
@@ -47,16 +50,23 @@ static EncodeTiledFn encode_fn() {
     return fn;
 }
 
-// A 4-D map over a strided 16-bit [B, S, H, D] tensor (strides in
-// elements), dims innermost first (D, H, S, B), box (min(D, 64), 1, rows,
-// 1): one [rows, 64] (or [rows, 32]) tile of one (b, h) head slice per
-// load.  Rows past S are zero-filled.  A dim of extent 1 gets a stride of
-// its own that TMA accepts, whatever the tensor's stride there.
+// map_rows's dtype for int8 cache codes (beside kF16, kBF16)
+constexpr int kCodes = 3;
+
+// A 4-D map over a strided [B, S, H, D] tensor (strides in elements),
+// dims innermost first (D, H, S, B), one [rows, D] tile of one (b, h) head
+// slice per load set.  16-bit (kF16, kBF16): box (min(D, 64), 1, rows, 1),
+// one [rows, 64] (or [rows, 32]) tile under the 128-byte (64-byte) swizzle
+// per load.  int8 codes (kCodes): box (D, 1, rows, 1), unswizzled, rows of
+// D bytes one after another.  Rows past S are zero-filled.  A dim of
+// extent 1 gets a stride of its own that TMA accepts, whatever the
+// tensor's stride there.
 static cudaError_t map_rows(CUtensorMap* map, const void* base, int dtype, int B, int S, int H,
                             int D, long long sb, long long ss, long long sh, int rows) {
     EncodeTiledFn fn = encode_fn();
     if (fn == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t esz = 2;
+    const bool codes = dtype == kCodes;
+    const cuuint64_t esz = codes ? 1 : 2;
     cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
     long long st[3] = {sh, ss, sb};
     cuuint64_t strides[3];
@@ -65,13 +75,17 @@ static cudaError_t map_rows(CUtensorMap* map, const void* base, int dtype, int B
         strides[i] = dims[i + 1] == 1 ? ((span + 15) / 16) * 16 : (cuuint64_t)st[i] * esz;
         span = strides[i] * dims[i + 1];
     }
-    cuuint32_t box[4] = {(cuuint32_t)(D < 64 ? D : 64), 1, (cuuint32_t)rows, 1};
+    cuuint32_t box[4] = {(cuuint32_t)(codes || D < 64 ? D : 64), 1, (cuuint32_t)rows, 1};
     cuuint32_t estride[4] = {1, 1, 1, 1};
-    const CUresult r = fn(map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                          4, const_cast<void*>(base), dims, strides, box, estride,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    const CUtensorMapDataType type = codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                     : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    const CUtensorMapSwizzle swizzle = codes ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                       : D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                                 : CU_TENSOR_MAP_SWIZZLE_64B;
+    const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estride,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -128,6 +142,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         if (clock64() - start > (1ll << 32)) __trap();
 }
 
+// make this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operands, TMA); the writer fences, then signals a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- TMA loads (completion counted in bytes on `bar`)
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
@@ -137,6 +157,58 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
         : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row r in a tile with ROWB-byte
+// rows under the 128-byte (ROWB 128) or 64-byte (ROWB 64) swizzle, the
+// layout TMA writes and tile_desc describes: bits 4-6 (4-5) of the address
+// are XORed with bits 7-9 (7-8).  For tiles written by threads.
+template <int ROWB>
+__device__ __forceinline__ uint32_t swizzled(int r, int chunk) {
+    static_assert(ROWB == 128 || ROWB == 64, "swizzles of these kernels");
+    const int phase = ROWB == 128 ? (r & 7) : ((r >> 1) & 3);
+    return r * ROWB + (chunk ^ phase) * 16;
+}
+
+// barrier `id` (1-15; 0 is __syncthreads') over `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread-block clusters
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// Every thread of every CTA of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are visible to the peers'
+// reads after it, and no CTA passes it while a peer has yet to arrive.
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (a shared variable of this CTA) in
+// CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+    uint32_t out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+    return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+    float v;
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+    float4 v;
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+    return v;
 }
 
 // ---- wgmma

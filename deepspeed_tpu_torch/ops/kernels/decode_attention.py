@@ -6,17 +6,18 @@ query i seeing cache slots <= pos + i; ``pos`` is an int or a per-row
 int32 tensor [B] (ragged decode).  On CUDA tensors a single query
 (Sq = 1) goes to the ``decode_attn`` kernel (``csrc/decode_attn.cu``,
 replacing the TPU ``_decode_kernel``) and a chunk (Sq > 1) to
-``chunk_attn`` (``csrc/chunk_attn.cu``, replacing ``_chunk_kernel``);
-both read the cache's layer view through its strides, with no
-[B*H, S_max, D] transpose copy, and take every S_max (the TPU's
-``block_k in {256, 128}`` tiling gate does not carry over).  On CPU
-tensors the plain version runs.
+``chunk_attn`` (``csrc/chunk_attn.cu``, replacing ``_chunk_kernel``: in
+bf16 and fp16 on wgmma and TMA, each chunk's keys split across a
+thread-block cluster; in fp32 on FMAs); both read the cache's layer
+view through its strides, with no [B*H, S_max, D] transpose copy, and
+take every S_max (the TPU's ``block_k in {256, 128}`` tiling gate does not
+carry over).  On CPU tensors the plain version runs.
 
 The int8 cache: with ``k_scale``/``v_scale`` ([B, S_max, H, 1] fp32) the
 cache holds int8 codes (:func:`quantize_kv`: symmetric per head vector);
 on CUDA ``decode_attn_int8`` and ``chunk_attn_int8`` (the same sources'
-int8 entry points, the TPU kernels' ``quantized`` option) dequantize in
-registers, on the CPU the plain version dequantizes first
+int8 entry points, the TPU kernels' ``quantized`` option) read the int8
+codes and apply the scales on the card, on the CPU the plain version dequantizes first
 (:func:`dequantize_kv`) and runs the dense math, as the JAX package's
 fallback does.  The banded-window and ALiBi options are not ported yet
 and raise ``NotImplementedError``.

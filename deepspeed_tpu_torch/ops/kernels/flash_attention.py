@@ -21,8 +21,9 @@ The gradient is a ``torch.autograd.Function`` (the JAX ``custom_vjp`` at
 computes delta = rowsum(dO·O) in plain torch, as the JAX package does
 outside Pallas, then runs the two-kernel backward: ``flash_bwd_dq``
 (``csrc/flash_bwd_dq.cu``, replacing ``_bwd_dq_kernel``) and
-``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replacing ``_bwd_dkv_kernel``;
-wgmma and TMA in bf16 and fp16, as the forward).
+``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replacing ``_bwd_dkv_kernel``),
+both on wgmma and TMA in bf16 and fp16, as the forward, and on FMAs in
+fp32.
 :func:`flash_attention_qkv` takes the packed [B, S, 3, H, D] product of a
 qkv projection and writes dq, dk and dv into one gradient of that shape.
 """

@@ -67,6 +67,55 @@ def test_cached_attention_untiled_shapes_match_reference(Smax, Sq, pos):
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
 
 
+#: low-precision chunks against the fp32 JAX function of the same rounded
+#: inputs (times max(1, |ref|)): the plain version rounds p and O to the
+#: input dtype, and dequantizes an int8 cache to it first
+#: (chip_smoke.py's sweep tolerances)
+LOW_TOL = {"bfloat16": 1e-2, "float16": 2e-3, "int8": 1e-2}
+
+
+@pytest.mark.parametrize("Sq,pos", [
+    (7, 0), (63, 0), (65, 0), (129, 0),          # q-tile 0 sees one k-tile
+    (7, 249), (63, 193), (65, 191), (129, 127),  # pos + Sq = S_max
+    (64, 192),                                   # the JAX chunk kernel tiles
+    (65, [0, 191]),                              # ragged: one row at each end
+])
+@pytest.mark.parametrize("cache", ["bfloat16", "float16", "int8"])
+def test_chunk_tile_edges_low_precision(pallas_interpret, cache, Sq, pos):
+    """The plain chunk path (what ``chip_smoke.py`` holds ``chunk_attn``
+    and ``chunk_attn_int8`` against on the card) at the edges of the
+    tensor-core kernel's 64-query and 64-key tiles, in bf16, fp16 and over
+    an int8 cache (bf16 q), against the JAX package's ``cached_attention``
+    in fp32 on the same rounded inputs: the Pallas chunk kernel in
+    interpret mode where it tiles (Sq 64), its dense reference elsewhere.
+    S_max 256."""
+    from deepspeed_tpu.ops.pallas.decode_attention import cached_attention \
+        as jax_cached
+    from deepspeed_tpu_torch.ops.kernels import quantize_kv
+    dtype = torch.float16 if cache == "float16" else torch.bfloat16
+    q, ck, cv = (torch.from_numpy(a).to(dtype)
+                 for a in _inputs(2, Sq, 256, 2, 64, seed=Sq * 7 + len(cache)))
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) \
+        else pos
+    jpos = jnp.asarray(pos, jnp.int32) if isinstance(pos, list) else pos
+    jq = jnp.asarray(q.float().numpy())
+    if cache == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(ck.float()), quantize_kv(cv.float())
+        out = cached_attention(q, kq, vq, tpos, k_scale=ks, v_scale=vs)
+        ref = jax_cached(jq, jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+                         jpos, k_scale=jnp.asarray(ks.numpy()),
+                         v_scale=jnp.asarray(vs.numpy()))
+    else:
+        out = cached_attention(q, ck, cv, tpos)
+        ref = jax_cached(jq, jnp.asarray(ck.float().numpy()),
+                         jnp.asarray(cv.float().numpy()), jpos)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = np.asarray(ref)
+    err = np.abs(out.float().numpy() - ref).max() / max(1.0,
+                                                       np.abs(ref).max())
+    assert err <= LOW_TOL[cache], err
+
+
 @pytest.mark.parametrize("option", [
     {"k_scale": 1, "v_scale": 1, "window": 4}, {"window": 4},
     {"slopes": 1}])

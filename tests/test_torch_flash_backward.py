@@ -122,11 +122,12 @@ def test_packed_qkv_gradient_is_one_buffer():
 @pytest.mark.parametrize("Sq,Sk,causal", [
     (63, 63, True), (65, 65, False), (129, 129, True), (127, 65, False),
     (129, 63, True), (65, 129, True)])
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_backward_tile_edges_low_precision(dtype, D, Sq, Sk, causal):
     """bf16 and fp16 through the plain backward (what ``chip_smoke.py``
-    holds ``flash_bwd_dkv`` against) at the kernels' tile edges, against
+    holds ``flash_bwd_dq`` and ``flash_bwd_dkv`` against) at the kernels'
+    tile edges, at every head dim the kernels take, against
     fp32 JAX gradients of the same rounded inputs; finite everywhere, and
     zero dq on causal rows with no key."""
     raw = _inputs(1, Sq, Sk, 2, D, seed=Sq * 1000 + Sk + D)
