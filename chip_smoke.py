@@ -9,8 +9,9 @@ imports JAX.  In order it
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
    reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128) of
-   ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc`` and
-   ``chunk_attn_tc`` (the last also over the int8 cache) with its
+   ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
+   ``chunk_attn_tc`` (also over the int8 cache), ``block_sparse_fwd_tc``
+   and ``block_sparse_bwd_dkv_tc`` with its
    registers and spill stores (``[ptxas]``, failing if a bf16 D64 one
    spills) and its count of HGMMA (wgmma) and UTMALDG (TMA load)
    instructions from ``cuobjdump -sass`` (``[sass]``, failing where
@@ -24,8 +25,9 @@ imports JAX.  In order it
    backward pair at B16 S1024 and B1 S128 (two launches of each bitwise
    equal); the
    block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
-   layout, block 64) beside the dense flash trio at the same shape, with
-   its bounds and SDPA's causal forward and backward there; the
+   layout, block 64; two launches of each bitwise equal) beside the dense
+   flash trio at the same shape, with its bounds and SDPA's causal forward
+   and backward there; the
    two fused-LAMB kernels over BERT-large's 335,902,592 parameters in its
    24 leaf segments (no library call computes LAMB); the flash trio at the
    BERT slice's shape (B64 S128 H16 D64, non-causal, ragged ``kv_lens``)
@@ -40,8 +42,9 @@ imports JAX.  In order it
    and 129 with a single live k-tile, pos + Sq = S_max and ragged rows,
    odd, cross-length, no-key causal and tile-edge shapes (S 63, 64, 65,
    127, 129, 255, 257) for the flash forward and backward, every
-   block-sparse block
-   size, causal or not, with an empty row, and five layout kinds, and key
+   block-sparse block size at S 256 and at S 80 (block 16) and 96 (block
+   32), which end inside a 64-wide tile, causal or not, with empty rows
+   (one at a 64-tile edge), and five layout kinds, and key
    lengths 0, 1, a partial tile, 63, 64, 65 and S at S 128 and 129;
    sweeps the quantizer
    over input dtype x bits x mode x group size (bitwise) and checks its
@@ -110,7 +113,9 @@ imports JAX.  In order it
    are held in the check phase only and say so; ``bf16_fp16_kernel``
    names the tensor-core kernel a wrapper launches on bf16 and fp16
    tensors: ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
-   ``chunk_attn_tc``), then ``{"ok": true, "device": ...}`` last.
+   ``chunk_attn_tc``, ``block_sparse_fwd_tc``,
+   ``block_sparse_bwd_dkv_tc``), then ``{"ok": true, "device": ...}``
+   last.
 
 Any failure raises: no result line, non-zero exit.  The numbers also go
 to ``chiprun_out/chip_smoke.json``.
@@ -127,6 +132,15 @@ import shutil
 import subprocess
 import sys
 import time
+
+# The host's fp32 references (the tiny models trained on the host, the
+# full-width forwards) are held to the card's results at tolerances that
+# Adam amplifies: a gradient below the summation noise of one step turns
+# into a whole learning-rate step either way.  Pin the host's arithmetic
+# (ATen's vector code and MKL's code branch) to AVX2, so those references
+# do not change with the CPU model of the card's machine.
+os.environ.setdefault("ATEN_CPU_CAPABILITY", "avx2")
+os.environ.setdefault("MKL_CBWR", "AVX2")
 
 import numpy as np
 import torch
@@ -231,13 +245,17 @@ def log(msg: str) -> None:
 #: run on wgmma (HGMMA) fed by TMA (UTMALDG); chunk_attn_tc also has an
 #: int8-cache instantiation ("bf16 int8", "fp16 int8") per dtype and D
 TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
-              "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc"}
+              "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
+              "block_sparse_fwd": "block_sparse_fwd_tc",
+              "block_sparse_bwd_dkv": "block_sparse_bwd_dkv_tc"}
 TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
 #: the kernel each wrapper launches on bf16 and fp16 tensors, for the
 #: kernels line
 TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
             "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
-            "chunk_attn_int8": "chunk_attn_tc (int8 cache)"}
+            "chunk_attn_int8": "chunk_attn_tc (int8 cache)",
+            "block_sparse_fwd": "block_sparse_fwd_tc",
+            "block_sparse_bwd_dkv": "block_sparse_bwd_dkv_tc"}
 
 
 def _tc_instance(mangled: str):
@@ -1282,6 +1300,23 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
     o, lse, delta = stats[0]
     dq = kernels.block_sparse_bwd_dq(q, k, v, do, lse, delta, plan, scale)
     dk, dv = kernels.block_sparse_bwd_dkv(q, k, v, do, lse, delta, plan, scale)
+    o2, lse2 = kernels.block_sparse_fwd(q, k, v, plan, scale)
+    dq2 = kernels.block_sparse_bwd_dq(q, k, v, do, lse, delta, plan, scale)
+    dk2, dv2 = kernels.block_sparse_bwd_dkv(q, k, v, do, lse, delta, plan,
+                                            scale)
+    ACCEL.synchronize()
+    repeat = {"block_sparse_fwd": bool(torch.equal(o, o2)
+                                       and torch.equal(lse, lse2)),
+              "block_sparse_bwd_dq": bool(torch.equal(dq, dq2)),
+              "block_sparse_bwd_dkv": bool(torch.equal(dk, dk2)
+                                           and torch.equal(dv, dv2))}
+    log(f"[block_sparse repeat] B{B} S{S}: two launches give bitwise equal O "
+        f"and lse {repeat['block_sparse_fwd']}, dq "
+        f"{repeat['block_sparse_bwd_dq']}, dk and dv "
+        f"{repeat['block_sparse_bwd_dkv']}")
+    if not all(repeat.values()):
+        raise AssertionError(f"block-sparse: two launches differ {repeat}")
+    del o2, lse2, dq2, dk2, dv2
     o32, lse32 = block_sparse_attention_reference(q.float(), k.float(),
                                                   v.float(), plan, scale)
     fwd_err = (o.float() - o32).abs().max().item()
@@ -1398,32 +1433,44 @@ def _sparse_errs(q, k, v, do, plan, causal_rows_empty=()):
     return err, lse_err
 
 
-def check_sparse_sweep(B=2, H=2, S=256):
-    """Every layout block {16, 32, 64, 128} x head dim x dtype x causal, on
-    a random half-full layout whose second block row is empty, within the
-    sweep's relative tolerance; then the Fixed, BigBird, Variable (with an
-    emptied row), BSLongformer and Dense layouts in bf16, and the Dense
-    layout against the dense ``flash_fwd``."""
+#: (block, S) of the sparse sweep: every block at S 256, and S 80 at block
+#: 16 and 96 at block 32, which end inside a 64-wide tile
+SPARSE_SWEEP_SHAPES = ((16, 256), (16, 80), (32, 256), (32, 96), (64, 256),
+                       (128, 256))
+
+
+def check_sparse_sweep(B=2, H=2):
+    """Every layout block {16, 32, 64, 128} x head dim x dtype x causal, at
+    S 256 and at S 80 (block 16) and 96 (block 32), on a random half-full
+    layout whose second block row and the row that starts the second
+    64-wide tile are empty, within the sweep's relative tolerance; then the
+    Fixed, BigBird, Variable (with an emptied row), BSLongformer and Dense
+    layouts in bf16, and the Dense layout against the dense
+    ``flash_fwd``."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(4)
     worst = {}
     for dt, tol in SWEEP_TOL.items():
         for D in HEAD_DIMS:
             errs = []
-            for block in BLOCKS:
+            for block, S in SPARSE_SWEEP_SHAPES:
                 n = S // block
+                edge = max(1, 64 // block)              # starts a 64-tile
                 lay = rng.integers(0, 2, (H, n, n))
                 lay[:, 0, 0] = 1
-                lay[:, 1] = 0                           # an empty row
+                lay[:, 1] = 0                           # empty rows
+                lay[:, edge] = 0
                 for causal in (True, False):
                     plan = sparse_plan(lay, block, causal, "cuda")
                     q, k, v, do = _sparse_sets(1, B, S, H, D, gen, dt)[0]
-                    errs.append(_sparse_errs(q, k, v, do, plan,
-                                             [(block, 2 * block)]))
+                    errs.append(_sparse_errs(
+                        q, k, v, do, plan,
+                        [(block, 2 * block), (edge * block, (edge + 1) * block)]))
             err, lse_err = max(e for e, _ in errs), max(l for _, l in errs)
             worst[f"{str(dt)[6:]} D{D}"] = err
-            log(f"[sparse sweep] {str(dt)[6:]} D{D}: blocks {BLOCKS} x "
-                f"causal/not, empty row: worst relative err {err:.3e} (tol "
+            log(f"[sparse sweep] {str(dt)[6:]} D{D}: (block, S) "
+                f"{SPARSE_SWEEP_SHAPES} x causal/not, empty rows (one at a "
+                f"64-tile edge): worst relative err {err:.3e} (tol "
                 f"{tol:.0e}), lse err {lse_err:.2e} (tol 1e-3), empty rows "
                 f"zero")
             if not (err <= tol and lse_err <= 1e-3):
@@ -1678,6 +1725,9 @@ def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
 
 #: the flash trio's kernels, by a substring of their names in a profile
 FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc")
+#: the block-sparse trio as the sparse step's profile names them
+SPARSE_KERNELS = ("block_sparse_fwd_tc", "block_sparse_bwd_dq_kernel",
+                  "block_sparse_bwd_dkv_tc")
 
 
 def device_profile(label, run, shares=()):
@@ -2658,7 +2708,9 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
-        f"{sys.version.split()[0]}")
+        f"{sys.version.split()[0]}; host CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} "
+        f"threads")
     result = {"nvidia_smi": smi, "torch": torch.__version__}
 
     t_build = build.build_all()
@@ -2748,7 +2800,7 @@ def main() -> int:
     counts = {k: counts[k] + sparse_counts[k] for k in counts}
     result["sparse_training_profile"] = device_profile(
         "sparse train 2 steps", lambda: [trainer.train_batch_fused(batch)
-                                         for _ in range(2)])
+                                         for _ in range(2)], SPARSE_KERNELS)
     del trainer
     torch.cuda.empty_cache()
     result["dense_at_sparse_shape"] = run_dense_at_sparse_shape()

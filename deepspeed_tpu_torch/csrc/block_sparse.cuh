@@ -1,6 +1,12 @@
 // Shared half of the block-sparse attention kernels (block_sparse_fwd.cu,
-// block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu): the argument block, the
-// shared-memory row loader and the dtype x head-dim x chunk dispatch.
+// block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu): the argument block,
+// the shared-memory row loader, the dtype x head-dim x chunk dispatch of
+// the FMA kernels, and the tile table of the tensor-core kernels.
+//
+// Which kernel runs.  bf16 and fp16 forward and dK/dV run on tensor cores
+// (block_sparse_fwd_tc, block_sparse_bwd_dkv_tc: wgmma on TMA-fed 64-wide
+// tiles, over the tile table below).  fp32 forward and dK/dV, and dQ in
+// every dtype, run the FMA kernels described next.
 //
 // The layout is a per-head [H, n, n] 0/1 block mask over blocks of `block`
 // positions (n = S / block), compiled on the host into ragged tables
@@ -11,16 +17,28 @@
 // above-diagonal blocks dropped there, and the causal mask inside a live
 // block is positional: key j is visible to query i iff j <= i.
 //
-// One CTA owns `rows` = min(128 / TPR, block) rows of one block (query rows
-// for the forward and dq, key rows for dk/dv), TPR = D/16 neighbouring
-// lanes per row, each lane holding four float4 chunks of the head dim
-// (chunk c*TPR + t), as in flash_tile.cuh; so a CTA has 32 to 128 threads.
-// It walks its block's live list, and inside each live block the other
-// side in chunks of CHUNK = min(block, 64) rows (32 at D = 128), staged in
-// shared memory as fp32.  Rows and chunks never cross a layout block, so
-// the tiles are independent of the layout block size.  Every loop trip
-// count is the CTA's (the live count, the block's chunks), so the
-// full-mask shuffles that reduce a row's dot products never diverge.
+// The FMA kernels.  One CTA owns `rows` = min(128 / TPR, block) rows of one
+// block (query rows for the forward and dq, key rows for dk/dv), TPR = D/16
+// neighbouring lanes per row, each lane holding four float4 chunks of the
+// head dim (chunk c*TPR + t), as in flash_tile.cuh; so a CTA has 32 to 128
+// threads.  It walks its block's live list, and inside each live block the
+// other side in chunks of CHUNK = min(block, 64) rows (32 at D = 128),
+// staged in shared memory as fp32.  Rows and chunks never cross a layout
+// block, so the tiles are independent of the layout block size.  Every
+// loop trip count is the CTA's (the live count, the block's chunks), so
+// the full-mask shuffles that reduce a row's dot products never diverge.
+//
+// The tile table (make_tile_tables) recompiles the layout at the tensor
+// cores' unit, a 64 x 64 tile (the wgmma M of one warpgroup): for each
+// (head, 64-query tile) the ascending 64-key tiles that hold a live,
+// causally visible pair, each entry packed as tile id | bits << 16, where
+// bit (i * sub + j) says that sub-block (q sub-block i, k sub-block j) of
+// the tile is live, sub = 64 / min(block, 64) (16 bits at block 16, 4 at
+// 32, 1 at 64 and 128); their count; and the order of the units, heaviest
+// first.  The transposed table (per key tile, its q-tiles, the same bits)
+// serves dK/dV.  S need not be a multiple of 64 at blocks 16 and 32: the
+// sub-blocks past S have no bit, TMA zero-fills the rows past S, and the
+// stores stop at S.
 #pragma once
 
 #include "common.cuh"
@@ -85,6 +103,29 @@ __host__ __forceinline__ void sparse_grid(const SparseArgs& a, dim3& grid, dim3&
     grid = dim3(a.S / rows, a.H, a.B);
     block = dim3(rows * (D / 16));
 }
+
+// the tensor-core kernels' table (one direction)
+struct TileTable {
+    const int* entries;         // [H, nt, width]: tile id | live sub-block bits << 16
+    const int* cnt;             // [H, nt] live tiles
+    const int* order;           // [H * nt] units h * nt + tile, heaviest first
+    int width;
+};
+
+// log2 of the sub-block edge inside a 64-wide tile: 4, 5, or 6 (a whole
+// tile) at blocks 64 and 128
+__host__ __forceinline__ int sub_block_log(int block) {
+    return block == 16 ? 4 : block == 32 ? 5 : 6;
+}
+
+// Is (query q, key k), positions inside one tile, visible: its sub-block
+// is live (bl: sub_block_log) and, on a causal diagonal tile, k <= q.
+__device__ __forceinline__ bool tile_visible(unsigned bits, int q, int k, int bl, bool diag) {
+    return ((bits >> (((q >> bl) << (6 - bl)) + (k >> bl))) & 1u) & (!diag | (k <= q));
+}
+
+// the bits of a tile whose every sub-block is live
+__device__ __forceinline__ unsigned all_live(int bl) { return (1u << (1 << (2 * (6 - bl)))) - 1u; }
 
 __host__ __forceinline__ bool sparse_args_ok(const SparseArgs& a) {
     const bool block_ok = a.block == 16 || a.block == 32 || a.block == 64 || a.block == 128;

@@ -15,8 +15,10 @@
 // dQ += dS*k).  Each dQ element is written by one CTA, with no atomics.
 //
 // Bound on the H100: 6*D FLOPs per live pair against the bytes of q, k, v,
-// dO, dQ, lse and delta.  This first version multiplies on fp32 FMAs, not
-// tensor cores, and is bound by their issue rate, far above that.
+// dO, dQ, lse and delta.  It multiplies on fp32 FMAs in every dtype, not
+// tensor cores, and is bound by their issue rate, far above that; it reads
+// the lse that block_sparse_fwd_tc (bf16, fp16) or the FMA forward (fp32)
+// wrote.
 #include "block_sparse.cuh"
 
 template <typename T, int D, int KC>

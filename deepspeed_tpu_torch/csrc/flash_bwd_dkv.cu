@@ -19,17 +19,13 @@
 // by full and empty mbarriers, from the first q-tile at or below the
 // causal frontier to the end.  The producer warp's lanes copy each
 // q-tile's lse (times log2 e) and delta into its stage, loaded one tile
-// ahead so their latency hides behind the wait for a free stage.  Per q-tile each
-// consumer computes, with keys as the 64 M rows (JAX :352-368 transposed):
-//   S^T = K.Q^T and dP^T = V.dO^T     (wgmma, both operands K-major)
-//   P^T = exp(S^T * scale - lse)      (a select, never -inf arithmetic:
-//                                      rows with no key have lse = -inf)
-//   dV += round_T(P^T).dO             (wgmma, A from registers, dO MN-major)
-//   dS^T = round_T(P^T (dP^T - delta) scale), from the unrounded P^T
-//   dK += dS^T.Q                      (wgmma, A from registers, Q MN-major)
-// with fp32 accumulators; only q-tiles that cross the causal, key-length
-// or Sq edge are masked.  Key tiles wholly past the key length write zeros
-// and load nothing.  No atomics: one CTA writes each dK and dV element
+// ahead so their latency hides behind the wait for a free stage.  Per
+// q-tile each consumer runs the step it shares with
+// block_sparse_bwd_dkv_tc (attn_tc.cuh dkv_step: S^T = K.Q^T and
+// dP^T = V.dO^T, then dV += round_T(P^T).dO and dK += dS^T.Q, all on
+// wgmma with fp32 accumulators); only q-tiles that cross the causal,
+// key-length or Sq edge are masked.  Key tiles wholly past the key length
+// write zeros and load nothing.  No atomics: one CTA writes each dK and dV element
 // once, so the gradients are bitwise repeatable.  Low key tiles see the
 // most queries under causal masking and are scheduled first (the key-tile
 // index is the grid's slowest dimension).
@@ -37,8 +33,8 @@
 // fp32 keeps the FMA kernel below (flash_dkv_fma): a CTA of 128 threads
 // per (b, h, k-tile), a key row on TPR = D/16 lanes, each q-tile widened
 // to fp32 in shared memory and reused by all key rows.
+#include "attn_tc.cuh"
 #include "flash_bwd.cuh"
-#include "hopper.cuh"
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
@@ -162,10 +158,9 @@ struct DkvParams {
 };
 
 template <int D>
-struct DkvCfg {
-    static constexpr int HALVES = D > 64 ? D / 64 : 1;     // TMA boxes per row
-    static constexpr int COLS = D < 64 ? D : 64;            // columns per box
-    static constexpr int ROWB = 2 * COLS;                   // bytes per box row
+struct DkvCfg : attn_tc::Boxes<D> {
+    using attn_tc::Boxes<D>::HALVES;
+    using attn_tc::Boxes<D>::ROWB;
     static constexpr int BQ = D > 64 ? 32 : 64;             // queries per q-tile
     static constexpr int STAGES = D > 64 ? 2 : 3;
     static constexpr int K_BYTES = HALVES * DKV_BK * ROWB;  // one of K, V
@@ -277,15 +272,12 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tc(const __grid_
     const hopper::Frag fr(t);
     const int kw = k0 + 64 * wg;
     const int kj[2] = {kw + fr.row, kw + fr.row + 8};
-    float dk[C::HALVES][C::COLS / 2], dv[C::HALVES][C::COLS / 2];
-#pragma unroll
-    for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-        for (int e = 0; e < C::COLS / 2; ++e) { dk[hf][e] = 0.f; dv[hf][e] = 0.f; }
+    attn_tc::DkvAcc<D> acc;
+    acc.init();
     const uint32_t k_addr = hopper::smem_u32(smem) + 64 * wg * C::ROWB;
     const uint32_t v_addr = k_addr + C::K_BYTES;
-    const float scale2 = p.scale * hopper::LOG2E;
-    float st[BQ / 2], dpt[BQ / 2];                // S^T, dP^T, then P^T, dS^T of one q-tile
+    const int Sq = p.Sq;
+    const bool causal = p.causal;
 
     if (nq > 0) hopper::mbar_wait(kv_bar, 0);
     for (int i = 0; i < nq; ++i) {
@@ -293,76 +285,18 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tc(const __grid_
         const int q0 = qstart + i * BQ;
         hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
         const uint32_t q_addr = hopper::smem_u32(smem + C::TILE_OFF + s * 2 * C::T_BYTES);
-        const uint32_t do_addr = q_addr + C::T_BYTES;
         const float* lse_s = reinterpret_cast<const float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
-        const float* delta_s = lse_s + BQ;
-
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            hopper::mma_ss<T, BQ>(st, hopper::tile_desc<C::ROWB>(k_addr + hopper::kstep<DKV_BK, C::ROWB>(kk)),
-                                  hopper::tile_desc<C::ROWB>(q_addr + hopper::kstep<BQ, C::ROWB>(kk)), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            hopper::mma_ss<T, BQ>(dpt, hopper::tile_desc<C::ROWB>(v_addr + hopper::kstep<DKV_BK, C::ROWB>(kk)),
-                                  hopper::tile_desc<C::ROWB>(do_addr + hopper::kstep<BQ, C::ROWB>(kk)), kk > 0);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-        hopper::fence_regs(st);
-        hopper::fence_regs(dpt);
-
+        // only q-tiles that cross the causal, key-length or Sq edge are masked
         const bool crosses = (p.causal && kw + 63 > q0 + off) || kw + 64 > klim || q0 + BQ > p.Sq;
-#pragma unroll
-        for (int e = 0; e < BQ / 2; ++e) {
-            const int c = 8 * (e / 4) + fr.col + (e & 1);     // query q0 + c
-            float pe = hopper::ex2(fmaf(st[e], scale2, -lse_s[c]));
-            if (crosses) {
-                // a select, never -inf arithmetic: rows with no key have
-                // lse = -inf, and their pe is inf here
-                const int key = kj[(e >> 1) & 1];
-                const int qi = q0 + c;
-                const bool vis = key < klim && qi < p.Sq && (!p.causal || key <= qi + off);
-                pe = vis ? pe : 0.f;
-            }
-            st[e] = pe;
-            dpt[e] = pe * (dpt[e] - delta_s[c]) * p.scale;
-        }
-        uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-        hopper::to_operand<T, BQ>(st, pa);       // round_T(P^T)
-        hopper::to_operand<T, BQ>(dpt, dsa);     // round_T(dS^T), from the unrounded P^T
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf) {
-            hopper::fence_regs(dv[hf]);
-            hopper::fence_regs(dk[hf]);
-        }
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk)
-                hopper::mma_rs<T, C::COLS>(dv[hf], pa[kk],
-                                           hopper::tile_desc<C::ROWB>(do_addr + hf * BQ * C::ROWB + kk * 16 * C::ROWB));
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk)
-                hopper::mma_rs<T, C::COLS>(dk[hf], dsa[kk],
-                                           hopper::tile_desc<C::ROWB>(q_addr + hf * BQ * C::ROWB + kk * 16 * C::ROWB));
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf) {
-            hopper::fence_regs(dv[hf]);
-            hopper::fence_regs(dk[hf]);
-        }
+        attn_tc::dkv_step<T, D, DKV_BK, BQ>(acc, fr, k_addr, v_addr, q_addr, q_addr + C::T_BYTES, lse_s,
+                                            lse_s + BQ, p.scale, crosses, [=](int r, int c) {
+                                                const int key = kj[r];
+                                                const int qi = q0 + c;
+                                                return (key < klim) & (qi < Sq) & (!causal | (key <= qi + off));
+                                            });
         if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
     }
-
-#pragma unroll
-    for (int hf = 0; hf < C::HALVES; ++hf) {
-        hopper::store_frag<T, C::COLS>(dk[hf], dkp, p.dk_ss, kw, hf * 64, p.Sk, 1.f, 1.f, fr);
-        hopper::store_frag<T, C::COLS>(dv[hf], dvp, p.dv_ss, kw, hf * 64, p.Sk, 1.f, 1.f, fr);
-    }
+    attn_tc::dkv_finish<T, D>(acc, fr, dkp, p.dk_ss, dvp, p.dv_ss, kw, p.Sk);
 }
 
 template <typename T, int D>

@@ -17,25 +17,21 @@
 // (b, h, 128-query) tile: two consumer warpgroups of 64 query rows and a
 // producer warp.  The producer loads Q once and streams the K and V
 // k-tiles (64 keys) through a ring of shared-memory stages with TMA, each
-// stage guarded by a full and an empty mbarrier.  Each consumer computes
-// S = Q.K^T with wgmma (both operands K-major in shared memory, fp32
-// accumulators), scales in fp32 as flash_attention.py:165 does, masks only
-// the tiles that cross the causal or key-length edge (JAX
-// _block_crosses_mask), keeps the online softmax on the accumulator
-// fragment (a row lives in one quad of lanes: two shuffles per reduction),
-// and adds P.V with wgmma taking P from registers, rounded to T in place
-// (JAX p.astype(vs.dtype), :184), and V as a transposed (MN-major) tile.
-// l sums the unrounded fp32 p; O is rescaled only when a row's max moved
-// (late in a row it rarely does, and the multiplies by 1 are not free).  k-tiles above the causal frontier or past
-// the key length are never loaded, and the heaviest causal q-tiles are
+// stage guarded by a full and an empty mbarrier.  Each consumer runs the
+// forward step it shares with block_sparse_fwd_tc (attn_tc.cuh fwd_step:
+// S = Q.K^T and O += round_T(P).V on wgmma, the online softmax on the
+// accumulator fragment, p rounded to T as JAX p.astype(vs.dtype), :184),
+// masking only the tiles that cross the causal or key-length edge (JAX
+// _block_crosses_mask).  k-tiles above the causal frontier or past the
+// key length are never loaded, and the heaviest causal q-tiles are
 // scheduled first (the q-tile index is the grid's slowest dimension,
 // reversed).  Every loop bound depends on b and the q-tile only, so the
 // producer's loads and both consumers' barrier phases agree.
 //
 // fp32 keeps the FMA kernel of flash_tile.cuh (wgmma transposes 16-bit
 // operands only).
+#include "attn_tc.cuh"
 #include "flash_tile.cuh"
-#include "hopper.cuh"
 
 namespace {
 
@@ -123,103 +119,28 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) flash_fwd_tc(const __grid_cons
     const hopper::Frag fr(t);
     const int qw = q0 + 64 * wg;
     const int qi[2] = {qw + fr.row, qw + fr.row + 8};
-    float o[C::HALVES][C::COLS / 2];
-#pragma unroll
-    for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-        for (int e = 0; e < C::COLS / 2; ++e) o[hf][e] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY};          // running max of the scaled scores
-    float l[2] = {0.f, 0.f};                      // this thread's share of the row sums
+    attn_tc::FwdState<D> st;
+    st.init();
     const uint32_t q_addr = hopper::smem_u32(qs) + 64 * wg * C::ROWB;
+    const bool causal = p.causal;
 
     if (ntiles > 0) hopper::mbar_wait(q_bar, 0);
     for (int i = 0; i < ntiles; ++i) {
         const int s = i % C::STAGES;
         hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
         const uint32_t k_addr = hopper::smem_u32(kvs + s * 2 * C::KV_BYTES);
-        const uint32_t v_addr = k_addr + C::KV_BYTES;
-
-        float sc[FWD_BK / 2];
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            hopper::mma_ss<T, FWD_BK>(sc, hopper::tile_desc<C::ROWB>(q_addr + hopper::kstep<FWD_BQ, C::ROWB>(kk)),
-                                      hopper::tile_desc<C::ROWB>(k_addr + hopper::kstep<FWD_BK, C::ROWB>(kk)), kk > 0);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-        hopper::fence_regs(sc);
-
         const int k0 = i * FWD_BK;
+        // only the tiles that cross the causal or key-length edge are masked
         const bool crosses = (p.causal && k0 + FWD_BK - 1 > qw + off) || k0 + FWD_BK > klim;
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int e = 0; e < FWD_BK / 2; ++e) {
-            float x = sc[e] * p.scale;
-            if (crosses) {
-                const int kj = k0 + 8 * (e / 4) + fr.col + (e & 1);
-                const int r = (e >> 1) & 1;
-                const bool vis = kj < klim && (!p.causal || kj <= qi[r] + off);
-                x = vis ? x : -INFINITY;
-            }
-            sc[e] = x;
-            mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
-        }
-        float ms2[2], alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const float m_new = fmaxf(m[r], hopper::quad_max(mx[r]));
-            // a row with no visible key yet keeps m = -inf: guard the
-            // subtraction so its p and alpha come out 0, not nan
-            const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-            alpha[r] = hopper::ex2((m[r] - m_safe) * hopper::LOG2E);
-            ms2[r] = m_safe * hopper::LOG2E;
-            m[r] = m_new;
-            l[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int e = 0; e < FWD_BK / 2; ++e) {
-            const int r = (e >> 1) & 1;
-            const float pe = hopper::ex2(fmaf(sc[e], hopper::LOG2E, -ms2[r]));
-            l[r] += pe;
-            sc[e] = pe;
-        }
-        uint32_t pa[FWD_BK / 16][4];
-        hopper::to_operand<T, FWD_BK>(sc, pa);
-        // once a row's max settles, alpha is 1: skip the rescale
-        if (alpha[0] != 1.f || alpha[1] != 1.f) {
-#pragma unroll
-            for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-                for (int e = 0; e < C::COLS / 2; ++e) o[hf][e] *= alpha[(e >> 1) & 1];
-        }
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf) hopper::fence_regs(o[hf]);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < FWD_BK / 16; ++kk)
-                hopper::mma_rs<T, C::COLS>(o[hf], pa[kk],
-                                           hopper::tile_desc<C::ROWB>(v_addr + hf * FWD_BK * C::ROWB + kk * 16 * C::ROWB));
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf) hopper::fence_regs(o[hf]);
+        attn_tc::fwd_step<T, D, FWD_BQ>(st, fr, q_addr, k_addr, k_addr + C::KV_BYTES, p.scale, crosses,
+                                        [=](int r, int c) {
+                                            const int kj = k0 + c;
+                                            return (kj < klim) & (!causal | (kj <= qi[r] + off));
+                                        });
         if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
     }
-
-    float lf[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) lf[r] = fmaxf(hopper::quad_sum(l[r]), 1e-30f);
-    T* obase = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-    for (int hf = 0; hf < C::HALVES; ++hf)
-        hopper::store_frag<T, C::COLS>(o[hf], obase, p.o_ss, qw, hf * 64, p.Sq, 1.f / lf[0], 1.f / lf[1], fr);
-    if (p.lse != nullptr && (t & 3) == 0) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-            if (qi[r] < p.Sq) p.lse[((long long)b * p.H + h) * p.Sq + qi[r]] = m[r] + logf(lf[r]);
-    }
+    attn_tc::fwd_finish<T, D>(st, fr, t, static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh, p.o_ss, qw, p.Sq,
+                              p.lse != nullptr ? p.lse + ((long long)b * p.H + h) * p.Sq : nullptr);
 }
 
 template <typename T, int D>

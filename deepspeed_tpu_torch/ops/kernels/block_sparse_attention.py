@@ -19,7 +19,11 @@ CUDA tensors go to three hand-written kernels (``csrc/block_sparse_*.cu``):
 (``_bwd_dq_kernel``, the row tables) and ``block_sparse_bwd_dkv``
 (``_bwd_dkv_kernel``, the column tables).  They take layout blocks of 16,
 32, 64 and 128 (the JAX wrapper's ``block % 128`` gate is a TPU lane rule)
-and read q, k, v and dO through their strides.  CPU tensors go to the
+and read q, k, v and dO through their strides.  In bf16 and fp16 the
+forward and dK/dV run on tensor cores over the plan's tile tables
+(:func:`make_tile_tables`: the layout recompiled at 64 x 64 tiles, with
+the live sub-blocks of each tile and a heaviest-first launch order); fp32,
+and dQ in every dtype, run FMA kernels over the block tables.  CPU tensors go to the
 plain versions beside them (:func:`block_sparse_attention_reference` and
 its backward): masked dense attention under the expanded block mask, the
 JAX ``sparse_mha_reference``.  The gradient is the flash kernels'
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,9 +85,83 @@ def make_index_tables(layout: np.ndarray, causal: bool, block: int
     return idx, cnt, idxT, cntT
 
 
+#: the tensor-core kernels' tile edge: 64 queries by 64 keys, the wgmma M
+#: of one warpgroup (``csrc/block_sparse.cuh``)
+TILE = 64
+
+
+class TileTable(NamedTuple):
+    """One direction of :func:`make_tile_tables`, over nt = ceil(S / 64)
+    tiles: for each (head, tile) its live tiles of the other side."""
+
+    idx: np.ndarray      # [H, nt, W] ascending live tile ids (zero padded)
+    bits: np.ndarray     # [H, nt, W] live sub-blocks of each entry
+    cnt: np.ndarray      # [H, nt] live tiles
+    order: np.ndarray    # [H * nt] units h * nt + tile, heaviest first
+
+    def packed(self) -> np.ndarray:
+        """The entries as the kernels read them: id | bits << 16 (int32)."""
+        return (self.idx.astype(np.uint32)
+                | (self.bits.astype(np.uint32) << 16)).view(np.int32)
+
+
+def make_tile_tables(layout: np.ndarray, causal: bool, block: int
+                     ) -> Tuple[TileTable, TileTable]:
+    """Compile a [H, n, n] 0/1 layout into the tensor-core kernels' tables
+    at the unit of a 64 x 64 tile: (rows, columns).  Rows: for each (head,
+    64-query tile) the ascending 64-key tiles holding a live, causally
+    visible pair; columns: for each 64-key tile its q-tiles.  An entry's
+    bits say which (q sub-block i, k sub-block j) of the tile are live, bit
+    i * sub + j with sub = 64 / min(block, 64): 16 bits at block 16, 4 at
+    32, a single 1 at 64 and 128 (a block of 128 is 2 x 2 tiles, the one
+    above a causal diagonal dropped).  S = n * block need not be a multiple
+    of 64: sub-blocks past S have no bit.  ``order`` lists the units by
+    live count, heaviest first (ties by unit)."""
+    layout = np.asarray(layout, bool)
+    H, n, _ = layout.shape
+    if causal:
+        layout = layout & np.tril(np.ones((n, n), bool))[None]
+    nt = -(-n * block // TILE)
+    if nt > 1 << 16:
+        raise ValueError(f"S {n * block} needs {nt} tiles: the tile ids are "
+                         f"16 bits")
+    if block >= TILE:
+        f = block // TILE
+        live = np.kron(layout, np.ones((f, f), bool))
+        if causal:
+            live &= np.tril(np.ones((nt, nt), bool))[None]
+        bits = live.astype(np.int64)
+    else:
+        sub = TILE // block
+        padded = np.zeros((H, nt * sub, nt * sub), bool)
+        padded[:, :n, :n] = layout
+        blocks = padded.reshape(H, nt, sub, nt, sub).transpose(0, 1, 3, 2, 4)
+        bits = (blocks.reshape(H, nt, nt, sub * sub).astype(np.int64)
+                << np.arange(sub * sub)).sum(-1)
+        live = bits != 0
+    return (_tile_table(live, bits),
+            _tile_table(live.transpose(0, 2, 1), bits.transpose(0, 2, 1)))
+
+
+def _tile_table(live: np.ndarray, bits: np.ndarray) -> TileTable:
+    H, nt, _ = live.shape
+    cnt = live.sum(-1).astype(np.int32)
+    width = max(1, int(cnt.max()))
+    idx = np.zeros((H, nt, width), np.int32)
+    tbits = np.zeros((H, nt, width), np.int32)
+    h, t, c = np.nonzero(live)                 # row-major: c ascending
+    slot = (np.cumsum(live, -1) - 1)[h, t, c]
+    idx[h, t, slot] = c
+    tbits[h, t, slot] = bits[h, t, c]
+    order = np.argsort(-cnt.ravel(), kind="stable").astype(np.int32)
+    return TileTable(idx, tbits, cnt, order)
+
+
 class SparsePlan:
     """One layout at one block size, causality and device: the layout
-    (numpy bool [H, n, n]), its tables as int32 tensors on the device, the
+    (numpy bool [H, n, n]), its block tables (the FMA kernels') and tile
+    tables (the tensor-core kernels': ``tile_rows`` and ``tile_cols``, each
+    (packed entries, count, order)) as int32 tensors on the device, the
     live (q, k) pairs per batch row, and, built at the first plain call,
     the expanded [H, S, S] mask of the plain versions."""
 
@@ -95,6 +173,10 @@ class SparsePlan:
         idx, cnt, idxT, cntT = make_index_tables(layout, causal, block)
         self.idx, self.cnt, self.idxT, self.cntT = (
             torch.from_numpy(t).to(device) for t in (idx, cnt, idxT, cntT))
+        self.tile_rows, self.tile_cols = (
+            tuple(torch.from_numpy(a).to(device)
+                  for a in (t.packed(), t.cnt, t.order))
+            for t in make_tile_tables(layout, causal, block))
         self.live_blocks = int(cnt.sum())
         self.live_pairs = live_pairs(layout, block, causal)
         self._mask: Optional[torch.Tensor] = None
@@ -222,6 +304,11 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _tile_ptrs(table):
+    """A device tile table's (entries, count, order) pointers."""
+    return [t.data_ptr() for t in table]
+
+
 class _BlockSparseFwd:
     """The ``block_sparse_fwd`` kernel's wrapper; ``launches`` counts
     kernel launches (never plain-version calls)."""
@@ -238,9 +325,10 @@ class _BlockSparseFwd:
         fn = build.function("block_sparse_fwd", _FWD_ARGTYPES)
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     lse.data_ptr(), plan.idx.data_ptr(), plan.cnt.data_ptr(),
-                    DTYPE_CODES[dtype], B, S, H, D, plan.block,
-                    plan.idx.shape[-1], *strides3(q, k, v, o), float(scale),
-                    int(plan.causal), _stream(q))
+                    *_tile_ptrs(plan.tile_rows), DTYPE_CODES[dtype], B, S, H,
+                    D, plan.block, plan.idx.shape[-1],
+                    plan.tile_rows[0].shape[-1], *strides3(q, k, v, o),
+                    float(scale), int(plan.causal), _stream(q))
         build.check_status("block_sparse_fwd", status)
         _BlockSparseFwd.launches += 1
         return o, lse
@@ -301,21 +389,23 @@ class _BlockSparseBwdDkv:
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), plan.idxT.data_ptr(), plan.cntT.data_ptr(),
-                    DTYPE_CODES[dtype], B, S, H, D, plan.block,
-                    plan.idxT.shape[-1], *strides3(q, k, v, do, dk, dv),
-                    float(scale), int(plan.causal), _stream(q))
+                    *_tile_ptrs(plan.tile_cols), DTYPE_CODES[dtype], B, S, H,
+                    D, plan.block, plan.idxT.shape[-1],
+                    plan.tile_cols[0].shape[-1],
+                    *strides3(q, k, v, do, dk, dv), float(scale),
+                    int(plan.causal), _stream(q))
         build.check_status("block_sparse_bwd_dkv", status)
         _BlockSparseBwdDkv.launches += 1
         return dk, dv
 
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                  + [ctypes.c_longlong] * 12
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                 + [ctypes.c_longlong] * 15
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_DKV_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+_DKV_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                  + [ctypes.c_longlong] * 18
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 block_sparse_fwd = _BlockSparseFwd()

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels of several checkouts on one card, in turns.
+
+    python3 scripts/torch_kernel_ab.py ROOT [ROOT ...] [--only TEXT] [--out FILE]
+
+Each root is a checkout of the repository (``git archive`` of a commit
+unpacked into a directory); each turn runs in a process of its own that
+imports ``deepspeed_tpu_torch`` from that root, builds its kernels there
+and times, as a CUDA graph of N launches between CUDA events, bf16
+inputs made from one seed:
+
+- ``flash_fwd`` at B4 S512, B16 S1024 and B4 S4096 causal, and at B64
+  S128 non-causal with ragged ``kv_lens``;
+- ``flash_bwd_dkv`` at B16 S1024 and B4 S4096 causal, and at B64 S128
+  with ``kv_lens``;
+- ``block_sparse_fwd`` and ``block_sparse_bwd_dkv`` at B4 S4096 H16 D64
+  causal under the Fixed layout at block 64 (the sparse training slice's).
+
+``--only`` keeps the cases whose name contains TEXT (a kernel's name or a
+part of it).  The turns go over
+the roots and back (old, new, new, old for two), so a drift of the card
+over the call shows as a difference between the two turns of one root.
+Prints the card's name and power limit, then one line per kernel and
+shape with each root's two times and the ratio of their sum to the first
+root's, and writes them as JSON to ``--out`` (default
+``build/kernel_ab.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+H, D = 16, 64
+
+
+def _worker(root: str, only: str) -> dict:
+    """Time every case with the package of ``root`` whose name contains
+    ``only``; returns {case: ms}."""
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import \
+        aligned_do_and_delta
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    kernels.build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def time_ms(fn, n):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(2):
+                fn(i)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(n):
+                fn(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    def sets(B, S, count):
+        """``count`` sets of (q, k, v, dO), q/k/v views of [B, S, 3, H, D]."""
+        out = []
+        for _ in range(count):
+            qkv = torch.randn((B, S, 3, H, D), generator=gen, device="cuda"
+                              ).to(torch.bfloat16)
+            do = torch.randn((B, S, H, D), generator=gen, device="cuda"
+                             ).to(torch.bfloat16)
+            out.append((qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do))
+        return out
+
+    scale = 1.0 / D ** 0.5
+    res = {}
+
+    def timed(case, fn, n):
+        if only in case:
+            res[case] = time_ms(fn, n)
+
+    for B, S, causal, ragged in ((4, 512, True, False), (16, 1024, True, False),
+                                 (4, 4096, True, False), (64, 128, False, True)):
+        if "sparse" in only:
+            break
+        data = sets(B, S, max(1, min(8, (120 << 20) // (4 * B * S * H * D * 2))))
+        lens = (torch.from_numpy(np.random.default_rng(1).integers(
+            1, S + 1, B).astype(np.int32)).cuda() if ragged else None)
+        n = len(data)
+        kw = {"kv_lens": lens} if ragged else {}
+        tag = f"B{B} S{S} {'causal' if causal else 'kv_lens'}"
+        timed(f"flash_fwd {tag}", lambda i: kernels.flash_fwd(
+            *data[i % n][:3], causal, scale, **kw), 20)
+        if S == 512:
+            continue
+        stats = []
+        for q, k, v, do in data:
+            o, lse = kernels.flash_fwd(q, k, v, causal, scale, **kw)
+            stats.append((lse, aligned_do_and_delta(do, o)[1]))
+        timed(f"flash_bwd_dkv {tag}", lambda i: kernels.flash_bwd_dkv(
+            *data[i % n], *stats[i % n], causal, scale, **kw), 10)
+
+    if "flash" in only:
+        return res
+    cfg = FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=4,
+                              num_global_blocks=1, attention="unidirectional",
+                              different_layout_per_head=True,
+                              num_different_global_patterns=4)
+    plan = kernels.sparse_plan(cfg.make_layout(4096), 64, True, "cuda")
+    data = sets(4, 4096, 4)
+    stats = []
+    for q, k, v, do in data:
+        o, lse = kernels.block_sparse_fwd(q, k, v, plan, scale)
+        stats.append((lse, aligned_do_and_delta(do, o)[1]))
+    tag = "B4 S4096 causal, Fixed block 64"
+    timed(f"block_sparse_fwd {tag}", lambda i: kernels.block_sparse_fwd(
+        *data[i % 4][:3], plan, scale), 20)
+    timed(f"block_sparse_bwd_dkv {tag}", lambda i: kernels.block_sparse_bwd_dkv(
+        *data[i % 4], *stats[i % 4], plan, scale), 10)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("roots", nargs="+")
+    ap.add_argument("--only", default="")
+    ap.add_argument("--out", default=os.path.join("build", "kernel_ab.json"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(_worker(args.worker, args.only)))
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    order = list(range(len(args.roots)))
+    turns = []
+    for r in order + order[::-1]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              args.roots[0], "--only", args.only,
+                              "--worker", args.roots[r]],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return 1
+        turns.append((args.roots[r], json.loads(out.stdout.strip().splitlines()[-1])))
+        print(f"[ab] turn {len(turns)} ({args.roots[r]}) done", flush=True)
+    for case in turns[0][1]:
+        ms = {root: [t[case] for rr, t in turns if rr == root]
+              for root in args.roots}
+        base = sum(ms[args.roots[0]])
+        print(f"[ab] {case}: " + ", ".join(
+            f"{root} {v[0]:.4f} / {v[1]:.4f} ms ({sum(v) / base:.4f})"
+            for root, v in ms.items()))
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"nvidia_smi": smi, "roots": args.roots, "turns": turns},
+                  f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -203,3 +203,162 @@ def test_wrong_heads_or_length_raise():
         block_sparse_attention(torch.zeros(1, 48, 3, 32),
                                *(torch.zeros(1, 48, 3, 32) for _ in range(2)),
                                plan, 16)
+
+
+# ------------------------------------------------------------- tile tables
+
+def _expand_tiles(table, block, causal, S, columns):
+    """The [H, S, S] visibility a tile table describes (``columns``: the
+    transposed table, indexed by key tile), built from its entries alone;
+    each listed tile must hold a visible pair, and nothing may lie past
+    S."""
+    e = min(block, pbsa.TILE)
+    sub = pbsa.TILE // e
+    r = np.arange(pbsa.TILE)
+    shift = (r[:, None] // e) * sub + r[None, :] // e
+    H, nt = table.cnt.shape
+    mask = np.zeros((H, nt * pbsa.TILE, nt * pbsa.TILE), bool)
+    for h in range(H):
+        for t in range(nt):
+            n = table.cnt[h, t]
+            ids = table.idx[h, t]
+            assert (np.diff(ids[:n]) > 0).all() and not ids[n:].any()
+            assert not table.bits[h, t, n:].any()
+            for other, bits in zip(ids[:n], table.bits[h, t, :n]):
+                qt, kt = (other, t) if columns else (t, other)
+                tile = ((bits >> shift) & 1).astype(bool)
+                if causal and qt == kt:
+                    tile &= r[None, :] <= r[:, None]
+                assert tile.any(), (h, qt, kt)
+                mask[h, qt * pbsa.TILE:(qt + 1) * pbsa.TILE,
+                     kt * pbsa.TILE:(kt + 1) * pbsa.TILE] = tile
+    assert not mask[:, S:].any() and not mask[:, :, S:].any()
+    return mask[:, :S, :S]
+
+
+def _assert_tiles_match(layout, block, causal):
+    layout = np.asarray(layout, bool)
+    S = layout.shape[-1] * block
+    rows, cols = pbsa.make_tile_tables(layout, causal, block)
+    want = pbsa.block_mask(layout, block, causal)
+    np.testing.assert_array_equal(_expand_tiles(rows, block, causal, S, False),
+                                  want)
+    np.testing.assert_array_equal(_expand_tiles(cols, block, causal, S, True),
+                                  want)
+    for table in (rows, cols):
+        assert sorted(table.order.tolist()) == list(range(table.cnt.size))
+        assert (np.diff(table.cnt.ravel()[table.order]) <= 0).all()
+        ids = table.packed() & 0xFFFF
+        np.testing.assert_array_equal(ids, table.idx)
+        np.testing.assert_array_equal(table.packed().view(np.uint32) >> 16,
+                                      table.bits)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block,S", [(16, 256), (16, 80), (32, 256), (32, 96),
+                                     (64, 256), (128, 256)])
+def test_tile_tables_reproduce_block_mask(block, S, causal):
+    """Random half-full layouts with two empty rows (one at a 64-tile
+    edge), every block size, S a multiple of 64 or not (80 at block 16, 96
+    at block 32): the row and column tile tables expand to exactly
+    ``block_mask``; the orders are permutations, heaviest first."""
+    n = S // block
+    lay = np.random.default_rng(block + S + causal).integers(0, 2, (3, n, n))
+    lay[:, 1] = 0
+    lay[:, min(n - 1, max(1, 64 // block))] = 0
+    _assert_tiles_match(lay, block, causal)
+
+
+def _sweep_layouts(S=512, H=4, block=32):
+    """The five layout kinds of the on-card sparse sweep."""
+    var = psa.VariableSparsityConfig(
+        num_heads=H, block=block, num_random_blocks=1,
+        local_window_blocks=[2, 4], global_block_indices=[3],
+        different_layout_per_head=True).make_layout(S)
+    var[:, 5] = 0                                    # an empty row
+    return {
+        "fixed": psa.FixedSparsityConfig(
+            num_heads=H, block=block, num_local_blocks=4, num_global_blocks=1,
+            attention="unidirectional", different_layout_per_head=True,
+            num_different_global_patterns=4).make_layout(S),
+        "bigbird": psa.BigBirdSparsityConfig(
+            num_heads=H, block=block, num_random_blocks=2,
+            different_layout_per_head=True).make_layout(S),
+        "variable_empty_row": var,
+        "bslongformer": psa.BSLongformerSparsityConfig(
+            num_heads=H, block=block, num_sliding_window_blocks=3,
+            global_block_indices=[0, 9]).make_layout(S),
+        "dense": psa.DenseSparsityConfig(num_heads=H,
+                                         block=block).make_layout(S)}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", ["fixed", "bigbird", "variable_empty_row",
+                                  "bslongformer", "dense"])
+def test_tile_tables_of_sweep_configs(name, causal):
+    _assert_tiles_match(_sweep_layouts()[name], 32, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_table_equals_block_table_at_block_64(causal):
+    """At block 64 a tile is a block: the tile tables are the block
+    tables, every entry wholly live."""
+    lay = np.random.default_rng(6).integers(0, 2, (2, 6, 6))
+    idx, cnt, idxT, cntT = pbsa.make_index_tables(lay, causal, 64)
+    rows, cols = pbsa.make_tile_tables(lay, causal, 64)
+    for table, (want_idx, want_cnt) in ((rows, (idx, cnt)),
+                                        (cols, (idxT, cntT))):
+        np.testing.assert_array_equal(table.idx, want_idx)
+        np.testing.assert_array_equal(table.cnt, want_cnt)
+        assert (table.bits == (np.arange(table.idx.shape[-1])
+                               < table.cnt[..., None])).all()
+
+
+def test_plan_holds_tile_tables_on_its_device():
+    lay = np.random.default_rng(7).integers(0, 2, (2, 5, 5))
+    plan = sparse_plan(lay, 16, True, "cpu")
+    for table, dev in zip(pbsa.make_tile_tables(lay, True, 16),
+                          (plan.tile_rows, plan.tile_cols)):
+        for got, want in zip(dev, (table.packed(), table.cnt, table.order)):
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------- plain path at tile edges
+
+LOW_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block,S", [(16, 80), (32, 96), (64, 192),
+                                     (128, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_low_precision_tile_edges(pallas_interpret, dtype, block, S, causal):
+    """What the card holds the tensor-core kernels against: the port's
+    plain path in bf16 and fp16 (forward and autograd backward) at the
+    64-tile edges (S 80 at block 16 and 96 at block 32 end inside a tile;
+    a layout row that starts a 64-tile is empty), against the JAX
+    package's ``block_sparse_attention`` in fp32 on the same rounded inputs
+    (the Pallas kernels in interpret mode at block 128)."""
+    n = S // block
+    rng = np.random.default_rng(S + block + causal)
+    lay = rng.integers(0, 2, (2, n, n))
+    lay[:, :, 0] = 1
+    empty = 64 // block if block < 128 else 1       # starts a 64-tile
+    lay[:, empty] = 0
+    raw = _inputs(1, S, 2, 32, seed=S + causal)
+    q, k, v, w = (torch.from_numpy(x).to(dtype).float().numpy() for x in raw)
+    t = [torch.from_numpy(x).to(dtype).requires_grad_(True) for x in (q, k, v)]
+    o, lse = block_sparse_attention(*t, lay, block, causal)
+    (o.float() * torch.from_numpy(w)).sum().backward()
+    jo, jgrads = _jax(jbsa.block_sparse_attention, q, k, v, w, lay, block,
+                      causal)
+    for got, want, name in zip((o, *(x.grad for x in t)), (jo, *jgrads),
+                               ("o", "dq", "dk", "dv")):
+        assert got.dtype == dtype
+        err = (np.abs(got.detach().float().numpy() - want).max()
+               / max(1.0, np.abs(want).max()))
+        assert err <= LOW_TOL[dtype], (name, err)
+    rows = slice(empty * block, (empty + 1) * block)
+    assert not o[:, rows].any() and not t[0].grad[:, rows].any()
+    assert torch.isneginf(lse[:, :, rows]).all()
