@@ -10,8 +10,8 @@ imports JAX.  In order it
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
    reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128) of
    ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
-   ``chunk_attn_tc`` (also over the int8 cache), ``block_sparse_fwd_tc``
-   and ``block_sparse_bwd_dkv_tc`` with its
+   ``chunk_attn_tc`` (also over the int8 cache), ``block_sparse_fwd_tc``,
+   ``block_sparse_bwd_dq_tc`` and ``block_sparse_bwd_dkv_tc`` with its
    registers and spill stores (``[ptxas]``, failing if a bf16 D64 one
    spills) and its count of HGMMA (wgmma) and UTMALDG (TMA load)
    instructions from ``cuobjdump -sass`` (``[sass]``, failing where
@@ -32,8 +32,9 @@ imports JAX.  In order it
    24 leaf segments (no library call computes LAMB); the flash trio at the
    BERT slice's shape (B64 S128 H16 D64, non-causal, ragged ``kv_lens``)
    beside SDPA with the key-padding mask; the quantizer at GPT-2 350M's
-   four int8 leaves in bf16 (bitwise equal to its plain version; no
-   library call) and the int8-cache ``decode_attn``/``chunk_attn`` at the
+   four int8 leaves in bf16 and at the int8 decode step's one token of K
+   (bitwise equal to its plain version; no library call) and the
+   int8-cache ``decode_attn``/``chunk_attn`` at the
    bf16 rows' shapes (against the plain version on the dequantized cache,
    SDPA on the bf16 cache as yardstick; two ``chunk_attn`` and two
    ``chunk_attn_int8`` launches bitwise equal); then sweeps every dtype
@@ -51,7 +52,8 @@ imports JAX.  In order it
    stochastic rounding in distribution; checks that a skipped Adam or
    LAMB step leaves its state bitwise unchanged; holds the three NHWC
    bias-add variants bitwise against their plain version at the diffusion
-   path's shapes in bf16 and fp32 (and from unaligned rows at C = 3), and
+   path's shapes in bf16 and fp32 (and from unaligned rows at C = 3, from
+   an unaligned bias, at C = 12 and at one row per SM), and
    the bias-GeLU forward and backward at [16384, 4096] (mask bitwise,
    values within ``BF16_REL_TOL`` in bf16 and 1e-5 in fp32, the backward
    bitwise repeatable);
@@ -113,7 +115,7 @@ imports JAX.  In order it
    are held in the check phase only and say so; ``bf16_fp16_kernel``
    names the tensor-core kernel a wrapper launches on bf16 and fp16
    tensors: ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
-   ``chunk_attn_tc``, ``block_sparse_fwd_tc``,
+   ``chunk_attn_tc``, ``block_sparse_fwd_tc``, ``block_sparse_bwd_dq_tc``,
    ``block_sparse_bwd_dkv_tc``), then ``{"ok": true, "device": ...}``
    last.
 
@@ -247,6 +249,7 @@ def log(msg: str) -> None:
 TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
               "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
               "block_sparse_fwd": "block_sparse_fwd_tc",
+              "block_sparse_bwd_dq": "block_sparse_bwd_dq_tc",
               "block_sparse_bwd_dkv": "block_sparse_bwd_dkv_tc"}
 TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
 #: the kernel each wrapper launches on bf16 and fp16 tensors, for the
@@ -255,6 +258,7 @@ TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
             "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
             "chunk_attn_int8": "chunk_attn_tc (int8 cache)",
             "block_sparse_fwd": "block_sparse_fwd_tc",
+            "block_sparse_bwd_dq": "block_sparse_bwd_dq_tc",
             "block_sparse_bwd_dkv": "block_sparse_bwd_dkv_tc"}
 
 
@@ -826,8 +830,9 @@ def check_quantizer():
     """The ``quantizer`` kernel at GPT-2 350M's four int8 leaves in bf16,
     as the engine quantizes them (symmetric, 8 bits, no offsets): codes
     and scales bitwise equal to the plain version; one row for the four
-    launches together first, then one per leaf.  No PyTorch call computes
-    grouped absmax quantization (library: none)."""
+    launches together first, then one per leaf, then the decode step's
+    (:func:`check_quantizer_decode`).  No PyTorch call computes grouped
+    absmax quantization (library: none)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows, err, ms, plain_ms, nbytes, flops = [], 0.0, 0.0, 0.0, 0, 0
     for name, n_rows, gsize in QUANT_LEAVES:
@@ -847,7 +852,32 @@ def check_quantizer():
     total = _report("quantizer", "GPT-2 350M wqkv+wo+wi+wo_mlp (4 launches) "
                     "bf16 symmetric 8-bit", err, 0.0, ms, plain_ms, None,
                     nbytes, flops, FP32_FLOPS)
-    return [total] + rows
+    return [total] + rows + [check_quantizer_decode()]
+
+
+def check_quantizer_decode(slots=8, H=16, D=64):
+    """The quantizer at the int8 decode step's shape, where nearly all its
+    launches are: one token's K of the 8-slot ``SlotBatcher`` ([8, 1, 16,
+    64], 128 groups of 64) through ``quantize_kv`` from the strided view
+    of the [8, 1, 3, 16, 64] qkv product, as each layer quantizes its new K
+    and V; codes and scales bitwise equal to the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn((slots, 1, 3, H, D), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    k = qkv[:, :, 1]
+    codes, scale = quantize_kv(k)
+    ref = _quantize_ref(k, 8, True)
+    if not (torch.equal(codes, ref[0]) and torch.equal(scale[..., 0], ref[1])):
+        raise AssertionError("quantize_kv at the decode step's shape differs "
+                             "from the plain version")
+    groups = slots * H
+    return _report("quantizer", f"decode step: one token's K [{slots}, 1, "
+                   f"{H}, {D}] bf16 from the qkv view ({groups} groups of "
+                   f"{D}, quantize_kv) symmetric 8-bit", 0.0, 0.0,
+                   time_ms(lambda i: quantize_kv(k), 50),
+                   time_ms(lambda i: _quantize_ref(k, 8, True), 10), None,
+                   groups * D * 3 + groups * 4, QUANT_FLOPS * groups * D,
+                   FP32_FLOPS)
 
 
 def check_quantizer_sweep(groups=67):
@@ -1726,7 +1756,7 @@ def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
 #: the flash trio's kernels, by a substring of their names in a profile
 FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc")
 #: the block-sparse trio as the sparse step's profile names them
-SPARSE_KERNELS = ("block_sparse_fwd_tc", "block_sparse_bwd_dq_kernel",
+SPARSE_KERNELS = ("block_sparse_fwd_tc", "block_sparse_bwd_dq_tc",
                   "block_sparse_bwd_dkv_tc")
 
 
@@ -2263,10 +2293,12 @@ SPATIAL_VARIANTS = (("nhwc_bias_add", 0), ("nhwc_bias_add_add", 1),
 CHECK_ONLY = ("nhwc_bias_add_add", "nhwc_bias_add_bias_add")
 
 
-def _spatial_operands(shape, extra, dtype, gen, offset=0):
+def _spatial_operands(shape, extra, dtype, gen, offset=0, bias_offset=0):
     """x [shape], bias [C] (, other [shape] (, other_bias [C])) on the
     card; ``offset`` starts x and other that many elements into their
-    buffers, so their rows are not 16-byte aligned (the scalar path)."""
+    buffers, so their rows are not 16-byte aligned (the scalar path);
+    ``bias_offset`` does the same to the biases (aligned rows with the
+    scalar bias walk)."""
     n, C = math.prod(shape), shape[-1]
 
     def rows():
@@ -2274,7 +2306,9 @@ def _spatial_operands(shape, extra, dtype, gen, offset=0):
         return buf[offset:].view(shape)
 
     def bias():
-        return torch.randn(C, generator=gen, device="cuda").to(dtype)
+        buf = torch.randn(C + bias_offset, generator=gen,
+                          device="cuda").to(dtype)
+        return buf[bias_offset:]
 
     ops = [rows(), bias()]
     if extra >= 1:
@@ -2293,26 +2327,41 @@ def _library_sum(ops):
     return out
 
 
+def spatial_edge_cases():
+    """(shape, x offset, bias offset) of the spatial kernel's launch and
+    bias paths beyond the diffusion shapes: C = 3 from unaligned rows (the
+    scalar walk), SD's first level with its bias one element into its
+    buffer (aligned rows, scalar biases), C = 12 (not a multiple of bf16's
+    8-wide vector) and a [1, 1, SMs, 1280] tensor (one row per SM: the
+    one-vector-per-thread launch)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (((1, 33, 17, 3), 1, 0), ((1, 64, 64, 320), 0, 1),
+            ((1, 16, 16, 12), 0, 0), ((1, 1, sms, 1280), 0, 0))
+
+
 def check_spatial():
     """The three NHWC bias-add variants, bitwise against the plain version
-    in bf16 and fp32 at every shape of ``SPATIAL_SHAPES`` and at C = 3 from
-    unaligned rows; timed in bf16 (kernel, plain version, ``_library_sum``)
-    at each shape."""
+    in bf16 and fp32 at every shape of ``SPATIAL_SHAPES`` and at
+    :func:`spatial_edge_cases`; timed in bf16 (kernel, plain version,
+    ``_library_sum``) at each shape of ``SPATIAL_SHAPES``."""
     gen = torch.Generator(device="cuda").manual_seed(61)
     rows = []
-    cases = [(s, d, 0) for s in SPATIAL_SHAPES
+    edges = spatial_edge_cases()
+    cases = [(s, d, 0, 0) for s in SPATIAL_SHAPES
              for d in (torch.bfloat16, torch.float32)]
-    cases += [((1, 33, 17, 3), d, 1) for d in (torch.bfloat16, torch.float32)]
+    cases += [(s, d, off, boff) for s, off, boff in edges
+              for d in (torch.bfloat16, torch.float32)]
     for name, extra in SPATIAL_VARIANTS:
         fn = getattr(kernels, name)
-        for shape, dtype, off in cases:
-            ops = _spatial_operands(shape, extra, dtype, gen, off)
+        for shape, dtype, off, boff in cases:
+            ops = _spatial_operands(shape, extra, dtype, gen, off, boff)
             if not torch.equal(fn(*ops), kernels.nhwc_bias_add_reference(*ops)):
-                raise AssertionError(f"{name} {shape} {dtype} offset {off}: "
-                                     "kernel differs from the plain version")
+                raise AssertionError(f"{name} {shape} {dtype} offset {off} "
+                                     f"bias offset {boff}: kernel differs "
+                                     "from the plain version")
         log(f"[spatial] {name}: bitwise equal to the plain version in bf16 "
-            f"and fp32 at {list(SPATIAL_SHAPES)} and at (1, 33, 17, 3) from "
-            "unaligned rows")
+            f"and fp32 at {list(SPATIAL_SHAPES)} and at (shape, x offset, "
+            f"bias offset) {list(edges)}")
         for shape in SPATIAL_SHAPES:
             numel, C = math.prod(shape), shape[-1]
             per_set = (2 + (extra >= 1)) * numel * 2

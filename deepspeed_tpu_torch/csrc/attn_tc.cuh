@@ -1,21 +1,22 @@
 // Consumer bodies of the tensor-core attention kernels, shared by the
 // dense and the block-sparse kernels: one warpgroup's step over one k-tile
 // of the forward (flash_fwd_tc, block_sparse_fwd_tc) with its epilogue,
-// and over one q-tile of the dK/dV backward (flash_bwd_dkv_tc,
-// block_sparse_bwd_dkv_tc).  The caller owns the TMA ring and its barriers
-// and says where the tiles are; the mask is the caller's predicate
-// vis(r, c), evaluated (as a select) only on a tile the caller calls
-// partial.  Two rules keep the unmasked tiles free of mask work: the
-// element loops are instantiated apart for masked and unmasked tiles (a
-// `bool MASKED` template parameter; one select inside a single unrolled
-// loop let the compiler evaluate the predicate on every tile), and the
-// predicate captures by value and combines its tests with & and |, not &&
-// and || (a short-circuit over a value read through a reference, such as
-// a field of the kernel's __grid_constant__ parameters, compiles to a
-// branch per element).
-// Fragment row r = 0, 1 is row fr.row, fr.row + 8 of the
-// warpgroup's 64 M rows (hopper::Frag), c the column of the tile (a key of
-// the forward's k-tile, a query of the backward's q-tile).
+// over one q-tile of the dK/dV backward (flash_bwd_dkv_tc,
+// block_sparse_bwd_dkv_tc), and over one k-tile of the dQ backward
+// (flash_bwd_dq_tc, block_sparse_bwd_dq_tc).  The caller owns the TMA
+// ring and its barriers and says where the tiles are; the mask is the
+// caller's predicate vis(r, c), evaluated (as a select) only on a tile
+// the caller calls partial.  Two rules keep the unmasked tiles free of
+// mask work: the element loops are instantiated apart for masked and
+// unmasked tiles (a `bool MASKED` template parameter; one select inside a
+// single unrolled loop let the compiler evaluate the predicate on every
+// tile), and the predicate captures by value and combines its tests with
+// & and |, not && and || (a short-circuit over a value read through a
+// reference, such as a field of the kernel's __grid_constant__
+// parameters, compiles to a branch per element).  Fragment row r = 0, 1
+// is row fr.row, fr.row + 8 of the warpgroup's 64 M rows (hopper::Frag),
+// c the column of the tile (a key of the forward's and dQ's k-tile, a
+// query of dK/dV's q-tile).
 #pragma once
 
 #include "hopper.cuh"
@@ -31,7 +32,7 @@ struct Boxes {
     static constexpr int ROWB = 2 * COLS;
 };
 
-constexpr int BK = 64;             // keys per k-tile of the forward
+constexpr int BK = 64;             // keys per k-tile of the forward and dQ
 
 // The online-softmax state of a warpgroup's 64 query rows: the fp32
 // output accumulator fragment, and per fragment row the running max m of
@@ -281,6 +282,109 @@ __device__ __forceinline__ void dkv_finish(const DkvAcc<D>& acc, const hopper::F
         hopper::store_frag<T, B::COLS>(acc.dk[hf], dkp, dk_ss, row0, hf * 64, limit, 1.f, 1.f, fr);
         hopper::store_frag<T, B::COLS>(acc.dv[hf], dvp, dv_ss, row0, hf * 64, limit, 1.f, 1.f, fr);
     }
+}
+
+// dQ accumulator of a warpgroup's 64 query rows
+template <int D>
+struct DqAcc {
+    float dq[Boxes<D>::HALVES][Boxes<D>::COLS / 2];
+
+    __device__ __forceinline__ void init() {
+#pragma unroll
+        for (int hf = 0; hf < Boxes<D>::HALVES; ++hf)
+#pragma unroll
+            for (int e = 0; e < Boxes<D>::COLS / 2; ++e) dq[hf][e] = 0.f;
+    }
+};
+
+// The A operand of dQ's product from S and dP (sc, dp) of one k-tile:
+// dsa = round_T(P (dP - delta) scale), P = exp(S * scale - lse), 0 where
+// vis says no (MASKED; a select, never -inf arithmetic: a row with no
+// live key has lse = -inf and its exponential is inf), from the unrounded
+// P.  lse2 and dlt: the thread's two rows' lse times log2 e and delta.
+// Eight columns at a time, packed as they are made, as dkv_operands does.
+template <typename T, bool MASKED, typename Vis>
+__device__ __forceinline__ void dq_operands(const float (&sc)[BK / 2], const float (&dp)[BK / 2],
+                                            uint32_t (&dsa)[BK / 16][4], const float (&lse2)[2],
+                                            const float (&dlt)[2], float scale2, float scale,
+                                            const hopper::Frag& fr, const Vis& vis) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+        float d8[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const int e = 8 * kk + j;
+            const int r = (e >> 1) & 1;
+            float pe = hopper::ex2(fmaf(sc[e], scale2, -lse2[r]));
+            if (MASKED) pe = vis(r, 8 * (e / 4) + fr.col + (e & 1)) ? pe : 0.f;
+            d8[j] = pe * (dp[e] - dlt[r]) * scale;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dsa[kk][i] = hopper::pack2<T>(d8[2 * i], d8[2 * i + 1]);
+    }
+}
+
+// One k-tile of 64 keys of dQ, queries as the 64 M rows (JAX
+// flash_attention.py :246-301):
+//   S = Q.K^T and dP = dO.V^T     (wgmma, both operands K-major; q_addr and
+//                                  do_addr hold this warpgroup's 64 rows of
+//                                  QR-row Q and dO tiles, k_addr and v_addr
+//                                  the 64-key K and V tiles)
+//   P = exp(S * scale - lse)      (a select where masked, dq_operands)
+//   dS = round_T(P (dP - delta) scale), from the unrounded P (JAX :286)
+//   dQ += dS.K                    (wgmma, dS from registers, the same K tile
+//                                  read MN-major; at D 128 two N = 64
+//                                  products over K's two 64-column boxes)
+// with fp32 accumulators.
+template <typename T, int D, int QR, typename Vis>
+__device__ __forceinline__ void dq_step(DqAcc<D>& acc, const hopper::Frag& fr, uint32_t q_addr, uint32_t do_addr,
+                                        uint32_t k_addr, uint32_t v_addr, const float (&lse2)[2],
+                                        const float (&dlt)[2], float scale, bool masked, const Vis& vis) {
+    using B = Boxes<D>;
+    float sc[BK / 2], dp[BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        hopper::mma_ss<T, BK>(sc, hopper::tile_desc<B::ROWB>(q_addr + hopper::kstep<QR, B::ROWB>(kk)),
+                              hopper::tile_desc<B::ROWB>(k_addr + hopper::kstep<BK, B::ROWB>(kk)), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+        hopper::mma_ss<T, BK>(dp, hopper::tile_desc<B::ROWB>(do_addr + hopper::kstep<QR, B::ROWB>(kk)),
+                              hopper::tile_desc<B::ROWB>(v_addr + hopper::kstep<BK, B::ROWB>(kk)), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    const float scale2 = scale * hopper::LOG2E;
+    uint32_t dsa[BK / 16][4];
+    if (masked)
+        dq_operands<T, true>(sc, dp, dsa, lse2, dlt, scale2, scale, fr, vis);
+    else
+        dq_operands<T, false>(sc, dp, dsa, lse2, dlt, scale2, scale, fr, vis);
+#pragma unroll
+    for (int hf = 0; hf < B::HALVES; ++hf) hopper::fence_regs(acc.dq[hf]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int hf = 0; hf < B::HALVES; ++hf)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+            hopper::mma_rs<T, B::COLS>(acc.dq[hf], dsa[kk],
+                                       hopper::tile_desc<B::ROWB>(k_addr + hf * BK * B::ROWB + kk * 16 * B::ROWB));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait0();
+#pragma unroll
+    for (int hf = 0; hf < B::HALVES; ++hf) hopper::fence_regs(acc.dq[hf]);
+}
+
+// Store a warpgroup's dQ (rows row0 + fragment row below `limit`)
+template <typename T, int D>
+__device__ __forceinline__ void dq_finish(const DqAcc<D>& acc, const hopper::Frag& fr, T* dqp, long long dq_ss,
+                                          int row0, int limit) {
+    using B = Boxes<D>;
+#pragma unroll
+    for (int hf = 0; hf < B::HALVES; ++hf)
+        hopper::store_frag<T, B::COLS>(acc.dq[hf], dqp, dq_ss, row0, hf * 64, limit, 1.f, 1.f, fr);
 }
 
 }  // namespace attn_tc

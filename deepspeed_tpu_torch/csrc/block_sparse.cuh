@@ -1,12 +1,12 @@
 // Shared half of the block-sparse attention kernels (block_sparse_fwd.cu,
 // block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu): the argument block,
-// the shared-memory row loader, the dtype x head-dim x chunk dispatch of
-// the FMA kernels, and the tile table of the tensor-core kernels.
+// the shared-memory row loader, the head-dim x chunk dispatch of the fp32
+// FMA kernels, and the tile tables of the tensor-core kernels.
 //
-// Which kernel runs.  bf16 and fp16 forward and dK/dV run on tensor cores
-// (block_sparse_fwd_tc, block_sparse_bwd_dkv_tc: wgmma on TMA-fed 64-wide
-// tiles, over the tile table below).  fp32 forward and dK/dV, and dQ in
-// every dtype, run the FMA kernels described next.
+// Which kernel runs.  In bf16 and fp16 all three run on tensor cores
+// (block_sparse_fwd_tc, block_sparse_bwd_dq_tc, block_sparse_bwd_dkv_tc:
+// wgmma on TMA-fed 64-wide tiles, over the tile tables below).  fp32 runs
+// the FMA kernels described next (wgmma transposes 16-bit operands only).
 //
 // The layout is a per-head [H, n, n] 0/1 block mask over blocks of `block`
 // positions (n = S / block), compiled on the host into ragged tables
@@ -35,8 +35,8 @@
 // bit (i * sub + j) says that sub-block (q sub-block i, k sub-block j) of
 // the tile is live, sub = 64 / min(block, 64) (16 bits at block 16, 4 at
 // 32, 1 at 64 and 128); their count; and the order of the units, heaviest
-// first.  The transposed table (per key tile, its q-tiles, the same bits)
-// serves dK/dV.  S need not be a multiple of 64 at blocks 16 and 32: the
+// first; this row table serves the forward and dQ.  The transposed table
+// (per key tile, its q-tiles, the same bits) serves dK/dV.  S need not be a multiple of 64 at blocks 16 and 32: the
 // sub-blocks past S have no bit, TMA zero-fills the rows past S, and the
 // stores stop at S.
 #pragma once
@@ -132,8 +132,9 @@ __host__ __forceinline__ bool sparse_args_ok(const SparseArgs& a) {
     return block_ok && a.S % a.block == 0 && a.width >= 1;
 }
 
-// CHUNK = min(block, CMAX): 64 rows at D <= 64 and 32 at D = 128 keep the
-// two staged fp32 tiles within 32 KB of static shared memory
+// the fp32 FMA kernels' launch by head dim and CHUNK = min(block, CMAX):
+// 64 rows at D <= 64 and 32 at D = 128 keep the two staged fp32 tiles
+// within 32 KB of static shared memory
 #define DS_SPARSE_CHUNK(LAUNCH, T, DD, CMAX)                                      \
     switch (a.block < CMAX ? a.block : CMAX) {                                    \
         case 16: return LAUNCH<T, DD, 16>(a, stream);                             \
@@ -146,13 +147,5 @@ __host__ __forceinline__ bool sparse_args_ok(const SparseArgs& a) {
         case 32: DS_SPARSE_CHUNK(LAUNCH, T, 32, 64)                               \
         case 64: DS_SPARSE_CHUNK(LAUNCH, T, 64, 64)                               \
         case 128: DS_SPARSE_CHUNK(LAUNCH, T, 128, 32)                             \
-        default: return cudaErrorInvalidValue;                                    \
-    }
-#define DS_SPARSE_DISPATCH(LAUNCH)                                                \
-    if (!sparse_args_ok(a)) return cudaErrorInvalidValue;                         \
-    switch (dtype) {                                                              \
-        case kF32: DS_SPARSE_D(LAUNCH, float)                                     \
-        case kF16: DS_SPARSE_D(LAUNCH, __half)                                    \
-        case kBF16: DS_SPARSE_D(LAUNCH, __nv_bfloat16)                            \
         default: return cudaErrorInvalidValue;                                    \
     }

@@ -21,7 +21,8 @@
 // frontier or the key length: k-tiles past either are never loaded.
 // Each consumer thread reads its two rows' lse (times log2 e) and delta
 // into registers once, before the loop (rows past Sq get 0 and are
-// masked).  Per k-tile each consumer computes
+// masked).  Per k-tile each consumer runs the step it shares with
+// block_sparse_bwd_dq_tc (attn_tc.cuh dq_step):
 //   S = Q.K^T and dP = dO.V^T     (wgmma, both operands K-major)
 //   P = exp(S * scale - lse)      (a select, never -inf arithmetic: rows
 //                                  with no key have lse = -inf)
@@ -41,8 +42,8 @@
 // frontier; a query row is held by TPR = D/16 neighbouring lanes, each
 // k-tile widened to fp32 in shared memory and reused by all BQ rows, 3*D
 // FMAs per visible pair.
+#include "attn_tc.cuh"
 #include "flash_bwd.cuh"
-#include "hopper.cuh"
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
@@ -150,10 +151,9 @@ struct DqParams {
 };
 
 template <int D>
-struct DqCfg {
-    static constexpr int HALVES = D > 64 ? D / 64 : 1;     // TMA boxes per row
-    static constexpr int COLS = D < 64 ? D : 64;            // columns per box
-    static constexpr int ROWB = 2 * COLS;                   // bytes per box row
+struct DqCfg : attn_tc::Boxes<D> {
+    using attn_tc::Boxes<D>::HALVES;
+    using attn_tc::Boxes<D>::ROWB;
     static constexpr int STAGES = D > 64 ? 2 : 3;
     static constexpr int Q_BYTES = HALVES * DQ_BQ * ROWB;   // one of Q, dO
     static constexpr int KV_BYTES = HALVES * DQ_BK * ROWB;  // one of K, V
@@ -231,74 +231,30 @@ __global__ void __launch_bounds__(DQ_THREADS, 1) flash_bwd_dq_tc(const __grid_co
         lse2[r] = ok ? p.lse[stat0 + qi[r]] * hopper::LOG2E : 0.f;
         dlt[r] = ok ? p.delta[stat0 + qi[r]] : 0.f;
     }
-    float dq[C::HALVES][C::COLS / 2];
-#pragma unroll
-    for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-        for (int e = 0; e < C::COLS / 2; ++e) dq[hf][e] = 0.f;
+    attn_tc::DqAcc<D> acc;
+    acc.init();
     const uint32_t q_addr = hopper::smem_u32(qs) + 64 * wg * C::ROWB;
     const uint32_t do_addr = q_addr + C::Q_BYTES;
-    const float scale2 = p.scale * hopper::LOG2E;
-    float sc[DQ_BK / 2], dp[DQ_BK / 2];           // S and dP, then P and dS, of one k-tile
+    const int Sq = p.Sq;
+    const bool causal = p.causal;
 
     if (ntiles > 0) hopper::mbar_wait(q_bar, 0);
     for (int i = 0; i < ntiles; ++i) {
         const int s = i % C::STAGES;
         hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
         const uint32_t k_addr = hopper::smem_u32(kvs + s * 2 * C::KV_BYTES);
-        const uint32_t v_addr = k_addr + C::KV_BYTES;
-
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            hopper::mma_ss<T, DQ_BK>(sc, hopper::tile_desc<C::ROWB>(q_addr + hopper::kstep<DQ_BQ, C::ROWB>(kk)),
-                                     hopper::tile_desc<C::ROWB>(k_addr + hopper::kstep<DQ_BK, C::ROWB>(kk)), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            hopper::mma_ss<T, DQ_BK>(dp, hopper::tile_desc<C::ROWB>(do_addr + hopper::kstep<DQ_BQ, C::ROWB>(kk)),
-                                     hopper::tile_desc<C::ROWB>(v_addr + hopper::kstep<DQ_BK, C::ROWB>(kk)), kk > 0);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-        hopper::fence_regs(sc);
-        hopper::fence_regs(dp);
-
         const int k0 = i * DQ_BK;
+        // only k-tiles that cross the causal, key-length or Sq edge are masked
         const bool crosses = (p.causal && k0 + DQ_BK - 1 > qw + off) || k0 + DQ_BK > klim || qw + 64 > p.Sq;
-#pragma unroll
-        for (int e = 0; e < DQ_BK / 2; ++e) {
-            const int r = (e >> 1) & 1;
-            float pe = hopper::ex2(fmaf(sc[e], scale2, -lse2[r]));
-            if (crosses) {
-                // a select, never -inf arithmetic: rows with no key have
-                // lse = -inf, and their pe is inf here
-                const int kj = k0 + 8 * (e / 4) + fr.col + (e & 1);
-                const bool vis = kj < klim && qi[r] < p.Sq && (!p.causal || kj <= qi[r] + off);
-                pe = vis ? pe : 0.f;
-            }
-            dp[e] = pe * (dp[e] - dlt[r]) * p.scale;
-        }
-        uint32_t dsa[DQ_BK / 16][4];
-        hopper::to_operand<T, DQ_BK>(dp, dsa);    // round_T(dS), from the unrounded P
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf) hopper::fence_regs(dq[hf]);
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < DQ_BK / 16; ++kk)
-                hopper::mma_rs<T, C::COLS>(dq[hf], dsa[kk],
-                                           hopper::tile_desc<C::ROWB>(k_addr + hf * DQ_BK * C::ROWB + kk * 16 * C::ROWB));
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-#pragma unroll
-        for (int hf = 0; hf < C::HALVES; ++hf) hopper::fence_regs(dq[hf]);
+        attn_tc::dq_step<T, D, DQ_BQ>(acc, fr, q_addr, do_addr, k_addr, k_addr + C::KV_BYTES, lse2, dlt, p.scale,
+                                      crosses, [=](int r, int c) {
+                                          const int kj = k0 + c;
+                                          return (kj < klim) & (qi[r] < Sq) & (!causal | (kj <= qi[r] + off));
+                                      });
         if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
     }
-
     T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-    for (int hf = 0; hf < C::HALVES; ++hf)
-        hopper::store_frag<T, C::COLS>(dq[hf], dqp, p.dq_ss, qw, hf * 64, p.Sq, 1.f, 1.f, fr);
+    attn_tc::dq_finish<T, D>(acc, fr, dqp, p.dq_ss, qw, p.Sq);
 }
 
 template <typename T, int D>

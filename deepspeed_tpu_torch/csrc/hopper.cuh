@@ -1,7 +1,7 @@
 // Hopper building blocks of the tensor-core attention kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, chunk_attn.cu,
-// block_sparse_fwd.cu, block_sparse_bwd_dkv.cu; their shared consumer
-// steps are in attn_tc.cuh): TMA
+// block_sparse_fwd.cu, block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu;
+// their shared consumer steps are in attn_tc.cuh): TMA
 // tensor maps and loads, mbarriers, warpgroup matrix products (wgmma) on
 // shared-memory tiles, the swizzled layout for tiles that threads write
 // themselves, and thread-block cluster helpers (rank, barrier, reads of a

@@ -19,11 +19,11 @@ CUDA tensors go to three hand-written kernels (``csrc/block_sparse_*.cu``):
 (``_bwd_dq_kernel``, the row tables) and ``block_sparse_bwd_dkv``
 (``_bwd_dkv_kernel``, the column tables).  They take layout blocks of 16,
 32, 64 and 128 (the JAX wrapper's ``block % 128`` gate is a TPU lane rule)
-and read q, k, v and dO through their strides.  In bf16 and fp16 the
-forward and dK/dV run on tensor cores over the plan's tile tables
+and read q, k, v and dO through their strides.  In bf16 and fp16 all
+three run on tensor cores over the plan's tile tables
 (:func:`make_tile_tables`: the layout recompiled at 64 x 64 tiles, with
-the live sub-blocks of each tile and a heaviest-first launch order); fp32,
-and dQ in every dtype, run FMA kernels over the block tables.  CPU tensors go to the
+the live sub-blocks of each tile and a heaviest-first launch order); fp32
+runs FMA kernels over the block tables.  CPU tensors go to the
 plain versions beside them (:func:`block_sparse_attention_reference` and
 its backward): masked dense attention under the expanded block mask, the
 JAX ``sparse_mha_reference``.  The gradient is the flash kernels'
@@ -336,7 +336,8 @@ class _BlockSparseFwd:
 
 class _BlockSparseBwdDq:
     """The ``block_sparse_bwd_dq`` kernel's wrapper: writes dq (a fresh
-    tensor, or the strided ``out`` view) over the row tables."""
+    tensor, or the strided ``out`` view) over the row tables (the block
+    table in fp32, the tile table in bf16 and fp16)."""
 
     launches = 0
 
@@ -355,8 +356,9 @@ class _BlockSparseBwdDq:
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                     plan.idx.data_ptr(), plan.cnt.data_ptr(),
-                    DTYPE_CODES[dtype], B, S, H, D, plan.block,
-                    plan.idx.shape[-1], *strides3(q, k, v, do, dq),
+                    *_tile_ptrs(plan.tile_rows), DTYPE_CODES[dtype], B, S, H,
+                    D, plan.block, plan.idx.shape[-1],
+                    plan.tile_rows[0].shape[-1], *strides3(q, k, v, do, dq),
                     float(scale), int(plan.causal), _stream(q))
         build.check_status("block_sparse_bwd_dq", status)
         _BlockSparseBwdDq.launches += 1
@@ -402,7 +404,7 @@ class _BlockSparseBwdDkv:
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                  + [ctypes.c_longlong] * 12
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_DQ_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+_DQ_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                 + [ctypes.c_longlong] * 15
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DKV_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels of several checkouts on one card, in turns.
+"""Time the port's kernels of several checkouts on one card, in turns.
 
-    python3 scripts/torch_kernel_ab.py ROOT [ROOT ...] [--only TEXT] [--out FILE]
+    python3 scripts/torch_kernel_ab.py ROOT [ROOT ...] [--only TEXT[,TEXT...]] [--out FILE]
 
 Each root is a checkout of the repository (``git archive`` of a commit
 unpacked into a directory); each turn runs in a process of its own that
@@ -11,13 +11,18 @@ inputs made from one seed:
 
 - ``flash_fwd`` at B4 S512, B16 S1024 and B4 S4096 causal, and at B64
   S128 non-causal with ragged ``kv_lens``;
-- ``flash_bwd_dkv`` at B16 S1024 and B4 S4096 causal, and at B64 S128
-  with ``kv_lens``;
-- ``block_sparse_fwd`` and ``block_sparse_bwd_dkv`` at B4 S4096 H16 D64
-  causal under the Fixed layout at block 64 (the sparse training slice's).
+- ``flash_bwd_dq`` and ``flash_bwd_dkv`` at B16 S1024 and B4 S4096
+  causal, and at B64 S128 with ``kv_lens``;
+- ``block_sparse_fwd``, ``block_sparse_bwd_dq`` and
+  ``block_sparse_bwd_dkv`` at B4 S4096 H16 D64 causal under the Fixed
+  layout at block 64 (the sparse training slice's);
+- ``nhwc_bias_add`` at SD-1.5's four shapes ([1,64,64,320], [1,8,8,1280],
+  [1,512,512,128], [1,64,64,4] bf16), and beside it ``x + b``, the
+  PyTorch call it is held to (the same in every root: a yardstick timed
+  in the same call).
 
 ``--only`` keeps the cases whose name contains TEXT (a kernel's name or a
-part of it).  The turns go over
+part of it), or any of several comma-separated TEXTs.  The turns go over
 the roots and back (old, new, new, old for two), so a drift of the card
 over the call shows as a difference between the two turns of one root.
 Prints the card's name and power limit, then one line per kernel and
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -87,13 +93,20 @@ def _worker(root: str, only: str) -> dict:
     scale = 1.0 / D ** 0.5
     res = {}
 
+    def wanted(case):
+        return any(part in case for part in only.split(","))
+
     def timed(case, fn, n):
-        if only in case:
+        if wanted(case):
             res[case] = time_ms(fn, n)
 
-    for B, S, causal, ragged in ((4, 512, True, False), (16, 1024, True, False),
-                                 (4, 4096, True, False), (64, 128, False, True)):
-        if "sparse" in only:
+    flash_shapes = ((4, 512, True, False), (16, 1024, True, False),
+                    (4, 4096, True, False), (64, 128, False, True))
+    flash_cases = [f"{k} B{B} S{S} {'causal' if c else 'kv_lens'}"
+                   for B, S, c, _ in flash_shapes
+                   for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+    for B, S, causal, ragged in flash_shapes:
+        if not any(wanted(c) for c in flash_cases):
             break
         data = sets(B, S, max(1, min(8, (120 << 20) // (4 * B * S * H * D * 2))))
         lens = (torch.from_numpy(np.random.default_rng(1).integers(
@@ -109,26 +122,49 @@ def _worker(root: str, only: str) -> dict:
         for q, k, v, do in data:
             o, lse = kernels.flash_fwd(q, k, v, causal, scale, **kw)
             stats.append((lse, aligned_do_and_delta(do, o)[1]))
+        timed(f"flash_bwd_dq {tag}", lambda i: kernels.flash_bwd_dq(
+            *data[i % n], *stats[i % n], causal, scale, **kw), 10)
         timed(f"flash_bwd_dkv {tag}", lambda i: kernels.flash_bwd_dkv(
             *data[i % n], *stats[i % n], causal, scale, **kw), 10)
 
-    if "flash" in only:
-        return res
-    cfg = FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=4,
-                              num_global_blocks=1, attention="unidirectional",
-                              different_layout_per_head=True,
-                              num_different_global_patterns=4)
-    plan = kernels.sparse_plan(cfg.make_layout(4096), 64, True, "cuda")
-    data = sets(4, 4096, 4)
-    stats = []
-    for q, k, v, do in data:
-        o, lse = kernels.block_sparse_fwd(q, k, v, plan, scale)
-        stats.append((lse, aligned_do_and_delta(do, o)[1]))
     tag = "B4 S4096 causal, Fixed block 64"
-    timed(f"block_sparse_fwd {tag}", lambda i: kernels.block_sparse_fwd(
-        *data[i % 4][:3], plan, scale), 20)
-    timed(f"block_sparse_bwd_dkv {tag}", lambda i: kernels.block_sparse_bwd_dkv(
-        *data[i % 4], *stats[i % 4], plan, scale), 10)
+    sparse_cases = [f"{k} {tag}" for k in ("block_sparse_fwd",
+                                           "block_sparse_bwd_dq",
+                                           "block_sparse_bwd_dkv")]
+    if any(wanted(c) for c in sparse_cases):
+        cfg = FixedSparsityConfig(num_heads=H, block=64, num_local_blocks=4,
+                                  num_global_blocks=1,
+                                  attention="unidirectional",
+                                  different_layout_per_head=True,
+                                  num_different_global_patterns=4)
+        plan = kernels.sparse_plan(cfg.make_layout(4096), 64, True, "cuda")
+        data = sets(4, 4096, 4)
+        stats = []
+        for q, k, v, do in data:
+            o, lse = kernels.block_sparse_fwd(q, k, v, plan, scale)
+            stats.append((lse, aligned_do_and_delta(do, o)[1]))
+        timed(sparse_cases[0], lambda i: kernels.block_sparse_fwd(
+            *data[i % 4][:3], plan, scale), 20)
+        timed(sparse_cases[1], lambda i: kernels.block_sparse_bwd_dq(
+            *data[i % 4], *stats[i % 4], plan, scale), 10)
+        timed(sparse_cases[2], lambda i: kernels.block_sparse_bwd_dkv(
+            *data[i % 4], *stats[i % 4], plan, scale), 10)
+        del data, stats
+
+    for shape in ((1, 64, 64, 320), (1, 8, 8, 1280), (1, 512, 512, 128),
+                  (1, 64, 64, 4)):
+        tag = f"{list(shape)} bf16"
+        if not (wanted(f"nhwc_bias_add {tag}") or wanted(f"x + b {tag}")):
+            continue
+        count = max(1, min(8, (256 << 20) // (4 * math.prod(shape))))
+        xs = [(torch.randn(shape, generator=gen, device="cuda"
+                           ).to(torch.bfloat16),
+               torch.randn(shape[-1], generator=gen, device="cuda"
+                           ).to(torch.bfloat16)) for _ in range(count)]
+        timed(f"nhwc_bias_add {tag}",
+              lambda i: kernels.nhwc_bias_add(*xs[i % count]), 50)
+        timed(f"x + b {tag}", lambda i: xs[i % count][0] + xs[i % count][1],
+              50)
     return res
 
 
