@@ -33,11 +33,17 @@ imports JAX.  In order it
    BERT slice's shape (B64 S128 H16 D64, non-causal, ragged ``kv_lens``)
    beside SDPA with the key-padding mask; the quantizer at GPT-2 350M's
    four int8 leaves in bf16 and at the int8 decode step's one token of K
-   (bitwise equal to its plain version; no library call) and the
-   int8-cache ``decode_attn``/``chunk_attn`` at the
+   (bitwise equal to its plain version; no library call),
+   ``quantize_kv_append`` (a layer's K and V quantized into its int8
+   cache slots, the whole cache bitwise equal to the plain version's) at
+   the decode step, a ragged extend chunk and ``profile_generate``'s
+   prefill, and the int8-cache ``decode_attn``/``chunk_attn`` at the
    bf16 rows' shapes (against the plain version on the dequantized cache,
-   SDPA on the bf16 cache as yardstick; two ``chunk_attn`` and two
-   ``chunk_attn_int8`` launches bitwise equal); then sweeps every dtype
+   SDPA on the bf16 cache as yardstick; two launches of each of the four
+   cache kernels bitwise equal); ``decode_attn(_int8)`` at the serving
+   batch's ragged, full and pos-0 frontiers and for one request at S_max
+   (``[ptxas]``/``[sass]`` lines for each decode instantiation: HMMA and
+   UTMALDG counts); then sweeps every dtype
    and head dim the attention kernels take: every cache frontier of a
    small ragged batch (bf16 and int8 caches), the chunk at Sq 7, 63, 65
    and 129 with a single live k-tile, pos + Sq = S_max and ragged rows,
@@ -76,11 +82,13 @@ imports JAX.  In order it
 5. the same for int8 serving (``dtype="int8"``, ``kv_cache_dtype="int8"``:
    int8 weights and KV cache, bf16 compute), counts at 0 before the
    engine is built: parameter and KV bytes per token against the bf16
-   engine's, exact launches of ``generate`` (quantizer 48 and
-   ``decode_attn_int8`` 24 per step), logits against an fp32 host forward
+   engine's, exact launches of ``generate`` (quantizer 0, one
+   ``quantize_kv_append`` a layer per forward, ``decode_attn_int8`` 24
+   per step), logits against an fp32 host forward
    of the same dequantized weights, batched = alone, agreement with the
-   bf16 run (reported), peak memory, a profile, and decode ms per token
-   of the bf16 and int8 engines timed in turns;
+   bf16 run (reported), peak memory, a profile (device kernels per decode
+   step), and decode ms per token of the bf16 and int8 engines timed in
+   turns;
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -162,7 +170,8 @@ from deepspeed_tpu_torch.ops.kernels import (
     block_sparse_attention_reference, build, cached_attention_reference,
     dequantize_kv, flash_attention_backward_reference,
     flash_attention_reference, fused_adam_reference, fused_lamb_reference,
-    lamb_hyper, quantize, quantize_kv, quantize_rows, sparse_plan)
+    lamb_hyper, quantize, quantize_kv, quantize_kv_into,
+    quantize_kv_into_reference, quantize_rows, sparse_plan)
 from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import BLOCKS
 from deepspeed_tpu_torch.ops.kernels.flash_attention import \
     aligned_do_and_delta
@@ -224,6 +233,8 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
            "chunk_attn_int8": (
                "deepspeed_tpu_torch/csrc/chunk_attn.cu",
                "deepspeed_tpu/ops/pallas/decode_attention.py:218"),
+           "quantize_kv_append": ("deepspeed_tpu_torch/csrc/quantizer.cu",
+                                  "deepspeed_tpu/ops/pallas/quantizer.py:89"),
            "nhwc_bias_add": ("deepspeed_tpu_torch/csrc/spatial.cu",
                              "deepspeed_tpu/ops/pallas/spatial.py:28"),
            "nhwc_bias_add_add": ("deepspeed_tpu_torch/csrc/spatial.cu",
@@ -255,6 +266,7 @@ TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
 #: the kernel each wrapper launches on bf16 and fp16 tensors, for the
 #: kernels line
 TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
+            "decode_attn": "decode_attn_mma (mma.sync)",
             "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
             "chunk_attn_int8": "chunk_attn_tc (int8 cache)",
             "block_sparse_fwd": "block_sparse_fwd_tc",
@@ -334,6 +346,71 @@ def check_sass():
         raise AssertionError(f"no wgmma or no TMA in {bad}")
     return {f"{k}<{dt},{D}>": {"HGMMA": hg, "UTMALDG": tma}
             for (k, dt, D), (hg, tma) in counts.items()}
+
+
+#: the decode kernels' type codes in mangled names
+_MANGLED_TYPES = {"f": "fp32", "6__half": "fp16", "13__nv_bfloat16": "bf16",
+                  "a": "int8"}
+
+
+def _decode_instance(mangled: str):
+    """(kernel, types, D) of a mangled ``decode_attn_mma<T, D>`` or
+    ``decode_attn_fma<T, C, D>`` name, or None; ``types`` is the query
+    type, then " int8" for an int8 cache."""
+    m = re.search(r"(decode_attn_mma|decode_attn_fma)I(f|6__half|"
+                  r"13__nv_bfloat16)(a)?\S*?Li(\d+)E", mangled)
+    if m is None:
+        return None
+    return (m.group(1), _MANGLED_TYPES[m.group(2)]
+            + (" int8" if m.group(3) else ""), int(m.group(4)))
+
+
+#: every decode instantiation: 16-bit caches on mma.sync, fp32 and int8
+#: caches on FMAs
+DECODE_WANTED = ([("decode_attn_mma", dt, D) for dt in ("bf16", "fp16")
+                  for D in HEAD_DIMS]
+                 + [("decode_attn_fma", dt, D)
+                    for dt in ("fp32", "fp32 int8", "fp16 int8", "bf16 int8")
+                    for D in HEAD_DIMS])
+
+
+def check_decode_build():
+    """Registers and spill stores (``-Xptxas -v``) of every decode
+    instantiation, and its HMMA (mma.sync) and UTMALDG (TMA load) counts
+    from ``cuobjdump -sass``; fails if one has no TMA load, an mma one no
+    HMMA, or a bf16 D64 one spills."""
+    rows = {}
+    rep = build.ptxas_reports.get("decode_attn", "")
+    for part in re.split(r"Compiling entry function '", rep)[1:]:
+        inst = _decode_instance(part.split("'")[0])
+        if inst is not None:
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            rows[inst] = [int(regs.group(1)) if regs else -1,
+                          int(spill.group(1)) if spill else 0, 0, 0]
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = build.BUILD_DIR / f"decode_attn.{build._digest('decode_attn')}.so"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    for part in re.split(r"Function : ", sass)[1:]:
+        inst = _decode_instance(part.split()[0])
+        if inst is not None:
+            row = rows.setdefault(inst, [-1, 0, 0, 0])
+            row[2] = len(re.findall(r"\bHMMA\.", part))
+            row[3] = len(re.findall(r"\bUTMALDG\.", part))
+    for (k, dt, D), (regs, spill, hmma, tma) in sorted(rows.items()):
+        log(f"[ptxas] {k}<{dt}, D{D}>: {regs} registers, spill stores "
+            f"{spill} bytes; [sass] HMMA {hmma}, UTMALDG {tma}")
+    bad = [w for w in DECODE_WANTED if w not in rows or not rows[w][3]
+           or (w[0] == "decode_attn_mma" and not rows[w][2])
+           or (w[1] == "bf16" and w[2] == 64 and rows[w][1])]
+    if bad:
+        raise AssertionError(f"decode kernels without TMA or HMMA, not "
+                             f"built, or spilling: {bad}")
+    return {f"{k}<{dt},{D}>": {"registers": r, "spill_stores": sp,
+                               "HMMA": hm, "UTMALDG": t}
+            for (k, dt, D), (r, sp, hm, t) in rows.items()}
 
 
 def time_ms(fn, n: int, warmup: int = 2) -> float:
@@ -766,21 +843,30 @@ def _cache_check(name, kernel, q, cache, pos, mask, Sq, repeat=False):
                    4 * D * H * visible)
 
 
-def check_decode(B=8, Smax=1024, H=16, D=64, int8=False):
+#: check_decode's positions: ragged from a seed (the serving shape's), every
+#: row full (pos = S_max - 1), every row at pos 0 (one live key); and a
+#: single request (B 1) full, whose 16 heads' keys split over clusters
+DECODE_POS = ("ragged", "full", "zero")
+DECODE_CASES = tuple((8, kind) for kind in DECODE_POS) + ((1, "full"),)
+
+
+def check_decode(B=8, Smax=1024, H=16, D=64, int8=False, kind="ragged"):
     """``decode_attn`` on a bf16 cache, or with ``int8`` its int8-cache
-    variant on the same data quantized."""
+    variant on the same data quantized, at ``kind`` positions (a device
+    tensor, as the decode loop hands it); two launches bitwise equal."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     ck, cv, _ = _caches(B, Smax, H, D, gen)
-    pos = torch.as_tensor(np.random.default_rng(3).integers(0, Smax, B)
-                          .astype(np.int32)).cuda()
+    host = {"ragged": np.random.default_rng(3).integers(0, Smax, B),
+            "full": np.full(B, Smax - 1), "zero": np.zeros(B)}[kind]
+    pos = torch.as_tensor(host.astype(np.int32)).cuda()
     q = _qkv_views(1, B, 1, H, D, gen)[0][0]
     mask = (torch.arange(Smax, device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]        # [B, 1, 1, Smax]
     if int8:
         return _cache_check("decode_attn_int8", kernels.decode_attn_int8, q,
-                            _int8_cache(ck, cv), pos, mask, 1)
+                            _int8_cache(ck, cv), pos, mask, 1, repeat=True)
     return _cache_check("decode_attn", kernels.decode_attn, q, (ck, cv), pos,
-                        mask, 1)
+                        mask, 1, repeat=True)
 
 
 def check_chunk(pos, Sq=128, Smax=1024, H=16, D=64, int8=False):
@@ -878,6 +964,56 @@ def check_quantizer_decode(slots=8, H=16, D=64):
                    time_ms(lambda i: _quantize_ref(k, 8, True), 10), None,
                    groups * D * 3 + groups * 4, QUANT_FLOPS * groups * D,
                    FP32_FLOPS)
+
+
+#: check_kv_append's cases: (label, B, Sq, S_max, ragged): the int8 decode
+#: step of the 8-slot batcher, a ragged extend chunk, profile_generate's
+#: prefill (4 prompts of 512)
+KV_APPEND_CASES = (("decode step", 8, 1, 1024, True),
+                   ("ragged extend chunk", 8, 16, 1024, True),
+                   ("prefill", 4, 512, 1024, False))
+
+
+def check_kv_append(H=16, D=64):
+    """``quantize_kv_append``: one launch quantizes a layer's new K and V
+    from the strided [B, Sq, 3, H, D] qkv view and writes codes and scales
+    into the layer's int8 cache at slots pos + i; the whole cache (codes
+    and scales, written slots and the rest) bitwise equal to the plain
+    version's at every case of ``KV_APPEND_CASES``.  No PyTorch call
+    computes it (library: none)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for label, B, Sq, Smax, ragged in KV_APPEND_CASES:
+        qkv = torch.randn((B, Sq, 3, H, D), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        rng = np.random.default_rng(B * Sq)
+        pos = torch.as_tensor(rng.integers(0, Smax - Sq + 1, B).astype(
+            np.int32)).cuda() if ragged else 0
+        base = [torch.randint(-127, 128, (B, Smax, H, D), generator=gen,
+                              device="cuda", dtype=torch.int8)
+                for _ in range(2)]
+        base += [torch.rand((B, Smax, H, 1), generator=gen, device="cuda")
+                 for _ in range(2)]
+        got = [t.clone() for t in base]
+        ref = [t.clone() for t in base]
+        quantize_kv_into(k, v, got, pos)
+        quantize_kv_into_reference(k, v, ref, pos)
+        err = max((a.float() - r.float()).abs().max().item()
+                  for a, r in zip(got, ref))
+        if not all(torch.equal(a, r) for a, r in zip(got, ref)):
+            raise AssertionError(f"quantize_kv_append ({label}) differs "
+                                 f"from the plain version (max diff {err})")
+        n = B * Sq * H * D * 2                         # K and V elements
+        pos_s = pos.tolist() if torch.is_tensor(pos) else pos
+        rows.append(_report(
+            "quantize_kv_append", f"{label}: K and V [{B}, {Sq}, {H}, {D}] "
+            f"bf16 from the qkv view into an int8 cache of S_max {Smax}, pos "
+            f"{pos_s}", err, 0.0,
+            time_ms(lambda i: quantize_kv_into(k, v, got, pos), 50),
+            time_ms(lambda i: quantize_kv_into_reference(k, v, ref, pos), 10),
+            None, n * 3 + n // D * 4, QUANT_FLOPS * n, FP32_FLOPS))
+    return rows
 
 
 def check_quantizer_sweep(groups=67):
@@ -1773,20 +1909,22 @@ def device_profile(label, run, shares=()):
         run()
         ACCEL.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {e.key: e.self_device_time_total / 1e3
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0}
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    by_kernel = {e.key: e.self_device_time_total / 1e3 for e in device}
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     res = {"wall_ms": wall_ms, "device_ms": device_ms,
            "device_busy_share": device_ms / wall_ms,
+           "device_kernels": sum(e.count for e in device),
            "top_kernels_ms": [[k[:80], v] for k, v in top]}
     for sub in shares:
         res[f"ms_{sub}"] = sum(ms for k, ms in by_kernel.items() if sub in k)
         res[f"share_{sub}"] = res[f"ms_{sub}"] / device_ms
     log(f"[profile] {label}: wall {wall_ms:.1f} ms, kernel time on the card "
-        f"{device_ms:.1f} ms (busy share {res['device_busy_share']:.3f})"
+        f"{device_ms:.1f} ms (busy share {res['device_busy_share']:.3f}), "
+        f"{res['device_kernels']} kernels"
         + "".join(f", {sub} {res[f'ms_{sub}']:.3f} ms (share "
                   f"{res[f'share_{sub}']:.4f})" for sub in shares))
     for name, ms in res["top_kernels_ms"]:
@@ -1795,11 +1933,23 @@ def device_profile(label, run, shares=()):
 
 
 def profile_generate(engine, cfg, label="generate 4x16 tokens"):
-    """Where ``generate``'s time goes: a 16-token run of phase 3's batch."""
+    """Where ``generate``'s time goes: a 16-token run of phase 3's batch,
+    and the device kernels a decode step launches: those of the 16-token
+    run less those of a 1-token run of the same batch, over 15."""
     toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
     lens = [512, 384, 200, 77]
-    return device_profile(label, lambda: engine.generate(
-        toks, max_new_tokens=16, prompt_lens=lens).cpu())
+
+    def run(n):
+        return lambda: engine.generate(toks, max_new_tokens=n,
+                                       prompt_lens=lens).cpu()
+
+    res = device_profile(label, run(16))
+    one = device_profile(label.replace("16 tokens", "1 token"), run(1))
+    res["kernels_per_decode_step"] = (res["device_kernels"]
+                                      - one["device_kernels"]) / 15
+    log(f"[profile] {label}: {res['kernels_per_decode_step']:.1f} device "
+        f"kernels per decode step")
+    return res
 
 
 def kv_bytes_per_token(model_config, kv_dtype=None):
@@ -1900,15 +2050,17 @@ def run_int8_serving(cfg, params_host, bf16):
         f"activations, dequantized weights); launches generate "
         f"{gen_counts}, serving {serve_counts}")
     # generate: 5 prefills and 64 decode steps (run_generate), each
-    # quantizing K and V in every layer; decode_attn_int8 once a layer
-    # per step; the bf16-cache kernels never
+    # writing K and V into every layer's int8 cache with one
+    # quantize_kv_append launch; decode_attn_int8 once a layer per step;
+    # the quantizer only at init, the bf16-cache kernels never
     L = cfg.n_layer
-    want = {"quantizer": 2 * L * (5 + 64), "decode_attn_int8": L * 64,
-            "decode_attn": 0, "chunk_attn": 0}
+    want = {"quantizer": 0, "quantize_kv_append": L * (5 + 64),
+            "decode_attn_int8": L * 64, "decode_attn": 0, "chunk_attn": 0}
     bad = [k for k, n in want.items() if gen_counts[k] != n]
     if init_counts["quantizer"] != 4 or bad or serve_counts["decode_attn"] \
-            or serve_counts["chunk_attn"] \
-            or not serve_counts["chunk_attn_int8"]:
+            or serve_counts["chunk_attn"] or serve_counts["quantizer"] \
+            or not serve_counts["chunk_attn_int8"] \
+            or not serve_counts["quantize_kv_append"]:
         raise AssertionError(f"int8 launches: init {init_counts}, generate "
                              f"{gen_counts} (want {want}), serving "
                              f"{serve_counts}")
@@ -2774,14 +2926,17 @@ def main() -> int:
     result["build_s"] = t_build
     result["ptxas_tensor_core"] = check_ptxas_tc()
     result["sass_tensor_core"] = check_sass()
+    result["decode_build"] = check_decode_build()
 
     checks = [check_flash(4, 512), check_flash(1, 128), check_flash(16, 1024),
-              check_decode(),
+              *[check_decode(B=B, kind=kind) for B, kind in DECODE_CASES],
               check_chunk(128), check_chunk(640),
               *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
               check_fused_adam(), *check_block_sparse(), *check_fused_lamb(),
               *check_flash_kv_lens(), *check_quantizer(),
-              check_decode(int8=True), check_chunk(128, int8=True),
+              *[check_decode(B=B, int8=True, kind=kind)
+                for B, kind in DECODE_CASES],
+              *check_kv_append(), check_chunk(128, int8=True),
               check_chunk(640, int8=True), *check_spatial(),
               *check_bias_gelu()]
     check_adam_skip()

@@ -415,16 +415,6 @@ __global__ void __launch_bounds__(ChunkCfg<D, Q8>::THREADS, 1) chunk_attn_tc(con
     hopper::cluster_sync();                       // the peers are done reading this CTA
 }
 
-int sm_count() {
-    static int n = 0;
-    if (n == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return n;
-}
-
 template <typename T, int D, bool Q8>
 cudaError_t launch_chunk_tc(const ChunkParams& p, int B, cudaStream_t stream) {
     using C = ChunkCfg<D, Q8>;

@@ -115,6 +115,18 @@ template <> __device__ __forceinline__ void store_vec4<__half>(__half* dst, cons
     *reinterpret_cast<uint2*>(dst) = packed;
 }
 
+// the card's SM count, read once (host side)
+static int sm_count() {
+    static const int count = [] {
+        int dev = 0, n = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            return 1;
+        return n;
+    }();
+    return count;
+}
+
 extern "C" const char* ds_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,11 +1,12 @@
 // Hopper building blocks of the tensor-core attention kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, chunk_attn.cu,
 // block_sparse_fwd.cu, block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu;
-// their shared consumer steps are in attn_tc.cuh): TMA
+// their shared consumer steps are in attn_tc.cuh) and of decode_attn.cu: TMA
 // tensor maps and loads, mbarriers, warpgroup matrix products (wgmma) on
 // shared-memory tiles, the swizzled layout for tiles that threads write
 // themselves, and thread-block cluster helpers (rank, barrier, reads of a
-// peer CTA's shared memory) for chunk_attn's split over the keys.
+// peer CTA's shared memory) for chunk_attn's and decode_attn's splits over
+// the keys.
 //
 // Tiles.  A [rows, D] head slice of a 16-bit [B, S, H, D] tensor comes
 // into shared memory through one TMA box per 64 columns (one box of 32
@@ -55,20 +56,15 @@ static EncodeTiledFn encode_fn() {
 // map_rows's dtype for int8 cache codes (beside kF16, kBF16)
 constexpr int kCodes = 3;
 
-// A 4-D map over a strided [B, S, H, D] tensor (strides in elements),
-// dims innermost first (D, H, S, B), one [rows, D] tile of one (b, h) head
-// slice per load set.  16-bit (kF16, kBF16): box (min(D, 64), 1, rows, 1),
-// one [rows, 64] (or [rows, 32]) tile under the 128-byte (64-byte) swizzle
-// per load.  int8 codes (kCodes): box (D, 1, rows, 1), unswizzled, rows of
-// D bytes one after another.  Rows past S are zero-filled.  A dim of
-// extent 1 gets a stride of its own that TMA accepts, whatever the
-// tensor's stride there.
-static cudaError_t map_rows(CUtensorMap* map, const void* base, int dtype, int B, int S, int H,
-                            int D, long long sb, long long ss, long long sh, int rows) {
+// A 4-D tiled map over a strided [B, S, H, D] tensor of esz-byte elements
+// (strides in elements), dims innermost first (D, H, S, B), box (box0, 1,
+// rows, 1).  A dim of extent 1 gets a stride of its own that TMA accepts,
+// whatever the tensor's stride there.  Rows past S are zero-filled.
+static cudaError_t encode_rows(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esz,
+                               CUtensorMapSwizzle swizzle, int box0, int B, int S, int H, int D,
+                               long long sb, long long ss, long long sh, int rows) {
     EncodeTiledFn fn = encode_fn();
     if (fn == nullptr) return cudaErrorNotSupported;
-    const bool codes = dtype == kCodes;
-    const cuuint64_t esz = codes ? 1 : 2;
     cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
     long long st[3] = {sh, ss, sb};
     cuuint64_t strides[3];
@@ -77,18 +73,41 @@ static cudaError_t map_rows(CUtensorMap* map, const void* base, int dtype, int B
         strides[i] = dims[i + 1] == 1 ? ((span + 15) / 16) * 16 : (cuuint64_t)st[i] * esz;
         span = strides[i] * dims[i + 1];
     }
-    cuuint32_t box[4] = {(cuuint32_t)(codes || D < 64 ? D : 64), 1, (cuuint32_t)rows, 1};
+    cuuint32_t box[4] = {(cuuint32_t)box0, 1, (cuuint32_t)rows, 1};
     cuuint32_t estride[4] = {1, 1, 1, 1};
+    const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estride,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One [rows, D] tile of one (b, h) head slice per load set.  16-bit (kF16,
+// kBF16): box (min(D, 64), 1, rows, 1), one [rows, 64] (or [rows, 32])
+// tile under the 128-byte (64-byte) swizzle per load.  int8 codes
+// (kCodes): box (D, 1, rows, 1), unswizzled, rows of D bytes one after
+// another.
+static cudaError_t map_rows(CUtensorMap* map, const void* base, int dtype, int B, int S, int H,
+                            int D, long long sb, long long ss, long long sh, int rows) {
+    const bool codes = dtype == kCodes;
     const CUtensorMapDataType type = codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                      : dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
     const CUtensorMapSwizzle swizzle = codes ? CU_TENSOR_MAP_SWIZZLE_NONE
                                        : D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                                                  : CU_TENSOR_MAP_SWIZZLE_64B;
-    const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, estride,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+    return encode_rows(map, base, type, codes ? 1 : 2, swizzle, codes || D < 64 ? D : 64, B, S, H, D, sb,
+                       ss, sh, rows);
+}
+
+// One [rows, D] tile of one (b, h) head slice of esz-byte elements (1, 2
+// or 4, moved as raw bits), unswizzled: rows of D elements one after
+// another (decode_attn's stages).
+static cudaError_t map_rows_linear(CUtensorMap* map, const void* base, int esz, int B, int S, int H,
+                                   int D, long long sb, long long ss, long long sh, int rows) {
+    const CUtensorMapDataType type = esz == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                     : esz == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_UINT32;
+    return encode_rows(map, base, type, esz, CU_TENSOR_MAP_SWIZZLE_NONE, D, B, S, H, D, sb, ss, sh, rows);
 }
 
 // ---------------------------------------------------------- device side
@@ -111,6 +130,13 @@ __device__ __forceinline__ void fence_barrier_init() {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// add `bytes` to the transaction count the current phase waits for,
+// without arriving (a later mbar_expect_tx arrives)
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+                 : "memory");
 }
 
 // arrive and add `bytes` to the transaction count the phase waits for
@@ -204,6 +230,39 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr) {
     float v;
     asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
     return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// arrive (release at cluster scope) on an mbarrier of a peer CTA, given
+// its shared::cluster address: this thread's earlier writes, remote ones
+// included, are visible to a thread that then waits on it with
+// mbar_wait_cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: for barriers that peer CTAs
+// arrive on (mbar_arrive_cluster); traps like mbar_wait
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    auto ready = [&]() {
+        uint32_t done;
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+        return done;
+    };
+    if (ready()) return;
+    const long long start = clock64();
+    while (!ready())
+        if (clock64() - start > (1ll << 32)) __trap();
 }
 
 __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
@@ -347,6 +406,42 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
 
 #undef DS_R16
 #undef DS_R32
+
+// ---- warp-level matrix products (mma.sync m16n8k16, fp32 accumulators)
+
+// D[16, 8] += A[16, 16] . B[16, 8]: A row-major (a0: rows 0-7, a1: rows
+// 8-15, a2 and a3 the same rows' columns 8-15), B column-major (b0: rows
+// 0-7, b1: rows 8-15); thread t holds rows t/4 and t/4 + 8, columns
+// 2 (t % 4) and 2 (t % 4) + 1 of each (A: of its 16 columns in two halves)
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+                     "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                     : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    else
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+                     "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                     : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 16-bit matrices from shared memory, each row's 16 bytes at the
+// address lane 8 i + r gives for row r of matrix i; thread t receives row
+// t / 4, columns 2 (t % 4) and 2 (t % 4) + 1 of each (TRANS: of each
+// matrix's transpose)
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    if constexpr (TRANS)
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+    else
+        asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+
 #undef DS_O16
 #undef DS_O32
 

@@ -135,18 +135,6 @@ spatial_kernel(const T* __restrict__ x, const TB* __restrict__ b, const T* __res
     }
 }
 
-// the card's SM count, read once
-static int sm_count() {
-    static const int count = [] {
-        int dev = 0, n = 0;
-        if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-            return 1;
-        return n;
-    }();
-    return count;
-}
-
 template <typename T, typename TB, int VARIANT, int VEC, bool BVEC>
 static cudaError_t launch_sized(const T* x, const TB* b, const T* y, const TB* b2, T* out, long long n, int C,
                                 long long nvec, cudaStream_t stream) {

@@ -122,8 +122,11 @@ def diffusion_to_numpy(tree: Mapping[str, Any]) -> dict:
 
 def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
     """The port's ``GPTConfig`` with the fields of a JAX ``GPTConfig``;
-    ``dtype`` defaults to the JAX config's compute dtype.  A field of the
-    JAX config the port does not have raises rather than being dropped."""
+    ``dtype`` defaults to the JAX config's compute dtype, ``param_dtype``
+    is the JAX config's.  A field of the JAX config the port does not
+    have raises rather than being dropped, unless it is inert on one
+    device or qualifies an option that raises (see
+    ``tests/test_torch_config_fields.py``)."""
     bits = getattr(jax_config, "act_quant_bits", None)
     if bits is not None:
         raise NotImplementedError(
@@ -132,6 +135,7 @@ def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
     fields = {f: getattr(jax_config, f) for f in _CONFIG_FIELDS}
     return gpt.GPTConfig(
         dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),
+        param_dtype=_torch_dtype(jax_config.param_dtype),
         sparse_attention=sparsity_from_jax(jax_config.sparse_attention),
         **fields)
 
@@ -144,11 +148,12 @@ _BERT_CONFIG_FIELDS = ("vocab_size", "max_seq_len", "type_vocab_size",
 
 def bert_config_from_jax(jax_config, dtype=None) -> bert.BertConfig:
     """The port's ``BertConfig`` with the fields of a JAX ``BertConfig``;
-    ``dtype`` defaults to the JAX config's compute dtype."""
+    ``dtype`` defaults to the JAX config's compute dtype, ``param_dtype``
+    is the JAX config's."""
     fields = {f: getattr(jax_config, f) for f in _BERT_CONFIG_FIELDS}
     return bert.BertConfig(
         dtype=dtype if dtype is not None else _torch_dtype(jax_config.dtype),
-        **fields)
+        param_dtype=_torch_dtype(jax_config.param_dtype), **fields)
 
 
 def sparsity_from_jax(jax_sparsity):

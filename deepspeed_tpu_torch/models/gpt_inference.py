@@ -14,9 +14,10 @@ package's functional updates, **the port writes the cache in place**:
 
 An int8 cache (``init_cache(..., kv_dtype="int8")``) holds int8 codes and
 one fp32 scale per head vector (``k_scale``/``v_scale`` [L, B, S_max, H,
-1]): each layer quantizes its new K and V per vector (``quantize_kv``)
-before writing codes and scales, and extend/decode read the cache back
-through the kernels' int8 variants.  Prefill attends over the fresh,
+1]): each layer quantizes its new K and V per vector and writes codes and
+scales at their slots (``quantize_kv_into``: one kernel launch on CUDA),
+and extend/decode read the cache back through the kernels' int8
+variants.  Prefill attends over the fresh,
 unquantized K/V, as in the JAX package.
 
 ``cache.length`` is a host int (the max frontier).  Ragged calls take
@@ -34,7 +35,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops.kernels.decode_attention import cached_attention, quantize_kv
+from ..ops.kernels.decode_attention import (cached_attention,
+                                            quantize_kv_into)
 from . import gpt
 
 Lengths = Union[Sequence[int], np.ndarray, torch.Tensor]
@@ -64,6 +66,11 @@ class KVCache:
         """k, v and (int8) their scales, in that order."""
         return (self.k, self.v) + ((self.k_scale, self.v_scale)
                                    if self.int8 else ())
+
+    def layer(self, idx: int) -> Tuple[torch.Tensor, ...]:
+        """Layer ``idx``'s view of every buffer, in :meth:`buffers`'
+        order."""
+        return tuple(b[idx] for b in self.buffers())
 
     def scales(self, idx: int) -> dict:
         """Layer ``idx``'s ``k_scale``/``v_scale`` keywords for
@@ -107,20 +114,18 @@ def _host_lengths(lengths: Lengths) -> np.ndarray:
     return np.asarray(lengths, dtype=np.int64).reshape(-1)
 
 
-def _layers(x, params, cache: KVCache, config: gpt.GPTConfig, write, attn):
+def _layers(x, params, cache: KVCache, config: gpt.GPTConfig, write, attn,
+            pos):
     """The layer loop every cache-filling path shares: ``write(buf, val)``
-    stores this step's K or V (an int8 cache: codes, then scales) into a
-    layer of the cache in place; ``attn(q, k, v, layer)`` computes the
+    stores this step's K or V into a layer of a cache in the compute
+    dtype in place; an int8 cache takes them quantized at slots ``pos +
+    i`` (``quantize_kv_into``); ``attn(q, k, v, layer)`` computes the
     sublayer's attention."""
     for idx in range(config.n_layer):
         p = gpt.layer_params(params, idx)
         q, k, v = gpt.qkv_proj(x, p, config)
         if cache.int8:
-            for val, buf, sbuf in ((k, cache.k, cache.k_scale),
-                                   (v, cache.v, cache.v_scale)):
-                codes, scale = quantize_kv(val)
-                write(buf[idx], codes)
-                write(sbuf[idx], scale)
+            quantize_kv_into(k, v, cache.layer(idx), pos)
         else:
             write(cache.k[idx], k)
             write(cache.v[idx], v)
@@ -155,7 +160,7 @@ def prefill(params, tokens: torch.Tensor, config: gpt.GPTConfig,
     def attn(q, k, v, idx):
         return gpt._attention(q, k, v, config)
 
-    x = _layers(x, params, cache, config, write, attn)
+    x = _layers(x, params, cache, config, write, attn, 0)
     cache.length = S
     return _logits(params, x, config, logits_at), cache
 
@@ -205,7 +210,7 @@ def extend(params, tokens: torch.Tensor, config: gpt.GPTConfig,
         return cached_attention(q, cache.k[idx], cache.v[idx], pos,
                                 sm_scale=_scale(config), **cache.scales(idx))
 
-    x = _layers(x, params, cache, config, write, attn)
+    x = _layers(x, params, cache, config, write, attn, pos)
     cache.length = top + Sc
     return _logits(params, x, config, logits_at), cache
 
@@ -246,7 +251,7 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
         return cached_attention(q, cache.k[idx], cache.v[idx], pos,
                                 sm_scale=_scale(config), **cache.scales(idx))
 
-    x = _layers(x, params, cache, config, write, attn)
+    x = _layers(x, params, cache, config, write, attn, pos)
     cache.length = top + 1
     return gpt.lm_logits(params, x[:, 0], config), cache
 

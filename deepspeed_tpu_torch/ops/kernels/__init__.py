@@ -14,7 +14,9 @@ from .block_sparse_attention import (block_sparse_attention,
                                      make_index_tables, sparse_plan)
 from .decode_attention import (cached_attention, cached_attention_reference,
                                chunk_attn, chunk_attn_int8, decode_attn,
-                               decode_attn_int8, dequantize_kv, quantize_kv)
+                               decode_attn_int8, dequantize_kv, quantize_kv,
+                               quantize_kv_append, quantize_kv_into,
+                               quantize_kv_into_reference)
 from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_backward_reference,
                               flash_attention_qkv, flash_attention_reference,
@@ -46,6 +48,7 @@ KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
            "fused_lamb_phase2": fused_lamb_phase2, "quantizer": quantizer_kernel,
            "decode_attn_int8": decode_attn_int8,
            "chunk_attn_int8": chunk_attn_int8,
+           "quantize_kv_append": quantize_kv_append,
            "nhwc_bias_add": spatial_kernel,
            "nhwc_bias_add_add": spatial_add_kernel,
            "nhwc_bias_add_bias_add": spatial_bias_add_kernel,
@@ -83,6 +86,8 @@ __all__ = ["KERNELS", "adam_hyper", "bias_gelu_backward_reference",
            "make_index_tables", "mha_reference", "nhwc_bias_add",
            "nhwc_bias_add_add", "nhwc_bias_add_bias_add",
            "nhwc_bias_add_reference", "quantize", "quantize_kv",
+           "quantize_kv_append", "quantize_kv_into",
+           "quantize_kv_into_reference",
            "quantize_rows", "quantizer_kernel", "reset_launch_counts",
            "sparse_plan", "spatial_add_kernel", "spatial_bias_add_kernel",
            "spatial_kernel"]

@@ -5,7 +5,8 @@ at absolute positions ``pos + i`` over a padded cache [B, S_max, H, D],
 query i seeing cache slots <= pos + i; ``pos`` is an int or a per-row
 int32 tensor [B] (ragged decode).  On CUDA tensors a single query
 (Sq = 1) goes to the ``decode_attn`` kernel (``csrc/decode_attn.cu``,
-replacing the TPU ``_decode_kernel``) and a chunk (Sq > 1) to
+replacing the TPU ``_decode_kernel``: each (b, h)'s keys split across a
+thread-block cluster, streamed by TMA) and a chunk (Sq > 1) to
 ``chunk_attn`` (``csrc/chunk_attn.cu``, replacing ``_chunk_kernel``: in
 bf16 and fp16 on wgmma and TMA, each chunk's keys split across a
 thread-block cluster; in fp32 on FMAs); both read the cache's layer
@@ -19,7 +20,10 @@ on CUDA ``decode_attn_int8`` and ``chunk_attn_int8`` (the same sources'
 int8 entry points, the TPU kernels' ``quantized`` option) read the int8
 codes and apply the scales on the card, on the CPU the plain version dequantizes first
 (:func:`dequantize_kv`) and runs the dense math, as the JAX package's
-fallback does.  The banded-window and ALiBi options are not ported yet
+fallback does.  :func:`quantize_kv_into` writes a layer's new K and V
+into such a cache: on CUDA one ``quantize_kv_append`` launch
+(``csrc/quantizer.cu``) quantizes both from the qkv view and stores
+codes and scales at their slots.  The banded-window and ALiBi options are not ported yet
 and raise ``NotImplementedError``.
 """
 
@@ -32,7 +36,7 @@ from typing import Optional, Union
 import torch
 
 from . import build
-from .quantizer import quantize_rows
+from .quantizer import _quantize_ref, quantize_rows
 from .utils import DTYPE_CODES, check_kernel_inputs, on_cuda
 
 Pos = Union[int, torch.Tensor]
@@ -52,6 +56,39 @@ def quantize_kv(x: torch.Tensor):
     launch reads x through its strides (at most three leading dims)."""
     codes, scale, _ = quantize_rows(x, 8, True, offsets=False)
     return codes, scale.unsqueeze(-1)
+
+
+def quantize_kv_into(k: torch.Tensor, v: torch.Tensor, layer, pos: Pos
+                     ) -> None:
+    """Quantize the new tokens' K and V ([B, Sq, H, D], as
+    :func:`quantize_kv`) into an int8 cache layer ``layer = (k codes, v
+    codes, k scales, v scales)`` ([B, S_max, H, D] int8, [B, S_max, H, 1]
+    fp32) at slots ``pos + i``, in place; ``pos`` an int or an int32 [B]
+    tensor on the cache's device.  On CUDA one ``quantize_kv_append``
+    launch does it all; on the CPU the plain version
+    (:func:`quantize_kv_into_reference`) runs :func:`quantize_kv`'s plain
+    version and the same indexed writes."""
+    if on_cuda(k, v, *layer):
+        quantize_kv_append(k, v, *layer, pos)
+        return
+    quantize_kv_into_reference(k, v, layer, pos)
+
+
+def quantize_kv_into_reference(k, v, layer, pos: Pos) -> None:
+    """The plain version of :func:`quantize_kv_into` on any device: the
+    quantizer's plain version per head vector, then indexed writes."""
+    B, Sq = k.shape[:2]
+    if torch.is_tensor(pos):
+        rows = torch.arange(B, device=k.device)[:, None]
+        slots = (rows, pos.to(k.device).long()[:, None]
+                 + torch.arange(Sq, device=k.device))
+    else:
+        slots = (slice(None), slice(int(pos), int(pos) + Sq))
+    kc, vc, ks, vs = layer
+    for val, codes_buf, scale_buf in ((k, kc, ks), (v, vc, vs)):
+        codes, scale, _ = _quantize_ref(val, 8, True)
+        codes_buf[slots] = codes
+        scale_buf[slots] = scale.unsqueeze(-1)
 
 
 def cached_attention_reference(q, cache_k, cache_v, pos: Pos,
@@ -162,7 +199,7 @@ class _DecodeAttn(_CacheKernel):
 
     launches = 0
     source = symbol = "decode_attn"
-    argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong] * 10 + _POS_TAIL)
 
     def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float,
@@ -174,11 +211,12 @@ class _DecodeAttn(_CacheKernel):
         if Sq != 1:
             raise ValueError(f"{self.symbol} takes one query per row, got "
                              f"{Sq}")
+        Smax = cache_k.shape[1]
         pos_ptr, pos_scalar = _check_pos(self.symbol, pos, B, q.device, 1,
-                                         cache_k.shape[1])
+                                         Smax)
         o = torch.empty((B, 1, H, D), dtype=dtype, device=q.device)
         self._launch((q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                      o.data_ptr(), DTYPE_CODES[dtype], B, H, D,
+                      o.data_ptr(), DTYPE_CODES[dtype], B, Smax, H, D,
                       q.stride(0), q.stride(2),
                       cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
                       cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
@@ -237,10 +275,68 @@ class _ChunkAttnInt8(_ChunkAttn):
     int8 = True
 
 
+class _QuantizeKvAppend(_CacheKernel):
+    """The ``quantize_kv_append`` kernel's wrapper (``csrc/quantizer.cu``):
+    ``(k, v, k_codes, v_codes, k_scale, v_scale, pos)``, the arguments of
+    :func:`quantize_kv_into` with the layer's four buffers spread out."""
+
+    launches = 0
+    source = "quantizer"
+    symbol = "quantize_kv_append"
+    argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 2
+                + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 2
+                + [ctypes.c_longlong] * 6
+                + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+    def __call__(self, k, v, k_codes, v_codes, k_scale, v_scale, pos: Pos):
+        name = self.symbol
+        dtype = k.dtype
+        if dtype not in DTYPE_CODES or v.dtype != dtype:
+            raise TypeError(f"{name}: K and V must share one of "
+                            f"{list(DTYPE_CODES)}, got {k.dtype}, {v.dtype}")
+        if k.dim() != 4 or v.shape != k.shape or k.stride(-1) != 1 or \
+                v.stride(-1) != 1:
+            raise ValueError(f"{name}: K and V must be [B, Sq, H, D] with "
+                             f"contiguous head vectors, got {tuple(k.shape)} "
+                             f"{k.stride()} and {tuple(v.shape)} {v.stride()}")
+        B, Sq, H, D = k.shape
+        for t in (k_codes, v_codes):
+            if t.dtype != torch.int8:
+                raise TypeError(f"{name}: the cache must hold int8 codes, "
+                                f"got {t.dtype}")
+            if t.dim() != 4 or t.shape[0] != B or t.shape[2:] != (H, D):
+                raise ValueError(f"{name}: cache {tuple(t.shape)} does not "
+                                 f"take K/V {tuple(k.shape)}")
+            if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                    any(st % 16 for st in t.stride()[:-1]):
+                raise ValueError(f"{name}: cache rows must be contiguous and "
+                                 f"16-byte aligned (strides {t.stride()})")
+        if v_codes.shape != k_codes.shape:
+            raise ValueError(f"{name}: K and V caches differ: "
+                             f"{tuple(k_codes.shape)}, {tuple(v_codes.shape)}")
+        Smax = k_codes.shape[1]
+        want = (B, Smax, H, 1)
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{name}: scales must be fp32 {want}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+        pos_ptr, pos_scalar = _check_pos(name, pos, B, k.device, Sq, Smax)
+        self._launch((k.data_ptr(), v.data_ptr(), DTYPE_CODES[dtype], B, Sq,
+                      H, D, Smax, *k.stride()[:3], *v.stride()[:3],
+                      k_codes.data_ptr(), v_codes.data_ptr(),
+                      *k_codes.stride()[:3], *v_codes.stride()[:3],
+                      k_scale.data_ptr(), v_scale.data_ptr(),
+                      *k_scale.stride()[:3], *v_scale.stride()[:3],
+                      pos_ptr, pos_scalar,
+                      torch.cuda.current_stream(k.device).cuda_stream))
+
+
 decode_attn = _DecodeAttn()
 chunk_attn = _ChunkAttn()
 decode_attn_int8 = _DecodeAttnInt8()
 chunk_attn_int8 = _ChunkAttnInt8()
+quantize_kv_append = _QuantizeKvAppend()
 
 
 def cached_attention(q, cache_k, cache_v, pos: Pos,

@@ -19,7 +19,22 @@ inputs made from one seed:
 - ``nhwc_bias_add`` at SD-1.5's four shapes ([1,64,64,320], [1,8,8,1280],
   [1,512,512,128], [1,64,64,4] bf16), and beside it ``x + b``, the
   PyTorch call it is held to (the same in every root: a yardstick timed
-  in the same call).
+  in the same call);
+- ``decode_attn`` and ``decode_attn_int8`` at B8 S_max 1024 H16 D64 with
+  ragged positions (``chip_smoke.check_decode``'s), every row full, and
+  every row at pos 0, and at B1 full, rotating over enough cache layers
+  to stay out of L2;
+- ``quantizer`` at GPT-2 350M's four int8 leaves in bf16, and the int8
+  cache's per-layer write at the decode step (K and V of [8, 1, 16, 64]
+  from the qkv view into an 8-slot layer, ragged positions): one
+  ``quantize_kv_into`` where the root has it, else what its
+  ``gpt_inference`` did (``quantize_kv`` of K and of V, then four indexed
+  writes);
+- ``int8 generate``: the device kernels a decode step launches in GPT-2
+  350M's int8 ``generate`` (int8 weights and cache, random weights from a
+  seed; 4 ragged prompts of up to 512 tokens), counted by
+  ``torch.profiler`` as the kernels of a 16-token run less those of a
+  1-token run, over 15 (a count, not a time).
 
 ``--only`` keeps the cases whose name contains TEXT (a kernel's name or a
 part of it), or any of several comma-separated TEXTs.  The turns go over
@@ -150,6 +165,98 @@ def _worker(root: str, only: str) -> dict:
         timed(sparse_cases[2], lambda i: kernels.block_sparse_bwd_dkv(
             *data[i % 4], *stats[i % 4], plan, scale), 10)
         del data, stats
+
+    SMAX = 1024
+    for B, kinds in ((8, ("ragged", "full", "zero")), (1, ("full",))):
+        decode_cases = [f"{k} B{B} S_max {SMAX} {kind}"
+                        for k in ("decode_attn", "decode_attn_int8")
+                        for kind in kinds]
+        if not any(wanted(c) for c in decode_cases):
+            continue
+        L = max(2, (200 << 20) // (2 * B * SMAX * H * D * 2))
+        ck, cv = (torch.randn((L, B, SMAX, H, D), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        int8 = []
+        for c in (ck, cv):
+            codes, scl = kernels.quantize_kv(c.view(-1, SMAX, H, D))
+            int8 += [codes.view(c.shape), scl.view(L, B, SMAX, H, 1)]
+        q = torch.randn((B, 1, 3, H, D), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)[:, :, 0]
+        for kind in kinds:
+            host = {"ragged": np.random.default_rng(3).integers(0, SMAX, B),
+                    "full": np.full(B, SMAX - 1), "zero": np.zeros(B)}[kind]
+            pos = torch.as_tensor(host.astype(np.int32)).cuda()
+            timed(f"decode_attn B{B} S_max {SMAX} {kind}",
+                  lambda i: kernels.decode_attn(q, ck[i % L], cv[i % L], pos,
+                                                scale), 50)
+            timed(f"decode_attn_int8 B{B} S_max {SMAX} {kind}",
+                  lambda i: kernels.decode_attn_int8(
+                      q, int8[0][i % L], int8[2][i % L], pos, scale,
+                      int8[1][i % L], int8[3][i % L]), 50)
+        del ck, cv, int8
+    B = 8
+
+    leaves = (("wqkv", 24 * 1024 * 3 * 16, 64), ("wo", 24 * 16 * 64, 1024),
+              ("wi", 24 * 1024, 4096), ("wo_mlp", 24 * 4096, 1024))
+    for name, rows, gsize in leaves:
+        case = f"quantizer {name} [{rows}, {gsize}] bf16"
+        if wanted(case):
+            x = (torch.randn((rows, gsize), generator=gen, device="cuda")
+                 * 0.02).to(torch.bfloat16)
+            timed(case, lambda i: kernels.quantize_rows(x, 8, True,
+                                                        offsets=False), 10)
+            del x
+
+    case = "int8 kv write, decode step [8, 1, 16, 64] ragged"
+    if wanted(case):
+        qkv = torch.randn((B, 1, 3, H, D), generator=gen, device="cuda"
+                          ).to(torch.bfloat16)
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        layer = [torch.zeros((B, SMAX, H, D), dtype=torch.int8,
+                             device="cuda") for _ in range(2)]
+        layer += [torch.zeros((B, SMAX, H, 1), device="cuda")
+                  for _ in range(2)]
+        pos = torch.as_tensor(np.random.default_rng(3).integers(
+            0, SMAX, B).astype(np.int32)).cuda()
+        into = getattr(kernels, "quantize_kv_into", None)
+        if into is not None:
+            timed(case, lambda i: into(k, v, layer, pos), 50)
+        else:
+            rows_ = torch.arange(B, device="cuda")
+            slots = pos.long()
+
+            def old_write(i):
+                for val, buf, sbuf in ((k, layer[0], layer[2]),
+                                       (v, layer[1], layer[3])):
+                    codes, scl = kernels.quantize_kv(val)
+                    buf[rows_, slots] = codes[:, 0]
+                    sbuf[rows_, slots] = scl[:, 0]
+            timed(case, old_write, 50)
+
+    case = "int8 generate: device kernels per decode step"
+    if wanted(case):
+        import deepspeed_tpu_torch
+        from deepspeed_tpu_torch.models import gpt
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        cfg = gpt.GPT2_350M
+        params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(1234),
+                          device="cuda")
+        engine = deepspeed_tpu_torch.init_inference(
+            (cfg, params), {"dtype": "int8", "kv_cache_dtype": "int8"})
+        toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
+        lens = [512, 384, 200, 77]
+
+        def kernels_of(n):
+            engine.generate(toks, max_new_tokens=n, prompt_lens=lens).cpu()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.generate(toks, max_new_tokens=n, prompt_lens=lens).cpu()
+            return sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+
+        res[case] = (kernels_of(16) - kernels_of(1)) / 15
+        del engine, params
 
     for shape in ((1, 64, 64, 320), (1, 8, 8, 1280), (1, 512, 512, 128),
                   (1, 64, 64, 4)):
