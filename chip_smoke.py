@@ -62,7 +62,17 @@ imports JAX.  In order it
    an unaligned bias, at C = 12 and at one row per SM), and
    the bias-GeLU forward and backward at [16384, 4096] (mask bitwise,
    values within ``BF16_REL_TOL`` in bf16 and 1e-5 in fp32, the backward
-   bitwise repeatable);
+   bitwise repeatable); and the band and ALiBi options: ``flash_fwd``
+   with window 256 at GPT-Neo 1.3B's prefill heads (B4 S2048 H16 D128;
+   at most ``BAND_SKIP_RATIO`` of the causal kernel's time),
+   ``decode_attn(_int8)`` with window 256 at B8 S_max 2048 H16 D128, rows
+   near S_max (at most ``BAND_SKIP_RATIO`` of the unbanded kernel's time)
+   and with BLOOM-560m's slopes at B8 S_max 1024 H16 D64, and
+   ``chunk_attn(_int8)`` with each option on a 128-token extend chunk
+   (against SDPA with the option as an explicit float mask; two launches
+   of each bitwise equal), then ``[option sweep]``: every window of
+   ``SWEEP_WINDOWS`` at the tile-edge lengths, slopes at 6 and 16 heads,
+   every dtype and head dim, bf16 and int8 caches;
 3. checks a tiny fp32 model end to end on the card against the same model
    on the host (plain kernels): equal greedy tokens, logits within 1e-3,
    and again with int8 weights and an int8 cache;
@@ -89,6 +99,16 @@ imports JAX.  In order it
    bf16 run (reported), peak memory, a profile (device kernels per decode
    step), and decode ms per token of the bf16 and int8 engines timed in
    turns;
+5b. with every launch count at 0 before each engine's run, drives GPT-Neo
+   1.3B (window 256 on its odd layers, unscaled softmax) and BLOOM-560m
+   (ALiBi, embedding LayerNorm) at their published widths (random
+   weights, bf16) through ``init_inference`` → ``generate`` (4 prompts
+   of 300-512 tokens, 32 new) and a 6-request ``SlotBatcher``, checks
+   their logits (bf16, and an fp32 engine on the card) against an fp32
+   host forward on a 320-token prompt, then the same with an int8 KV
+   cache; each family must launch the option kernels it runs
+   (``FAMILY_OPTIONS``: ``flash_fwd[window]``, ``decode_attn[window]``,
+   ``decode_attn[alibi]``, ... and their int8 variants);
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -118,7 +138,8 @@ imports JAX.  In order it
 10. with every launch count at 0, runs ``bias_gelu_dropout`` forward and
    backward through autograd at [16, 1024, 4096] bf16, rate 0.1: one
    launch of each kernel per call, y and dx zero where the mask drops;
-11. prints the kernels line (``nhwc_bias_add_add`` and
+11. prints the kernels line (one row per kernel, and one per kernel
+   option, such as ``decode_attn[window]``; ``nhwc_bias_add_add`` and
    ``nhwc_bias_add_bias_add``, which no path of the JAX package calls,
    are held in the check phase only and say so; ``bf16_fp16_kernel``
    names the tensor-core kernel a wrapper launches on bf16 and fp16
@@ -256,13 +277,16 @@ def log(msg: str) -> None:
 
 #: the tensor-core kernels' sources and their instantiations that must
 #: run on wgmma (HGMMA) fed by TMA (UTMALDG); chunk_attn_tc also has an
-#: int8-cache instantiation ("bf16 int8", "fp16 int8") per dtype and D
+#: int8-cache instantiation ("bf16 int8", "fp16 int8") per dtype and D,
+#: flash_fwd_tc a banded one ("bf16 band", "fp16 band")
 TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
               "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
               "block_sparse_fwd": "block_sparse_fwd_tc",
               "block_sparse_bwd_dq": "block_sparse_bwd_dq_tc",
               "block_sparse_bwd_dkv": "block_sparse_bwd_dkv_tc"}
 TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
+#: what the bool template parameter of a tensor-core kernel selects
+TC_BOOL = {"chunk_attn_tc": " int8", "flash_fwd_tc": " band"}
 #: the kernel each wrapper launches on bf16 and fp16 tensors, for the
 #: kernels line
 TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
@@ -276,13 +300,14 @@ TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
 
 def _tc_instance(mangled: str):
     """(kernel, dtype, D) of a mangled tensor-core kernel name, or None;
-    the dtype of chunk_attn_tc's int8-cache instantiation ends in " int8"."""
+    the dtype of an instantiation whose bool parameter is set ends in its
+    ``TC_BOOL`` suffix."""
     for kernel in TC_SOURCES.values():
         m = re.search(kernel + r"I(13__nv_bfloat16|6__half)Li(\d+)E(Lb([01])E)?",
                       mangled)
         if m:
             dt = TC_TYPES[m.group(1).lstrip("0123456789")]
-            return kernel, dt + (" int8" if m.group(4) == "1" else ""), \
+            return kernel, dt + (TC_BOOL[kernel] if m.group(4) == "1" else ""), \
                 int(m.group(2))
     return None
 
@@ -291,7 +316,7 @@ def _tc_wanted():
     """Every (kernel, dtype, D) the tensor-core sources must hold."""
     want = [(k, dt, D) for k in TC_SOURCES.values() for dt in TC_TYPES.values()
             for D in HEAD_DIMS]
-    return want + [("chunk_attn_tc", dt + " int8", D)
+    return want + [(k, dt + suffix, D) for k, suffix in TC_BOOL.items()
                    for dt in TC_TYPES.values() for D in HEAD_DIMS]
 
 
@@ -785,24 +810,28 @@ def _int8_cache(ck, cv):
     return (ck, cv, out[2][0], out[3][0], out[2][1], out[3][1])
 
 
-def _cache_check(name, kernel, q, cache, pos, mask, Sq, repeat=False):
+def _cache_check(name, kernel, q, cache, pos, mask, Sq, repeat=False,
+                 window=None, slopes=None):
     """Shared half of the decode/chunk checks: error vs the fp32 plain
     version on layer 0, then kernel/plain/SDPA times rotating layers.
     ``cache``: bf16 (K, V) [L, B, Smax, H, D], or for the int8 kernels
     ``_int8_cache``'s six tensors: the kernel reads the codes and scales,
     the plain version the dequantized cache (as the CPU path does), SDPA
-    the bf16 cache.  ``repeat``: fail unless a second launch on layer 0 is
-    bitwise equal to the first."""
+    the bf16 cache under ``mask``.  ``repeat``: fail unless a second
+    launch on layer 0 is bitwise equal to the first.  ``window`` and
+    ``slopes`` are the kernels' band and ALiBi options: the bound counts
+    the band's rows and pairs only."""
     int8 = len(cache) == 6
     ck, cv = cache[:2]
     kv = cache[2:] if int8 else cache            # what the kernel reads
     L = ck.shape[0]
     B, H, D = q.shape[0], q.shape[2], q.shape[3]
     scale = 1.0 / math.sqrt(D)
+    opts = {"window": window, "slopes": slopes}
 
     def run(i):
         layer = [t[i % L] for t in kv]
-        return kernel(q, *layer[:2], pos, scale, *layer[2:])
+        return kernel(q, *layer[:2], pos, scale, *layer[2:], **opts)
 
     def dense(i, dtype):
         if not int8:
@@ -812,7 +841,7 @@ def _cache_check(name, kernel, q, cache, pos, mask, Sq, repeat=False):
 
     out = run(0)
     ref = cached_attention_reference(q.float(), *dense(0, torch.float32),
-                                     pos, scale)
+                                     pos, scale, **opts)
     if repeat:
         same = bool(torch.equal(out, run(0)))
         log(f"[{name} repeat] Sq{Sq} pos {pos}: two launches give bitwise "
@@ -824,19 +853,27 @@ def _cache_check(name, kernel, q, cache, pos, mask, Sq, repeat=False):
     tol = BF16_REL_TOL * max(1.0, ref.abs().max().item())
     ms = time_ms(run, 50)
     plain_ms = time_ms(lambda i: cached_attention_reference(
-        q, *dense(i, q.dtype), pos, scale), 10)
+        q, *dense(i, q.dtype), pos, scale, **opts), 10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(lambda i: sdpa(
         q.transpose(1, 2), ck[i % L].transpose(1, 2),
         cv[i % L].transpose(1, 2), attn_mask=mask, scale=scale), 50)
     pos_host = pos.cpu().numpy() if torch.is_tensor(pos) else \
         np.full((B,), pos)
-    rows = int(sum(min(ck.shape[2], p + Sq) for p in pos_host))   # live rows
-    visible = int(sum(p * Sq + Sq * (Sq + 1) // 2 for p in pos_host))
+    w = window or ck.shape[2] + Sq
+    # live rows: from the first query's band start to the last query
+    rows = int(sum(min(ck.shape[2], p + Sq) - max(0, p - w + 1)
+                   for p in pos_host))
+    visible = int(sum(min(p + i + 1, w) for p in pos_host
+                      for i in range(Sq)))
     # K and V of a live row: bf16, or int8 codes and two fp32 scales
     row_bytes = H * (2 * D + 8) if int8 else H * D * 2 * 2
     nbytes = rows * row_bytes + 2 * B * Sq * H * D * 2
     kind = "int8 cache, bf16 q" if int8 else "bf16"
+    if window is not None:
+        kind += f", window {window}"
+    if slopes is not None:
+        kind += ", ALiBi slopes"
     shape = (f"B{B} Sq{Sq} Smax{ck.shape[2]} H{H} D{D} {kind} pos "
              f"{pos_host.tolist()}")
     return _report(name, shape, err, tol, ms, plain_ms, lib_ms, nbytes,
@@ -1358,6 +1395,234 @@ def check_chunk_sweep(Smax=576, B=3, H=2):
     return worst
 
 
+# ------------------------------------------------- band and ALiBi options
+
+#: GPT-Neo's local window (HF ``window_size``)
+OPTION_WINDOW = 256
+#: the options' rows may not take more than this share of the unbanded
+#: kernel's time at the same shape: the band is skipped, not just masked
+BAND_SKIP_RATIO = 0.5
+
+
+def _option_mask(q_abs, Smax, dtype, window=None, slopes=None):
+    """The options as SDPA's explicit float mask [B|1, H|1, Sq, Smax]:
+    ``-slope·dist`` (0 without slopes) where key j is visible to a query
+    at ``q_abs`` ([B|1, Sq]): 0 <= dist < window; -inf elsewhere."""
+    dist = (q_abs[:, :, None]
+            - torch.arange(Smax, device=q_abs.device)).float()[:, None]
+    vis = dist >= 0
+    if window is not None:
+        vis &= dist < window
+    bias = torch.zeros_like(dist) if slopes is None else \
+        -slopes.view(1, -1, 1, 1) * dist
+    return bias.masked_fill(~vis, float("-inf")).to(dtype)
+
+
+def check_flash_window(B=4, S=2048, H=16, D=128, window=OPTION_WINDOW):
+    """``flash_fwd`` with a window at GPT-Neo 1.3B's prefill heads against
+    the fp32 plain version, two launches bitwise equal, beside the causal
+    kernel at the same shape (the band's tiles are skipped: at most
+    ``BAND_SKIP_RATIO`` of its time) and SDPA with the band as a float
+    mask."""
+    gen = torch.Generator(device="cuda").manual_seed(S + window)
+    sets = _qkv_views(2, B, S, H, D, gen)
+    q, k, v = sets[0]
+    scale = 1.0 / math.sqrt(D)
+    o, lse = kernels.flash_fwd(q, k, v, True, scale, window=window)
+    same = bool(torch.equal(o, kernels.flash_fwd(q, k, v, True, scale,
+                                                 window=window)[0]))
+    o32, lse32 = flash_attention_reference(q.float(), k.float(), v.float(),
+                                           True, scale, window=window)
+    ACCEL.synchronize()
+    err = (o.float() - o32).abs().max().item()
+    lse_err = (lse - lse32).abs().max().item()
+    del o32, lse32
+    log(f"[flash_fwd window repeat] B{B} S{S} window {window}: two launches "
+        f"bitwise equal {same}; lse err {lse_err:.2e} (tol 1e-3)")
+    if not same or not lse_err <= 1e-3:
+        raise AssertionError("flash_fwd window: launches differ or lse off")
+    tol = BF16_REL_TOL * max(1.0, o.float().abs().max().item())
+    ms = time_ms(lambda i: kernels.flash_fwd(*sets[i % 2], True, scale,
+                                             window=window), 20)
+    causal_ms = time_ms(lambda i: kernels.flash_fwd(*sets[i % 2], True,
+                                                    scale), 20)
+    plain_ms = time_ms(lambda i: flash_attention_reference(
+        *sets[i % 2], True, scale, window=window), 3)
+    mask = _option_mask(torch.arange(S, device="cuda")[None], S,
+                        torch.bfloat16, window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda i: sdpa(*(t.transpose(1, 2) for t in sets[i % 2]),
+                                    attn_mask=mask), 10)
+    pairs = B * H * sum(min(i + 1, window) for i in range(S))
+    nbytes = 4 * B * S * H * D * 2 + B * H * S * 4
+    row = _report("flash_fwd[window]",
+                  f"B{B} S{S} H{H} D{D} bf16 causal window {window}", err,
+                  tol, ms, plain_ms, lib_ms, nbytes, 4 * D * pairs)
+    row.update(unbanded_ms=causal_ms, vs_unbanded=ms / causal_ms)
+    log(f"[flash_fwd window] B{B} S{S} H{H} D{D} window {window}: "
+        f"{ms:.4f} ms against the causal kernel's {causal_ms:.4f} ms "
+        f"({ms / causal_ms:.3f}x; at most {BAND_SKIP_RATIO}x)")
+    if not ms <= BAND_SKIP_RATIO * causal_ms:
+        raise AssertionError("flash_fwd window: the band is not skipped")
+    return row
+
+
+def check_decode_option(option, int8=False):
+    """``decode_attn`` (or with ``int8`` its int8-cache variant) with one
+    option, two launches bitwise equal, against the fp32 plain version,
+    SDPA under the option as a float mask as yardstick: ``"window"`` at
+    GPT-Neo 1.3B's heads (B8 S_max 2048 H16 D128, window 256), every row
+    within 64 slots of S_max, beside the unbanded kernel at the same
+    positions (at most ``BAND_SKIP_RATIO`` of its time); ``"alibi"`` at
+    BLOOM-560m's heads (B8 S_max 1024 H16 D64) at ragged positions."""
+    B, Smax, H, D = (8, 2048, 16, 128) if option == "window" else \
+        (8, 1024, 16, 64)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ck, cv, _ = _caches(B, Smax, H, D, gen)
+    rng = np.random.default_rng(4)
+    host = rng.integers(Smax - 64, Smax, B) if option == "window" else \
+        rng.integers(0, Smax, B)
+    pos = torch.as_tensor(host.astype(np.int32)).cuda()
+    q = _qkv_views(1, B, 1, H, D, gen)[0][0]
+    window = OPTION_WINDOW if option == "window" else None
+    slopes = gpt.alibi_slopes(H, "cuda") if option == "alibi" else None
+    mask = _option_mask(pos.long()[:, None], Smax, q.dtype, window, slopes)
+    cache = _int8_cache(ck, cv) if int8 else (ck, cv)
+    base = "decode_attn_int8" if int8 else "decode_attn"
+    kernel = getattr(kernels, base)
+    row = _cache_check(f"{base}[{option}]", kernel, q, cache, pos, mask, 1,
+                       repeat=True, window=window, slopes=slopes)
+    if option == "window":
+        _band_ratio(row, kernel, q, cache, pos)
+    return row
+
+
+def _band_ratio(row, kernel, q, cache, pos, gate=True):
+    """Time the unbanded kernel on the row's inputs; with ``gate``, fail
+    unless the banded one took at most ``BAND_SKIP_RATIO`` of it."""
+    kv = cache[2:] if len(cache) == 6 else cache
+    L, scale = kv[0].shape[0], 1.0 / math.sqrt(q.shape[-1])
+
+    def run(i):
+        layer = [t[i % L] for t in kv]
+        return kernel(q, *layer[:2], pos, scale, *layer[2:])
+
+    full_ms = time_ms(run, 50)
+    row.update(unbanded_ms=full_ms, vs_unbanded=row["ms"] / full_ms)
+    log(f"[{row['name']}] {row['ms']:.4f} ms against the unbanded kernel's "
+        f"{full_ms:.4f} ms at the same positions ({row['ms'] / full_ms:.3f}x"
+        + (f"; at most {BAND_SKIP_RATIO}x)" if gate else "; reported)"))
+    if gate and not row["ms"] <= BAND_SKIP_RATIO * full_ms:
+        raise AssertionError(f"{row['name']}: the band is not skipped")
+
+
+def check_chunk_option(option, int8=False, Sq=128):
+    """``chunk_attn`` (or its int8-cache variant) with one option: an
+    ``extend`` chunk of 128 at the serving ticks' head shapes, ``"window"``
+    at S_max 2048 H16 D128 pos 1500 (beside the unbanded kernel, reported:
+    32 units of a few k-tiles each, the launch's fixed latency is most of
+    either time), ``"alibi"`` at S_max 1024 H16 D64 pos 640; two launches
+    bitwise equal."""
+    Smax, H, D, pos = (2048, 16, 128, 1500) if option == "window" else \
+        (1024, 16, 64, 640)
+    gen = torch.Generator(device="cuda").manual_seed(pos)
+    ck, cv, _ = _caches(1, Smax, H, D, gen)
+    q = _qkv_views(1, 1, Sq, H, D, gen)[0][0]
+    window = OPTION_WINDOW if option == "window" else None
+    slopes = gpt.alibi_slopes(H, "cuda") if option == "alibi" else None
+    q_abs = (pos + torch.arange(Sq, device="cuda"))[None]
+    mask = _option_mask(q_abs, Smax, q.dtype, window, slopes)
+    cache = _int8_cache(ck, cv) if int8 else (ck, cv)
+    base = "chunk_attn_int8" if int8 else "chunk_attn"
+    kernel = getattr(kernels, base)
+    row = _cache_check(f"{base}[{option}]", kernel, q, cache, pos, mask, Sq,
+                       repeat=True, window=window, slopes=slopes)
+    if option == "window":
+        _band_ratio(row, kernel, q, cache, pos, gate=False)
+    return row
+
+
+#: the sweep's windows: the diagonal only, the edges of a 64-key tile, the
+#: model's, and one past every position (plain causal)
+SWEEP_WINDOWS = (1, 63, 64, 65, OPTION_WINDOW, None)
+#: the flash sweep's lengths: the edges of the 64-key and 128-query tiles
+OPTION_FLASH_S = (63, 64, 65, 127, 129, 257)
+#: the option sweep's chunk lengths
+OPTION_CHUNK_SQ = (7, 65, 129)
+
+
+def check_option_sweep(Smax=300, B=3):
+    """The band and ALiBi options at every dtype and head dim the kernels
+    take: ``flash_fwd`` at each tile-edge length with each window of
+    ``SWEEP_WINDOWS`` (None: S + 5, past every row; O and lse), and
+    ``decode_attn``, ``chunk_attn`` (Sq 7, 65, 129) and their int8-cache
+    variants at ragged positions (row 0 at pos 0, one at the cache's end)
+    with each window, and with the slopes of 6 and of 16 heads; against
+    the fp32 plain version.  Returns the worst relative error per dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = {}
+    for dt, tol in SWEEP_TOL.items():
+        err = torch.zeros((), device="cuda")
+        lse_err = 0.0
+        rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                         device="cuda").to(dt)
+
+        def track(out, ref):
+            nonlocal err
+            err = torch.maximum(err, (out.float() - ref).abs().max()
+                                / ref.abs().max().clamp(min=1.0))
+
+        for D in HEAD_DIMS:
+            scale = 1.0 / math.sqrt(D)
+            for S in OPTION_FLASH_S:
+                q, k, v = rnd(2, S, 2, D), rnd(2, S, 2, D), rnd(2, S, 2, D)
+                for w in SWEEP_WINDOWS:
+                    w = w or S + 5
+                    o, lse = kernels.flash_fwd(q, k, v, True, scale, window=w)
+                    ref, rl = flash_attention_reference(
+                        q.float(), k.float(), v.float(), True, scale,
+                        window=w)
+                    track(o, ref)
+                    lse_err = max(lse_err, (lse - rl).abs().max().item())
+            for H, opts in ((2, [{"window": w or Smax + 5}
+                                 for w in SWEEP_WINDOWS]),
+                            (6, [{"slopes": gpt.alibi_slopes(6, "cuda")}]),
+                            (16, [{"slopes": gpt.alibi_slopes(16, "cuda")},
+                                  {"slopes": gpt.alibi_slopes(16, "cuda"),
+                                   "window": 65}])):
+                ck, cv = rnd(B, Smax, H, D), rnd(B, Smax, H, D)
+                (kq, ks), (vq, vs) = quantize_kv(ck), quantize_kv(cv)
+                k8, v8 = (dequantize_kv(kq, ks, torch.float32),
+                          dequantize_kv(vq, vs, torch.float32))
+                for Sq in (1,) + OPTION_CHUNK_SQ:
+                    q = rnd(B, Sq, H, D)
+                    pos = torch.tensor([0, Smax - Sq, (Smax - Sq) // 2 + 3],
+                                       dtype=torch.int32, device="cuda")
+                    pair = (kernels.decode_attn, kernels.decode_attn_int8) \
+                        if Sq == 1 else (kernels.chunk_attn,
+                                         kernels.chunk_attn_int8)
+                    for opt in opts:
+                        track(pair[0](q, ck, cv, pos, scale, **opt),
+                              cached_attention_reference(
+                                  q.float(), ck.float(), cv.float(), pos,
+                                  scale, **opt))
+                        track(pair[1](q, kq, vq, pos, scale, ks, vs, **opt),
+                              cached_attention_reference(
+                                  q.float(), k8, v8, pos, scale, **opt))
+        worst[str(dt)[6:]] = err.item()
+        log(f"[option sweep] {str(dt)[6:]} D{HEAD_DIMS}: flash_fwd S "
+            f"{OPTION_FLASH_S} x window {SWEEP_WINDOWS} (None: past every "
+            f"row); decode/chunk Sq {(1,) + OPTION_CHUNK_SQ} S_max {Smax} "
+            f"ragged pos, bf16 and int8 cache, each window, ALiBi at H 6 and "
+            f"16 (and with window 65): worst relative err {err.item():.3e} "
+            f"(tol {tol:.0e}), flash lse err {lse_err:.2e} (tol 1e-3)")
+        if not (err.item() <= tol and lse_err <= 1e-3):
+            raise AssertionError(f"option sweep {dt}: err {err.item()}, "
+                                 f"lse err {lse_err}")
+    return worst
+
+
+
 #: (Sq, Sk, causal) of the backward sweep: odd, cross-length, Sq > Sk
 #: (rows with no visible key), full; then the edges of the tensor-core
 #: kernels' tiles (64 keys, 128 queries in the forward and flash_bwd_dq;
@@ -1764,11 +2029,13 @@ def check_tiny_int8():
         raise AssertionError("tiny int8 model: card and host disagree")
 
 
-def run_generate(engine, cfg, label="bf16"):
-    """Phase 3: 4 ragged prompts right-padded to 512, 64 greedy tokens."""
+def run_generate(engine, cfg, label="bf16", model="GPT-2 350M",
+                 lens=(512, 384, 200, 77), new=64):
+    """Phase 3: 4 ragged prompts right-padded to 512, ``new`` greedy
+    tokens."""
     rng = np.random.default_rng(21)
     toks = rng.integers(0, cfg.vocab_size, (4, 512))
-    lens = [512, 384, 200, 77]
+    lens = list(lens)
     engine.generate(toks, max_new_tokens=2, prompt_lens=lens)   # warm-up
 
     def timed(n):
@@ -1779,31 +2046,32 @@ def run_generate(engine, cfg, label="bf16"):
         return time.perf_counter() - t0, out
 
     t1 = min(timed(1)[0] for _ in range(3))
-    t64, out = timed(64)
-    if out.shape != (4, 64) or out.min() < 0 or out.max() >= cfg.vocab_size:
+    tn, out = timed(new)
+    if out.shape != (4, new) or out.min() < 0 or \
+            out.max() >= cfg.vocab_size:
         raise AssertionError(f"generate output {out.shape} out of range")
-    res = {"prefill_ms": t1 * 1e3, "decode_ms_per_token": (t64 - t1) / 63 * 1e3,
-           "tokens_per_s": 4 * 64 / t64, "total_ms": t64 * 1e3,
+    res = {"prefill_ms": t1 * 1e3,
+           "decode_ms_per_token": (tn - t1) / (new - 1) * 1e3,
+           "tokens_per_s": 4 * new / tn, "total_ms": tn * 1e3,
            "distinct_tokens_per_row": [len(set(r)) for r in out.tolist()],
            "tokens": out.tolist()}
-    log(f"[generate] GPT-2 350M {label}, 4 prompts (lens {lens}) x 64 greedy "
+    log(f"[generate] {model} {label}, 4 prompts (lens {lens}) x {new} greedy "
         f"tokens: prefill_ms {res['prefill_ms']:.2f}, decode_ms_per_token "
         f"{res['decode_ms_per_token']:.3f}, tokens_per_s "
         f"{res['tokens_per_s']:.1f}")
     return res
 
 
-def run_serving(engine, cfg):
-    """Phase 4: 16 requests through 8 slots, admitted as slots free up;
-    greedy and sampled (top_p 0.9) mixed."""
+def run_serving(engine, cfg, n_req=16, budget=(32, 129), model="GPT-2 350M"):
+    """Phase 4: ``n_req`` requests through 8 slots, admitted as slots free
+    up; greedy and sampled (top_p 0.9) mixed."""
     bat = SlotBatcher(engine, ServingConfig(slots=8, max_len=1024,
                                             prefill_chunk=128, top_p=0.9))
     bat.prewarm()
     rng = np.random.default_rng(17)
-    n_req = 16
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),))
                for n in rng.integers(32, 769, n_req)]
-    budgets = [int(b) for b in rng.integers(32, 129, n_req)]
+    budgets = [int(b) for b in rng.integers(*budget, n_req)]
     greedy = [i % 2 == 0 for i in range(n_req)]
     outs = {i: [] for i in range(n_req)}
     ttft, ticks = {}, []
@@ -1839,7 +2107,7 @@ def run_serving(engine, cfg):
            "ttft_ms_p50": 1e3 * pct(list(ttft.values()), 50),
            "ttft_ms_p99": 1e3 * pct(list(ttft.values()), 99),
            "prompt_lens": [len(p) for p in prompts], "budgets": budgets}
-    log(f"[serving] 16 requests, 8 slots, chunk 128: TTFT p50 "
+    log(f"[serving] {model}: {n_req} requests, 8 slots, chunk 128: TTFT p50 "
         f"{res['ttft_ms_p50']:.1f} ms p99 {res['ttft_ms_p99']:.1f} ms, tick "
         f"mean {res['tick_ms_mean']:.2f} ms, tokens_per_s "
         f"{res['tokens_per_s']:.1f}")
@@ -1865,8 +2133,10 @@ def run_serving(engine, cfg):
                                      f"at step {diff[0]} with margin {m}")
     res["greedy_divergences"] = len(margins_at_div)
     res["margins_at_divergence"] = margins_at_div
-    log(f"[serving] batched vs alone: {8 - len(margins_at_div)}/8 greedy "
-        f"requests identical; margins at divergence {margins_at_div}")
+    n_greedy = sum(greedy)
+    log(f"[serving] {model} batched vs alone: "
+        f"{n_greedy - len(margins_at_div)}/{n_greedy} greedy requests "
+        f"identical; margins at divergence {margins_at_div}")
     return res, counts
 
 
@@ -1887,6 +2157,175 @@ def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
     if not torch.isfinite(out).all() or not rel <= 0.05:
         raise AssertionError(f"full-width logits disagree: rel err {rel}")
     return {"rel_l2_err": rel, "argmax_agreement": agree}, out
+
+
+# ------------------------------------------- GPT-Neo and BLOOM serving
+
+#: the published widths of the two families (HF ``config.json`` of
+#: EleutherAI/gpt-neo-1.3B and bigscience/bloom-560m), weights random
+GPT_NEO_1_3B = gpt.GPTConfig(
+    vocab_size=50257, max_seq_len=2048, n_layer=24, n_head=16, d_model=2048,
+    d_ff=8192, attn_softmax_scale=1.0, local_attention_window=256,
+    local_attention_alternating=True)
+BLOOM_560M = gpt.GPTConfig(
+    vocab_size=250880, max_seq_len=2048, n_layer=24, n_head=16, d_model=1024,
+    pos_embed="alibi", embed_layernorm=True)
+#: the families' generate: 4 prompts right-padded to 512, every one longer
+#: than GPT-Neo's window, and 32 new tokens
+FAMILY_LENS = (512, 448, 384, 300)
+FAMILY_NEW = 32
+#: the families' logits check: one prompt past GPT-Neo's window, against
+#: an fp32 forward on the host of the same weights; the card's fp32
+#: engine within FAMILY_FP32_TOL (relative L2), its bf16 engine within
+#: FAMILY_BF16_TOL (GPT-2 350M's 0.05), or for GPT-Neo within
+#: FAMILY_SENSITIVITY times the bf16 error of the same weights with every
+#: layer global (the causal kernel): its unscaled softmax (scale 1.0) at
+#: random init puts q.k at about 9 standard deviations, so bf16's rounding
+#: of q and k moves the attention weights by several percent a layer,
+#: window or not (about 0.31 either way on an H100, 0.013 with the
+#: 1/sqrt(D) scale; PERF.md §6)
+FAMILY_LOGITS_LEN = 320
+FAMILY_FP32_TOL = 1e-3
+FAMILY_BF16_TOL = 0.05
+FAMILY_SENSITIVITY = 1.5
+#: the option launches each family's path must make
+FAMILY_OPTIONS = {"window": ("flash_fwd[window]", "decode_attn[window]",
+                             "chunk_attn[window]",
+                             "decode_attn_int8[window]",
+                             "chunk_attn_int8[window]"),
+                  "alibi": ("decode_attn[alibi]", "chunk_attn[alibi]",
+                            "decode_attn_int8[alibi]",
+                            "chunk_attn_int8[alibi]")}
+
+
+def _add(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def _rel_agree(out, ref):
+    return (((out - ref).norm() / ref.norm()).item(),
+            (out.argmax(-1) == ref.argmax(-1)).float().mean().item())
+
+
+@torch.no_grad()
+def family_logits(engine, cfg, params_host, model):
+    """The bf16 engine's logits, and an fp32 engine's on the card (the
+    same weights), against an fp32 forward on the host, on one prompt of
+    ``FAMILY_LOGITS_LEN`` tokens (past GPT-Neo's window); a banded model's
+    bf16 tolerance from its weights with every layer global."""
+    toks = np.random.default_rng(33).integers(0, cfg.vocab_size,
+                                              (1, FAMILY_LOGITS_LEN))
+    host = deepspeed_tpu_torch.init_inference(
+        (cfg, params_host), {"dtype": "float32"}, device="cpu")
+    V = cfg.vocab_size
+    ref = host.forward(toks)[..., :V]
+    res, bf16_tol = {}, FAMILY_BF16_TOL
+    if cfg.local_attention_window > 0:
+        unbanded = {"local_attention_window": 0,
+                    "local_attention_alternating": False}
+        ref_g = gpt.apply(host.params, host._tokens(toks),
+                          dataclasses.replace(host.model_config,
+                                              **unbanded))[..., :V]
+        out_g = gpt.apply(engine.params, engine._tokens(toks),
+                          dataclasses.replace(engine.model_config,
+                                              **unbanded)).cpu()[..., :V]
+        rel_g, agree_g = _rel_agree(out_g, ref_g)
+        bf16_tol = max(bf16_tol, FAMILY_SENSITIVITY * rel_g)
+        res["bf16_every_layer_global"] = {"rel_l2_err": rel_g,
+                                          "argmax_agreement": agree_g}
+        log(f"[{model}] the same weights with every layer global, bf16 card "
+            f"vs fp32 host: rel_l2_err {rel_g:.3e}, argmax agreement "
+            f"{agree_g:.3f}; the banded model's bf16 tol "
+            f"{FAMILY_SENSITIVITY} x that = {bf16_tol:.3e}")
+        del ref_g, out_g
+    del host
+    fp32 = deepspeed_tpu_torch.init_inference((cfg, params_host),
+                                              {"dtype": "float32"})
+    for label, eng, tol in (("bf16", engine, bf16_tol),
+                            ("fp32", fp32, FAMILY_FP32_TOL)):
+        out = eng.forward(toks).cpu()[..., :V]
+        rel, agree = _rel_agree(out, ref)
+        res[label] = {"rel_l2_err": rel, "argmax_agreement": agree,
+                      "tol": tol}
+        log(f"[{model}] full-width logits {label} card vs fp32 host, "
+            f"{FAMILY_LOGITS_LEN} tokens: finite "
+            f"{bool(torch.isfinite(out).all())}, rel_l2_err {rel:.3e} (tol "
+            f"{tol}), argmax agreement {agree:.3f}")
+        if not torch.isfinite(out).all() or not rel <= tol:
+            raise AssertionError(f"{model} {label} logits: rel err {rel}")
+    del fp32
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_family(model, cfg, seed, option):
+    """One family at its published widths in bf16 (random weights from
+    ``seed``) through ``init_inference``: phase 3's ``generate``
+    (``FAMILY_LENS`` x ``FAMILY_NEW`` tokens) and a ``SlotBatcher`` of 6
+    requests (greedy ones equal to themselves alone), full-width logits
+    of the bf16 engine and of an fp32 one against an fp32 host forward
+    (``family_logits``), peak memory above the weights and a profile;
+    then the same ``generate`` and a 4-request batcher with an
+    int8 KV cache (greedy agreement with bf16 reported).  Every launch
+    count is 0 before each engine's run and read after it; the runs must
+    launch every kernel of ``FAMILY_OPTIONS[option]``."""
+    params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                {"dtype": "bfloat16"})
+    params_host = _host_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = {"generate": run_generate(engine, cfg, "bf16", model, FAMILY_LENS,
+                                    FAMILY_NEW)}
+    counts = kernels.launch_counts()
+    res["serving"], serve_counts = run_serving(engine, cfg, n_req=6,
+                                               budget=(16, 33), model=model)
+    counts = _add(counts, serve_counts)
+    res["peak_above_resident_gib"] = \
+        (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    res["resident_gib"] = resident / 2 ** 30
+    log(f"[{model}] bf16 weights resident {res['resident_gib']:.3f} GiB, "
+        f"generate and serving peak above them "
+        f"{res['peak_above_resident_gib']:.3f} GiB")
+    res["full_width_logits"] = family_logits(engine, cfg, params_host, model)
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
+    res["profile"] = device_profile(
+        f"{model} generate 4x{FAMILY_NEW} tokens",
+        lambda: engine.generate(toks, max_new_tokens=FAMILY_NEW,
+                                prompt_lens=list(FAMILY_LENS)).cpu())
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = deepspeed_tpu_torch.init_inference(
+        (cfg, params_host), {"dtype": "bfloat16", "kv_cache_dtype": "int8"})
+    del params_host
+    kernels.reset_launch_counts()
+    res["int8_cache_generate"] = run_generate(
+        engine, cfg, "bf16, int8 KV cache", model, FAMILY_LENS, FAMILY_NEW)
+    counts = _add(counts, kernels.launch_counts())
+    res["int8_cache_serving"], serve8 = run_serving(
+        engine, cfg, n_req=4, budget=(16, 33),
+        model=f"{model} int8 KV cache")
+    counts = _add(counts, serve8)
+    a = np.asarray(res["int8_cache_generate"]["tokens"])
+    b = np.asarray(res["generate"]["tokens"])
+    res["int8_cache_agreement"] = float((a == b).mean())
+    log(f"[{model}] int8 KV cache vs bf16 greedy token agreement "
+        f"{res['int8_cache_agreement']:.3f} (reported)")
+    del engine
+    torch.cuda.empty_cache()
+    res["launches"] = counts
+    log(f"[{model}] launches {counts}")
+    missing = [k for k in FAMILY_OPTIONS[option] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{model}: option kernels never launched: "
+                             f"{missing}")
+    return res, counts
+
 
 
 #: the flash trio's kernels, by a substring of their names in a profile
@@ -2938,7 +3377,11 @@ def main() -> int:
                 for B, kind in DECODE_CASES],
               *check_kv_append(), check_chunk(128, int8=True),
               check_chunk(640, int8=True), *check_spatial(),
-              *check_bias_gelu()]
+              *check_bias_gelu(), check_flash_window(),
+              *[check_decode_option(opt, int8) for opt in ("window", "alibi")
+                for int8 in (False, True)],
+              *[check_chunk_option(opt, int8) for opt in ("window", "alibi")
+                for int8 in (False, True)]]
     check_adam_skip()
     check_lamb_skip()
     result["quantizer_sweep"] = check_quantizer_sweep()
@@ -2946,6 +3389,7 @@ def main() -> int:
     result["chunk_sweep_worst_rel_err"] = check_chunk_sweep()
     result["sparse_sweep_worst_rel_err"] = check_sparse_sweep()
     result["kv_lens_sweep_worst_rel_err"] = check_kv_lens_sweep()
+    result["option_sweep_worst_rel_err"] = check_option_sweep()
     check_tiny_end_to_end()
     check_tiny_int8()
     result["tiny_training"] = check_tiny_training()
@@ -2989,6 +3433,13 @@ def main() -> int:
     del params_host, bf16
     torch.cuda.empty_cache()
 
+    for key, model, cfg, seed, option in (
+            ("gpt_neo", "GPT-Neo 1.3B", GPT_NEO_1_3B, 4321, "window"),
+            ("bloom", "BLOOM-560m", BLOOM_560M, 5678, "alibi")):
+        result[key], family_counts = run_family(model, cfg, seed, option)
+        result["launches"][key] = family_counts
+        counts = _add(counts, family_counts)
+
     result["training"], train_counts, trainer, batch = run_training()
     result["launches"]["training"] = train_counts
     counts = {k: counts[k] + train_counts[k] for k in counts}
@@ -3031,15 +3482,16 @@ def main() -> int:
         first.setdefault(row["name"], row)
     line = []
     for name, row in first.items():
-        src, replaces = SOURCES[name]
+        base = name.split("[")[0]        # an option's row: kernel[option]
+        src, replaces = SOURCES[base]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
-        if name in TC_ENTRY:
-            line[-1]["bf16_fp16_kernel"] = TC_ENTRY[name]
+        if base in TC_ENTRY:
+            line[-1]["bf16_fp16_kernel"] = TC_ENTRY[base]
         if name in CHECK_ONLY:
             line[-1]["paths"] = ("none: no path of the JAX package calls it; "
                                  "held in the check phase only")
@@ -3049,7 +3501,9 @@ def main() -> int:
         json.dump(result, f, indent=1)
     log(smi)
     log(f"[launches] generate {gen_counts}, serving {serve_counts}, int8 "
-        f"serving {int8_counts}, training {train_counts}, sparse training "
+        f"serving {int8_counts}, GPT-Neo {result['launches']['gpt_neo']}, "
+        f"BLOOM {result['launches']['bloom']}, training {train_counts}, "
+        f"sparse training "
         f"{sparse_counts}, bert training {bert_counts}, diffusion "
         f"{diffusion_counts}, bias-GeLU op {op_counts}")
     missing = [k for k, n in counts.items() if n <= 0 and k not in CHECK_ONLY]

@@ -5,11 +5,13 @@ names and runs on one NVIDIA H100 through kernels written by hand for
 Hopper (``ops/kernels``, sources in ``csrc/``).  It imports ``torch`` and
 never JAX or ``deepspeed_tpu``.
 
-Ported so far: the serving path of GPT-2 — ``init_inference`` →
-``InferenceEngine.generate``, and the continuous-batching ``SlotBatcher``
-(``serving``), in bf16/fp16/fp32 or with int8 weights and an int8 KV
-cache; text-to-image serving of Stable-Diffusion-shaped models —
-``init_inference(model=<diffusers state dict>)`` → ``DSUNet``/``DSVAE``
+Ported so far: the serving path of GPT-2, GPT-Neo (banded local layers)
+and BLOOM (ALiBi) — ``init_inference`` (from a ``(GPTConfig, params)``
+tuple or a ``transformers`` model) → ``InferenceEngine.generate``, and the
+continuous-batching ``SlotBatcher`` (``serving``), in bf16/fp16/fp32 or
+with int8 weights and an int8 KV cache; text-to-image serving of
+Stable-Diffusion-shaped models — ``init_inference(model=<diffusers state
+dict>)`` → ``DSUNet``/``DSVAE``
 → ``inference.diffusion_pipeline.DiffusionPipeline`` (guided DDIM, VAE
 decode); and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
@@ -40,12 +42,15 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     (reference ``deepspeed/__init__.py`` ``init_inference``).
 
     ``model`` is a ``(GPTConfig, params)`` tuple of the port's GPT (params
-    from ``models.gpt.init`` or ``models.convert.from_jax_params``), or a
-    diffusers state dict (or a module with ``state_dict()``) that
-    ``module_inject.UNetPolicy`` or ``VAEPolicy`` matches, which returns a
-    ``DSUNet`` or ``DSVAE`` on the device.  ``config`` is a
-    ``DeepSpeedInferenceConfig`` dict, with remaining kwargs merged into
-    it: ``dtype`` is the compute dtype; ``dtype="int8"`` serves a GPT's
+    from ``models.gpt.init`` or ``models.convert.from_jax_params``); a
+    ``transformers`` decoder (a module with ``config`` and
+    ``state_dict()``) that a ``module_inject.POLICIES`` entry matches
+    (GPT-2, GPT-Neo, BLOOM; OPT, GPT-NeoX and GPT-J raise), converted and
+    served as a GPT; or a diffusers state dict (or a module with
+    ``state_dict()``) that ``module_inject.UNetPolicy`` or ``VAEPolicy``
+    matches, which returns a ``DSUNet`` or ``DSVAE`` on the device.
+    ``config`` is a ``DeepSpeedInferenceConfig`` dict, with remaining
+    kwargs merged into it: ``dtype`` is the compute dtype; ``dtype="int8"`` serves a GPT's
     int8 weights (codes and per-vector scales of the bf16-cast weights)
     with bf16 compute and a UNet or VAE in bf16; ``kv_cache_dtype="int8"``
     caches K/V as int8 codes and per-vector scales; ``n_head`` and
@@ -65,7 +70,8 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     sd = model if isinstance(model, Mapping) else (
         model.state_dict() if hasattr(model, "state_dict") else None)
     if sd is not None:
-        from .module_inject import GENERIC_POLICIES
+        from .module_inject import (GENERIC_POLICIES, convert_hf_model,
+                                    match_decoder)
         dtype = inf_config.torch_dtype
         if dtype == torch.int8:     # weight-only int8 is GPT-only
             dtype = torch.bfloat16
@@ -75,9 +81,14 @@ def init_inference(model=None, config=None, device=None, **kwargs):
                     sd, dtype=dtype,
                     enable_cuda_graph=inf_config.enable_cuda_graph,
                     device=get_accelerator().resolve_device(device), **extra)
+        if hasattr(model, "config") and match_decoder(sd) is not None:
+            model_config, params = convert_hf_model(model, dtype=dtype)
+            return InferenceEngine(model_config, params, inf_config,
+                                   device=device)
     raise TypeError("init_inference takes model=(GPTConfig, params) of "
-                    "deepspeed_tpu_torch.models.gpt, or a diffusers UNet or "
-                    "VAE state dict")
+                    "deepspeed_tpu_torch.models.gpt, a transformers GPT-2, "
+                    "GPT-Neo or BLOOM model, or a diffusers UNet or VAE "
+                    "state dict")
 
 
 def initialize(args=None, model: ModelSpec = None, optimizer=None,

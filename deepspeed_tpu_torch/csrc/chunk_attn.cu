@@ -5,8 +5,15 @@
 // pos[b] + i (pos scalar or per row) and sees cache slots <= pos[b] + i;
 // fp32 scores, running max floored at M_FLOOR, p kept in fp32, O = acc / l.
 // chunk_attn_int8 is the kernel's int8-cache option (:258-260): int8 codes
-// with one fp32 scale per head vector.  The window and ALiBi options are
-// not ported yet; the wrapper refuses them.
+// with one fp32 scale per head vector.  The kernel's two other options, in
+// both entry points and on both paths: window (:238-244, :265-266; 0 for
+// none) bands query i to keys (pos[b] + i - window, pos[b] + i], and slopes
+// ([H] fp32, :262-263; nullptr for none) adds ALiBi's
+// -slopes[h] * (pos[b] + i - j) to the scaled fp32 score, before the row
+// max.  A unit's live k-tiles then start at the tile of its first row's
+// band start, not at 0 (JAX clamps its DMA into [band start, frontier],
+// :319-325), the cluster splits that range, and a tile that crosses the
+// band's lower edge for some row is masked.
 //
 // Bound on the H100: a chunk of Sq queries does 4*D FLOPs per visible
 // pair against 4*D bytes per live bf16 cache row (2*D + 8 for int8), about
@@ -69,6 +76,8 @@ struct ChunkParams {
     const int* pos;
     int pos_scalar;
     int Sq, Smax, H, cluster;
+    int window;                    // band width, 0: none
+    const float* slopes;           // ALiBi [H], nullptr: none
     long long o_sb, o_ss, o_sh;
     long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;
     float scale;
@@ -176,8 +185,13 @@ __global__ void __launch_bounds__(ChunkCfg<D, Q8>::THREADS, 1) chunk_attn_tc(con
     const int pos = p.pos != nullptr ? p.pos[b] : p.pos_scalar;
     const int kend = max(0, min(p.Smax, pos + min(p.Sq, q0 + CH_BQ)));
     const int ntiles = (kend + CH_BK - 1) / CH_BK;
-    const int lo = ntiles * rank / n;             // this CTA's share of the k-tiles
-    const int mine = ntiles * (rank + 1) / n - lo;
+    // the live k-tiles [first, ntiles): from the tile of the first row's
+    // band start (0 without a window) to the last row's frontier
+    const int win = p.window > 0 ? p.window : INT_MAX;
+    const int first = p.window > 0 ? min(ntiles, max(0, pos + q0 - win + 1) / CH_BK) : 0;
+    const int live = ntiles - first;
+    const int lo = first + live * rank / n;       // this CTA's share of the k-tiles
+    const int mine = first + live * (rank + 1) / n - lo;
 
     if (threadIdx.x == 0) {
         hopper::mbar_init(q_bar, 1);
@@ -274,6 +288,8 @@ __global__ void __launch_bounds__(ChunkCfg<D, Q8>::THREADS, 1) chunk_attn_tc(con
         float m[2] = {DS_M_FLOOR, DS_M_FLOOR};    // running max of the scaled scores
         float l[2] = {0.f, 0.f};                  // this thread's share of the row sums
         const uint32_t q_addr = hopper::smem_u32(qs);
+        const bool alibi = p.slopes != nullptr;
+        const float slope = alibi ? p.slopes[h] : 0.f;
 
         if (mine > 0) hopper::mbar_wait(q_bar, 0);
         for (int i = 0; i < mine; ++i) {
@@ -295,18 +311,20 @@ __global__ void __launch_bounds__(ChunkCfg<D, Q8>::THREADS, 1) chunk_attn_tc(con
             hopper::wgmma_wait0();
             hopper::fence_regs(sc);
 
-            // only a tile past the first row's frontier (or the cache's
-            // end) is masked
-            const bool crosses = k0 + CH_BK - 1 > pos + q0 || k0 + CH_BK > p.Smax;
+            // only a tile past the first row's frontier, past the cache's
+            // end, or below the last row's band start is masked
+            const bool crosses = k0 + CH_BK - 1 > pos + q0 || k0 + CH_BK > p.Smax ||
+                                 pos + q0 + CH_BQ - 1 - k0 >= win;
             float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
             for (int e = 0; e < CH_BK / 2; ++e) {
                 const int c = 8 * (e / 4) + fr.col + (e & 1);
                 const int r = (e >> 1) & 1;
                 float x = sc[e] * (Q8 ? ksc[c] : p.scale);
+                if (alibi) x = fmaf(-slope, static_cast<float>(qp[r] - (k0 + c)), x);
                 if (crosses) {
                     const int kj = k0 + c;
-                    x = kj < p.Smax && kj <= qp[r] ? x : -INFINITY;
+                    x = kj < p.Smax && kj <= qp[r] && qp[r] - kj < win ? x : -INFINITY;
                 }
                 sc[e] = x;
                 mx[r] = fmaxf(mx[r], x);
@@ -454,9 +472,11 @@ cudaError_t run_chunk_tc(ChunkParams& p, const void* q, const void* k, const voi
         err = hopper::map_rows(&p.v, v, kv_type, B, p.Smax, p.H, D, v_sb, v_ss, v_sh, CH_BK);
     if (err != cudaSuccess) return err;
     // the largest power of two <= 8 whose CTAs fit one wave of SMs, and no
-    // more ranks than the live k-tiles of the longest unit
+    // more ranks than the live k-tiles of the longest unit (with a window,
+    // no more than a 64-row unit's band spans)
     const int units = B * p.H * ((p.Sq + CH_BQ - 1) / CH_BQ);
-    const int live = p.pos != nullptr ? p.Smax : min(p.Smax, p.pos_scalar + p.Sq);
+    int live = p.pos != nullptr ? p.Smax : min(p.Smax, p.pos_scalar + p.Sq);
+    if (p.window > 0) live = min(live, p.window + CH_BQ + CH_BK - 1);
     const int tiles = (live + CH_BK - 1) / CH_BK;
     int n = 1;
     while (n < CH_MAX_CLUSTER && (long long)units * 2 * n <= sm_count() && 2 * n <= tiles) n *= 2;
@@ -481,19 +501,23 @@ extern "C" int chunk_attn(const void* q, const void* k, const void* v, void* o,
                           long long k_sb, long long k_ss, long long k_sh,
                           long long v_sb, long long v_ss, long long v_sh,
                           long long o_sb, long long o_ss, long long o_sh,
-                          const int* pos, int pos_scalar, float scale, void* stream) {
+                          const int* pos, int pos_scalar, int window, const float* slopes, float scale,
+                          void* stream) {
     if (B == 0 || Sq == 0 || H == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == kF32) {
         TileArgs a{q, k, v, o, nullptr, B, Sq, Smax, H,
                    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                    scale, 1, pos, pos_scalar};
+        a.window = window;
+        a.slopes = slopes;
         return static_cast<int>(dispatch_tile<true>(D, a, st));
     }
     if (dtype != kF16 && dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
     ChunkParams p{};
     p.o = o; p.pos = pos; p.pos_scalar = pos_scalar;
     p.Sq = Sq; p.Smax = Smax; p.H = H;
+    p.window = window; p.slopes = slopes;
     p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
     p.scale = scale;
     return static_cast<int>(run_chunk_tc<false>(p, q, k, v, dtype, B, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
@@ -510,7 +534,8 @@ extern "C" int chunk_attn_int8(const void* q, const void* k, const void* v, void
                                const float* k_scale, const float* v_scale,
                                long long ks_sb, long long ks_ss, long long ks_sh,
                                long long vs_sb, long long vs_ss, long long vs_sh,
-                               const int* pos, int pos_scalar, float scale, void* stream) {
+                               const int* pos, int pos_scalar, int window, const float* slopes, float scale,
+                               void* stream) {
     if (B == 0 || Sq == 0 || H == 0) return 0;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == kF32) {
@@ -518,6 +543,8 @@ extern "C" int chunk_attn_int8(const void* q, const void* k, const void* v, void
                    q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
                    scale, 1, pos, pos_scalar, nullptr, k_scale, v_scale,
                    ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
+        a.window = window;
+        a.slopes = slopes;
         return static_cast<int>(dispatch_tile<true, true>(D, a, st));
     }
     if (dtype != kF16 && dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
@@ -525,6 +552,7 @@ extern "C" int chunk_attn_int8(const void* q, const void* k, const void* v, void
     p.o = o; p.pos = pos; p.pos_scalar = pos_scalar;
     p.k_scale = k_scale; p.v_scale = v_scale;
     p.Sq = Sq; p.Smax = Smax; p.H = H;
+    p.window = window; p.slopes = slopes;
     p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
     p.ks_sb = ks_sb; p.ks_ss = ks_ss; p.ks_sh = ks_sh;
     p.vs_sb = vs_sb; p.vs_ss = vs_ss; p.vs_sh = vs_sh;

@@ -5,8 +5,12 @@
 // (pos scalar or per row); fp32 scores, running max floored at M_FLOOR.
 // decode_attn_int8 is the kernel's int8-cache option (:135-137): K and V
 // arrive as int8 codes with one fp32 scale per head vector ([B, S_max, H,
-// 1], read through its own strides).  The window and ALiBi options are not
-// ported yet; the wrapper refuses them.
+// 1], read through its own strides).  The kernel's two other options, in
+// both entry points and every kernel below: window (:125-129, :139-140;
+// 0 for none) bands row b's keys to [pos_b - window + 1, pos_b], and
+// slopes ([H] fp32, :137-138; nullptr for none) adds ALiBi's
+// -slopes[h] * (pos_b - j) to the scaled fp32 score of key j, before the
+// row max.
 //
 // Bound on the H100: memory.  Each live cache row is read once (2*D
 // elements of K and V, plus two fp32 scales for the int8 cache) for 4*D
@@ -42,9 +46,14 @@
 //   element.  The groups merge by a fixed butterfly in each warp, the warps
 //   in warp order.
 // - The split: each (b, h) is a cluster of n CTAs over n contiguous
-//   shares of its keys, n the largest power of two <= 8 whose B * H * n
-//   CTAs fit one wave at one CTA an SM, from S_max (or a scalar pos) and
-//   the SM count on the host, never a per-row pos.  At the 8-slot serving
+//   shares of its live keys, n the largest power of two <= 8 whose B * H * n
+//   CTAs fit one wave at one CTA an SM, from S_max (or a scalar pos, or
+//   the window where it is smaller) and the SM count on the host, never a
+//   per-row pos.  The live keys start at the band's first key
+//   max(0, pos_b - window + 1) (at 0 without a window), so share r is
+//   [base + r span, base + (r + 1) span): keys below the band are never
+//   loaded, nor scored, so no mask needs the band's lower edge, and a
+//   banded row streams O(window) bytes, not O(pos_b).  At the 8-slot serving
 //   batch with 16 heads that is n = 1 (128 CTAs); one request's 16 heads
 //   spread over 8 CTAs each.  A share past its row's frontier is dead and
 //   contributes m = M_FLOOR, l = 0, acc = 0; share 0 always holds key 0.
@@ -73,12 +82,24 @@ struct DecodeParams {
     const int* pos;
     int pos_scalar;
     int Smax, span;                 // span: keys per share, a multiple of KT
+    int window;                     // band width, 0: none
+    const float* slopes;            // ALiBi [H], nullptr: none
     long long q_sb, q_sh, o_sb, o_sh;
     // int8 cache only: per-vector scales [B, S_max, H, 1]
     const float* k_scale; const float* v_scale;
     long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;
     float scale;
 };
+
+// the first key of row b's band: its keys are [band_start, pos_b]
+__device__ __forceinline__ int band_start(const DecodeParams& p, int pos_b) {
+    return p.window > 0 ? max(0, pos_b - p.window + 1) : 0;
+}
+
+// head h's ALiBi slope (0 without slopes: the bias vanishes exactly)
+__device__ __forceinline__ float alibi_slope(const DecodeParams& p, int h) {
+    return p.slopes != nullptr ? p.slopes[h] : 0.f;
+}
 
 // The end of every CTA: its partial (m, l, acc[D] of column tid) goes to
 // rank 0, which combines the n partials in rank order and writes O.  m is
@@ -239,8 +260,9 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
     const int n = gridDim.x;
     const int h = blockIdx.y;
     const int b = blockIdx.z;
-    const int k0 = rank * p.span;   // this share's first key
     const int pos_b = p.pos != nullptr ? p.pos[b] : p.pos_scalar;
+    // without a window share 0 always holds key 0: its first box needs no pos
+    const bool early = rank == 0 && p.window <= 0;
     // q as row 0 of the A operand: lanes 0-3 hold columns 2 lane, +1 and
     // 2 lane + 8, +9 of each 16-column step, everything else is zero
     uint32_t qa[D / 16][2];
@@ -252,13 +274,12 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
             qa[kk][1] = lane < 4 ? *reinterpret_cast<const uint32_t*>(qp + 16 * kk + 8) : 0u;
         }
     }
-    Ring<Cf> rg{p, ring, full, h, b, k0, 0};
+    Ring<Cf> rg{p, ring, full, h, b, 0, 0};
     if (tid == 0) {
         for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
         comb.init(rank, n);
         hopper::fence_barrier_init();
-        if (rank == 0) {
-            // share 0 always holds key 0: its first box needs no pos
+        if (early) {
             hopper::mbar_expect_tx_only(&full[0], rg.bytes(1));
             rg.load(0, 0, 1);
         }
@@ -271,16 +292,18 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
         __syncthreads();
 
     const int npos = min(p.Smax, pos_b + 1);        // visible keys
+    const int k0 = band_start(p, pos_b) + rank * p.span;   // this share's first key
     const int kend = min(npos, k0 + p.span);
+    rg.k0 = k0;
     rg.kend = kend;
     int ntiles = kend > k0 ? (kend - k0 + KT - 1) / KT : 0;   // CTA-uniform
-    if (rank == 0) ntiles = max(ntiles, 1);         // its first box is in flight
+    if (early) ntiles = max(ntiles, 1);             // its first box is in flight
 
     float mt = DS_M_FLOOR, lt = 0.f, at = 0.f;      // the CTA's partial (column tid)
     if (ntiles > 0) {
         if (tid == 0) {
             int t = 0;
-            if (rank == 0) {                        // the rest of tile 0
+            if (early) {                            // the rest of tile 0
                 const int nb = max(rg.boxes(0), 1);
                 hopper::mbar_expect_tx(&full[0], rg.bytes(nb - 1));
                 rg.load(0, 1, nb);
@@ -289,6 +312,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
             for (; t < min(STAGES, ntiles); ++t) rg.load_tile(t);
         }
         const float f0 = p.scale * hopper::LOG2E;   // scores in log2 units
+        const float sl2 = alibi_slope(p, h) * hopper::LOG2E;
         float m = DS_M_FLOOR, l = 0.f;
         float o[D / 8][4];
 #pragma unroll
@@ -330,14 +354,16 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
                         hopper::mma_16816<T>(sf[nb], a1, kb[2], kb[3]);
                     }
                 }
-                // scores of lanes 0-3 (row 0): keys r0 + 8 nb + 2 lane + e
+                // scores of lanes 0-3 (row 0): keys r0 + 8 nb + 2 lane + e,
+                // each at or above the band's start (the share starts there)
                 const int j0 = k0 + t * KT + r0 + 2 * lane;
                 float sc[4];
                 float smax = -INFINITY;
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const int j = j0 + 8 * (i / 2) + i % 2;
-                    sc[i] = (lane < 4 && j < kend) ? sf[i / 2][i % 2] * f0 : -INFINITY;
+                    const float x = fmaf(sf[i / 2][i % 2], f0, -sl2 * static_cast<float>(pos_b - j));
+                    sc[i] = (lane < 4 && j < kend) ? x : -INFINITY;
                     smax = fmaxf(smax, sc[i]);
                 }
                 smax = hopper::quad_max(smax);
@@ -468,17 +494,17 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
     const int n = gridDim.x;
     const int h = blockIdx.y;
     const int b = blockIdx.z;
-    const int k0 = rank * p.span;
     const int pos_b = p.pos != nullptr ? p.pos[b] : p.pos_scalar;
+    const bool early = rank == 0 && p.window <= 0;
     float qf[VEC];
     load_widen<T, VEC>(static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + lane * VEC, qf);
 
-    Ring<Cf> rg{p, ring, full, h, b, k0, 0};
+    Ring<Cf> rg{p, ring, full, h, b, 0, 0};
     if (tid == 0) {
         for (int s = 0; s < STAGES; ++s) hopper::mbar_init(&full[s], 1);
         comb.init(rank, n);
         hopper::fence_barrier_init();
-        if (rank == 0) {
+        if (early) {
             hopper::mbar_expect_tx_only(&full[0], rg.bytes(1));
             rg.load(0, 0, 1);
         }
@@ -489,16 +515,18 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
         __syncthreads();
 
     const int npos = min(p.Smax, pos_b + 1);
+    const int k0 = band_start(p, pos_b) + rank * p.span;
     const int kend = min(npos, k0 + p.span);
+    rg.k0 = k0;
     rg.kend = kend;
     int ntiles = kend > k0 ? (kend - k0 + KT - 1) / KT : 0;
-    if (rank == 0) ntiles = max(ntiles, 1);
+    if (early) ntiles = max(ntiles, 1);
 
     float mt = DS_M_FLOOR, lt = 0.f, at = 0.f;
     if (ntiles > 0) {
         if (tid == 0) {
             int t = 0;
-            if (rank == 0) {
+            if (early) {
                 const int nb = max(rg.boxes(0), 1);
                 hopper::mbar_expect_tx(&full[0], rg.bytes(nb - 1));
                 rg.load(0, 1, nb);
@@ -508,6 +536,7 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
         }
 #pragma unroll
         for (int e = 0; e < VEC; ++e) qf[e] *= p.scale;
+        const float slope = alibi_slope(p, h);
         const float* ksp = Q8 ? p.k_scale + b * p.ks_sb + h * p.ks_sh : nullptr;
         const float* vsp = Q8 ? p.v_scale + b * p.vs_sb + h * p.vs_sh : nullptr;
         // the scales of this group's keys in tile t (0 past the frontier)
@@ -556,6 +585,7 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
 #pragma unroll
                 for (int o = TPK / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
                 if constexpr (Q8) part *= ksc[u];
+                part = fmaf(-slope, static_cast<float>(pos_b - (j0 + u * G)), part);
                 sc[u] = j0 + u * G < kend ? part : -INFINITY;
                 smax = fmaxf(smax, sc[u]);
             }
@@ -641,7 +671,8 @@ struct CacheView {
 // Build the maps of K and V, fix the split and launch `kernel` as n-CTA
 // clusters over (b, h): the largest n (a power of two <= 8) whose B * H * n
 // CTAs fit one wave at one CTA a SM, and no more ranks than KT-key tiles
-// of S_max (or of a scalar pos).  A per-row pos is never read on the host.
+// of the live keys: S_max (or a scalar pos), or the window where it is
+// fewer.  A per-row pos is never read on the host.
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, int smem, int kt, int map_type, int esz, DecodeParams& p,
                    const CacheView& c, int B, int H, int D, bool& ready, cudaStream_t stream) {
@@ -661,7 +692,8 @@ cudaError_t launch(Kernel kernel, int threads, int smem, int kt, int map_type, i
     if (err == cudaSuccess) err = map(&p.k_sub, c.k, c.k_sb, c.k_ss, c.k_sh, DEC_SUB);
     if (err == cudaSuccess) err = map(&p.v_sub, c.v, c.v_sb, c.v_ss, c.v_sh, DEC_SUB);
     if (err != cudaSuccess) return err;
-    const int live = p.pos != nullptr ? p.Smax : min(p.Smax, p.pos_scalar + 1);
+    int live = p.pos != nullptr ? p.Smax : min(p.Smax, p.pos_scalar + 1);
+    if (p.window > 0) live = min(live, p.window);
     const int tiles = max(1, (live + kt - 1) / kt);
     int n = 1;
     while (n < DEC_MAX_CLUSTER && 2 * n <= tiles && (long long)B * H * 2 * n <= sm_count()) n *= 2;
@@ -732,11 +764,13 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v, void* o,
                            long long k_sb, long long k_ss, long long k_sh,
                            long long v_sb, long long v_ss, long long v_sh,
                            long long o_sb, long long o_sh,
-                           const int* pos, int pos_scalar, float scale, void* stream) {
+                           const int* pos, int pos_scalar, int window, const float* slopes, float scale,
+                           void* stream) {
     if (B == 0 || H == 0) return 0;
     if (Smax <= 0) return static_cast<int>(cudaErrorInvalidValue);
     DecodeParams p{};
     p.q = q; p.o = o; p.pos = pos; p.pos_scalar = pos_scalar; p.Smax = Smax;
+    p.window = window; p.slopes = slopes;
     p.q_sb = q_sb; p.q_sh = q_sh; p.o_sb = o_sb; p.o_sh = o_sh;
     p.scale = scale;
     const CacheView c{k, v, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
@@ -753,11 +787,13 @@ extern "C" int decode_attn_int8(const void* q, const void* k, const void* v, voi
                                 const float* k_scale, const float* v_scale,
                                 long long ks_sb, long long ks_ss, long long ks_sh,
                                 long long vs_sb, long long vs_ss, long long vs_sh,
-                                const int* pos, int pos_scalar, float scale, void* stream) {
+                                const int* pos, int pos_scalar, int window, const float* slopes, float scale,
+                                void* stream) {
     if (B == 0 || H == 0) return 0;
     if (Smax <= 0) return static_cast<int>(cudaErrorInvalidValue);
     DecodeParams p{};
     p.q = q; p.o = o; p.pos = pos; p.pos_scalar = pos_scalar; p.Smax = Smax;
+    p.window = window; p.slopes = slopes;
     p.q_sb = q_sb; p.q_sh = q_sh; p.o_sb = o_sb; p.o_sh = o_sh;
     p.k_scale = k_scale; p.v_scale = v_scale;
     p.ks_sb = ks_sb; p.ks_ss = ks_ss; p.ks_sh = ks_sh;

@@ -23,6 +23,13 @@
 // code * scale in fp32 (JAX _chunk_kernel's order, decode_attention.py
 // :258-260) on their way into shared memory, and nothing after it changes.
 //
+// The banded window (causal only; flash_attention.py _band_lower_mask,
+// decode_attention.py :263-266): key j is visible to a row at position i
+// only if i - j < window as well, and the CTA's k-tile walk starts at the
+// tile holding its first row's band start, so tiles wholly below every
+// row's band are never loaded.  ALiBi slopes (CHUNK only, :261-262): the
+// score of head h gains -slopes[h] * (i - j) in fp32 after the scale.
+//
 // It multiplies with fp32 FMAs (67 TFLOP/s on the H100, no tensor cores)
 // and is bound by their issue rate.
 #pragma once
@@ -50,6 +57,10 @@ struct TileArgs {
     const float* k_scale; const float* v_scale;
     long long ks_sb, ks_ss, ks_sh;
     long long vs_sb, vs_ss, vs_sh;
+    // optional: the band's width (0: none, causal only) and ALiBi's
+    // per-head slopes [H] (nullptr: none)
+    int window;
+    const float* slopes;
 };
 
 // CHUNK = false: flash_attention.py _fwd_kernel semantics.  Causal is
@@ -104,6 +115,12 @@ attn_tile_kernel(const TileArgs a) {
         const int last_row = min(a.Sq, q0 + BQ) - 1;
         kend = max(0, min(klim, last_row + off + 1));
     }
+    // the band: a row sees keys within win of its position; the walk
+    // starts at the k-tile of the first row's band start
+    const bool banded = masked && a.window > 0;
+    const int win = banded ? a.window : INT_MAX;
+    const int kbeg = banded ? max(0, q0 + off - win + 1) / BK * BK : 0;
+    const float slope = a.slopes != nullptr ? a.slopes[h] : 0.f;
 
     const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)qi * a.q_ss + h * a.q_sh;
     const C* kp = static_cast<const C*>(a.k) + b * a.k_sb + h * a.k_sh;
@@ -123,7 +140,7 @@ attn_tile_kernel(const TileArgs a) {
     float m = CHUNK ? DS_M_FLOOR : -INFINITY;
     float l = 0.f;
 
-    for (int k0 = 0; k0 < kend; k0 += BK) {
+    for (int k0 = kbeg; k0 < kend; k0 += BK) {
         __syncthreads();                          // the previous tile is consumed
         for (int id = tid; id < BK * VPR; id += DS_TILE_THREADS) {
             const int j = id / VPR, vv = id % VPR;
@@ -165,7 +182,8 @@ attn_tile_kernel(const TileArgs a) {
             for (int o = TPR / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
             if (!CHUNK) part *= a.scale;
             const int kj = k0 + j;
-            const bool vis = kj < klim && (!masked || kj <= qpos);
+            part = fmaf(-slope, static_cast<float>(qpos - kj), part);   // ALiBi: 0 without slopes
+            const bool vis = kj < klim && (!masked || (kj <= qpos && qpos - kj < win));
             s[j] = vis ? part : -INFINITY;
             tile_max = fmaxf(tile_max, s[j]);
         }

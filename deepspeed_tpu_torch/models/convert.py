@@ -30,9 +30,9 @@ from . import bert, gpt
 _CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
                   "d_ff", "vocab_round_to", "attn_softmax_scale", "pos_embed",
                   "activation", "parallel_residual", "local_attention_window",
-                  "tie_word_embeddings", "lm_head_bias", "pos_offset",
-                  "embed_layernorm", "dropout", "remat", "remat_policy",
-                  "loss_chunk")
+                  "local_attention_alternating", "tie_word_embeddings",
+                  "lm_head_bias", "pos_offset", "embed_layernorm", "dropout",
+                  "remat", "remat_policy", "loss_chunk")
 
 
 def _torch_dtype(dtype) -> torch.dtype:

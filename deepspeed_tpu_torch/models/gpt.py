@@ -1,11 +1,19 @@
-"""GPT-2 causal transformer: the port of ``models/gpt.py``.
+"""GPT causal transformer: the port of ``models/gpt.py``.
 
-Only the GPT-2 variant is ported: learned positions, pre-LN blocks with a
-serial residual, tanh-GeLU MLP, tied embedding head.  The other
-architecture variants of the JAX ``GPTConfig`` (rotary/ALiBi positions,
-relu, parallel residual, banded windows, untied or biased heads, position
-offsets, embedding LayerNorm), dropout and the ``"dots"`` remat policy
-raise ``NotImplementedError``.
+Ported: pre-LN blocks with a serial residual, tanh-GeLU MLP and a tied
+embedding head, with learned positions (GPT-2) or ALiBi (BLOOM:
+``pos_embed="alibi"``, no ``wpe``, the per-head ``-slope·dist`` bias at a
+fixed 1/sqrt(Dh) scale), an optional embedding LayerNorm
+(``embed_layernorm``, BLOOM), and banded-causal local attention
+(``local_attention_window``; with ``local_attention_alternating`` only
+the odd layers are banded, GPT-Neo, whose ``attn_softmax_scale`` is 1.0).
+A banded layer runs the flash kernel's window option; ALiBi layers run
+the dense :func:`_alibi_attention`, as the JAX package does.  The other
+architecture variants of the JAX ``GPTConfig`` (rotary positions, relu,
+parallel residual, untied or biased heads, position offsets), dropout and
+the ``"dots"`` remat policy raise ``NotImplementedError``; so does a
+gradient through a banded layer (the windowed flash backward is not
+ported yet).
 
 Training: :func:`loss_fn` (mean next-token cross-entropy, optionally over
 ``loss_chunk``-token chunks of the head) is differentiable through the
@@ -21,7 +29,9 @@ weights is a re-wrap (``convert.from_jax_params``): ``wte`` [V_pad, d],
 ``wpe`` [S, d], and the layer-stacked ``blocks`` (``wqkv`` [L, d, 3, H,
 Dh], ``bqkv`` [L, 3, H, Dh], ``wo`` [L, H, Dh, d], ``wi`` [L, d, F],
 ``wo_mlp`` [L, F, d], LayerNorm scales and biases [L, d]).  Matmuls run
-in ``config.dtype``; LayerNorm math and the logits are fp32.
+in ``config.dtype``; LayerNorm math and the logits are fp32.  Under ALiBi
+the tree has no ``wpe``; with ``embed_layernorm`` it has ``emb_ln_scale``
+and ``emb_ln_bias`` [d].
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from ..utils.logging import logger
 from ..ops.kernels.block_sparse_attention import (block_sparse_attention,
                                                   block_sparse_attention_qkv,
                                                   config_plan)
+from ..ops.kernels.decode_attention import cached_attention_reference
 from ..ops.kernels.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.sparse_attention.sparsity_config import SparsityConfig
 
@@ -57,16 +68,18 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32  # dtype of the weights at init
     vocab_round_to: int = 128
     attn_softmax_scale: Optional[float] = None  # None → 1/sqrt(head_dim)
-    # architecture variants of the JAX config; only the GPT-2 values are
-    # ported, and any other value raises
-    pos_embed: str = "learned"
+    # architecture variants of the JAX config: learned or ALiBi positions,
+    # the embedding LayerNorm and the banded window (every layer, or the
+    # odd ones when alternating) are ported; any other value raises
+    pos_embed: str = "learned"          # learned | alibi
     activation: str = "gelu"
     parallel_residual: bool = False
-    local_attention_window: int = 0
+    local_attention_window: int = 0     # >0: banded-causal window width
+    local_attention_alternating: bool = False   # odd layers local (GPT-Neo)
     tie_word_embeddings: bool = True
     lm_head_bias: bool = False
     pos_offset: int = 0
-    embed_layernorm: bool = False
+    embed_layernorm: bool = False       # BLOOM's word_embeddings_layernorm
     # training: only dropout 0.0 is ported; remat recomputes each block in
     # the backward ("nothing": saves the block input; "attn_out": also the
     # attention output and lse); loss_chunk > 0 computes the head's logits
@@ -80,15 +93,21 @@ class GPTConfig:
     sparse_attention: Optional[SparsityConfig] = None
 
     def __post_init__(self):
-        ported = {"pos_embed": "learned", "activation": "gelu",
-                  "parallel_residual": False, "local_attention_window": 0,
-                  "tie_word_embeddings": True, "lm_head_bias": False,
-                  "pos_offset": 0, "embed_layernorm": False}
+        ported = {"pos_embed": ("learned", "alibi"), "activation": ("gelu",),
+                  "parallel_residual": (False,),
+                  "tie_word_embeddings": (True,), "lm_head_bias": (False,),
+                  "pos_offset": (0,)}
         for name, want in ported.items():
-            if getattr(self, name) != want:
+            if getattr(self, name) not in want:
                 raise NotImplementedError(
-                    f"GPTConfig.{name}={getattr(self, name)!r}: only the "
-                    f"GPT-2 variant ({name}={want!r}) is ported yet")
+                    f"GPTConfig.{name}={getattr(self, name)!r} is not ported "
+                    f"yet (ported: {want}; ROADMAP.md Queue 1 #6)")
+        if self.local_attention_window < 0:
+            raise ValueError(f"local_attention_window "
+                             f"{self.local_attention_window} < 0")
+        if self.pos_embed == "alibi" and self.sparse_attention is not None:
+            raise ValueError("alibi attention does not compose with "
+                             "sparse_attention")
         if self.dropout != 0.0:
             raise NotImplementedError(
                 f"GPTConfig.dropout={self.dropout!r}: only dropout 0.0 is "
@@ -149,7 +168,8 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
          device=None) -> Params:
     """Random weights at full width with the JAX ``init``'s stds (normal
     0.02, residual projections 0.02/sqrt(2L), LayerNorm 1/0, biases 0), in
-    ``config.param_dtype`` on ``device``.  The draws come from
+    ``config.param_dtype`` on ``device``: ``wpe`` for learned positions
+    only, ``emb_ln_*`` with ``embed_layernorm``.  The draws come from
     ``generator`` (which must live on ``device``), not JAX's bits."""
     device = torch.device(device) if device is not None else torch.device("cpu")
     if generator is None:
@@ -181,13 +201,18 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
         "wo_mlp": normal((L, f, d), resid_std),
         "bo_mlp": full((L, d), 0.0),
     }
-    return {
+    params = {
         "wte": normal((v, d), std),
-        "wpe": normal((config.max_seq_len, d), std),
         "blocks": blocks,
         "lnf_scale": full((d,), 1.0),
         "lnf_bias": full((d,), 0.0),
     }
+    if config.pos_embed == "learned":
+        params["wpe"] = normal((config.max_seq_len, d), std)
+    if config.embed_layernorm:
+        params["emb_ln_scale"] = full((d,), 1.0)
+        params["emb_ln_bias"] = full((d,), 0.0)
+    return params
 
 
 def layer_params(params: Params, idx: int) -> Params:
@@ -205,10 +230,70 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def _attention(q, k, v, config: GPTConfig):
+def alibi_slopes(n_head: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes (Press et al.), fp32 [n_head]: geometric from
+    2^(-8/n); a non-power-of-two count takes the power-of-two ladder below
+    it, then every other slope of the doubled ladder (JAX
+    ``gpt.py:269-282``)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-8.0 / n)
+        return [start ** (i + 1) for i in range(n)]
+
+    floor = 1 << (n_head.bit_length() - 1)  # largest power of two <= n_head
+    slopes = pow2_slopes(floor)
+    if floor != n_head:
+        slopes += pow2_slopes(2 * floor)[0::2][:n_head - floor]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+def layer_window(config: GPTConfig, idx: int) -> Optional[int]:
+    """Layer ``idx``'s band width, or None for a global layer: every layer
+    of a windowed model, or only the odd ones when alternating (GPT-Neo;
+    JAX ``gpt.py:352-360`` gives global layers a window of the full
+    length, which is the same causal attention)."""
+    if config.local_attention_window <= 0:
+        return None
+    if config.local_attention_alternating and idx % 2 == 0:
+        return None
+    return config.local_attention_window
+
+
+def _windowed_attention(q, k, v, config: GPTConfig, window: int, pos=None):
+    """Dense banded-causal attention (JAX ``gpt.py:325-349``): query i at
+    absolute position ``pos + i`` sees key j iff 0 <= pos + i - j <
+    ``window``; ``pos`` an int or a per-row [B] tensor, by default
+    end-aligned (``Sk - Sq``).  The plain version of the flash kernel's
+    window option (and of the cache kernels')."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    return cached_attention_reference(
+        q, k, v, Sk - Sq if pos is None else pos,
+        config.attn_softmax_scale, window=window)
+
+
+def _alibi_attention(q, k, v, config: GPTConfig, pos=None):
+    """Dense causal attention with the ALiBi bias (BLOOM; JAX
+    ``gpt.py:285-304``): ``-slope·(i - j)`` added to the fp32 scores at a
+    fixed 1/sqrt(Dh) scale (``attn_softmax_scale`` is ignored, as in JAX);
+    query i at ``pos + i`` (an int or a per-row [B] tensor), by default
+    end-aligned.  ALiBi prefill takes this path, outside any kernel."""
+    Sq, Sk, H = q.shape[1], k.shape[1], q.shape[2]
+    return cached_attention_reference(
+        q, k, v, Sk - Sq if pos is None else pos,
+        1.0 / math.sqrt(q.shape[-1]), slopes=alibi_slopes(H, q.device))
+
+
+def _attention(q, k, v, config: GPTConfig, window: Optional[int] = None):
     """Causal MHA on [B, S, H, D] through the flash kernel (CUDA) or its
-    plain version (CPU); block-sparse when ``config.sparse_attention`` is
-    set."""
+    plain version (CPU): banded by ``window`` when given (the kernel's
+    window option), block-sparse when ``config.sparse_attention`` is set,
+    and under ALiBi the dense :func:`_alibi_attention` (the window takes
+    precedence, as in JAX ``_attention_impl``)."""
+    if window is not None:
+        return flash_attention(q, k, v, causal=True,
+                               sm_scale=config.attn_softmax_scale,
+                               window=window)[0]
+    if config.pos_embed == "alibi":
+        return _alibi_attention(q, k, v, config)
     if config.sparse_attention is not None:
         return block_sparse_attention(q, k, v, _sparse_plan(config, q),
                                       config.sparse_attention.block)[0]
@@ -264,10 +349,15 @@ def block_tail(x, attn, p: Params, config: GPTConfig):
 
 
 def embed(params: Params, tokens, config: GPTConfig, positions=None):
-    """Token + learned position embedding.  ``positions``: [S] shared or
-    [B, S] per row (ragged decode)."""
+    """Token embedding, then the embedding LayerNorm (``embed_layernorm``)
+    and the learned positions (``pos_embed="learned"``; ALiBi adds none).
+    ``positions``: [S] shared or [B, S] per row (ragged decode)."""
     cdt = config.dtype
     x = F.embedding(tokens, params["wte"].to(cdt))
+    if config.embed_layernorm:
+        x = _layer_norm(x, params["emb_ln_scale"], params["emb_ln_bias"])
+    if config.pos_embed != "learned":
+        return x
     if positions is None:
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
     pe = F.embedding(positions, params["wpe"].to(cdt))
@@ -318,13 +408,24 @@ LAYER_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
               "ln2_scale", "ln2_bias", "wi", "bi", "wo_mlp", "bo_mlp")
 
 
-def _block(x, p: Params, config: GPTConfig, saved=None):
+def _block(x, p: Params, config: GPTConfig, saved=None,
+           window: Optional[int] = None):
     """One transformer block on [B, S, d] → (output, (O, lse)).  The
-    packed qkv goes to the differentiable flash op, or the block-sparse
-    one under ``config.sparse_attention``; ``saved`` = (O, lse) replays an
-    earlier forward's attention without the kernel."""
+    packed qkv goes to the differentiable flash op (banded by ``window``),
+    or the block-sparse one under ``config.sparse_attention``; ``saved`` =
+    (O, lse) replays an earlier forward's attention without the kernel.
+    An unbanded ALiBi layer runs the dense path (lse None; it recomputes
+    rather than replays)."""
     qkv = qkv_packed(x, p, config)
-    if config.sparse_attention is not None:
+    if window is None and config.pos_embed == "alibi":
+        o = _alibi_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                             config)
+        return block_tail(x, o, p, config), (o, None)
+    if window is not None:
+        o, lse = flash_attention_qkv(qkv, causal=True,
+                                     sm_scale=config.attn_softmax_scale,
+                                     saved=saved, window=window)
+    elif config.sparse_attention is not None:
         o, lse = block_sparse_attention_qkv(qkv, _sparse_plan(config, qkv),
                                             saved=saved)
     else:
@@ -345,11 +446,13 @@ class _RematBlock(torch.autograd.Function):
     once per block and step instead of twice."""
 
     @staticmethod
-    def forward(ctx, x, config, *leaves):
-        y, (o, lse) = _block(x, dict(zip(LAYER_KEYS, leaves)), config)
-        keep = (o, lse) if config.remat_policy == "attn_out" else ()
+    def forward(ctx, x, config, window, *leaves):
+        y, (o, lse) = _block(x, dict(zip(LAYER_KEYS, leaves)), config,
+                             window=window)
+        keep = (o, lse) if config.remat_policy == "attn_out" and \
+            lse is not None else ()
         ctx.save_for_backward(x, *keep, *leaves)
-        ctx.config, ctx.n_keep = config, len(keep)
+        ctx.config, ctx.n_keep, ctx.window = config, len(keep), window
         return y
 
     @staticmethod
@@ -361,12 +464,12 @@ class _RematBlock(torch.autograd.Function):
         with torch.enable_grad():
             x_in = x.detach().requires_grad_(needs[0])
             ps = [t.detach().requires_grad_(need)
-                  for t, need in zip(leaves, needs[2:])]
+                  for t, need in zip(leaves, needs[3:])]
             y, _ = _block(x_in, dict(zip(LAYER_KEYS, ps)), ctx.config,
-                          saved=tuple(keep) or None)
+                          saved=tuple(keep) or None, window=ctx.window)
         inputs = [t for t in (x_in, *ps) if t.requires_grad]
         grads = iter(torch.autograd.grad(y, inputs, gy, allow_unused=True))
-        return ((next(grads) if x_in.requires_grad else None), None,
+        return ((next(grads) if x_in.requires_grad else None), None, None,
                 *(next(grads) if t.requires_grad else None for t in ps))
 
 
@@ -378,10 +481,12 @@ def backbone(params: Params, tokens, config: GPTConfig):
     remat = config.remat and torch.is_grad_enabled()
     for idx in range(config.n_layer):
         p = layer_params(params, idx)
+        window = layer_window(config, idx)
         if remat:
-            x = _RematBlock.apply(x, config, *(p[k] for k in LAYER_KEYS))
+            x = _RematBlock.apply(x, config, window,
+                                  *(p[k] for k in LAYER_KEYS))
         else:
-            x = _block(x, p, config)[0]
+            x = _block(x, p, config, window=window)[0]
     return x
 
 

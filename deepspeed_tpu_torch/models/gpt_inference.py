@@ -24,11 +24,19 @@ unquantized K/V, as in the JAX package.
 per-row ``lengths`` as host integers (a list, numpy array or CPU tensor);
 they are copied to the device once per call for the kernels, so a decode
 loop never waits on the device to learn a frontier.
+
+The GPT variants follow the JAX package (``gpt_inference.py:90-120``): a
+banded layer (``gpt.layer_window``) hands its window to the flash kernel in
+prefill and to the cache kernels in extend/decode; an ALiBi model prefills
+through the dense ``gpt._alibi_attention`` and hands the cache kernels its
+slopes (built once per head count and device) on every unbanded layer, at
+a fixed 1/sqrt(Dh) scale.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -99,9 +107,31 @@ def init_cache(config: gpt.GPTConfig, batch: int, max_len: int,
 
 
 def _scale(config: gpt.GPTConfig) -> float:
-    if config.attn_softmax_scale is not None:
+    """The cache kernels' softmax scale: ALiBi fixes 1/sqrt(Dh), as its
+    prefill (``gpt._alibi_attention``) does, whatever
+    ``attn_softmax_scale`` says."""
+    if config.attn_softmax_scale is not None and config.pos_embed != "alibi":
         return config.attn_softmax_scale
     return 1.0 / math.sqrt(config.head_dim)
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes(n_head: int, device: torch.device) -> torch.Tensor:
+    """The ALiBi slopes [H] on ``device``, built once."""
+    return gpt.alibi_slopes(n_head, device)
+
+
+def _cache_attention(q, cache: KVCache, idx: int, pos,
+                     config: gpt.GPTConfig) -> torch.Tensor:
+    """Layer ``idx``'s attention over the cache: banded on a windowed
+    layer, biased by the ALiBi slopes on an unbanded layer of an ALiBi
+    model (the window takes precedence, as in prefill)."""
+    window = gpt.layer_window(config, idx)
+    slopes = _slopes(config.n_head, q.device) \
+        if config.pos_embed == "alibi" and window is None else None
+    return cached_attention(q, cache.k[idx], cache.v[idx], pos,
+                            sm_scale=_scale(config), window=window,
+                            slopes=slopes, **cache.scales(idx))
 
 
 def _host_lengths(lengths: Lengths) -> np.ndarray:
@@ -158,7 +188,8 @@ def prefill(params, tokens: torch.Tensor, config: gpt.GPTConfig,
         buf[:, :S] = val
 
     def attn(q, k, v, idx):
-        return gpt._attention(q, k, v, config)
+        return gpt._attention(q, k, v, config,
+                              window=gpt.layer_window(config, idx))
 
     x = _layers(x, params, cache, config, write, attn, 0)
     cache.length = S
@@ -207,8 +238,7 @@ def extend(params, tokens: torch.Tensor, config: gpt.GPTConfig,
     x = gpt.embed(params, tokens, config, positions=positions)
 
     def attn(q, k, v, idx):
-        return cached_attention(q, cache.k[idx], cache.v[idx], pos,
-                                sm_scale=_scale(config), **cache.scales(idx))
+        return _cache_attention(q, cache, idx, pos, config)
 
     x = _layers(x, params, cache, config, write, attn, pos)
     cache.length = top + Sc
@@ -248,8 +278,7 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
     x = gpt.embed(params, token[:, None], config, positions=positions)
 
     def attn(q, k, v, idx):
-        return cached_attention(q, cache.k[idx], cache.v[idx], pos,
-                                sm_scale=_scale(config), **cache.scales(idx))
+        return _cache_attention(q, cache, idx, pos, config)
 
     x = _layers(x, params, cache, config, write, attn, pos)
     cache.length = top + 1

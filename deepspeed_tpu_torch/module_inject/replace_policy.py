@@ -8,8 +8,12 @@ linears transpose to ``[in, out]``, 1x1 ``proj_in``/``proj_out`` and VAE
 attention convs collapse to linears, and the OIHW convolutions are kept
 as they are (the port's tree is OIHW).  The architecture is inferred from
 the state dict; ``n_head`` and ``groups`` are not recoverable from the
-weights and come from the caller (SD 1.x: 8 and 32).  The HF transformer
-policies (GPT-2, BERT, CLIP text, ...) are not ported yet.
+weights and come from the caller (SD 1.x: 8 and 32).
+
+The HF decoder policies (GPT-2, GPT-Neo, BLOOM; :data:`POLICIES`,
+:func:`convert_hf_model`) map a ``transformers`` model's state dict into
+the tree of ``models/gpt.py``; OPT, GPT-NeoX and GPT-J match and raise.
+The BERT and CLIP text policies are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..models import gpt
 from ..models.diffusion import UNetConfig, VAEConfig, cast_params
 
 Params = Dict[str, Any]
@@ -286,3 +291,353 @@ class VAEPolicy:
 #: generic (non-transformer-LM) policies, matched by init_inference on a
 #: state dict (reference generic_policies, replace_module.py)
 GENERIC_POLICIES = [UNetPolicy, VAEPolicy]
+
+
+# ------------------------------------------------ HF decoder policies
+#
+# The port of ``HFGPT2LayerPolicy``, ``HFGPTNEOLayerPolicy`` and
+# ``BLOOMLayerPolicy`` (JAX ``replace_policy.py:28-221,396-471``): an HF
+# state dict (torch tensors or numpy arrays) → the stacked [L, ...] tree
+# of ``models/gpt.py``, the same arrays as the JAX policies build, as fp32
+# tensors.  The OPT, GPT-NeoX and GPT-J policies match as in JAX and
+# raise: their variants (offset positions and relu, rotary and parallel
+# residual, an untied biased head) are not ported yet.
+
+
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().float().numpy()
+    return np.asarray(t, np.float32)
+
+
+def _linear_w(sd_get, name):
+    """torch Linear stores [out, in]; the tree takes [in, out]."""
+    return _np(sd_get(name)).T
+
+
+def _fused_qkv_per_head(w, b, H, Dh, d):
+    """BLOOM fuses qkv as [(H, 3, Dh), d], per head interleaved.  Returns
+    (wqkv [d, 3, H, Dh], bqkv [3, H, Dh])."""
+    wq = w.reshape(H, 3, Dh, d).transpose(3, 1, 0, 2)
+    bq = b.reshape(H, 3, Dh).transpose(1, 0, 2)
+    return wq, bq
+
+
+def _pad_vocab(w, padded_vocab: int):
+    """Zero-pad vocab-leading tensors up to the padded vocab."""
+    pad = padded_vocab - w.shape[0]
+    if pad:
+        return np.concatenate([w, np.zeros((pad,) + w.shape[1:], np.float32)])
+    return w
+
+
+def _tree_to_torch(tree, dtype: torch.dtype) -> Params:
+    return {k: _tree_to_torch(v, dtype) if isinstance(v, dict)
+            else torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
+            for k, v in tree.items()}
+
+
+def _prefix(sd: Dict[str, Any]) -> str:
+    return "transformer." if any(k.startswith("transformer.") for k in sd) \
+        else ""
+
+
+class HFGPT2LayerPolicy:
+    """transformers GPT-2 (``GPT2LMHeadModel``); Conv1D weights are stored
+    [in, out], so no transposes are needed."""
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any(k.endswith("attn.c_attn.weight") for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.n_positions,
+            n_layer=hf_config.n_layer,
+            n_head=hf_config.n_head,
+            d_model=hf_config.n_embd,
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        prefix = _prefix(sd)
+
+        def get(name):
+            return _np(sd[prefix + name])
+
+        def layer(i, name):
+            return get(f"h.{i}.{name}")
+
+        block = {
+            "ln1_scale": np.stack([layer(i, "ln_1.weight") for i in range(L)]),
+            "ln1_bias": np.stack([layer(i, "ln_1.bias") for i in range(L)]),
+            "wqkv": np.stack([
+                layer(i, "attn.c_attn.weight").reshape(d, 3, H, Dh)
+                for i in range(L)]),
+            "bqkv": np.stack([
+                layer(i, "attn.c_attn.bias").reshape(3, H, Dh)
+                for i in range(L)]),
+            "wo": np.stack([
+                layer(i, "attn.c_proj.weight").reshape(H, Dh, d)
+                for i in range(L)]),
+            "bo": np.stack([layer(i, "attn.c_proj.bias") for i in range(L)]),
+            "ln2_scale": np.stack([layer(i, "ln_2.weight") for i in range(L)]),
+            "ln2_bias": np.stack([layer(i, "ln_2.bias") for i in range(L)]),
+            "wi": np.stack([layer(i, "mlp.c_fc.weight") for i in range(L)]),
+            "bi": np.stack([layer(i, "mlp.c_fc.bias") for i in range(L)]),
+            "wo_mlp": np.stack([layer(i, "mlp.c_proj.weight")
+                                for i in range(L)]),
+            "bo_mlp": np.stack([layer(i, "mlp.c_proj.bias")
+                                for i in range(L)]),
+        }
+        params = {
+            "wte": _pad_vocab(get("wte.weight"), config.padded_vocab),
+            "wpe": get("wpe.weight"),
+            "blocks": block,
+            "lnf_scale": get("ln_f.weight"),
+            "lnf_bias": get("ln_f.bias"),
+        }
+        return _tree_to_torch(params, config.param_dtype)
+
+
+class HFGPTNEOLayerPolicy:
+    """transformers GPT-Neo (``GPTNeoForCausalLM``): separate bias-free
+    q/k/v projections, an unscaled attention softmax, and alternating
+    global/local-window layers (``local_attention_window`` with
+    ``local_attention_alternating``)."""
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("attn.attention.q_proj.weight" in k for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        att_types = [t for pattern, n in getattr(
+            hf_config, "attention_types", [[["global"], 1]])
+            for t in pattern * n]
+        alternating = "local" in att_types
+        if alternating and not all(t == ("local" if i % 2 else "global")
+                                   for i, t in enumerate(att_types)):
+            # the only layout GPT-Neo ships is strict global/local alternation
+            raise ValueError(f"unsupported GPT-Neo attention layout "
+                             f"{att_types}")
+        inter = getattr(hf_config, "intermediate_size", None)
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            n_layer=hf_config.num_layers,
+            n_head=hf_config.num_heads,
+            d_model=hf_config.hidden_size,
+            d_ff=inter if inter is not None else 4 * hf_config.hidden_size,
+            attn_softmax_scale=1.0,      # GPT-Neo never scales by 1/sqrt(Dh)
+            local_attention_window=(hf_config.window_size if alternating
+                                    else 0),
+            local_attention_alternating=alternating,
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        pre = _prefix(sd)
+
+        def get(name):
+            return sd[pre + name]
+
+        def lw(i, name):
+            return _linear_w(get, f"h.{i}.{name}.weight")
+
+        def lb(i, name):
+            return _np(get(f"h.{i}.{name}.bias"))
+
+        def lnorm(i, name, part):
+            return _np(get(f"h.{i}.{name}.{part}"))
+
+        def qkv_w(i):
+            return np.stack(
+                [lw(i, f"attn.attention.{n}_proj").reshape(d, H, Dh)
+                 for n in ("q", "k", "v")], axis=1)
+
+        block = {
+            "ln1_scale": np.stack([lnorm(i, "ln_1", "weight")
+                                   for i in range(L)]),
+            "ln1_bias": np.stack([lnorm(i, "ln_1", "bias")
+                                  for i in range(L)]),
+            "wqkv": np.stack([qkv_w(i) for i in range(L)]),
+            # q/k/v projections carry no bias in GPT-Neo
+            "bqkv": np.zeros((L, 3, H, Dh), np.float32),
+            "wo": np.stack([lw(i, "attn.attention.out_proj").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": np.stack([lb(i, "attn.attention.out_proj")
+                            for i in range(L)]),
+            "ln2_scale": np.stack([lnorm(i, "ln_2", "weight")
+                                   for i in range(L)]),
+            "ln2_bias": np.stack([lnorm(i, "ln_2", "bias")
+                                  for i in range(L)]),
+            "wi": np.stack([lw(i, "mlp.c_fc") for i in range(L)]),
+            "bi": np.stack([lb(i, "mlp.c_fc") for i in range(L)]),
+            "wo_mlp": np.stack([lw(i, "mlp.c_proj") for i in range(L)]),
+            "bo_mlp": np.stack([lb(i, "mlp.c_proj") for i in range(L)]),
+        }
+        params = {
+            "wte": _pad_vocab(_np(get("wte.weight")), config.padded_vocab),
+            "wpe": _np(get("wpe.weight")),
+            "blocks": block,
+            "lnf_scale": _np(get("ln_f.weight")),
+            "lnf_bias": _np(get("ln_f.bias")),
+        }
+        return _tree_to_torch(params, config.param_dtype)
+
+
+class BLOOMLayerPolicy:
+    """transformers BLOOM (``BloomForCausalLM``): ALiBi positions, fused
+    per-head qkv, embedding LayerNorm."""
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("self_attention.query_key_value" in k for k in sd) and \
+            any("word_embeddings_layernorm" in k for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=getattr(hf_config, "seq_length", 2048),
+            n_layer=hf_config.n_layer,
+            n_head=hf_config.n_head,
+            d_model=hf_config.hidden_size,
+            pos_embed="alibi",
+            embed_layernorm=True,
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        pre = _prefix(sd)
+
+        def get(name):
+            return sd[pre + name]
+
+        def fused(i):
+            w = _np(get(f"h.{i}.self_attention.query_key_value.weight"))
+            b = _np(get(f"h.{i}.self_attention.query_key_value.bias"))
+            return _fused_qkv_per_head(w, b, H, Dh, d)
+
+        qkvs = [fused(i) for i in range(L)]
+
+        def lw(i, name):
+            return _np(get(f"h.{i}.{name}.weight")).T
+
+        def lb(i, name):
+            return _np(get(f"h.{i}.{name}.bias"))
+
+        def ln(i, name, part):
+            return _np(get(f"h.{i}.{name}.{part}"))
+
+        block = {
+            "ln1_scale": np.stack([ln(i, "input_layernorm", "weight")
+                                   for i in range(L)]),
+            "ln1_bias": np.stack([ln(i, "input_layernorm", "bias")
+                                  for i in range(L)]),
+            "wqkv": np.stack([w for w, _ in qkvs]),
+            "bqkv": np.stack([b for _, b in qkvs]),
+            "wo": np.stack([lw(i, "self_attention.dense").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": np.stack([lb(i, "self_attention.dense") for i in range(L)]),
+            "ln2_scale": np.stack([ln(i, "post_attention_layernorm", "weight")
+                                   for i in range(L)]),
+            "ln2_bias": np.stack([ln(i, "post_attention_layernorm", "bias")
+                                  for i in range(L)]),
+            "wi": np.stack([lw(i, "mlp.dense_h_to_4h") for i in range(L)]),
+            "bi": np.stack([lb(i, "mlp.dense_h_to_4h") for i in range(L)]),
+            "wo_mlp": np.stack([lw(i, "mlp.dense_4h_to_h") for i in range(L)]),
+            "bo_mlp": np.stack([lb(i, "mlp.dense_4h_to_h") for i in range(L)]),
+        }
+        params = {
+            "wte": _pad_vocab(_np(get("word_embeddings.weight")),
+                              config.padded_vocab),
+            "emb_ln_scale": _np(get("word_embeddings_layernorm.weight")),
+            "emb_ln_bias": _np(get("word_embeddings_layernorm.bias")),
+            "blocks": block,
+            "lnf_scale": _np(get("ln_f.weight")),
+            "lnf_bias": _np(get("ln_f.bias")),
+        }
+        return _tree_to_torch(params, config.param_dtype)
+
+
+class _UnportedPolicy:
+    """A decoder family the JAX package injects whose model variants the
+    port does not have yet: it matches as the JAX policy does, then
+    raises, so such a model is refused by name rather than unmatched."""
+
+    variants = ""
+
+    @classmethod
+    def _refuse(cls, *_args, **_kwargs):
+        raise NotImplementedError(
+            f"{cls.__name__}: {cls.variants} are not ported yet (ROADMAP.md "
+            "Queue 1 #6)")
+
+    model_config = convert = _refuse
+
+
+class HFOPTLayerPolicy(_UnportedPolicy):
+    """transformers OPT: positions stored at an offset of 2, relu MLP."""
+
+    variants = "OPT's offset positions and relu MLP"
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("self_attn.q_proj.weight" in k and "decoder" in k
+                   for k in sd)
+
+
+class GPTNEOXLayerPolicy(_UnportedPolicy):
+    """transformers GPT-NeoX: rotary positions, parallel residual, untied
+    head."""
+
+    variants = "GPT-NeoX's rotary positions, parallel residual and untied head"
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("attention.query_key_value" in k and
+                   ("gpt_neox" in k or k.startswith("layers.")) for k in sd)
+
+
+class HFGPTJLayerPolicy(_UnportedPolicy):
+    """transformers GPT-J: interleaved rotary, parallel residual, biased
+    untied head."""
+
+    variants = ("GPT-J's interleaved rotary positions, parallel residual "
+                "and biased untied head")
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("attn.q_proj.weight" in k and "h." in k for k in sd)
+
+
+#: the decoder policies, in the JAX package's order
+POLICIES = [HFGPT2LayerPolicy, HFGPTNEOLayerPolicy, HFOPTLayerPolicy,
+            BLOOMLayerPolicy, GPTNEOXLayerPolicy, HFGPTJLayerPolicy]
+
+
+def match_decoder(sd: Dict[str, Any]):
+    """The first decoder policy that matches ``sd``, or None."""
+    return next((p for p in POLICIES if p.match(sd)), None)
+
+
+def convert_hf_model(hf_model, dtype=torch.float32):
+    """An HF module (anything with ``.config`` and ``.state_dict()``) →
+    (``GPTConfig``, params): the JAX package's automatic policy match."""
+    sd = hf_model.state_dict()
+    policy = match_decoder(sd)
+    if policy is None:
+        raise ValueError(f"no injection policy matches this model; known: "
+                         f"{[p.__name__ for p in POLICIES]}")
+    config = policy.model_config(hf_model.config, dtype=dtype)
+    return config, policy.convert(sd, config)

@@ -2,7 +2,8 @@
 
 A wrapper launches its kernel on CUDA tensors and runs the plain version
 on CPU tensors (``utils.on_cuda``); ``launch_counts`` reads every
-wrapper's count of kernel launches."""
+wrapper's count of kernel launches, and of its launches with each of its
+options."""
 
 from .block_sparse_attention import (block_sparse_attention,
                                      block_sparse_attention_backward,
@@ -56,12 +57,22 @@ KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
 
 
 def launch_counts() -> dict:
-    return {name: type(k).launches for name, k in KERNELS.items()}
+    """Every wrapper's launches by kernel name, and under ``name[option]``
+    (``flash_fwd[window]``, ``decode_attn[alibi]``, ...) its launches with
+    that option."""
+    counts = {name: type(k).launches for name, k in KERNELS.items()}
+    for name, k in KERNELS.items():
+        for opt, n in getattr(type(k), "option_launches", {}).items():
+            counts[f"{name}[{opt}]"] = n
+    return counts
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         type(k).launches = 0
+        opts = getattr(type(k), "option_launches", {})
+        for opt in opts:
+            opts[opt] = 0
 
 
 __all__ = ["KERNELS", "adam_hyper", "bias_gelu_backward_reference",

@@ -23,8 +23,16 @@ codes and apply the scales on the card, on the CPU the plain version dequantizes
 fallback does.  :func:`quantize_kv_into` writes a layer's new K and V
 into such a cache: on CUDA one ``quantize_kv_append`` launch
 (``csrc/quantizer.cu``) quantizes both from the qkv view and stores
-codes and scales at their slots.  The banded-window and ALiBi options are not ported yet
-and raise ``NotImplementedError``.
+codes and scales at their slots.
+
+Both kernels, and their int8 variants, take the TPU kernels' two other
+options as launch arguments: ``window`` (an int >= 1) bands query i to
+the keys ``pos + i - window < j <= pos + i`` (GPT-Neo's local layers),
+and the kernels start each row's walk at its band, so a banded decode
+step reads O(window) cache rows, not O(pos); ``slopes`` ([H] fp32 on the
+device) adds ALiBi's ``-slopes[h] * (pos + i - j)`` to the scaled score
+(BLOOM).  Each wrapper counts its launches with each option apart
+(``option_launches``) besides its total.
 """
 
 from __future__ import annotations
@@ -92,11 +100,16 @@ def quantize_kv_into_reference(k, v, layer, pos: Pos) -> None:
 
 
 def cached_attention_reference(q, cache_k, cache_v, pos: Pos,
-                               sm_scale: Optional[float] = None
+                               sm_scale: Optional[float] = None,
+                               window: Optional[int] = None,
+                               slopes: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """The plain version: dense softmax over the whole padded cache with
-    slots past each query's position masked.  Scores and softmax in fp32;
-    p rounded to the input dtype before P·V, as the JAX reference does."""
+    slots past each query's position masked, and with ``window`` those at
+    a distance of ``window`` or more; ``slopes`` [H] adds ``-slope·dist``
+    after the scale (JAX ``decode_attention.py:48-72``).  Scores and
+    softmax in fp32; p rounded to the input dtype before P·V, as the JAX
+    reference does."""
     B, Sq, H, D = q.shape
     Smax = cache_k.shape[1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
@@ -107,7 +120,13 @@ def cached_attention_reference(q, cache_k, cache_v, pos: Pos,
     else:
         q_abs = (int(pos) + steps).view(1, Sq)                  # [1, Sq]
     k_pos = torch.arange(Smax, device=q.device)
-    visible = k_pos.view(1, 1, Smax) <= q_abs[:, :, None]       # [B|1, Sq, Smax]
+    dist = q_abs[:, :, None] - k_pos.view(1, 1, Smax)           # [B|1, Sq, Smax]
+    visible = dist >= 0
+    if window is not None:
+        visible = visible & (dist < window)
+    if slopes is not None:
+        s = s - slopes.to(q.device, torch.float32).view(1, H, 1, 1) \
+            * dist[:, None].float()
     s = s.masked_fill(~visible[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(),
@@ -162,15 +181,36 @@ def _check_cache(name, q, cache_k, cache_v, scales=None):
     return dtype
 
 
-_POS_TAIL = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+#: pos (pointer, scalar), window, slopes, scale, stream
+_POS_TAIL = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_float, ctypes.c_void_p]
 _SCALES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 6
+
+
+def _option_args(name: str, q, window: Optional[int],
+                 slopes: Optional[torch.Tensor]) -> tuple:
+    """(window, slopes pointer) for the C interface: window 0 and a null
+    pointer mean none."""
+    if window is not None and int(window) < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    if slopes is not None:
+        H = q.shape[2]
+        if slopes.dtype != torch.float32 or tuple(slopes.shape) != (H,) \
+                or slopes.device != q.device or not slopes.is_contiguous():
+            raise ValueError(f"{name}: slopes must be contiguous fp32 "
+                             f"[{H}] on {q.device}, got {slopes.dtype} "
+                             f"{tuple(slopes.shape)} on {slopes.device}")
+    return (0 if window is None else int(window),
+            None if slopes is None else slopes.data_ptr())
 
 
 class _CacheKernel:
     """Shared launch path of the cache kernels' wrappers; ``launches``
-    counts kernel launches (never plain-version calls).  The int8
-    variants (``int8 = True``) take ``k_scale, v_scale`` after ``scale``
-    and hand the C entry point their pointers and (b, s, h) strides."""
+    counts kernel launches (never plain-version calls), and
+    ``option_launches`` those with a window and with ALiBi slopes.  The
+    int8 variants (``int8 = True``) take ``k_scale, v_scale`` after
+    ``scale`` and hand the C entry point their pointers and (b, s, h)
+    strides."""
 
     source = ""
     symbol = ""
@@ -188,23 +228,31 @@ class _CacheKernel:
         return (k_scale.data_ptr(), v_scale.data_ptr(),
                 *k_scale.stride()[:3], *v_scale.stride()[:3])
 
-    def _launch(self, args) -> None:
+    def _launch(self, args, window=None, slopes=None) -> None:
         fn = build.function(self.source, self.argtypes, self.symbol)
         build.check_status(self.source, fn(*args))
-        type(self).launches += 1
+        cls = type(self)
+        cls.launches += 1
+        if window is not None:
+            cls.option_launches["window"] += 1
+        if slopes is not None:
+            cls.option_launches["alibi"] += 1
 
 
 class _DecodeAttn(_CacheKernel):
     """The ``decode_attn`` kernel's wrapper."""
 
     launches = 0
+    option_launches = {"window": 0, "alibi": 0}
     source = symbol = "decode_attn"
     argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong] * 10 + _POS_TAIL)
 
     def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float,
-                 *scales):
+                 *scales, window: Optional[int] = None,
+                 slopes: Optional[torch.Tensor] = None):
         extra = self._scale_args(scales)
+        opts = _option_args(self.symbol, q, window, slopes)
         dtype = _check_cache(self.symbol, q, cache_k, cache_v,
                              scales if self.int8 else None)
         B, Sq, H, D = q.shape
@@ -221,8 +269,9 @@ class _DecodeAttn(_CacheKernel):
                       cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
                       cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
                       o.stride(0), o.stride(2), *extra, pos_ptr, pos_scalar,
-                      float(scale),
-                      torch.cuda.current_stream(q.device).cuda_stream))
+                      *opts, float(scale),
+                      torch.cuda.current_stream(q.device).cuda_stream),
+                     window, slopes)
         return o
 
 
@@ -230,13 +279,16 @@ class _ChunkAttn(_CacheKernel):
     """The ``chunk_attn`` kernel's wrapper."""
 
     launches = 0
+    option_launches = {"window": 0, "alibi": 0}
     source = symbol = "chunk_attn"
     argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                 + [ctypes.c_longlong] * 12 + _POS_TAIL)
 
     def __call__(self, q, cache_k, cache_v, pos: Pos, scale: float,
-                 *scales):
+                 *scales, window: Optional[int] = None,
+                 slopes: Optional[torch.Tensor] = None):
         extra = self._scale_args(scales)
+        opts = _option_args(self.symbol, q, window, slopes)
         dtype = _check_cache(self.symbol, q, cache_k, cache_v,
                              scales if self.int8 else None)
         B, Sq, H, D = q.shape
@@ -250,8 +302,9 @@ class _ChunkAttn(_CacheKernel):
                       cache_k.stride(0), cache_k.stride(1), cache_k.stride(2),
                       cache_v.stride(0), cache_v.stride(1), cache_v.stride(2),
                       o.stride(0), o.stride(1), o.stride(2), *extra,
-                      pos_ptr, pos_scalar, float(scale),
-                      torch.cuda.current_stream(q.device).cuda_stream))
+                      pos_ptr, pos_scalar, *opts, float(scale),
+                      torch.cuda.current_stream(q.device).cuda_stream),
+                     window, slopes)
         return o
 
 
@@ -260,8 +313,9 @@ class _DecodeAttnInt8(_DecodeAttn):
     int8 cache): ``(q, codes_k, codes_v, pos, scale, k_scale, v_scale)``."""
 
     launches = 0
+    option_launches = {"window": 0, "alibi": 0}
     symbol = "decode_attn_int8"
-    argtypes = _DecodeAttn.argtypes[:-4] + _SCALES + _POS_TAIL
+    argtypes = _DecodeAttn.argtypes[:-len(_POS_TAIL)] + _SCALES + _POS_TAIL
     int8 = True
 
 
@@ -270,8 +324,9 @@ class _ChunkAttnInt8(_ChunkAttn):
     int8 cache): ``(q, codes_k, codes_v, pos, scale, k_scale, v_scale)``."""
 
     launches = 0
+    option_launches = {"window": 0, "alibi": 0}
     symbol = "chunk_attn_int8"
-    argtypes = _ChunkAttn.argtypes[:-4] + _SCALES + _POS_TAIL
+    argtypes = _ChunkAttn.argtypes[:-len(_POS_TAIL)] + _SCALES + _POS_TAIL
     int8 = True
 
 
@@ -281,6 +336,7 @@ class _QuantizeKvAppend(_CacheKernel):
     :func:`quantize_kv_into` with the layer's four buffers spread out."""
 
     launches = 0
+    option_launches: dict = {}
     source = "quantizer"
     symbol = "quantize_kv_append"
     argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
@@ -341,31 +397,33 @@ quantize_kv_append = _QuantizeKvAppend()
 
 def cached_attention(q, cache_k, cache_v, pos: Pos,
                      sm_scale: Optional[float] = None,
-                     k_scale=None, v_scale=None, window=None, slopes=None
-                     ) -> torch.Tensor:
+                     k_scale=None, v_scale=None,
+                     window: Optional[int] = None,
+                     slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, Sq, H, D] over a padded cache [B, S_max, H, D], visibility
     <= pos + i; ``pos`` an int or an int32 [B] tensor on q's device.  With
     ``k_scale``/``v_scale`` ([B, S_max, H, 1] fp32) the cache holds int8
-    codes."""
+    codes.  ``window`` (an int, clamped to >= 1 as the JAX wrapper does)
+    bands visibility to ``0 <= pos + i - j < window``; ``slopes`` ([H]
+    fp32, on q's device) adds ALiBi's ``-slopes[h] * (pos + i - j)``."""
     int8 = k_scale is not None or v_scale is not None
     if int8 and (k_scale is None or v_scale is None):
         raise ValueError("cached_attention: an int8 cache needs both "
                          "k_scale and v_scale")
     if window is not None:
-        raise NotImplementedError("cached_attention: banded-window "
-                                  "attention is not ported yet")
-    if slopes is not None:
-        raise NotImplementedError("cached_attention: ALiBi slopes are not "
-                                  "ported yet")
+        window = max(int(window), 1)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     scales = (k_scale, v_scale) if int8 else ()
-    if on_cuda(q, cache_k, cache_v, *scales):
+    extra = () if slopes is None else (slopes,)
+    if on_cuda(q, cache_k, cache_v, *scales, *extra):
         if int8:
             kernel = decode_attn_int8 if q.shape[1] == 1 else chunk_attn_int8
         else:
             kernel = decode_attn if q.shape[1] == 1 else chunk_attn
-        return kernel(q, cache_k, cache_v, pos, scale, *scales)
+        return kernel(q, cache_k, cache_v, pos, scale, *scales,
+                      window=window, slopes=slopes)
     if int8:
         cache_k = dequantize_kv(cache_k, k_scale, q.dtype)
         cache_v = dequantize_kv(cache_v, v_scale, q.dtype)
-    return cached_attention_reference(q, cache_k, cache_v, pos, scale)
+    return cached_attention_reference(q, cache_k, cache_v, pos, scale,
+                                      window, slopes)

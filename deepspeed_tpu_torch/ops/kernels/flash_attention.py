@@ -1,12 +1,17 @@
 """Flash attention, forward and backward: the port of
 ``ops/pallas/flash_attention.py``.
 
-``flash_attention(q, k, v, causal, sm_scale, kv_lens)`` on [B, S, H, D]
-returns ``(O, lse)``: O in the input dtype, lse [B, H, Sq] fp32.
-``kv_lens`` [B] (optional; the right-padded MLM batch) hides the keys of
-row b at or past max(1, kv_lens[b]), with causal where both are given;
-query rows past the length still attend to the live keys, as in JAX
-(``flash_attention.py:582-637``).  CUDA tensors go
+``flash_attention(q, k, v, causal, sm_scale, kv_lens, window)`` on
+[B, S, H, D] returns ``(O, lse)``: O in the input dtype, lse [B, H, Sq]
+fp32.  ``kv_lens`` [B] (optional; the right-padded MLM batch) hides the
+keys of row b at or past max(1, kv_lens[b]), with causal where both are
+given; query rows past the length still attend to the live keys, as in
+JAX (``flash_attention.py:582-637``).  ``window`` (causal only, clamped to
+>= 1; GPT-Neo's local layers) hides the keys at a distance of ``window``
+or more: the kernel takes it as a launch argument and never loads the
+k-tiles wholly below a q-tile's band.  The windowed backward is not
+ported yet (the training slice of GPT-Neo): a gradient through a banded
+forward raises.  CUDA tensors go
 to the hand-written ``flash_fwd`` kernel (``csrc/flash_fwd.cu``, replacing
 the TPU ``_fwd_kernel``), which reads q, k, v through their strides: in
 bf16 and fp16 with wgmma tensor-core products on tiles that TMA loads
@@ -51,14 +56,15 @@ def mha_reference(q, k, v, causal: bool = True,
 
 def flash_attention_reference(q, k, v, causal: bool = True,
                               sm_scale: Optional[float] = None,
-                              kv_lens: Optional[torch.Tensor] = None
+                              kv_lens: Optional[torch.Tensor] = None,
+                              window: Optional[int] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`flash_attention`: (O, lse [B, H, Sq]
     fp32, -inf on rows with no visible key)."""
     scale = softmax_scale(q.shape[-1], sm_scale)
     return masked_attention_reference(
         q, k, v, _visibility(q.shape[1], k.shape[1], causal, kv_lens,
-                             q.device), scale)
+                             q.device, window), scale)
 
 
 def masked_attention_reference(q, k, v, mask: Optional[torch.Tensor],
@@ -83,19 +89,25 @@ def masked_attention_reference(q, k, v, mask: Optional[torch.Tensor],
     return o.to(q.dtype), lse
 
 
-def _causal_mask(Sq: int, Sk: int, device) -> torch.Tensor:
+def _causal_mask(Sq: int, Sk: int, device,
+                 window: Optional[int] = None) -> torch.Tensor:
     """[Sq, Sk] end-aligned causal visibility (key j seen by query i iff
-    j <= i + Sk - Sq)."""
-    return torch.ones(Sq, Sk, dtype=torch.bool, device=device).tril(Sk - Sq)
+    j <= i + Sk - Sq), banded to i + Sk - Sq - j < ``window`` when given
+    (JAX ``_band_lower_mask``)."""
+    mask = torch.ones(Sq, Sk, dtype=torch.bool, device=device).tril(Sk - Sq)
+    if window is not None:
+        mask = mask & ~torch.ones_like(mask).tril(Sk - Sq - window)
+    return mask
 
 
 def _visibility(Sq: int, Sk: int, causal: bool,
-                kv_lens: Optional[torch.Tensor], device
-                ) -> Optional[torch.Tensor]:
+                kv_lens: Optional[torch.Tensor], device,
+                window: Optional[int] = None) -> Optional[torch.Tensor]:
     """The visibility mask that broadcasts against [B, H, Sq, Sk]
-    scores: causal [Sq, Sk], and with ``kv_lens`` [B] the keys of row b
-    before max(1, kv_lens[b]) ([B, 1, 1 or Sq, Sk]); None: every key."""
-    mask = _causal_mask(Sq, Sk, device) if causal else None
+    scores: causal [Sq, Sk] (banded by ``window``), and with ``kv_lens``
+    [B] the keys of row b before max(1, kv_lens[b]) ([B, 1, 1 or Sq, Sk]);
+    None: every key."""
+    mask = _causal_mask(Sq, Sk, device, window) if causal else None
     if kv_lens is None:
         return mask
     lens = torch.clamp(kv_lens.to(device=device, dtype=torch.long), min=1)
@@ -156,14 +168,20 @@ def _lens_arg(name: str, kv_lens: Optional[torch.Tensor], B: int, device):
 
 class _FlashFwd:
     """The ``flash_fwd`` kernel's wrapper; ``launches`` counts kernel
-    launches (never plain-version calls)."""
+    launches (never plain-version calls), ``option_launches`` those with
+    a window."""
 
     launches = 0
+    option_launches = {"window": 0}
 
     def __call__(self, q, k, v, causal: bool, scale: float,
-                 kv_lens: Optional[torch.Tensor] = None
+                 kv_lens: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = check_kernel_inputs("flash_fwd", q, k, v)
+        if window is not None and (not causal or int(window) < 1):
+            raise ValueError(f"flash_fwd: window {window} needs causal "
+                             "attention and a width >= 1")
         B, Sq, H, D = q.shape
         Sk = k.shape[1]
         if k.shape != (B, Sk, H, D) or v.shape != k.shape:
@@ -181,15 +199,18 @@ class _FlashFwd:
                     v.stride(0), v.stride(1), v.stride(2),
                     o.stride(0), o.stride(1), o.stride(2),
                     float(scale), int(bool(causal)),
+                    0 if window is None else int(window),
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_fwd", status)
         _FlashFwd.launches += 1
+        if window is not None:
+            _FlashFwd.option_launches["window"] += 1
         return o, lse
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 flash_fwd = _FlashFwd()
 
 
@@ -276,10 +297,10 @@ flash_bwd_dq = _FlashBwdDq()
 flash_bwd_dkv = _FlashBwdDkv()
 
 
-def _forward(q, k, v, causal, scale, kv_lens=None):
+def _forward(q, k, v, causal, scale, kv_lens=None, window=None):
     if on_cuda(q, k, v):
-        return flash_fwd(q, k, v, causal, scale, kv_lens)
-    return flash_attention_reference(q, k, v, causal, scale, kv_lens)
+        return flash_fwd(q, k, v, causal, scale, kv_lens, window)
+    return flash_attention_reference(q, k, v, causal, scale, kv_lens, window)
 
 
 def aligned_do_and_delta(do, o):
@@ -361,32 +382,58 @@ class PackedAttentionFn(torch.autograd.Function):
         return dqkv, None, None, None
 
 
-def _halves(causal: bool, scale: float, kv_lens=None):
-    return (lambda q, k, v: _forward(q, k, v, causal, scale, kv_lens),
+def _windowed_backward(*_args, **_kwargs):
+    raise NotImplementedError(
+        "flash_attention(window=...): the windowed backward kernels "
+        "(_bwd_dq_kernel, _bwd_dkv_kernel with use_window) are not ported "
+        "yet (ROADMAP.md Queue 2 #1, GPT-Neo training)")
+
+
+def _halves(causal: bool, scale: float, kv_lens=None, window=None):
+    fwd = lambda q, k, v: _forward(q, k, v, causal, scale, kv_lens, window)
+    if window is not None:
+        return fwd, _windowed_backward
+    return (fwd,
             lambda q, k, v, o, lse, do, out=None: flash_attention_backward(
                 q, k, v, o, lse, do, causal, scale, out=out, kv_lens=kv_lens))
 
 
+def _window_arg(causal: bool, window) -> Optional[int]:
+    """``window`` clamped to >= 1, causal only (JAX
+    ``flash_attention.py:619-621``)."""
+    if window is None:
+        return None
+    if not causal:
+        raise ValueError("window masking is defined for causal attention")
+    return max(int(window), 1)
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: Optional[float] = None,
-                    kv_lens: Optional[torch.Tensor] = None
+                    kv_lens: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Memory-linear attention. q, k, v: [B, S, H, D] → (O [B, Sq, H, D],
     lse [B, H, Sq] fp32).  Causal masking is end-aligned (a query attends
     to the last ``Sq`` positions of ``Sk``); ``kv_lens`` [B] hides keys at
-    or past max(1, kv_lens[b]).  Differentiable in q, k, v."""
+    or past max(1, kv_lens[b]); ``window`` bands causal visibility to
+    ``0 <= i + Sk - Sq - j < window``.  Differentiable in q, k, v without
+    a window."""
     return AttentionFn.apply(q, k, v, *_halves(
-        causal, softmax_scale(q.shape[-1], sm_scale), kv_lens))
+        causal, softmax_scale(q.shape[-1], sm_scale), kv_lens,
+        _window_arg(causal, window)))
 
 
 def flash_attention_qkv(qkv, causal: bool = True,
                         sm_scale: Optional[float] = None,
                         saved: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                        kv_lens: Optional[torch.Tensor] = None
+                        kv_lens: Optional[torch.Tensor] = None,
+                        window: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Self-attention on the packed qkv [B, S, 3, H, D] → (O, lse), with
     one [B, S, 3, H, D] gradient.  ``saved`` = (O, lse) of an earlier
     forward on the same qkv skips the forward kernel (activation remat);
-    ``kv_lens`` as in :func:`flash_attention`."""
+    ``kv_lens`` and ``window`` as in :func:`flash_attention`."""
     return PackedAttentionFn.apply(qkv, *_halves(
-        causal, softmax_scale(qkv.shape[-1], sm_scale), kv_lens), saved)
+        causal, softmax_scale(qkv.shape[-1], sm_scale), kv_lens,
+        _window_arg(causal, window)), saved)

@@ -60,8 +60,6 @@ INERT = {
     "rotary_base": "qualifies pos_embed='rotary', which the port refuses",
     "rotary_interleaved": "qualifies pos_embed='rotary', which the port "
                           "refuses",
-    "local_attention_alternating": "qualifies local_attention_window > 0, "
-                                   "which the port refuses",
 }
 
 #: JAX dtype fields, carried as the torch dtype of the same name
@@ -109,6 +107,19 @@ def test_gpt_field_is_carried_or_refused(name):
 def test_bert_field_is_carried_or_refused(name):
     _walk(jbert.BertConfig, convert.bert_config_from_jax, BERT_BASE, name,
           BERT_CASES[name])
+
+
+@pytest.mark.parametrize("fields", [
+    {"pos_embed": "alibi", "embed_layernorm": True},
+    {"local_attention_window": 256, "local_attention_alternating": True,
+     "attn_softmax_scale": 1.0},
+    {"local_attention_window": 4}])
+def test_gpt_family_fields_are_carried(fields):
+    """BLOOM's and GPT-Neo's fields cross together (the walk above sets one
+    field at a time, and its pos_embed case is the refused rotary)."""
+    port = convert.config_from_jax(jgpt.GPTConfig(**GPT_BASE, **fields))
+    for name, value in fields.items():
+        assert getattr(port, name) == value, (name, getattr(port, name))
 
 
 def test_param_dtype_is_carried():

@@ -1,7 +1,8 @@
 """The port's cached attention (plain path, CPU) against the JAX
 package's ``cached_attention``: the decode and chunk Pallas kernels in
 interpret mode at S_max 256, the dense reference at shapes the TPU
-kernels do not tile.  fp32, tolerance 1e-5."""
+kernels do not tile; with and without the band and ALiBi options.
+fp32, tolerance 1e-5."""
 
 import numpy as np
 import pytest
@@ -120,10 +121,100 @@ def test_chunk_tile_edges_low_precision(pallas_interpret, cache, Sq, pos):
     {"k_scale": 1, "v_scale": 1, "window": 4}, {"window": 4},
     {"slopes": 1}])
 def test_unported_options_raise(option):
-    """The window and ALiBi options raise, on the int8 cache too."""
+    """The window and ALiBi options of the cache kernels are ported: on
+    the int8 cache too they give the JAX reference's output.  What stays
+    unported is the windowed flash backward, which raises."""
+    from deepspeed_tpu.ops.pallas.decode_attention import \
+        cached_attention_reference as jax_ref
+    from deepspeed_tpu_torch.ops.kernels import flash_attention, quantize_kv
     q, ck, cv = (torch.from_numpy(a) for a in _inputs(1, 1, 16, 2, 32, 0))
+    kw, jkw = {}, {}
+    if "k_scale" in option:
+        (ck, ks), (cv, vs) = quantize_kv(ck), quantize_kv(cv)
+        kw.update(k_scale=ks, v_scale=vs)
+        jck, jcv = (jnp.asarray((c.float() * s).numpy())
+                    for c, s in ((ck, ks), (cv, vs)))
+    else:
+        jck, jcv = jnp.asarray(ck.numpy()), jnp.asarray(cv.numpy())
+    if "window" in option:
+        kw["window"] = jkw["window"] = option["window"]
+    if "slopes" in option:
+        slopes = np.asarray([0.5, 0.25], np.float32)
+        kw["slopes"], jkw["slopes"] = torch.from_numpy(slopes), \
+            jnp.asarray(slopes)
+    out = cached_attention(q, ck, cv, 3, **kw)
+    ref = jax_ref(jnp.asarray(q.numpy()), jck, jcv, 3, **jkw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+    qkv = torch.randn(1, 8, 2, 32, requires_grad=True)
+    o, _ = flash_attention(qkv, qkv, qkv, window=option.get("window", 2))
     with pytest.raises(NotImplementedError, match="not ported"):
-        cached_attention(q, ck, cv, 3, **option)
+        o.sum().backward()
+
+
+#: (Sq, pos) of the option cases: the decode kernel and the JAX chunk
+#: kernel's 8-row tiles, scalar and ragged, rows before and past the band
+OPTION_CASES = [(1, 100), (1, [3, 200]), (8, 64), (8, [0, 190]),
+                (16, [5, 239])]
+
+
+@pytest.mark.parametrize("Sq,pos", OPTION_CASES)
+@pytest.mark.parametrize("option", ["window1", "window", "slopes",
+                                    "slopes_window"])
+@pytest.mark.parametrize("cache", ["float32", "int8"])
+def test_cached_attention_options_match_jax_kernels(pallas_interpret,
+                                                    cache, option, Sq, pos):
+    """``window`` (1: the diagonal only; 20) and ALiBi ``slopes`` through
+    the plain path against the JAX package's ``cached_attention`` (its
+    Pallas decode and chunk kernels in interpret mode, S_max 256), over an
+    fp32 cache and over its int8 form.  fp32, tolerance 1e-5."""
+    from deepspeed_tpu.ops.pallas.decode_attention import cached_attention \
+        as jax_cached
+    from deepspeed_tpu_torch.ops.kernels import quantize_kv
+    q, ck, cv = _inputs(2, Sq, 256, 2, 64, seed=Sq + len(option))
+    kw = {}
+    if option.startswith("window"):
+        kw["window"] = 1 if option == "window1" else 20
+    if option.startswith("slopes"):
+        kw["slopes"] = np.asarray([0.5, 0.0625], np.float32)
+        if option == "slopes_window":
+            kw["window"] = 20
+    jpos = jnp.asarray(pos, jnp.int32) if isinstance(pos, list) else pos
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) \
+        else pos
+    jkw = {k: (jnp.asarray(v) if k == "slopes" else v) for k, v in kw.items()}
+    tkw = {k: (torch.from_numpy(v) if k == "slopes" else v)
+           for k, v in kw.items()}
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, ck, cv))
+    if cache == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(tk), quantize_kv(tv)
+        out = cached_attention(tq, kq, vq, tpos, k_scale=ks, v_scale=vs,
+                               **tkw)
+        ref = jax_cached(jnp.asarray(q), jnp.asarray(kq.numpy()),
+                         jnp.asarray(vq.numpy()), jpos,
+                         k_scale=jnp.asarray(ks.numpy()),
+                         v_scale=jnp.asarray(vs.numpy()), **jkw)
+    else:
+        out = cached_attention(tq, tk, tv, tpos, **tkw)
+        ref = jax_cached(*map(jnp.asarray, (q, ck, cv)), jpos, **jkw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("window", [1, 4, 300])
+def test_window_at_least_the_position_is_causal(window):
+    """Window 1 keeps the diagonal only; a window past every position is
+    plain causal visibility."""
+    q, ck, cv = (torch.from_numpy(a) for a in _inputs(2, 5, 40, 2, 32, 7))
+    pos = torch.tensor([0, 30], dtype=torch.int32)
+    out = cached_attention(q, ck, cv, pos, window=window)
+    if window >= 40:
+        torch.testing.assert_close(out, cached_attention(q, ck, cv, pos),
+                                   atol=0, rtol=0)
+    elif window == 1:
+        rows = torch.tensor([0, 30])[:, None] + torch.arange(5)
+        want = cv[torch.arange(2)[:, None], rows]
+        torch.testing.assert_close(out, want, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("case,err,match", [

@@ -118,3 +118,45 @@ def test_flash_tile_edges_low_precision(dtype, D, Sq, Sk, causal):
     np.testing.assert_allclose(lse.numpy(), want, atol=TOL, rtol=TOL)
     if causal and Sq > Sk:
         assert not o[:, :Sq - Sk].float().any()
+
+
+def _band_lse_reference(q, k, window):
+    """logsumexp of the banded-causal fp32 scores, [B, H, Sq]."""
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = jnp.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
+    dist = np.arange(Sq)[:, None] + Sk - Sq - np.arange(Sk)[None]
+    s = jnp.where((dist >= 0) & (dist < window), s, -jnp.inf)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1))
+
+
+@pytest.mark.parametrize("window", [1, 100, 128, 300])
+@pytest.mark.parametrize("Sq", [128, 256])
+def test_flash_window_matches_jax_pallas_kernel(pallas_interpret, Sq,
+                                                window):
+    """``window`` through the plain version against the JAX Pallas forward
+    with ``window`` in interpret mode (128-wide tiles over S_k 256: tiles
+    wholly below the band skipped, crossing tiles masked; window 300 >= S
+    is plain causal); lse against the banded logsumexp.  fp32, 1e-5."""
+    from deepspeed_tpu.ops.pallas.flash_attention import flash_attention
+    q, k, v = _qkv(2, Sq, 256, 2, 64, seed=Sq + window)
+    ref = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, block_q=128, block_k=128,
+                          window=window)
+    o, lse = port_flash(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), causal=True, window=window)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(lse.numpy(), _band_lse_reference(q, k, window),
+                               atol=TOL, rtol=TOL)
+
+
+def test_flash_window_refusals():
+    """Causal only; a window below 1 is clamped to the diagonal, as JAX
+    clamps it."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, 8, 2, 32, seed=1))
+    with pytest.raises(ValueError, match="causal"):
+        port_flash(q, k, v, causal=False, window=4)
+    o0, _ = port_flash(q, k, v, window=0)
+    o1, _ = port_flash(q, k, v, window=1)
+    torch.testing.assert_close(o0, o1, atol=0, rtol=0)
+    torch.testing.assert_close(o1, v, atol=1e-6, rtol=1e-6)

@@ -132,6 +132,42 @@ def test_wrapper_argtypes_match_c_signature(symbol):
                              f"{got.__name__}")
 
 
+def c_parameter_names():
+    """{symbol: [parameter name]} of every ``extern "C" int`` function."""
+    out = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             path.read_text()):
+            out[m.group(1)] = [p.split()[-1].lstrip("*")
+                               for p in m.group(2).split(",")]
+    return out
+
+
+#: the entry points that take the TPU kernels' band and ALiBi options as
+#: launch arguments: (symbol, options)
+OPTION_ENTRY_POINTS = [
+    ("flash_fwd", ("window",)),
+    ("decode_attn", ("window", "slopes")),
+    ("decode_attn_int8", ("window", "slopes")),
+    ("chunk_attn", ("window", "slopes")),
+    ("chunk_attn_int8", ("window", "slopes"))]
+
+
+@pytest.mark.parametrize("symbol,options", OPTION_ENTRY_POINTS)
+def test_option_launch_arguments(symbol, options):
+    """``window`` is an ``int`` (0 for none) and ``slopes`` a pointer
+    (null for none) in the C interface, and the wrapper passes them at
+    those positions with those types."""
+    names = c_parameter_names()[symbol]
+    argtypes = wrapper_bindings()[symbol][1]
+    want = {"window": ctypes.c_int, "slopes": ctypes.c_void_p}
+    for opt in options:
+        assert opt in names, f"{symbol} takes no {opt}: {names}"
+        i = names.index(opt)
+        assert ENTRY_POINTS[symbol][1][i] is want[opt]
+        assert argtypes[i] is want[opt], (symbol, opt, argtypes[i])
+
+
 def test_every_wrapper_binds_an_entry_point():
     extra = set(wrapper_bindings()) - set(ENTRY_POINTS)
     assert not extra, f"wrappers bind symbols no source defines: {extra}"
