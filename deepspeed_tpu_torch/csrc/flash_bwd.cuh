@@ -16,7 +16,13 @@
 // before the exponential, so its gradients come out 0, not NaN.  With
 // kv_lens, key j of row b is visible only if j < max(1, kv_lens[b]) too:
 // k-tiles wholly past that length are never loaded, and the dK and dV of
-// padding keys are exactly 0.
+// padding keys are exactly 0.  With a window (causal only, GPT-Neo's
+// local layers; JAX use_window) key j is visible to query i only if
+// i + Sk - Sq - j < window as well: dQ's k-tile walk starts at the tile
+// of its first row's band start and dK/dV's q-tile walk ends at the last
+// row that sees its last key, so tiles wholly outside the band are never
+// loaded, and only tiles that cross the band's lower edge are masked
+// (JAX _block_crosses_mask with use_window).
 //
 // No kernel uses atomics: each output element is written by exactly
 // one CTA, so one step's gradients are bitwise repeatable on the card.
@@ -41,7 +47,11 @@ struct BwdArgs {
     float scale;
     int causal;
     const int* kv_lens;   // optional [B]: keys at or past max(1, kv_lens[b]) are padding
+    int window;           // band width (causal only), 0: none
 };
+
+// the band applies: causal with a window
+__host__ __device__ __forceinline__ bool banded(const BwdArgs& a) { return a.causal && a.window > 0; }
 
 // the end of row b's live keys: Sk, or max(1, kv_lens[b]) clamped to Sk
 __device__ __forceinline__ int key_limit(const BwdArgs& a, int b) {

@@ -4,7 +4,9 @@
 // _bwd_dkv_kernel (line 304) in its two-kernel form (emit_dq=False):
 // dV = sum_q round_T(p)^T.dO and dK = sum_q dS^T.Q over the queries that
 // see each key, with p and dS recomputed from the saved lse and delta
-// (flash_bwd.cuh).  dQ comes from flash_bwd_dq's separate sweep.
+// (flash_bwd.cuh).  dQ comes from flash_bwd_dq's separate sweep.  Its
+// use_window option (:339-341, 357-358, 376-379) is a launch argument, 0
+// for none, so one build serves GPT-Neo's banded and global layers.
 //
 // Bound on the H100: 8*D FLOPs per visible pair against the bytes of q,
 // k, v, dO, lse and delta read once and dK, dV written once; at the
@@ -30,9 +32,19 @@
 // most queries under causal masking and are scheduled first (the key-tile
 // index is the grid's slowest dimension).
 //
+// Under a band (flash_bwd_dkv_tc<T, D, true>, built apart so that the
+// causal kernel keeps its loop) the q-tile walk ends at the last row that
+// still sees the CTA's last key, k0 + 127 - off + window - 1, so a key
+// tile reads about 12 q-tiles of 32 rows (D 128, window 256) wherever it
+// sits; each warpgroup computes only the q-tiles its own 64 keys are seen
+// by and frees the others once they land, and only q-tiles that cross the
+// band's lower edge, the diagonal or the key length are masked (queries
+// past Sq arrive as zeros with lse and delta 0 and add exactly 0).
+//
 // fp32 keeps the FMA kernel below (flash_dkv_fma): a CTA of 128 threads
 // per (b, h, k-tile), a key row on TPR = D/16 lanes, each q-tile widened
-// to fp32 in shared memory and reused by all key rows.
+// to fp32 in shared memory and reused by all key rows; under a band its
+// q-tile walk ends where the tile's last key leaves the band.
 #include "attn_tc.cuh"
 #include "flash_bwd.cuh"
 
@@ -63,6 +75,10 @@ flash_dkv_fma(const BwdArgs a) {
     // of padding keys only skips the loop and writes zeros
     int qstart = a.causal ? max(0, k0 - off) : 0;
     qstart = k0 >= klim ? a.Sq : (qstart / BQ) * BQ;
+    // under a band the walk ends past the last query that sees the tile's
+    // last key: q-tiles above every key's band are never loaded
+    const bool band = banded(a);
+    const int qend = band ? min(a.Sq, max(0, k0 + BK - 1 - off + a.window)) : a.Sq;
 
     const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + (long long)kj * a.k_ss + h * a.k_sh;
     const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + (long long)kj * a.v_ss + h * a.v_sh;
@@ -79,7 +95,7 @@ flash_dkv_fma(const BwdArgs a) {
         dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
 
-    for (int q0 = qstart; q0 < a.Sq; q0 += BQ) {
+    for (int q0 = qstart; q0 < qend; q0 += BQ) {
         __syncthreads();                          // the previous tile is consumed
         load_rows<T, D, BQ>(qs, qp, a.q_ss, q0, a.Sq);
         load_rows<T, D, BQ>(dos, dop, a.do_ss, q0, a.Sq);
@@ -106,7 +122,8 @@ flash_dkv_fma(const BwdArgs a) {
                 dp += __shfl_xor_sync(0xffffffffu, dp, o);
             }
             const int qi = q0 + i;
-            const bool vis = key_ok && qi < a.Sq && (!a.causal || kj <= qi + off);
+            const bool vis = key_ok && qi < a.Sq && (!a.causal || kj <= qi + off) &&
+                             (!band || qi + off - kj < a.window);
             float pr = 0.f, ds = 0.f;
             if (vis) {
                 const float p = expf(s * a.scale - lses[i]);
@@ -155,6 +172,7 @@ struct DkvParams {
     long long dv_sb, dv_ss, dv_sh;
     float scale;
     int causal;
+    int window;                    // band width (causal only), 0: none
 };
 
 template <int D>
@@ -171,7 +189,9 @@ struct DkvCfg : attn_tc::Boxes<D> {
     static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;   // + alignment slack
 };
 
-template <typename T, int D>
+// BANDED: causal with a window (built apart, so that the causal kernel
+// keeps its loop: both warpgroups on every q-tile to the end)
+template <typename T, int D, bool BANDED>
 __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tc(const __grid_constant__ DkvParams p) {
     using C = DkvCfg<D>;
     constexpr int BQ = C::BQ;
@@ -200,7 +220,12 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tc(const __grid_
     const int off = p.Sk - p.Sq;
     // the first query that sees any key of this tile is k0 - off
     const int qstart = ((p.causal ? max(0, k0 - off) : 0) / BQ) * BQ;
-    const int nq = qstart < p.Sq ? (p.Sq - qstart + BQ - 1) / BQ : 0;
+    // under a band the last query that sees any key of this tile is
+    // k0 + 127 - off + window - 1 (JAX _band_block_visible); uniform over
+    // the CTA, so the producer and both consumers agree
+    const int win = BANDED ? p.window : 0;
+    const int qend = BANDED ? min(p.Sq, max(0, k0 + DKV_BK - 1 - off + win)) : p.Sq;
+    const int nq = qstart < qend ? (qend - qstart + BQ - 1) / BQ : 0;
 
     if (threadIdx.x == 0) {
         hopper::mbar_init(kv_bar, 1);
@@ -279,27 +304,79 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_tc(const __grid_
     const int Sq = p.Sq;
     const bool causal = p.causal;
 
+    // under a band, this warpgroup's own q-tiles [i_lo, i_hi) of [0, nq):
+    // from the tile of the first query that sees its first key to the tile
+    // of the last query that sees its last key, none if its keys are all
+    // padding.  The bounds go through a shuffle so that ptxas sees them
+    // warp-uniform and keeps the wgmma loop free of divergence.
+    int i_lo = 0, i_hi = nq;
+    if constexpr (BANDED) {
+        const int last_row = kw + 63 - off + win - 1;
+        const int lo = min(nq, max(0, kw - off - qstart) / BQ);
+        i_hi = __shfl_sync(0xffffffffu, kw >= klim || last_row < qstart ? lo
+                           : max(lo, min(nq, (last_row - qstart) / BQ + 1)), 0);
+        i_lo = __shfl_sync(0xffffffffu, lo, 0);
+    }
+    // a q-tile this warpgroup skips: freed once its data has landed, so
+    // that the arrival cannot count toward the stage's previous tile,
+    // which the other warpgroup may still be reading
+    auto release = [&](int i) {
+        const int s = i % C::STAGES;
+        hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
+        if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    };
+    // the band's mask, fixed over the loop (few live registers: the
+    // dK/dV kernels run at their register cap): key r = kj[0] + 8r is seen
+    // by the w[r] queries from a + 8r (w[r] = 0 for a padding key), and a
+    // q-tile at q0 crosses an edge unless q_diag <= q0 < q_band and no key
+    // of the warpgroup is padding.  Queries past Sq need no mask: their Q
+    // and dO are TMA's zero fill and their lse and delta 0, so they add
+    // exactly 0 to dK and dV.
+    int a = 0, w[2] = {0, 0}, q_diag = 0, q_band = 0;
+    bool edge = false;
+    if constexpr (BANDED) {
+        a = kj[0] - off;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) w[r] = kj[r] < klim ? win : 0;
+        q_diag = kw + 63 - off;
+        q_band = kw - off + win - BQ + 1;
+        edge = kw + 64 > klim;
+    }
+    for (int i = 0; i < i_lo; ++i) release(i);
     if (nq > 0) hopper::mbar_wait(kv_bar, 0);
-    for (int i = 0; i < nq; ++i) {
+    for (int i = i_lo; i < i_hi; ++i) {
         const int s = i % C::STAGES;
         const int q0 = qstart + i * BQ;
         hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
         const uint32_t q_addr = hopper::smem_u32(smem + C::TILE_OFF + s * 2 * C::T_BYTES);
         const float* lse_s = reinterpret_cast<const float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
-        // only q-tiles that cross the causal, key-length or Sq edge are masked
-        const bool crosses = (p.causal && kw + 63 > q0 + off) || kw + 64 > klim || q0 + BQ > p.Sq;
-        attn_tc::dkv_step<T, D, DKV_BK, BQ>(acc, fr, k_addr, v_addr, q_addr, q_addr + C::T_BYTES, lse_s,
-                                            lse_s + BQ, p.scale, crosses, [=](int r, int c) {
-                                                const int key = kj[r];
-                                                const int qi = q0 + c;
-                                                return (key < klim) & (qi < Sq) & (!causal | (key <= qi + off));
-                                            });
+        if constexpr (BANDED) {
+            // only q-tiles that cross the causal, key-length or band edge
+            // are masked: the band's when the tile's last query is window
+            // or more past the warpgroup's first key
+            const bool crosses = edge | (q0 < q_diag) | (q0 >= q_band);
+            attn_tc::dkv_step<T, D, DKV_BK, BQ>(acc, fr, k_addr, v_addr, q_addr, q_addr + C::T_BYTES, lse_s,
+                                                lse_s + BQ, p.scale, crosses, [=](int r, int c) {
+                                                    return static_cast<unsigned>(q0 + c - a - 8 * r) <
+                                                           static_cast<unsigned>(w[r]);
+                                                });
+        } else {
+            // only q-tiles that cross the causal, key-length or Sq edge are masked
+            const bool crosses = (p.causal && kw + 63 > q0 + off) || kw + 64 > klim || q0 + BQ > p.Sq;
+            attn_tc::dkv_step<T, D, DKV_BK, BQ>(acc, fr, k_addr, v_addr, q_addr, q_addr + C::T_BYTES, lse_s,
+                                                lse_s + BQ, p.scale, crosses, [=](int r, int c) {
+                                                    const int key = kj[r];
+                                                    const int qi = q0 + c;
+                                                    return (key < klim) & (qi < Sq) & (!causal | (key <= qi + off));
+                                                });
+        }
         if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
     }
+    for (int i = i_hi; i < nq; ++i) release(i);
     attn_tc::dkv_finish<T, D>(acc, fr, dkp, p.dk_ss, dvp, p.dv_ss, kw, p.Sk);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BANDED>
 cudaError_t launch_dkv_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
     using C = DkvCfg<D>;
     DkvParams p{};
@@ -319,13 +396,18 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
     p.Sq = a.Sq; p.Sk = a.Sk; p.H = a.H;
     p.dk_sb = a.dk_sb; p.dk_ss = a.dk_ss; p.dk_sh = a.dk_sh;
     p.dv_sb = a.dv_sb; p.dv_ss = a.dv_ss; p.dv_sh = a.dv_sh;
-    p.scale = a.scale; p.causal = a.causal;
+    p.scale = a.scale; p.causal = a.causal; p.window = a.window;
     static const cudaError_t attr =
-        cudaFuncSetAttribute(flash_bwd_dkv_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        cudaFuncSetAttribute(flash_bwd_dkv_tc<T, D, BANDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(a.H, a.B, (a.Sk + DKV_BK - 1) / DKV_BK);
-    flash_bwd_dkv_tc<T, D><<<grid, DKV_THREADS, C::SMEM, stream>>>(p);
+    flash_bwd_dkv_tc<T, D, BANDED><<<grid, DKV_THREADS, C::SMEM, stream>>>(p);
     return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
+    return banded(a) ? launch_dkv_tc<T, D, true>(a, dtype, stream) : launch_dkv_tc<T, D, false>(a, dtype, stream);
 }
 
 }  // namespace
@@ -339,11 +421,11 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              long long do_sb, long long do_ss, long long do_sh,
                              long long dk_sb, long long dk_ss, long long dk_sh,
                              long long dv_sb, long long dv_ss, long long dv_sh,
-                             float scale, int causal, void* stream_ptr) {
+                             float scale, int causal, int window, void* stream_ptr) {
     if (B == 0 || Sk == 0 || H == 0) return 0;
     BwdArgs a{q, k, v, dout, lse, delta, nullptr, dk, dv, B, Sq, Sk, H,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-              0, 0, 0, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal, kv_lens};
+              0, 0, 0, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, causal, kv_lens, window};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define DS_DKV_D(T, LAUNCH, ...)                                        \
     switch (D) {                                                         \

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/pallas/flash_attention.py
 // _bwd_dq_kernel (line 246): dQ = sum_k dS.K over the keys each query sees,
-// with dS recomputed from the saved lse and delta (flash_bwd.cuh).
+// with dS recomputed from the saved lse and delta (flash_bwd.cuh), and its
+// use_window option (:263-265, 281-282, 290-292): a launch argument, 0 for
+// none, so one build serves GPT-Neo's banded and global layers.
 //
 // Bound on the H100: 6*D FLOPs per visible pair against the bytes of q,
 // k, v, dO, dQ, lse and delta read or written once; at the training
@@ -36,12 +38,25 @@
 // equal), and the heaviest causal q-tiles run first (the q-tile index is
 // the grid's slowest dimension, reversed).
 //
+// Under a band (flash_bwd_dq_tc<T, D, true>, built apart so that the causal
+// kernel keeps its loop) the walk starts at the k-tile of the q-tile's
+// first row's band start, so a q-tile of 128 rows reads about 6 k-tiles of
+// 64 whatever its position (window 256); each warpgroup computes only the
+// tiles its own 64 rows see and frees the others once they land, and only
+// tiles that cross the band's lower edge, the diagonal or the key length
+// are masked.  The reversed q-tile order is kept: under a band the tiles
+// weigh about the same, and the walk depends on q0 alone.  (Two q-tiles a
+// CTA, as the banded forward takes, measured 0.454x the causal kernel
+// against this design's 0.456x on an H100 at B8 S2048 D128, and were not
+// kept.)
+//
 // fp32 keeps the FMA kernel below (flash_bwd_dq_kernel): wgmma transposes
 // only 16-bit operands, and dQ += dS.K reads K transposed.  One CTA of 128
 // threads owns a (b, h, q-tile) and walks the k-tiles up to its causal
-// frontier; a query row is held by TPR = D/16 neighbouring lanes, each
-// k-tile widened to fp32 in shared memory and reused by all BQ rows, 3*D
-// FMAs per visible pair.
+// frontier (from its first row's band start under a window); a query
+// row is held by TPR = D/16 neighbouring lanes, each k-tile widened to
+// fp32 in shared memory and reused by all BQ rows, 3*D FMAs per visible
+// pair.
 #include "attn_tc.cuh"
 #include "flash_bwd.cuh"
 
@@ -70,6 +85,10 @@ flash_bwd_dq_kernel(const BwdArgs a) {
         const int last_row = min(a.Sq, q0 + BQ) - 1;
         kend = max(0, min(klim, last_row + off + 1));
     }
+    // under a band the walk starts at the k-tile of the first row's band
+    // start: tiles below every row's band are never loaded
+    const bool band = banded(a);
+    const int kbeg = band ? max(0, q0 + off - a.window + 1) / BK * BK : 0;
 
     const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (long long)qi * a.q_ss + h * a.q_sh;
     const T* dop = static_cast<const T*>(a.dout) + b * a.do_sb + (long long)qi * a.do_ss + h * a.do_sh;
@@ -87,7 +106,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     const float lse = row_ok ? a.lse[stat] : 0.f;
     const float delta = row_ok ? a.delta[stat] : 0.f;
 
-    for (int k0 = 0; k0 < kend; k0 += BK) {
+    for (int k0 = kbeg; k0 < kend; k0 += BK) {
         __syncthreads();                          // the previous tile is consumed
         load_rows<T, D, BK>(ks, kp, a.k_ss, k0, klim);
         load_rows<T, D, BK>(vs, vp, a.v_ss, k0, klim);
@@ -106,7 +125,8 @@ flash_bwd_dq_kernel(const BwdArgs a) {
                 dp += __shfl_xor_sync(0xffffffffu, dp, o);
             }
             const int kj = k0 + j;
-            const bool vis = row_ok && kj < klim && (!a.causal || kj <= qi + off);
+            const bool vis = row_ok && kj < klim && (!a.causal || kj <= qi + off) &&
+                             (!band || qi + off - kj < a.window);
             float ds = 0.f;
             if (vis) {
                 const float p = expf(s * a.scale - lse);
@@ -148,6 +168,7 @@ struct DqParams {
     long long dq_sb, dq_ss, dq_sh;
     float scale;
     int causal;
+    int window;                    // band width (causal only), 0: none
 };
 
 template <int D>
@@ -162,7 +183,9 @@ struct DqCfg : attn_tc::Boxes<D> {
     static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;   // + alignment slack
 };
 
-template <typename T, int D>
+// BANDED: causal with a window (built apart, so that the causal kernel
+// keeps its loop: both warpgroups on every tile from key 0)
+template <typename T, int D, bool BANDED>
 __global__ void __launch_bounds__(DQ_THREADS, 1) flash_bwd_dq_tc(const __grid_constant__ DqParams p) {
     using C = DqCfg<D>;
     extern __shared__ uint8_t smem_raw[];
@@ -181,6 +204,11 @@ __global__ void __launch_bounds__(DQ_THREADS, 1) flash_bwd_dq_tc(const __grid_co
     int kend = klim;
     if (p.causal) kend = max(0, min(klim, min(p.Sq, q0 + DQ_BQ) + off));
     const int ntiles = (kend + DQ_BK - 1) / DQ_BK;
+    // the k-tiles [t0, ntiles): under a band from the tile of the q-tile's
+    // first row's band start (JAX _band_block_visible), else from key 0;
+    // uniform over the CTA, so the producer and both consumers agree
+    const int win = BANDED ? p.window : 0;
+    const int t0 = BANDED ? min(ntiles, max(0, q0 + off - win + 1) / DQ_BK) : 0;
 
     if (threadIdx.x == 0) {
         hopper::mbar_init(q_bar, 1);
@@ -195,15 +223,15 @@ __global__ void __launch_bounds__(DQ_THREADS, 1) flash_bwd_dq_tc(const __grid_co
     const int wg = threadIdx.x / 128;
     if (wg == 2) {
         // producer: one thread issues every load
-        if (threadIdx.x == 256 && ntiles > 0) {
+        if (threadIdx.x == 256 && ntiles > t0) {
             hopper::mbar_expect_tx(q_bar, 2 * C::Q_BYTES);
             for (int hf = 0; hf < C::HALVES; ++hf) {
                 hopper::tma_load_4d(qs + hf * DQ_BQ * C::ROWB, &p.q, q_bar, hf * 64, h, q0, b);
                 hopper::tma_load_4d(qs + C::Q_BYTES + hf * DQ_BQ * C::ROWB, &p.dout, q_bar, hf * 64, h, q0, b);
             }
-            for (int i = 0; i < ntiles; ++i) {
-                const int s = i % C::STAGES;
-                hopper::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+            for (int i = t0; i < ntiles; ++i) {
+                const int s = (i - t0) % C::STAGES;
+                hopper::mbar_wait(&empty[s], (((i - t0) / C::STAGES) & 1) ^ 1);
                 hopper::mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
                 uint8_t* ks = kvs + s * 2 * C::KV_BYTES;
                 for (int hf = 0; hf < C::HALVES; ++hf) {
@@ -238,26 +266,67 @@ __global__ void __launch_bounds__(DQ_THREADS, 1) flash_bwd_dq_tc(const __grid_co
     const int Sq = p.Sq;
     const bool causal = p.causal;
 
-    if (ntiles > 0) hopper::mbar_wait(q_bar, 0);
-    for (int i = 0; i < ntiles; ++i) {
-        const int s = i % C::STAGES;
-        hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
+    // under a band, this warpgroup's own tiles [i_lo, i_hi) of [t0,
+    // ntiles): a tile past its last row's frontier or below its first
+    // row's band start holds no key it sees (the other warpgroup's rows
+    // are 64 apart).  The bounds go through a shuffle so that ptxas sees
+    // them warp-uniform and keeps the wgmma loop free of divergence.
+    int i_lo = t0, i_hi = ntiles;
+    if constexpr (BANDED) {
+        const int last_key = qw + 63 + off;
+        i_hi = __shfl_sync(0xffffffffu, last_key < 0 ? t0 : max(t0, min(ntiles, last_key / DQ_BK + 1)), 0);
+        i_lo = __shfl_sync(0xffffffffu, max(t0, min(i_hi, max(0, qw + off - win + 1) / DQ_BK)), 0);
+    }
+    // a tile this warpgroup skips: freed once its data has landed, so that
+    // the arrival cannot count toward the stage's previous tile, which the
+    // other warpgroup may still be reading
+    auto release = [&](int i) {
+        const int s = (i - t0) % C::STAGES;
+        hopper::mbar_wait(&full[s], ((i - t0) / C::STAGES) & 1);
+        if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
+    };
+    for (int i = t0; i < i_lo; ++i) release(i);
+    if (ntiles > t0) hopper::mbar_wait(q_bar, 0);
+    for (int i = i_lo; i < i_hi; ++i) {
+        const int s = (i - t0) % C::STAGES;
+        hopper::mbar_wait(&full[s], ((i - t0) / C::STAGES) & 1);
         const uint32_t k_addr = hopper::smem_u32(kvs + s * 2 * C::KV_BYTES);
         const int k0 = i * DQ_BK;
-        // only k-tiles that cross the causal, key-length or Sq edge are masked
-        const bool crosses = (p.causal && k0 + DQ_BK - 1 > qw + off) || k0 + DQ_BK > klim || qw + 64 > p.Sq;
-        attn_tc::dq_step<T, D, DQ_BQ>(acc, fr, q_addr, do_addr, k_addr, k_addr + C::KV_BYTES, lse2, dlt, p.scale,
-                                      crosses, [=](int r, int c) {
-                                          const int kj = k0 + c;
-                                          return (kj < klim) & (qi[r] < Sq) & (!causal | (kj <= qi[r] + off));
-                                      });
+        if constexpr (BANDED) {
+            // only tiles that cross the causal, key-length or band edge are
+            // masked: the band's when the warpgroup's last row is window or
+            // more past the tile's first key.  Rows past Sq are never
+            // stored, and a row's dS feeds only its own dQ, so they need no
+            // mask (their Q and dO are TMA's zero fill, lse and delta 0).
+            const bool crosses = k0 + DQ_BK - 1 > qw + off || k0 + DQ_BK > klim || qw + 63 + off - k0 >= win;
+            // row r sees the tile's columns lo[r] .. hi[r]: from its band
+            // start to its frontier and the key length
+            int lo[2], hi[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                lo[r] = qi[r] + off - win + 1 - k0;
+                hi[r] = min(qi[r] + off, klim - 1) - k0;
+            }
+            attn_tc::dq_step<T, D, DQ_BQ>(acc, fr, q_addr, do_addr, k_addr, k_addr + C::KV_BYTES, lse2, dlt,
+                                          p.scale, crosses,
+                                          [=](int r, int c) { return (c >= lo[r]) & (c <= hi[r]); });
+        } else {
+            // only k-tiles that cross the causal, key-length or Sq edge are masked
+            const bool crosses = (p.causal && k0 + DQ_BK - 1 > qw + off) || k0 + DQ_BK > klim || qw + 64 > p.Sq;
+            attn_tc::dq_step<T, D, DQ_BQ>(acc, fr, q_addr, do_addr, k_addr, k_addr + C::KV_BYTES, lse2, dlt,
+                                          p.scale, crosses, [=](int r, int c) {
+                                              const int kj = k0 + c;
+                                              return (kj < klim) & (qi[r] < Sq) & (!causal | (kj <= qi[r] + off));
+                                          });
+        }
         if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
     }
+    for (int i = i_hi; i < ntiles; ++i) release(i);
     T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
     attn_tc::dq_finish<T, D>(acc, fr, dqp, p.dq_ss, qw, p.Sq);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BANDED>
 cudaError_t launch_dq_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
     using C = DqCfg<D>;
     DqParams p{};
@@ -277,13 +346,18 @@ cudaError_t launch_dq_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
     p.dq = a.dq; p.kv_lens = a.kv_lens;
     p.Sq = a.Sq; p.Sk = a.Sk; p.H = a.H;
     p.dq_sb = a.dq_sb; p.dq_ss = a.dq_ss; p.dq_sh = a.dq_sh;
-    p.scale = a.scale; p.causal = a.causal;
+    p.scale = a.scale; p.causal = a.causal; p.window = a.window;
     static const cudaError_t attr =
-        cudaFuncSetAttribute(flash_bwd_dq_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        cudaFuncSetAttribute(flash_bwd_dq_tc<T, D, BANDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(a.H, a.B, (a.Sq + DQ_BQ - 1) / DQ_BQ);
-    flash_bwd_dq_tc<T, D><<<grid, DQ_THREADS, C::SMEM, stream>>>(p);
+    flash_bwd_dq_tc<T, D, BANDED><<<grid, DQ_THREADS, C::SMEM, stream>>>(p);
     return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_tc(const BwdArgs& a, int dtype, cudaStream_t stream) {
+    return banded(a) ? launch_dq_tc<T, D, true>(a, dtype, stream) : launch_dq_tc<T, D, false>(a, dtype, stream);
 }
 
 }  // namespace
@@ -296,11 +370,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             long long v_sb, long long v_ss, long long v_sh,
                             long long do_sb, long long do_ss, long long do_sh,
                             long long dq_sb, long long dq_ss, long long dq_sh,
-                            float scale, int causal, void* stream_ptr) {
+                            float scale, int causal, int window, void* stream_ptr) {
     if (B == 0 || Sq == 0 || H == 0) return 0;
     BwdArgs a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Sq, Sk, H,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
-              dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, scale, causal, kv_lens};
+              dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, scale, causal, kv_lens, window};
     const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
 #define DS_DQ_D(T, LAUNCH, ...)                                         \
     switch (D) {                                                         \

@@ -11,14 +11,13 @@ A banded layer runs the flash kernel's window option; ALiBi layers run
 the dense :func:`_alibi_attention`, as the JAX package does.  The other
 architecture variants of the JAX ``GPTConfig`` (rotary positions, relu,
 parallel residual, untied or biased heads, position offsets), dropout and
-the ``"dots"`` remat policy raise ``NotImplementedError``; so does a
-gradient through a banded layer (the windowed flash backward is not
-ported yet).
+the ``"dots"`` remat policy raise ``NotImplementedError``.
 
 Training: :func:`loss_fn` (mean next-token cross-entropy, optionally over
 ``loss_chunk``-token chunks of the head) is differentiable through the
-flash kernels' ``torch.autograd.Function`` (the block-sparse kernels'
-under ``sparse_attention``, JAX ``gpt.py:416-421``).  With ``remat`` each
+flash kernels' ``torch.autograd.Function`` (a banded layer's through the
+window option of the forward and both backward kernels; the block-sparse
+kernels' under ``sparse_attention``, JAX ``gpt.py:416-421``).  With ``remat`` each
 block is recomputed in the backward from its saved input (``_RematBlock``);
 ``remat_policy="attn_out"`` also keeps each block's attention output O and
 its fp32 logsumexp, so the recompute replays the attention from them and

@@ -8,10 +8,8 @@ keys of row b at or past max(1, kv_lens[b]), with causal where both are
 given; query rows past the length still attend to the live keys, as in
 JAX (``flash_attention.py:582-637``).  ``window`` (causal only, clamped to
 >= 1; GPT-Neo's local layers) hides the keys at a distance of ``window``
-or more: the kernel takes it as a launch argument and never loads the
-k-tiles wholly below a q-tile's band.  The windowed backward is not
-ported yet (the training slice of GPT-Neo): a gradient through a banded
-forward raises.  CUDA tensors go
+or more: all three kernels take it as a launch argument and never load
+the tiles wholly outside a tile's band.  CUDA tensors go
 to the hand-written ``flash_fwd`` kernel (``csrc/flash_fwd.cu``, replacing
 the TPU ``_fwd_kernel``), which reads q, k, v through their strides: in
 bf16 and fp16 with wgmma tensor-core products on tiles that TMA loads
@@ -28,7 +26,7 @@ outside Pallas, then runs the two-kernel backward: ``flash_bwd_dq``
 (``csrc/flash_bwd_dq.cu``, replacing ``_bwd_dq_kernel``) and
 ``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replacing ``_bwd_dkv_kernel``),
 both on wgmma and TMA in bf16 and fp16, as the forward, and on FMAs in
-fp32.
+fp32; a window reaches both as it reaches the forward.
 :func:`flash_attention_qkv` takes the packed [B, S, 3, H, D] product of a
 qkv projection and writes dq, dk and dv into one gradient of that shape.
 """
@@ -118,13 +116,16 @@ def _visibility(Sq: int, Sk: int, causal: bool,
 
 def flash_attention_backward_reference(q, k, v, o, lse, do, causal: bool,
                                        scale: float,
-                                       kv_lens: Optional[torch.Tensor] = None):
+                                       kv_lens: Optional[torch.Tensor] = None,
+                                       window: Optional[int] = None):
     """The plain version of the two backward kernels: (dq, dk, dv) in the
     input dtype from the saved O and lse (see
-    :func:`masked_attention_backward_reference`)."""
+    :func:`masked_attention_backward_reference`), causal visibility banded
+    by ``window`` when given."""
     return masked_attention_backward_reference(
         q, k, v, o, lse, do,
-        _visibility(q.shape[1], k.shape[1], causal, kv_lens, q.device), scale)
+        _visibility(q.shape[1], k.shape[1], causal, kv_lens, q.device,
+                    window), scale)
 
 
 def masked_attention_backward_reference(q, k, v, o, lse, do,
@@ -179,9 +180,7 @@ class _FlashFwd:
                  window: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = check_kernel_inputs("flash_fwd", q, k, v)
-        if window is not None and (not causal or int(window) < 1):
-            raise ValueError(f"flash_fwd: window {window} needs causal "
-                             "attention and a width >= 1")
+        _check_window("flash_fwd", causal, window)
         B, Sq, H, D = q.shape
         Sk = k.shape[1]
         if k.shape != (B, Sk, H, D) or v.shape != k.shape:
@@ -198,14 +197,24 @@ class _FlashFwd:
                     k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
                     o.stride(0), o.stride(1), o.stride(2),
-                    float(scale), int(bool(causal)),
-                    0 if window is None else int(window),
+                    float(scale), int(bool(causal)), _window_code(window),
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_fwd", status)
         _FlashFwd.launches += 1
         if window is not None:
             _FlashFwd.option_launches["window"] += 1
         return o, lse
+
+
+def _check_window(name: str, causal: bool, window: Optional[int]) -> None:
+    if window is not None and (not causal or int(window) < 1):
+        raise ValueError(f"{name}: window {window} needs causal attention "
+                         "and a width >= 1")
+
+
+def _window_code(window: Optional[int]) -> int:
+    """``window`` as the kernels take it: 0 for none."""
+    return 0 if window is None else int(window)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -216,15 +225,19 @@ flash_fwd = _FlashFwd()
 
 class _FlashBwdDq:
     """The ``flash_bwd_dq`` kernel's wrapper: writes dq (a fresh tensor, or
-    the strided ``out`` view) from q, k, v, dO, lse and delta."""
+    the strided ``out`` view) from q, k, v, dO, lse and delta;
+    ``option_launches`` counts the launches with a window."""
 
     launches = 0
+    option_launches = {"window": 0}
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
                  out: Optional[torch.Tensor] = None,
-                 kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 kv_lens: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None) -> torch.Tensor:
         dtype, (B, Sq, Sk, H, D) = _check_bwd("flash_bwd_dq", q, k, v, do,
                                               lse, delta)
+        _check_window("flash_bwd_dq", causal, window)
         lens = _lens_arg("flash_bwd_dq", kv_lens, B, q.device)
         dq = torch.empty_like(q, memory_format=torch.contiguous_format) \
             if out is None else out
@@ -235,25 +248,31 @@ class _FlashBwdDq:
                     None if lens is None else lens.data_ptr(), dq.data_ptr(),
                     DTYPE_CODES[dtype], B, Sq, Sk, H, D,
                     *strides3(q, k, v, do, dq), float(scale),
-                    int(bool(causal)),
+                    int(bool(causal)), _window_code(window),
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_dq", status)
         _FlashBwdDq.launches += 1
+        if window is not None:
+            _FlashBwdDq.option_launches["window"] += 1
         return dq
 
 
 class _FlashBwdDkv:
     """The ``flash_bwd_dkv`` kernel's wrapper: writes dk and dv (fresh
-    tensors, or the strided ``out`` views)."""
+    tensors, or the strided ``out`` views); ``option_launches`` counts the
+    launches with a window."""
 
     launches = 0
+    option_launches = {"window": 0}
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                 kv_lens: Optional[torch.Tensor] = None
+                 kv_lens: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype, (B, Sq, Sk, H, D) = _check_bwd("flash_bwd_dkv", q, k, v, do,
                                               lse, delta)
+        _check_window("flash_bwd_dkv", causal, window)
         lens = _lens_arg("flash_bwd_dkv", kv_lens, B, q.device)
         if out is None:
             dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -267,10 +286,12 @@ class _FlashBwdDkv:
                     None if lens is None else lens.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), DTYPE_CODES[dtype], B, Sq, Sk, H, D,
                     *strides3(q, k, v, do, dk, dv), float(scale),
-                    int(bool(causal)),
+                    int(bool(causal)), _window_code(window),
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_dkv", status)
         _FlashBwdDkv.launches += 1
+        if window is not None:
+            _FlashBwdDkv.option_launches["window"] += 1
         return dk, dv
 
 
@@ -289,10 +310,11 @@ def _check_bwd(name, q, k, v, do, lse, delta):
 
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                 + [ctypes.c_longlong] * 15
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 _DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 18
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 flash_bwd_dq = _FlashBwdDq()
 flash_bwd_dkv = _FlashBwdDkv()
 
@@ -315,13 +337,15 @@ def aligned_do_and_delta(do, o):
 
 def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
                              out: Optional[Sequence[torch.Tensor]] = None,
-                             kv_lens: Optional[torch.Tensor] = None):
+                             kv_lens: Optional[torch.Tensor] = None,
+                             window: Optional[int] = None):
     """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the two
     kernels write into ``out`` (three [B, S, H, D] views) when given;
     on the CPU the plain version runs and is copied into ``out``."""
     if not on_cuda(q, k, v, o, lse, do):
         grads = flash_attention_backward_reference(q, k, v, o, lse, do,
-                                                   causal, scale, kv_lens)
+                                                   causal, scale, kv_lens,
+                                                   window)
         if out is None:
             return grads
         for dst, g in zip(out, grads):
@@ -329,10 +353,11 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
         return tuple(out)
     do, delta = aligned_do_and_delta(do, o)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale,
-                      out=None if out is None else out[0], kv_lens=kv_lens)
+                      out=None if out is None else out[0], kv_lens=kv_lens,
+                      window=window)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
                            out=None if out is None else (out[1], out[2]),
-                           kv_lens=kv_lens)
+                           kv_lens=kv_lens, window=window)
     return dq, dk, dv
 
 
@@ -382,20 +407,11 @@ class PackedAttentionFn(torch.autograd.Function):
         return dqkv, None, None, None
 
 
-def _windowed_backward(*_args, **_kwargs):
-    raise NotImplementedError(
-        "flash_attention(window=...): the windowed backward kernels "
-        "(_bwd_dq_kernel, _bwd_dkv_kernel with use_window) are not ported "
-        "yet (ROADMAP.md Queue 2 #1, GPT-Neo training)")
-
-
 def _halves(causal: bool, scale: float, kv_lens=None, window=None):
-    fwd = lambda q, k, v: _forward(q, k, v, causal, scale, kv_lens, window)
-    if window is not None:
-        return fwd, _windowed_backward
-    return (fwd,
+    return (lambda q, k, v: _forward(q, k, v, causal, scale, kv_lens, window),
             lambda q, k, v, o, lse, do, out=None: flash_attention_backward(
-                q, k, v, o, lse, do, causal, scale, out=out, kv_lens=kv_lens))
+                q, k, v, o, lse, do, causal, scale, out=out, kv_lens=kv_lens,
+                window=window))
 
 
 def _window_arg(causal: bool, window) -> Optional[int]:
@@ -417,8 +433,7 @@ def flash_attention(q, k, v, causal: bool = True,
     lse [B, H, Sq] fp32).  Causal masking is end-aligned (a query attends
     to the last ``Sq`` positions of ``Sk``); ``kv_lens`` [B] hides keys at
     or past max(1, kv_lens[b]); ``window`` bands causal visibility to
-    ``0 <= i + Sk - Sq - j < window``.  Differentiable in q, k, v without
-    a window."""
+    ``0 <= i + Sk - Sq - j < window``.  Differentiable in q, k, v."""
     return AttentionFn.apply(q, k, v, *_halves(
         causal, softmax_scale(q.shape[-1], sm_scale), kv_lens,
         _window_arg(causal, window)))

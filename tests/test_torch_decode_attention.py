@@ -122,11 +122,14 @@ def test_chunk_tile_edges_low_precision(pallas_interpret, cache, Sq, pos):
     {"slopes": 1}])
 def test_unported_options_raise(option):
     """The window and ALiBi options of the cache kernels are ported: on
-    the int8 cache too they give the JAX reference's output.  What stays
-    unported is the windowed flash backward, which raises."""
+    the int8 cache too they give the JAX reference's output.  The windowed
+    flash backward is ported too: its gradient no longer raises and equals
+    autograd's through the plain banded forward."""
     from deepspeed_tpu.ops.pallas.decode_attention import \
         cached_attention_reference as jax_ref
-    from deepspeed_tpu_torch.ops.kernels import flash_attention, quantize_kv
+    from deepspeed_tpu_torch.ops.kernels import (flash_attention,
+                                                 flash_attention_reference,
+                                                 quantize_kv)
     q, ck, cv = (torch.from_numpy(a) for a in _inputs(1, 1, 16, 2, 32, 0))
     kw, jkw = {}, {}
     if "k_scale" in option:
@@ -146,10 +149,15 @@ def test_unported_options_raise(option):
     ref = jax_ref(jnp.asarray(q.numpy()), jck, jcv, 3, **jkw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
                                rtol=TOL)
-    qkv = torch.randn(1, 8, 2, 32, requires_grad=True)
-    o, _ = flash_attention(qkv, qkv, qkv, window=option.get("window", 2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        o.sum().backward()
+    qkv = torch.randn(1, 8, 2, 32, generator=torch.Generator().manual_seed(1),
+                      requires_grad=True)
+    window = option.get("window", 2)
+    o, _ = flash_attention(qkv, qkv, qkv, window=window)
+    (got,) = torch.autograd.grad(o.sum(), qkv)
+    o_ref, _ = flash_attention_reference(qkv, qkv, qkv, True, 32 ** -0.5,
+                                         window=window)
+    (want,) = torch.autograd.grad(o_ref.sum(), qkv)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
 #: (Sq, pos) of the option cases: the decode kernel and the JAX chunk

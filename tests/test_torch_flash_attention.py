@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import torch
 
 from deepspeed_tpu_torch.ops.kernels import flash_attention as port_flash
+from deepspeed_tpu_torch.ops.kernels import (
+    flash_attention_backward_reference, flash_attention_reference)
 
 TOL = 1e-5
 #: low-precision inputs against the fp32 JAX reference on the same values
@@ -148,6 +150,54 @@ def test_flash_window_matches_jax_pallas_kernel(pallas_interpret, Sq,
                                rtol=TOL)
     np.testing.assert_allclose(lse.numpy(), _band_lse_reference(q, k, window),
                                atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("window", [1, 100, 128, 300])
+@pytest.mark.parametrize("Sq", [128, 256])
+def test_flash_window_gradients_match_jax_pallas_kernel(pallas_interpret, Sq,
+                                                        window):
+    """dq, dk and dv of ``flash_attention(window=)`` through the plain
+    backward against ``jax.vjp`` of the JAX Pallas ``flash_attention`` with
+    ``window`` in interpret mode: 128-wide tiles over S_k 256 (nk 2), so
+    JAX takes its fused single-sweep backward (``_bwd_dkv_kernel`` with
+    ``emit_dq``), skipping the tiles below the band and masking the
+    crossing ones.  fp32, 1e-5."""
+    from deepspeed_tpu.ops.pallas.flash_attention import flash_attention
+    q, k, v = _qkv(2, Sq, 256, 2, 64, seed=10 * Sq + window)
+    do = np.random.default_rng(window).standard_normal(q.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda q_, k_, v_: flash_attention(
+        q_, k_, v_, causal=True, block_q=128, block_k=128, window=window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o, _ = port_flash(*leaves, causal=True, window=window)
+    grads = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    for g, r, name in zip(grads, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("window", [1, 7, 64, 200])
+@pytest.mark.parametrize("Sq,Sk", [(64, 64), (40, 100), (100, 40)])
+def test_flash_window_backward_reference_matches_autograd(Sq, Sk, window):
+    """The plain backward with ``window`` (what the kernels are held
+    against on the card) against autograd of the plain banded forward,
+    cross-length included (Sq > Sk: rows with no key get zero dq)."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _qkv(2, Sq, Sk, 3, 32, seed=Sq * 7 + Sk + window))
+    do = torch.from_numpy(np.random.default_rng(Sk).standard_normal(
+        (2, Sq, 3, 32)).astype(np.float32))
+    scale = 1.0 / math.sqrt(32)
+    o, lse = flash_attention_reference(q, k, v, True, scale, window=window)
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), do,
+        True, scale, window=window)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g, w, atol=TOL, rtol=TOL, msg=name)
+    if Sq > Sk:
+        assert not got[0][:, :Sq - Sk].any()
 
 
 def test_flash_window_refusals():

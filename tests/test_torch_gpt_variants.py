@@ -5,6 +5,8 @@ and fed to both sides.  Logits to 2e-4 (the dense ALiBi and banded paths
 sum in another order than JAX's), the helper functions to 1e-5, the
 slopes exactly."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -278,12 +280,40 @@ def test_other_variants_still_raise(field, value):
         gpt.GPTConfig(**{field: value})
 
 
-def test_banded_gradient_raises():
-    """The windowed flash backward waits for the GPT-Neo training slice:
-    a gradient through a banded layer raises instead of being wrong."""
-    _, tcfg = _configs("neo")
-    tp = gpt.init(tcfg)
-    tp["wte"].requires_grad_(True)
-    loss = gpt.apply(tp, torch.zeros((1, 8), dtype=torch.long), tcfg).sum()
-    with pytest.raises(NotImplementedError, match="windowed backward"):
-        loss.backward()
+@pytest.mark.parametrize("remat", [False, True],
+                         ids=["plain", "remat_attn_out"])
+def test_banded_gradients_match_jax(remat):
+    """A gradient through GPT-Neo's banded layers (the window option of the
+    flash backward, its plain version here): the tiny model's loss and the
+    gradient of every parameter against ``jax.value_and_grad`` of the JAX
+    ``loss_fn`` on the same weights and tokens (32 positions, window 4),
+    plain and under remat ``attn_out``, where the banded layers replay
+    their saved O and lse.  Loss to ``FN_TOL``; each gradient to ``TOL``
+    times max(1, its largest element): the unscaled softmax over these
+    std-0.3 weights turns fp32 summation-order noise into gradient
+    differences of up to about 7e-5 of the largest element here (2.7e-4
+    with every layer global)."""
+    import jax
+    jcfg, tcfg = _configs("neo")
+    tree = _tree(jcfg, seed=5)
+    tokens = _tokens(2, 33, seed=6)
+    jloss, jgrads = jax.value_and_grad(jgpt.loss_fn)(
+        _jax_tree(tree), {"tokens": jnp.asarray(tokens)}, jcfg)
+    if remat:
+        tcfg = dataclasses.replace(tcfg, remat=True, remat_policy="attn_out")
+    params = convert.from_jax_params(tree)
+    for p in jax.tree_util.tree_leaves(params):
+        p.requires_grad_(True)
+    loss = gpt.loss_fn(params, {"tokens": torch.from_numpy(tokens).long()},
+                       tcfg)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=FN_TOL, atol=FN_TOL)
+    got = convert.to_numpy_params(
+        jax.tree_util.tree_map(lambda p: p.grad, params))
+    want = dict(jax.tree_util.tree_leaves_with_path(jgrads))
+    assert len(want) == len(jax.tree_util.tree_leaves(got))
+    for path, g in jax.tree_util.tree_leaves_with_path(got):
+        w = np.asarray(want[path])
+        err = np.abs(g - w).max() / max(1.0, np.abs(w).max())
+        assert err <= TOL, (jax.tree_util.keystr(path), err)

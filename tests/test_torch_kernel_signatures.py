@@ -147,6 +147,8 @@ def c_parameter_names():
 #: launch arguments: (symbol, options)
 OPTION_ENTRY_POINTS = [
     ("flash_fwd", ("window",)),
+    ("flash_bwd_dq", ("window",)),
+    ("flash_bwd_dkv", ("window",)),
     ("decode_attn", ("window", "slopes")),
     ("decode_attn_int8", ("window", "slopes")),
     ("chunk_attn", ("window", "slopes")),

@@ -4,7 +4,8 @@ mesh, from the same fp32 params (``convert.from_jax_params``) and the same
 batches.  The JAX engine's global batch (micro 1 × dp 8) is the port's
 micro-batch of 8.  Tolerances: losses and final master params 1e-5
 (relative and absolute), gradients 1e-5; counters and the fp16 scaler's
-scale exactly.  Each JAX trajectory is built once per module.
+scale exactly.  Each JAX trajectory is built once per module.  The ``neo`` cases train
+TINY_GPT with GPT-Neo's banded local layers (window 4).
 
 The optimizer is bench.py's (Adam, lr 1e-4, weight decay 0.01).  Adam
 moves an element with a near-zero gradient by up to lr·Δg/eps, so the
@@ -36,6 +37,10 @@ port_flash = importlib.import_module(
 TOL = 1e-5
 SEQ = 16
 STEPS = 3
+#: the tiny GPT-Neo: TINY_GPT with GPT-Neo's attention (global and local
+#: layers in turn, window 4 < SEQ, unscaled softmax)
+NEO = {"local_attention_window": 4, "local_attention_alternating": True,
+       "attn_softmax_scale": 1.0}
 
 #: name -> (stage, gas, extra config, use train_batch_fused)
 CASES = {
@@ -47,7 +52,10 @@ CASES = {
                                "warmup_num_steps": 4, "warmup_max_lr": 1e-4,
                                "warmup_type": "linear"}}}, False),
     "fused_gas2": (0, 2, None, True),
+    "neo_fused": (1, 1, None, True),
 }
+#: the cases that train another model than TINY_GPT: its config fields
+CASE_MODEL = {"neo_fused": NEO}
 
 
 def _batches(gas, seed=1):
@@ -63,8 +71,9 @@ def _config(micro_batch, gas, stage, extra, **precision):
                        extra={**OPTIMIZER, **(extra or {})}, **precision)
 
 
-def _jax_engine(stage, gas, extra=None, dtype=jnp.float32, **precision):
-    model = tiny_model(dtype=dtype)
+def _jax_engine(stage, gas, extra=None, dtype=jnp.float32, model_fields=None,
+                **precision):
+    model = tiny_model(dtype=dtype, **(model_fields or {}))
     cfg = _config(1, gas, stage, extra, **precision)
     engine, *_ = deepspeed_tpu.initialize(
         model=model, config=cfg, mesh_manager=make_mesh(dp=8),
@@ -73,8 +82,9 @@ def _jax_engine(stage, gas, extra=None, dtype=jnp.float32, **precision):
 
 
 def _port_engine(master_np, stage, gas, extra=None, dtype=torch.float32,
-                 **precision):
-    cfg = convert.config_from_jax(TINY_GPT, dtype=dtype)
+                 model_fields=None, **precision):
+    cfg = convert.config_from_jax(
+        dataclasses.replace(TINY_GPT, **(model_fields or {})), dtype=dtype)
     spec = dataclasses.replace(
         from_gpt(cfg), params=convert.from_jax_params(master_np))
     engine, *_ = deepspeed_tpu_torch.initialize(
@@ -105,7 +115,8 @@ def trajectories():
     master params, counters and lr, built once."""
     out = {}
     for name, (stage, gas, extra, fused) in CASES.items():
-        engine = _jax_engine(stage, gas, extra)
+        engine = _jax_engine(stage, gas, extra,
+                             model_fields=CASE_MODEL.get(name))
         init = jax.device_get(engine.state["master"])
         losses = _run(engine, _batches(gas), gas, fused)
         out[name] = dict(init=init, losses=losses,
@@ -131,7 +142,8 @@ def _assert_tree_close(got, want, tol):
 def test_trajectory_matches_jax_engine(trajectories, case):
     stage, gas, extra, fused = CASES[case]
     ref = trajectories[case]
-    engine = _port_engine(ref["init"], stage, gas, extra)
+    engine = _port_engine(ref["init"], stage, gas, extra,
+                          model_fields=CASE_MODEL.get(case))
     losses = _run(engine, _batches(gas), gas, fused)
     np.testing.assert_allclose(losses, ref["losses"], rtol=TOL, atol=TOL)
     _assert_tree_close(convert.to_numpy_params(engine.state["master"]),
@@ -189,42 +201,63 @@ def _port_grads(cfg, master_np, batch, **overrides):
 
 @pytest.fixture(scope="module")
 def jax_grads():
-    params = jgpt.init(TINY_GPT, jax.random.PRNGKey(3))
-    batch = random_tokens(4, SEQ, seed=9)
-    loss, grads = jax.value_and_grad(
-        lambda p: jgpt.loss_fn(p, jax.tree_util.tree_map(jnp.asarray, batch),
-                               TINY_GPT))(params)
-    return jax.device_get(params), batch, float(loss), jax.device_get(grads)
+    """``get(model)``: the JAX ``loss_fn``'s params, batch, loss and
+    gradients of TINY_GPT (``"gpt2"``) or the tiny GPT-Neo (``"neo"``),
+    each built once."""
+    cache = {}
+
+    def get(model):
+        if model not in cache:
+            cfg = dataclasses.replace(TINY_GPT,
+                                      **(NEO if model == "neo" else {}))
+            params = jgpt.init(cfg, jax.random.PRNGKey(3))
+            batch = random_tokens(4, SEQ, seed=9)
+            loss, grads = jax.value_and_grad(
+                lambda p: jgpt.loss_fn(
+                    p, jax.tree_util.tree_map(jnp.asarray, batch), cfg))(
+                        params)
+            cache[model] = (cfg, jax.device_get(params), batch, float(loss),
+                            jax.device_get(grads))
+        return cache[model]
+    return get
 
 
-@pytest.mark.parametrize("overrides", [
-    {}, {"remat": True, "remat_policy": "nothing"},
-    {"remat": True, "remat_policy": "attn_out"}, {"loss_chunk": 4},
-    {"loss_chunk": 5}, {"remat": True, "remat_policy": "attn_out",
-                        "loss_chunk": 8}],
+@pytest.mark.parametrize("model,overrides", [
+    ("gpt2", {}), ("gpt2", {"remat": True, "remat_policy": "nothing"}),
+    ("gpt2", {"remat": True, "remat_policy": "attn_out"}),
+    ("gpt2", {"loss_chunk": 4}), ("gpt2", {"loss_chunk": 5}),
+    ("gpt2", {"remat": True, "remat_policy": "attn_out", "loss_chunk": 8}),
+    ("neo", {}), ("neo", {"remat": True, "remat_policy": "attn_out"})],
     ids=["plain", "remat_nothing", "remat_attn_out", "chunk4",
-         "chunk5_uneven", "remat_chunk8"])
-def test_loss_and_grads_match_jax(jax_grads, overrides):
+         "chunk5_uneven", "remat_chunk8", "neo", "neo_remat_attn_out"])
+def test_loss_and_grads_match_jax(jax_grads, model, overrides):
     """Remat on or off and the chunked head give the loss and gradients of
-    the JAX ``loss_fn`` (full logits, no remat)."""
-    master, batch, jloss, jgrads = jax_grads
-    cfg = convert.config_from_jax(TINY_GPT, dtype=torch.float32)
+    the JAX ``loss_fn`` (full logits, no remat); the tiny GPT-Neo's banded
+    layers take the window option of the flash backward."""
+    jcfg, master, batch, jloss, jgrads = jax_grads(model)
+    cfg = convert.config_from_jax(jcfg, dtype=torch.float32)
     loss, grads = _port_grads(cfg, master, batch, **overrides)
     np.testing.assert_allclose(loss, jloss, rtol=TOL, atol=TOL)
     _assert_tree_close(grads, jgrads, TOL)
 
 
-@pytest.mark.parametrize("policy,per_step", [("nothing", 2), ("attn_out", 1)])
-def test_remat_policy_forward_kernel_count(monkeypatch, policy, per_step):
+@pytest.mark.parametrize("policy,per_step,fields", [
+    pytest.param("nothing", 2, {}, id="nothing-2"),
+    pytest.param("attn_out", 1, {}, id="attn_out-1"),
+    pytest.param("attn_out", 1, NEO, id="neo-attn_out-1")])
+def test_remat_policy_forward_kernel_count(monkeypatch, policy, per_step,
+                                           fields):
     """``attn_out`` keeps O and lse, so the backward never re-runs the
     attention forward: n_layer forward calls per step, 2 × n_layer under
-    ``nothing``."""
+    ``nothing``; for GPT-Neo its banded layers included."""
     calls = []
     real = port_flash._forward
     monkeypatch.setattr(port_flash, "_forward",
                         lambda *a: calls.append(1) or real(*a))
-    cfg = dataclasses.replace(convert.config_from_jax(TINY_GPT, torch.float32),
-                              remat=True, remat_policy=policy)
+    cfg = dataclasses.replace(
+        convert.config_from_jax(dataclasses.replace(TINY_GPT, **fields),
+                                torch.float32),
+        remat=True, remat_policy=policy)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=from_gpt(cfg), config=base_config(micro_batch=4),
         device="cpu", generator=torch.Generator().manual_seed(0))
