@@ -10,6 +10,8 @@ imports JAX.  In order it
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
    reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128) of
    ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
+   ``flash_bwd_fused_tc`` (failing if it spills more than
+   ``flash_bwd_dkv_tc``),
    ``chunk_attn_tc`` (also over the int8 cache), ``block_sparse_fwd_tc``,
    ``block_sparse_bwd_dq_tc`` and ``block_sparse_bwd_dkv_tc`` with its
    registers and spill stores (``[ptxas]``, failing if a bf16 D64 one
@@ -77,14 +79,24 @@ imports JAX.  In order it
    of each bitwise equal), then ``[option sweep]``: every window of
    ``SWEEP_WINDOWS`` at the tile-edge lengths and two Sq < Sk shapes for
    the flash forward and both backward kernels, slopes at 6 and 16
-   heads, every dtype and head dim, bf16 and int8 caches;
+   heads, every dtype and head dim, bf16 and int8 caches; and the fused
+   backward ``flash_bwd_fused`` at GPT-2 350M's step (B16 S1024 H16 D64),
+   GPT-Neo 1.3B's global and local layers (B8 S2048 H16 D128, window 256),
+   the dense comparison's B4 S4096 and BERT-large's B64 S128 ragged
+   ``kv_lens`` (20 launches bitwise equal at GPT-2's shape, two
+   elsewhere; the pair's dq + dkv and SDPA's backward timed beside it; at
+   most ``FUSED_BWD_RATIO`` of the pair's time at the first three), then
+   ``[fused sweep]``: ``BWD_SWEEP``, the option sweep's windows, key
+   lengths at Sk 300 and causal rows without keys, every dtype and head
+   dim;
 3. checks a tiny fp32 model end to end on the card against the same model
    on the host (plain kernels): equal greedy tokens, logits within 1e-3,
    and again with int8 weights and an int8 cache;
    and trains it 5 steps through ``initialize`` on both, dense GPT, GPT
    under a block-sparse layout, BERT MLM under LAMB and GPT-Neo's
    attention with a window of 40 at seq 97: losses within 1e-5
-   relative, master params within 1e-4, and two card runs bitwise equal;
+   relative, master params within 1e-4, and two card runs bitwise equal
+   (the backward on the fused kernel, the pair never launched);
    and serves an SD-1.5-shaped tiny UNet and VAE in fp32 from diffusers
    state dicts, a guided 2-step DDIM image on both within 1e-4 of its
    largest value, two card runs bitwise equal;
@@ -119,23 +131,32 @@ imports JAX.  In order it
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
    ``initialize`` → ``train_batch_fused``, 2 warm-up and 10 timed steps on
-   one batch; reads the counts; checks the card's bf16 loss of one row
-   against the host's fp32 loss, finite and falling losses; reports step
-   time, tokens/s, MFU and peak memory, and profiles 2 steps;
+   one batch; reads the counts (``flash_bwd_fused`` 24 per step, the pair
+   0); checks the card's bf16 loss of one row against the host's fp32
+   loss, finite and falling losses; reports step time, tokens/s, MFU and
+   peak memory, and profiles 2 steps, beside the same path's numbers
+   with the two-kernel backward;
 6b. the same for GPT-Neo 1.3B (published widths, random weights) at its
-   context of 2048, micro-batch 8: exact launches per step (the flash trio
-   24 each, its window option 12 each, Adam 1), the row at seq 1024 held
+   context of 2048, micro-batch 8: exact launches per step (``flash_fwd``
+   and ``flash_bwd_fused`` 24 each, their window option 12 each, the pair
+   0, Adam 1), the row at seq 1024 held
    to 0.02 or to ``FAMILY_SENSITIVITY`` times its error with every layer
    global, MFU beside the live band's attention FLOPs;
 7. the same for the sparse training path: the same model at seq 4096
    under the Fixed block-sparse layout (block 64), micro-batch 4, with the
    live-pair attention FLOPs beside MFU; then a few steps of that model
-   with dense causal flash, for comparison;
+   with dense causal flash, for comparison (its backward on the fused
+   kernel: seq 4096 is four key blocks of 1024);
 8. the same for the BERT slice: BERT-large MLM at seq 128 (bf16, remat,
    the flash trio with per-row key lengths) under the BERT tutorial's LAMB
    (lr 11e-3, clip 1.0), micro-batch 64 of right-padded rows, with step
    time, live and padded tokens/s, MFU, peak memory, launches per step
-   (48/24/24 flash, 1 and 1 LAMB, 0 Adam) and a profile of 2 steps;
+   (48 ``flash_fwd``, 24 ``flash_bwd_fused``, the pair 0, 1 and 1 LAMB,
+   0 Adam) and a profile of 2 steps;
+8b. with every launch count at 0, one step of a tiny-width GPT (2
+   layers, d 128, GPT-Neo's alternating window) at seq 5120, past the
+   fused rule: the backward takes the pair, 2 + 2 launches (1 + 1 with
+   the window), ``flash_bwd_fused`` none;
 9. with every launch count at 0, drives the diffusion serving path at
    full width: Stable Diffusion 1.5 (published widths, random weights from
    a seed, bf16) through ``init_inference`` on diffusers-named state
@@ -155,7 +176,7 @@ imports JAX.  In order it
    are held in the check phase only and say so; ``bf16_fp16_kernel``
    names the tensor-core kernel a wrapper launches on bf16 and fp16
    tensors: ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
-   ``chunk_attn_tc``, ``block_sparse_fwd_tc``, ``block_sparse_bwd_dq_tc``,
+   ``flash_bwd_fused_tc``, ``chunk_attn_tc``, ``block_sparse_fwd_tc``, ``block_sparse_bwd_dq_tc``,
    ``block_sparse_bwd_dkv_tc``), then ``{"ok": true, "device": ...}``
    last.
 
@@ -242,6 +263,8 @@ SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
                             "deepspeed_tpu/ops/pallas/flash_attention.py:246"),
            "flash_bwd_dkv": ("deepspeed_tpu_torch/csrc/flash_bwd_dkv.cu",
                              "deepspeed_tpu/ops/pallas/flash_attention.py:304"),
+           "flash_bwd_fused": ("deepspeed_tpu_torch/csrc/flash_bwd_fused.cu",
+                               "deepspeed_tpu/ops/pallas/flash_attention.py:304"),
            "fused_adam": ("deepspeed_tpu_torch/csrc/fused_adam.cu",
                           "deepspeed_tpu/ops/pallas/fused_adam.py:29"),
            "block_sparse_fwd": (
@@ -291,19 +314,22 @@ def log(msg: str) -> None:
 #: int8-cache instantiation ("bf16 int8", "fp16 int8") per dtype and D,
 #: the flash trio a banded one ("bf16 band", "fp16 band")
 TC_SOURCES = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
-              "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
+              "flash_bwd_dq": "flash_bwd_dq_tc",
+              "flash_bwd_fused": "flash_bwd_fused_tc", "chunk_attn": "chunk_attn_tc",
               "block_sparse_fwd": "block_sparse_fwd_tc",
               "block_sparse_bwd_dq": "block_sparse_bwd_dq_tc",
               "block_sparse_bwd_dkv": "block_sparse_bwd_dkv_tc"}
 TC_TYPES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
 #: what the bool template parameter of a tensor-core kernel selects
 TC_BOOL = {"chunk_attn_tc": " int8", "flash_fwd_tc": " band",
-           "flash_bwd_dq_tc": " band", "flash_bwd_dkv_tc": " band"}
+           "flash_bwd_dq_tc": " band", "flash_bwd_dkv_tc": " band",
+           "flash_bwd_fused_tc": " band"}
 #: the kernel each wrapper launches on bf16 and fp16 tensors, for the
 #: kernels line
 TC_ENTRY = {"flash_fwd": "flash_fwd_tc", "flash_bwd_dkv": "flash_bwd_dkv_tc",
             "decode_attn": "decode_attn_mma (mma.sync)",
-            "flash_bwd_dq": "flash_bwd_dq_tc", "chunk_attn": "chunk_attn_tc",
+            "flash_bwd_dq": "flash_bwd_dq_tc",
+            "flash_bwd_fused": "flash_bwd_fused_tc", "chunk_attn": "chunk_attn_tc",
             "chunk_attn_int8": "chunk_attn_tc (int8 cache)",
             "block_sparse_fwd": "block_sparse_fwd_tc",
             "block_sparse_bwd_dq": "block_sparse_bwd_dq_tc",
@@ -361,6 +387,17 @@ def check_ptxas_tc():
                                  "unbanded instantiation, or was not built")
     log("[ptxas] every banded instantiation spills no more than its "
         "unbanded one")
+    for dt in TC_TYPES.values():
+        for suffix in ("", " band"):
+            for D in HEAD_DIMS:
+                fused = rows.get(("flash_bwd_fused_tc", dt + suffix, D), (0, 1 << 30))
+                pair = rows.get(("flash_bwd_dkv_tc", dt + suffix, D), (0, -1))
+                if fused[1] > pair[1]:
+                    raise AssertionError(
+                        f"flash_bwd_fused_tc {dt}{suffix} D{D} spills "
+                        f"{fused[1]} bytes, flash_bwd_dkv_tc {pair[1]}")
+    log("[ptxas] flash_bwd_fused_tc spills no more than flash_bwd_dkv_tc at "
+        "each dtype, D and band")
     return {f"{k}<{dt},{D}>": {"registers": r, "spill_stores": sp}
             for (k, dt, D), (r, sp) in rows.items()}
 
@@ -1797,6 +1834,240 @@ def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
                           for a, r in zip((dq, dk, dv), ref)))
 
 
+# ----------------------------------------------- the fused backward
+
+#: ``flash_bwd_fused`` may take at most this share of the pair's time
+#: (``flash_bwd_dq`` + ``flash_bwd_dkv``) at the shapes where it replaces
+#: the pair on a main path: GPT-2 350M's step and GPT-Neo 1.3B's global
+#: and local layers
+FUSED_BWD_RATIO = 1.0
+#: its check shapes (B, S, H, D, causal, window, ragged kv_lens, gated by
+#: FUSED_BWD_RATIO): GPT-2 350M's step, GPT-Neo 1.3B's global and local
+#: layers, the dense comparison at seq 4096, BERT-large's ragged batch
+FUSED_BWD_SHAPES = ((16, 1024, 16, 64, True, None, False, True),
+                    (8, 2048, 16, 128, True, None, False, True),
+                    (8, 2048, 16, 128, True, OPTION_WINDOW, False, True),
+                    (4, 4096, 16, 64, True, None, False, False),
+                    (64, 128, 16, 64, False, None, True, False))
+#: launches held bitwise equal at GPT-2 350M's shape (two elsewhere)
+FUSED_REPEATS = 20
+
+
+def _plain_bwd_rows(q, k, v, o, lse, do, causal, scale, lens, window):
+    """The fp32 plain backward, one batch row at a time (one row's fp32
+    scores at S 4096 H 16 are 1 GiB)."""
+    rows = [flash_attention_backward_reference(
+        q[i:i + 1].float(), k[i:i + 1].float(), v[i:i + 1].float(),
+        o[i:i + 1].float(), lse[i:i + 1], do[i:i + 1].float(), causal, scale,
+        None if lens is None else lens[i:i + 1], window)
+        for i in range(q.shape[0])]
+    return [torch.cat(parts) for parts in zip(*rows)]
+
+
+def _sm_clock_hz():
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
+    """``flash_bwd_fused`` at one of ``FUSED_BWD_SHAPES`` against the fp32
+    plain backward, from bf16 q, k, v (views of [B, S, 3, H, D]), dO and
+    the forward kernel's O and lse; ``FUSED_REPEATS`` launches bitwise
+    equal at GPT-2's shape, two elsewhere; the padding keys' dk and dv
+    exactly 0 under ``kv_lens``.  Times the pair (``flash_bwd_dq`` +
+    ``flash_bwd_dkv``) on the same inputs, in turns with the fused kernel,
+    and SDPA's backward (causal, the band as a float mask, or the
+    key-padding mask) as the library yardstick; with ``gated``, fails
+    unless the fused kernel takes at most ``FUSED_BWD_RATIO`` of the
+    pair's time.  One launch sums the cycles its
+    CTAs waited for their turn in the ordered dq sum; their share of the
+    kernel's SM-cycles (SMs x top clock x kernel time) is reported.  Plain
+    ms is the whole plain backward, row by row."""
+    gen = torch.Generator(device="cuda").manual_seed(11 * B + S + (window or 0))
+    scale = 1.0 / math.sqrt(D)
+    lens = None
+    if ragged:
+        lens = torch.as_tensor(bert_seq_lens(B, S, np.random.default_rng(0)),
+                               dtype=torch.int32, device="cuda")
+    n = max(2, min(8, (120 << 20) // (4 * B * S * H * D * 2)))
+    sets = []
+    for q, k, v in _qkv_views(n, B, S, H, D, gen):
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda",
+                         dtype=torch.float32).to(torch.bfloat16)
+        o, lse = kernels.flash_fwd(q, k, v, causal, scale, lens, window)
+        sets.append((q, k, v, do, o, lse, aligned_do_and_delta(do, o)[1]))
+    q, k, v, do, o, lse, delta = sets[0]
+    kw = {"kv_lens": lens, "window": window}
+    bwd = (q, k, v, do, lse, delta, causal, scale)
+    wait = torch.zeros(1, dtype=torch.int64, device="cuda")
+    grads = kernels.flash_bwd_fused(*bwd, wait_cycles=wait, **kw)
+    repeats = FUSED_REPEATS if (B, S, D) == (16, 1024, 64) else 2
+    same = all(all(torch.equal(a, b) for a, b in zip(
+        grads, kernels.flash_bwd_fused(*bwd, **kw))) for _ in range(repeats - 1))
+    ref = _plain_bwd_rows(q, k, v, o, lse, do, causal, scale, lens, window)
+    ACCEL.synchronize()
+    errs = [(a.float() - r).abs().max().item() for a, r in zip(grads, ref)]
+    tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
+    del ref
+    pad_zero = True
+    if ragged:
+        pad = torch.arange(S, device="cuda")[None, :] >= lens[:, None]
+        pad_zero = not (grads[1][pad].any() or grads[2][pad].any())
+    shape = (f"B{B} S{S} H{H} D{D} bf16 "
+             + ("causal" if causal else "non-causal")
+             + (f" window {window}" if window else "")
+             + (", ragged kv_lens" if ragged else ""))
+    log(f"[flash_bwd_fused repeat] {shape}: {repeats} launches bitwise equal "
+        f"{same}" + (f"; padding keys' dk and dv exactly 0 {pad_zero}"
+                     if ragged else ""))
+    if not (same and pad_zero):
+        raise AssertionError(f"flash_bwd_fused {shape}: launches differ, or "
+                             "padding keys' gradients are not 0")
+
+    def run(fn, i):
+        q_, k_, v_, do_, _, lse_, delta_ = sets[i % n]
+        return fn(q_, k_, v_, do_, lse_, delta_, causal, scale, **kw)
+
+    # in turns (fused, pair, pair, fused), each the mean of its two turns,
+    # so that both see the card in the same state
+    turns = {"fused": [], "dq": [], "dkv": []}
+    for order in (("fused", "pair"), ("pair", "fused")):
+        for which in order:
+            if which == "fused":
+                turns["fused"].append(time_ms(lambda i: run(kernels.flash_bwd_fused, i), 10))
+            else:
+                turns["dq"].append(time_ms(lambda i: run(kernels.flash_bwd_dq, i), 10))
+                turns["dkv"].append(time_ms(lambda i: run(kernels.flash_bwd_dkv, i), 10))
+    ms, ms_dq, ms_dkv = (sum(turns[k]) / 2 for k in ("fused", "dq", "dkv"))
+    plain_ms = eager_ms(lambda: _plain_bwd_rows(q, k, v, o, lse, do, causal,
+                                                scale, lens, window), 1,
+                        warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    if window:
+        out = sdpa(*leaves, attn_mask=_option_mask(
+            torch.arange(S, device="cuda")[None], S, torch.bfloat16, window))
+    elif ragged:
+        out = sdpa(*leaves, attn_mask=(torch.arange(S, device="cuda")[None, :]
+                                       < lens[:, None])[:, None, None, :])
+    else:
+        out = sdpa(*leaves, is_causal=causal)
+    lib_ms = eager_ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                  retain_graph=True), 5)
+    del out, leaves
+    elem = B * S * H * D * 2                          # one bf16 [B, S, H, D]
+    stats = 2 * B * H * S * 4                         # lse and delta, fp32
+    if ragged:
+        live = int(lens.sum().item())
+        pairs = H * S * live                          # every row sees its row's keys
+        nbytes = 5 * elem + 2 * live * H * D * 2 + stats
+    else:
+        per_row = [min(i + 1, window) for i in range(S)] if window else \
+            (range(1, S + 1) if causal else [S] * S)
+        pairs = B * H * sum(per_row)
+        nbytes = 7 * elem + stats
+    name = "flash_bwd_fused[window]" if window else "flash_bwd_fused"
+    row = _report(name, shape, max(errs), min(tols), ms, plain_ms, lib_ms,
+                  nbytes, 10 * D * pairs)
+    pair = ms_dq + ms_dkv
+    share = wait.item() / (torch.cuda.get_device_properties(0).multi_processor_count
+                           * _sm_clock_hz() * ms * 1e-3)
+    row.update(pair_ms=pair, pair_dq_ms=ms_dq, pair_dkv_ms=ms_dkv,
+               vs_pair=ms / pair, errs_dq_dk_dv=errs, tols_dq_dk_dv=tols,
+               wait_cycles=wait.item(), wait_share=share, pairs=pairs,
+               bitwise_repeats=repeats)
+    log(f"[{name}] {shape}: {ms:.4f} ms against the pair's {ms_dq:.4f} + "
+        f"{ms_dkv:.4f} = {pair:.4f} ms ({ms / pair:.3f}x"
+        + (f"; at most {FUSED_BWD_RATIO}x)" if gated else "; reported)")
+        + f"; dq, dk, dv errs {[f'{e:.3e}' for e in errs]}; the ordered dq sum "
+        f"waited {wait.item()} cycles in all CTAs, {share:.4f} of the "
+        f"kernel's SM-cycles")
+    if gated and not ms <= FUSED_BWD_RATIO * pair:
+        raise AssertionError(f"{name} {shape}: {ms} ms > {FUSED_BWD_RATIO} x "
+                             f"the pair's {pair} ms")
+    return row
+
+
+#: the fused sweep's key lengths at Sk 300: one key, one short of, on and
+#: one past the 128-key tile, and every key
+FUSED_SWEEP_LENS = (1, 127, 128, 129, 300)
+
+
+def check_bwd_fused_sweep(B=2, H=3):
+    """``flash_bwd_fused`` at every dtype and head dim it is built for:
+    ``BWD_SWEEP``'s shapes, the option sweep's windows (``SWEEP_WINDOWS``,
+    None: Sk + 5) at ``OPTION_FLASH_S`` and ``OPTION_FLASH_CROSS``, key
+    lengths ``FUSED_SWEEP_LENS`` at Sk 300 (Sq 300 and 77, causal and not),
+    and causal Sq 300 over Sk 129, whose first 171 rows (q-tiles no key
+    tile walks) see no key, with and without a window of 65; against the
+    fp32 plain backward from the forward kernel's O and lse, within
+    ``SWEEP_TOL``, rows without keys exactly 0, padding keys' dk and dv
+    exactly 0, two launches bitwise equal.  Returns the worst relative
+    error per (dtype, D)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases = ([(Sq, Sk, c, None, False) for Sq, Sk, c in BWD_SWEEP]
+             + [(S, S, True, w or S + 5, False) for S in OPTION_FLASH_S
+                for w in SWEEP_WINDOWS]
+             + [(Sq, Sk, True, w or Sk + 5, False)
+                for Sq, Sk in OPTION_FLASH_CROSS for w in SWEEP_WINDOWS]
+             + [(Sq, 300, c, None, True) for Sq in (300, 77)
+                for c in (False, True)]
+             + [(300, 129, True, None, False), (300, 129, True, 65, False)])
+    worst = {}
+    for dt, tol in SWEEP_TOL.items():
+        for D in HEAD_DIMS:
+            rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                             device="cuda").to(dt)
+            scale = 1.0 / math.sqrt(D)
+            err = 0.0
+            for Sq, Sk, causal, window, ragged in cases:
+                # a row per key length under kv_lens
+                Bc = len(FUSED_SWEEP_LENS) if ragged else B
+                q, do = rnd(Bc, Sq, H, D), rnd(Bc, Sq, H, D)
+                k, v = rnd(Bc, Sk, H, D), rnd(Bc, Sk, H, D)
+                lens = torch.tensor(FUSED_SWEEP_LENS, dtype=torch.int32,
+                                    device="cuda") if ragged else None
+                o, lse = kernels.flash_fwd(q, k, v, causal, scale, lens, window)
+                do_, delta = aligned_do_and_delta(do, o)
+                bwd = (q, k, v, do_, lse, delta, causal, scale)
+                kw = {"kv_lens": lens, "window": window}
+                grads = kernels.flash_bwd_fused(*bwd, **kw)
+                again = kernels.flash_bwd_fused(*bwd, **kw)
+                ref = flash_attention_backward_reference(
+                    q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                    causal, scale, lens, window)
+                tag = f"{str(dt)[6:]} D{D} Sq{Sq} Sk{Sk} causal {causal} " \
+                      f"window {window} kv_lens {ragged}"
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f"fused sweep {tag}: launches differ")
+                if not all(torch.isfinite(g).all() for g in grads):
+                    raise AssertionError(f"fused sweep {tag}: non-finite")
+                if causal and Sq > Sk and grads[0][:, :Sq - Sk].any():
+                    raise AssertionError(f"fused sweep {tag}: a row with no "
+                                         "key has dq != 0")
+                if ragged:
+                    pad = torch.arange(Sk, device="cuda")[None, :] >= lens[:, None]
+                    if grads[1][pad].any() or grads[2][pad].any():
+                        raise AssertionError(f"fused sweep {tag}: padding "
+                                             "keys' dk/dv != 0")
+                err = max(err, *(((g.float() - r).abs().max()
+                                  / r.abs().max().clamp(min=1.0)).item()
+                                 for g, r in zip(grads, ref)))
+            worst[f"{str(dt)[6:]} D{D}"] = err
+            log(f"[fused sweep] {str(dt)[6:]} D{D}: {len(cases)} cases "
+                f"(BWD_SWEEP, windows {SWEEP_WINDOWS} at S {OPTION_FLASH_S} "
+                f"and {OPTION_FLASH_CROSS}, kv_lens {FUSED_SWEEP_LENS} at Sk "
+                f"300, causal Sq 300 Sk 129): worst relative err {err:.3e} "
+                f"(tol {tol:.0e}), two launches bitwise equal, rows without "
+                f"keys and padding keys zero")
+            if not err <= tol:
+                raise AssertionError(f"fused sweep {dt} D{D}: err {err}")
+    return worst
+
+
 # ------------------------------------------------------- block-sparse
 
 def fixed_layout_config(heads=16, block=64):
@@ -2459,7 +2730,8 @@ def run_family(model, cfg, seed, option):
 
 
 #: the flash trio's kernels, by a substring of their names in a profile
-FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc")
+FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc",
+                 "flash_bwd_fused_tc")
 #: the block-sparse trio as the sparse step's profile names them
 SPARSE_KERNELS = ("block_sparse_fwd_tc", "block_sparse_bwd_dq_tc",
                   "block_sparse_bwd_dkv_tc")
@@ -2714,7 +2986,14 @@ def check_tiny_training(sparse=False, bert_model=False, neo=False):
         seq = 129 if sparse else 97
         batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, seq))}
                    for _ in range(5)]
+    before = kernels.launch_counts()
     dev_losses, dev_master = _train_tiny(spec, batches, "cuda", optimizer)
+    took = {k: kernels.launch_counts()[k] - before[k]
+            for k in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
+    if not sparse and not (took["flash_bwd_fused"] > 0
+                           and took["flash_bwd_dq"] == took["flash_bwd_dkv"] == 0):
+        raise AssertionError(f"tiny training: the backward did not take the "
+                             f"fused form: {took}")
     host_losses, host_master = _train_tiny(spec, batches, "cpu", optimizer)
     again_losses, again_master = _train_tiny(spec, batches, "cuda", optimizer)
     loss_rel = ((dev_losses - host_losses).abs() / host_losses.abs()).max().item()
@@ -2724,6 +3003,7 @@ def check_tiny_training(sparse=False, bert_model=False, neo=False):
     label = ("tiny train bert lamb" if bert_model else
              "tiny train sparse" if sparse else
              "tiny train neo" if neo else "tiny train")
+    log(f"[{label}] backward launches on the card {took}")
     log(f"[{label}] fp32, 5 steps, card vs host: losses "
         f"{dev_losses.tolist()} vs {host_losses.tolist()}, max relative "
         f"loss err {loss_rel:.3e} (tol 1e-5), master max_abs_err "
@@ -2744,13 +3024,15 @@ SPARSE_SEQ = 4096
 
 def run_training(warmup=2, steps=10):
     """Phase 6: the full-width training path at bench.py's configuration;
-    every launch count is reset before it and read after it.  Returns
-    (results, counts, engine, batch)."""
+    every launch count is reset before it and read after it: each step
+    launches ``flash_bwd_fused`` on every layer (seq 1024 is one key block
+    of 1024) and the pair never.  Returns (results, counts, engine,
+    batch)."""
     cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
                               dtype=torch.bfloat16, remat=True,
                               remat_policy="attn_out")
-    want = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
-            "flash_bwd_dkv": cfg.n_layer, "fused_adam": 1}
+    want = {"flash_fwd": cfg.n_layer, "flash_bwd_fused": cfg.n_layer,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "fused_adam": 1}
     return _train_full_width("train", "GPT-2 350M", cfg, TRAIN_MICRO_BATCH,
                              want, warmup, steps, row_seq=cfg.max_seq_len)
 
@@ -2764,18 +3046,18 @@ def run_neo_training(warmup=2, steps=10):
     """The GPT-Neo 1.3B training path: its published widths at seq 2048
     (bf16, remat ``attn_out``, random weights from a seed) under the GPT
     step's optimizer (Adam lr 1e-4 wd 0.01, ZeRO 1, gas 1), micro-batch 8;
-    counts reset before and read after.  Each step launches the causal
-    flash trio on the 12 even (global) layers and its window option on the
-    12 odd (local) ones.  The one-row bf16-vs-fp32 host check runs at seq
+    counts reset before and read after.  Each step launches ``flash_fwd``
+    and ``flash_bwd_fused`` causal on the 12 even (global) layers and with
+    their window option on the 12 odd (local) ones.  The one-row bf16-vs-fp32 host check runs at seq
     1024, past the window; MFU uses the JAX package's count, and the
     attention FLOPs of the live band are reported beside it."""
     cfg = dataclasses.replace(GPT_NEO_1_3B, max_seq_len=2048,
                               dtype=torch.bfloat16, remat=True,
                               remat_policy="attn_out")
     L, n_band = cfg.n_layer, cfg.n_layer // 2
-    want = {"flash_fwd": L, "flash_fwd[window]": n_band, "flash_bwd_dq": L,
-            "flash_bwd_dq[window]": n_band, "flash_bwd_dkv": L,
-            "flash_bwd_dkv[window]": n_band, "fused_adam": 1}
+    want = {"flash_fwd": L, "flash_fwd[window]": n_band, "flash_bwd_fused": L,
+            "flash_bwd_fused[window]": n_band, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "fused_adam": 1}
     res, counts, engine, batch = _train_full_width(
         "neo train", "GPT-Neo 1.3B", cfg, NEO_MICRO_BATCH, want, warmup,
         steps, row_seq=1024)
@@ -2815,7 +3097,8 @@ def run_sparse_training(warmup=2, steps=10):
                               sparse_attention=fixed_layout_config())
     want = {"block_sparse_fwd": cfg.n_layer, "block_sparse_bwd_dq": cfg.n_layer,
             "block_sparse_bwd_dkv": cfg.n_layer, "fused_adam": 1,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": 0}
     res, counts, engine, batch = _train_full_width(
         "sparse train", "GPT-2 350M", cfg, SPARSE_MICRO_BATCH, want, warmup,
         steps, row_seq=1024)
@@ -2842,7 +3125,8 @@ def run_sparse_training(warmup=2, steps=10):
 def run_dense_at_sparse_shape(warmup=1, steps=3):
     """The same model, seq and micro-batch with dense causal flash: what
     the sparse layout buys end to end.  Not a main path; its launches are
-    not counted."""
+    not counted, but each step must take the fused backward on every
+    layer (seq 4096 is the longest that does)."""
     cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=SPARSE_SEQ,
                               dtype=torch.bfloat16, remat=True,
                               remat_policy="attn_out")
@@ -2853,7 +3137,16 @@ def run_dense_at_sparse_shape(warmup=1, steps=3):
         generator=torch.Generator(device="cuda").manual_seed(2024))
     batch = {"tokens": np.random.default_rng(0).integers(
         0, cfg.vocab_size, (SPARSE_MICRO_BATCH, cfg.max_seq_len + 1))}
+    before = kernels.launch_counts()
     losses, times = _timed_steps(engine, batch, warmup, steps)
+    took = {k: (kernels.launch_counts()[k] - before[k]) / (warmup + steps)
+            for k in ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"[dense train] backward launches per step {took} (seq 4096: four "
+        f"key blocks of 1024, the fused form)")
+    if took != {"flash_bwd_fused": cfg.n_layer, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}:
+        raise AssertionError(f"dense train at seq 4096: backward launches "
+                             f"per step {took}")
     res = {"step_ms_p50": 1e3 * pct(times, 50),
            "step_ms_mean": 1e3 * sum(times) / len(times),
            "tokens_per_s": SPARSE_MICRO_BATCH * SPARSE_SEQ * len(times)
@@ -2955,14 +3248,78 @@ def run_bert_training(warmup=2, steps=10):
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bert train: losses not finite and falling: "
                              f"{losses}")
-    want = {"flash_fwd": 2 * cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
-            "flash_bwd_dkv": cfg.n_layer, "fused_lamb_phase1": 1,
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_bwd_fused": cfg.n_layer,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "fused_lamb_phase1": 1,
             "fused_lamb_phase2": 1, "fused_adam": 0, "block_sparse_fwd": 0}
     wrong = {k: counts[k] for k, n in want.items() if counts[k] != n * n_steps}
     if wrong:
         raise AssertionError(f"bert train: launches per step off {want}: "
                              f"{wrong} over {n_steps} steps")
     return res, counts, engine, batch
+
+
+#: the route check's sequence: five key blocks of 1024, past
+#: MAX_FUSED_BWD_NK, where the JAX package takes the two-kernel backward
+ROUTE_SEQ = 5120
+
+
+def run_route_check():
+    """One step of a tiny-width GPT (2 layers, d 128, 2 heads of 64, GPT-Neo's
+    alternating window 256, bf16, remat ``attn_out``) at seq 5120,
+    micro-batch 1, through ``initialize`` → ``train_batch_fused``, counts
+    reset before and read after: past four key blocks of 1024 the backward
+    takes the pair, ``flash_bwd_dq`` and ``flash_bwd_dkv`` once a layer (the
+    local layer's with the window), and ``flash_bwd_fused`` never.  Returns
+    (results, counts)."""
+    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=ROUTE_SEQ, n_layer=2,
+                        n_head=2, d_model=128, dtype=torch.bfloat16,
+                        remat=True, remat_policy="attn_out",
+                        local_attention_window=OPTION_WINDOW,
+                        local_attention_alternating=True)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=from_gpt(cfg),
+        config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": 1},
+        generator=torch.Generator(device="cuda").manual_seed(77))
+    batch = {"tokens": np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, ROUTE_SEQ + 1))}
+    kernels.reset_launch_counts()
+    loss = float(engine.train_batch_fused(batch))
+    ACCEL.synchronize()
+    counts = kernels.launch_counts()
+    want = {"flash_fwd": 2, "flash_fwd[window]": 1, "flash_bwd_dq": 2,
+            "flash_bwd_dkv": 2, "flash_bwd_dq[window]": 1,
+            "flash_bwd_dkv[window]": 1, "flash_bwd_fused": 0, "fused_adam": 1}
+    got = {k: counts[k] for k in want}
+    log(f"[route] tiny GPT (2 layers, d 128, window 256 on the odd layer) at "
+        f"seq {ROUTE_SEQ}, one step: loss {loss:.4f}, launches {got} "
+        f"(want {want})")
+    if got != want or not math.isfinite(loss):
+        raise AssertionError(f"route check at seq {ROUTE_SEQ}: launches {got}, "
+                             f"loss {loss}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"seq": ROUTE_SEQ, "loss": loss, "launches": got}, counts
+
+
+#: the full-width training paths' numbers when their backward ran the
+#: two-kernel pair (this script on an NVIDIA H100 80GB HBM3 at 700.00 W),
+#: printed beside this run's: step ms p50, step ms mean, MFU, peak GiB,
+#: busy share
+PAIR_BACKWARD_TRAINING = {"train": (242.79, 242.85, 0.1658, 24.00, 0.960),
+                 "neo train": (567.04, 567.17, 0.2659, 41.83, 0.983),
+                 "bert train": (158.78, 158.01, 0.1076, 11.87, 0.472)}
+
+
+def vs_pair_backward(label, res, profile):
+    """Log a training path's step ms p50 and mean, MFU, peak memory and
+    busy share beside ``PAIR_BACKWARD_TRAINING``'s."""
+    now = (res["step_ms_p50"], res["step_ms_mean"], res["mfu"],
+           res["max_memory_allocated_gib"], profile["device_busy_share"])
+    old = PAIR_BACKWARD_TRAINING[label]
+    names = ("step_ms p50", "step_ms mean", "MFU", "peak GiB", "busy share")
+    log(f"[{label} vs the pair backward] " + ", ".join(
+        f"{k} {a:.4f} (pair {b}, {a / b:.4f}x)" for k, a, b in zip(names, now, old)))
+    return dict(zip(names, now))
 
 
 def _timed_steps(engine, batch, warmup, steps):
@@ -3592,6 +3949,7 @@ def main() -> int:
               check_chunk(640, int8=True), *check_spatial(),
               *check_bias_gelu(), check_flash_window(),
               *check_flash_bwd_window(),
+              *[check_flash_bwd_fused(*shape) for shape in FUSED_BWD_SHAPES],
               *[check_decode_option(opt, int8) for opt in ("window", "alibi")
                 for int8 in (False, True)],
               *[check_chunk_option(opt, int8) for opt in ("window", "alibi")
@@ -3604,6 +3962,7 @@ def main() -> int:
     result["sparse_sweep_worst_rel_err"] = check_sparse_sweep()
     result["kv_lens_sweep_worst_rel_err"] = check_kv_lens_sweep()
     result["option_sweep_worst_rel_err"] = check_option_sweep()
+    result["fused_sweep_worst_rel_err"] = check_bwd_fused_sweep()
     check_tiny_end_to_end()
     check_tiny_int8()
     result["tiny_training"] = check_tiny_training()
@@ -3661,6 +4020,8 @@ def main() -> int:
     result["training_profile"] = device_profile(
         "train 2 steps", lambda: [trainer.train_batch_fused(batch)
                                   for _ in range(2)], FLASH_KERNELS)
+    result["training_vs_pair_backward"] = vs_pair_backward(
+        "train", result["training"], result["training_profile"])
     del trainer
     torch.cuda.empty_cache()
 
@@ -3670,6 +4031,8 @@ def main() -> int:
     result["neo_training_profile"] = device_profile(
         "neo train 2 steps", lambda: [trainer.train_batch_fused(batch)
                                       for _ in range(2)], FLASH_KERNELS)
+    result["neo_training_vs_pair_backward"] = vs_pair_backward(
+        "neo train", result["neo_training"], result["neo_training_profile"])
     del trainer
     torch.cuda.empty_cache()
 
@@ -3690,8 +4053,14 @@ def main() -> int:
     result["bert_training_profile"] = device_profile(
         "bert train 2 steps", lambda: [trainer.train_batch_fused(batch)
                                        for _ in range(2)], FLASH_KERNELS)
+    result["bert_training_vs_pair_backward"] = vs_pair_backward(
+        "bert train", result["bert_training"], result["bert_training_profile"])
     del trainer
     torch.cuda.empty_cache()
+
+    result["route_check"], route_counts = run_route_check()
+    result["launches"]["route_check"] = route_counts
+    counts = {k: counts[k] + route_counts[k] for k in counts}
 
     result["diffusion"], diffusion_counts = run_diffusion()
     result["launches"]["diffusion"] = diffusion_counts
@@ -3728,7 +4097,8 @@ def main() -> int:
         f"serving {int8_counts}, GPT-Neo {result['launches']['gpt_neo']}, "
         f"BLOOM {result['launches']['bloom']}, training {train_counts}, "
         f"GPT-Neo training {neo_counts}, sparse training "
-        f"{sparse_counts}, bert training {bert_counts}, diffusion "
+        f"{sparse_counts}, bert training {bert_counts}, route check at seq "
+        f"{ROUTE_SEQ} {route_counts}, diffusion "
         f"{diffusion_counts}, bias-GeLU op {op_counts}")
     missing = [k for k, n in counts.items() if n <= 0 and k not in CHECK_ONLY]
     if missing:

@@ -1,7 +1,8 @@
 // Hopper building blocks of the tensor-core attention kernels
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, chunk_attn.cu,
-// block_sparse_fwd.cu, block_sparse_bwd_dq.cu, block_sparse_bwd_dkv.cu;
-// their shared consumer steps are in attn_tc.cuh) and of decode_attn.cu: TMA
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_bwd_fused.cu,
+// chunk_attn.cu, block_sparse_fwd.cu, block_sparse_bwd_dq.cu,
+// block_sparse_bwd_dkv.cu; their shared consumer steps are in attn_tc.cuh)
+// and of decode_attn.cu: TMA
 // tensor maps and loads, mbarriers, warpgroup matrix products (wgmma) on
 // shared-memory tiles, the swizzled layout for tiles that threads write
 // themselves, and thread-block cluster helpers (rank, barrier, reads of a
@@ -15,8 +16,9 @@
 // base.  wgmma reads such a tile in two ways:
 //   K-major: the tile's rows are the M or N rows of the product and D is
 //     its depth (S = Q.K^T: both operands);
-//   MN-major (transposed B): the tile's rows are the depth and D the N
-//     columns (O += P.V: V, dK += dS^T.Q: Q).
+//   MN-major (transposed): the tile's rows are the depth and D the N (or
+//     M) columns (O += P.V: V, dK += dS^T.Q: Q; flash_bwd_fused's
+//     dQ^T = K^T.dS^T: K as A, dS^T as B).
 // Both swizzles group 8 rows into one 1024- (512-) byte atom; the
 // descriptor's two strides both hold that atom's size, which is the step
 // between 8-row groups in either use, and neither operand spans more than
@@ -187,6 +189,22 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+// `bytes` (a multiple of 16) from global to shared memory by the bulk copy
+// engine, completion counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// order this thread's earlier global accesses (an ld.acquire) before its
+// later async-proxy ones (a bulk copy from global memory)
+__device__ __forceinline__ void fence_proxy_async_global() {
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // Byte offset of 16-byte chunk `chunk` of row r in a tile with ROWB-byte
 // rows under the 128-byte (ROWB 128) or 64-byte (ROWB 64) swizzle, the
 // layout TMA writes and tile_desc describes: bits 4-6 (4-5) of the address
@@ -201,6 +219,10 @@ __device__ __forceinline__ uint32_t swizzled(int r, int chunk) {
 // barrier `id` (1-15; 0 is __syncthreads') over `count` threads
 __device__ __forceinline__ void named_sync(int id, int count) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // ---- thread-block clusters
@@ -368,6 +390,39 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t 
             asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
                          "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " DS_O16
                          ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
+    }
+}
+
+// D[64, N] (+)= A[64, 16] . B[16, N], A and B from shared memory, both
+// MN-major (transposed: A's 64 M rows and B's N columns contiguous, the
+// depth as the tile's rows, as tile_desc describes an MN-major tile);
+// accumulate = 0 overwrites D
+template <typename T, int N>
+__device__ __forceinline__ void mma_ss_tt(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+    static_assert(N == 32 || N == 64, "wgmma widths of these kernels");
+    constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+    if constexpr (N == 64) {
+        if constexpr (BF)
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_O32
+                         ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
+        else
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DS_O32
+                         ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
+    } else {
+        if constexpr (BF)
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " DS_O16
+                         ", %16, %17, p, 1, 1, 1, 1;\n}\n"
+                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
+        else
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " DS_O16
+                         ", %16, %17, p, 1, 1, 1, 1;\n}\n"
                          : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
     }
 }

@@ -21,8 +21,8 @@ from .decode_attention import (cached_attention, cached_attention_reference,
 from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_backward_reference,
                               flash_attention_qkv, flash_attention_reference,
-                              flash_bwd_dkv, flash_bwd_dq, flash_fwd,
-                              mha_reference)
+                              flash_bwd_dkv, flash_bwd_dq, flash_bwd_fused,
+                              flash_fwd, fused_backward, mha_reference)
 from .fused_adam import (adam_hyper, fused_adam, fused_adam_kernel,
                          fused_adam_reference, fused_adam_step)
 from .fused_bias_gelu import (bias_gelu_backward_reference,
@@ -41,7 +41,8 @@ from .spatial import (nhwc_bias_add, nhwc_bias_add_add,
 #: every kernel wrapper of the port, by kernel name
 KERNELS = {"flash_fwd": flash_fwd, "decode_attn": decode_attn,
            "chunk_attn": chunk_attn, "flash_bwd_dq": flash_bwd_dq,
-           "flash_bwd_dkv": flash_bwd_dkv, "fused_adam": fused_adam_kernel,
+           "flash_bwd_dkv": flash_bwd_dkv, "flash_bwd_fused": flash_bwd_fused,
+           "fused_adam": fused_adam_kernel,
            "block_sparse_fwd": block_sparse_fwd,
            "block_sparse_bwd_dq": block_sparse_bwd_dq,
            "block_sparse_bwd_dkv": block_sparse_bwd_dkv,
@@ -90,8 +91,9 @@ __all__ = ["KERNELS", "adam_hyper", "bias_gelu_backward_reference",
            "flash_attention", "flash_attention_backward",
            "flash_attention_backward_reference", "flash_attention_qkv",
            "flash_attention_reference", "flash_bwd_dkv", "flash_bwd_dq",
-           "flash_fwd", "fused_adam", "fused_adam_kernel",
-           "fused_adam_reference", "fused_adam_step", "fused_lamb",
+           "flash_bwd_fused", "flash_fwd", "fused_adam", "fused_adam_kernel",
+           "fused_adam_reference", "fused_adam_step", "fused_backward",
+           "fused_lamb",
            "fused_lamb_phase1", "fused_lamb_phase2", "fused_lamb_reference",
            "keep_mask", "lamb_hyper", "launch_counts",
            "make_index_tables", "mha_reference", "nhwc_bias_add",

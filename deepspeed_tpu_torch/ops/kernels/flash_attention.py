@@ -22,11 +22,18 @@ The gradient is a ``torch.autograd.Function`` (the JAX ``custom_vjp`` at
 ``flash_attention.py:510``) that saves q, k, v, O and lse
 (:class:`AttentionFn`, shared with the block-sparse kernels).  Its backward
 computes delta = rowsum(dO·O) in plain torch, as the JAX package does
-outside Pallas, then runs the two-kernel backward: ``flash_bwd_dq``
-(``csrc/flash_bwd_dq.cu``, replacing ``_bwd_dq_kernel``) and
-``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, replacing ``_bwd_dkv_kernel``),
-both on wgmma and TMA in bf16 and fp16, as the forward, and on FMAs in
-fp32; a window reaches both as it reaches the forward.
+outside Pallas, then takes one of the JAX package's two backward forms by
+its rule (``flash_attention.py:397, 415-416``): while the keys span at
+most ``MAX_FUSED_BWD_NK`` = 4 blocks of ``FUSED_BWD_BLOCK_K`` = 1024
+(:func:`fused_backward`: Sk <= 4096) the fused single sweep,
+``flash_bwd_fused`` (``csrc/flash_bwd_fused.cu``, replacing
+``_bwd_dkv_kernel`` with ``emit_dq``: dK, dV and dQ in one pass over the
+queries, the key tiles' dQ shares summed in a fixed order); past that the
+two-kernel form, ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, replacing
+``_bwd_dq_kernel``) and ``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``,
+replacing ``_bwd_dkv_kernel``).  All three run on wgmma and TMA in bf16
+and fp16, as the forward, and on FMAs in fp32; a window reaches them as it
+reaches the forward.  On the CPU both forms are one plain version.
 :func:`flash_attention_qkv` takes the packed [B, S, 3, H, D] product of a
 qkv projection and writes dq, dk and dv into one gradient of that shape.
 """
@@ -308,6 +315,97 @@ def _check_bwd(name, q, k, v, do, lse, delta):
     return dtype, (B, Sq, Sk, H, D)
 
 
+#: the JAX package's backward rule (``flash_attention.py:397``,
+#: ``MAX_FUSED_BWD_NK``; ``resolve_env_blocks``, :546-555, the default
+#: ``block_k``): the fused single sweep while the keys span at most this
+#: many blocks of ``FUSED_BWD_BLOCK_K``
+MAX_FUSED_BWD_NK = 4
+FUSED_BWD_BLOCK_K = 1024
+
+
+def fused_backward(Sk: int) -> bool:
+    """True where the backward takes the fused single sweep
+    (``flash_bwd_fused``): ceil(Sk / 1024) <= 4, that is Sk <= 4096."""
+    return -(-int(Sk) // FUSED_BWD_BLOCK_K) <= MAX_FUSED_BWD_NK
+
+
+def fused_q_tile(D: int) -> int:
+    """The fused kernels' q-tile (``csrc/flash_bwd_fused.cu`` ``FusedCfg``
+    and ``FmaTile``): its workspace holds one fp32 [q-tile, D] sum and one
+    counter per (b, h, q-tile)."""
+    return 32 if D > 64 else 64
+
+
+#: the fused kernel's counters per device: zero before its first launch,
+#: and each launch leaves them zero
+_counters: dict = {}
+
+
+def _fused_counters(device, n: int) -> torch.Tensor:
+    have = _counters.get(device)
+    if have is None or have.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_bwd_fused: the counters must be "
+                               "allocated before a graph capture")
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = have
+    return have
+
+
+class _FlashBwdFused:
+    """The ``flash_bwd_fused`` kernel's wrapper: writes dq, dk and dv (fresh
+    tensors, or the strided ``out`` views) in one sweep; the fp32 sum of
+    the key tiles' dq shares is a transient workspace.  ``wait_cycles`` (a
+    uint64-sized int64 CUDA tensor of one element) collects the cycles
+    CTAs spent waiting for their turn in that sum.  ``option_launches``
+    counts the launches with a window."""
+
+    launches = 0
+    option_launches = {"window": 0}
+
+    def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
+                 out: Optional[Sequence[torch.Tensor]] = None,
+                 kv_lens: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None,
+                 wait_cycles: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        dtype, (B, Sq, Sk, H, D) = _check_bwd("flash_bwd_fused", q, k, v, do,
+                                              lse, delta)
+        _check_window("flash_bwd_fused", causal, window)
+        lens = _lens_arg("flash_bwd_fused", kv_lens, B, q.device)
+        if out is None:
+            dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                          for t in (q, k, v))
+        else:
+            dq, dk, dv = out
+        check_kernel_inputs("flash_bwd_fused", q, dq)
+        check_kernel_inputs("flash_bwd_fused", k, dk, dv)
+        if wait_cycles is not None and (wait_cycles.dtype != torch.int64
+                                        or wait_cycles.device != q.device):
+            raise ValueError("flash_bwd_fused: wait_cycles must be an int64 "
+                             "tensor on the inputs' device")
+        bq = fused_q_tile(D)
+        tiles = B * H * -(-Sq // bq)
+        acc = torch.empty(tiles * bq * D, dtype=torch.float32, device=q.device)
+        counters = _fused_counters(q.device, tiles)
+        fn = build.function("flash_bwd_fused", _FUSED_ARGTYPES)
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(),
+                    None if lens is None else lens.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), acc.data_ptr(),
+                    counters.data_ptr(),
+                    None if wait_cycles is None else wait_cycles.data_ptr(),
+                    DTYPE_CODES[dtype], B, Sq, Sk, H, D,
+                    *strides3(q, k, v, do, dq, dk, dv), float(scale),
+                    int(bool(causal)), _window_code(window),
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        build.check_status("flash_bwd_fused", status)
+        _FlashBwdFused.launches += 1
+        if window is not None:
+            _FlashBwdFused.option_launches["window"] += 1
+        return dq, dk, dv
+
+
 _DQ_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                 + [ctypes.c_longlong] * 15
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -315,8 +413,13 @@ _DKV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 18
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
+_FUSED_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 21
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 flash_bwd_dq = _FlashBwdDq()
 flash_bwd_dkv = _FlashBwdDkv()
+flash_bwd_fused = _FlashBwdFused()
 
 
 def _forward(q, k, v, causal, scale, kv_lens=None, window=None):
@@ -339,9 +442,11 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
                              out: Optional[Sequence[torch.Tensor]] = None,
                              kv_lens: Optional[torch.Tensor] = None,
                              window: Optional[int] = None):
-    """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the two
-    kernels write into ``out`` (three [B, S, H, D] views) when given;
-    on the CPU the plain version runs and is copied into ``out``."""
+    """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the
+    kernels write into ``out`` (three [B, S, H, D] views) when given:
+    ``flash_bwd_fused`` where :func:`fused_backward` holds for Sk, else
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``.  On the CPU the plain version
+    (the same function) runs and is copied into ``out``."""
     if not on_cuda(q, k, v, o, lse, do):
         grads = flash_attention_backward_reference(q, k, v, o, lse, do,
                                                    causal, scale, kv_lens,
@@ -352,6 +457,9 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
             dst.copy_(g)
         return tuple(out)
     do, delta = aligned_do_and_delta(do, o)
+    if fused_backward(k.shape[1]):
+        return flash_bwd_fused(q, k, v, do, lse, delta, causal, scale,
+                               out=out, kv_lens=kv_lens, window=window)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale,
                       out=None if out is None else out[0], kv_lens=kv_lens,
                       window=window)

@@ -2,6 +2,7 @@
 ``flash_attention``: the Pallas kernel in interpret mode where it tiles,
 ``mha_reference`` at short lengths.  fp32, tolerance 1e-5."""
 
+import importlib
 import math
 
 import numpy as np
@@ -11,9 +12,13 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from deepspeed_tpu_torch.ops import kernels as port_kernels
 from deepspeed_tpu_torch.ops.kernels import flash_attention as port_flash
 from deepspeed_tpu_torch.ops.kernels import (
     flash_attention_backward_reference, flash_attention_reference)
+
+port_module = importlib.import_module(
+    "deepspeed_tpu_torch.ops.kernels.flash_attention")
 
 TOL = 1e-5
 #: low-precision inputs against the fp32 JAX reference on the same values
@@ -210,3 +215,85 @@ def test_flash_window_refusals():
     o1, _ = port_flash(q, k, v, window=1)
     torch.testing.assert_close(o0, o1, atol=0, rtol=0)
     torch.testing.assert_close(o1, v, atol=1e-6, rtol=1e-6)
+
+
+# ------------------------------------------------- the fused backward's route
+
+
+@pytest.mark.parametrize("Sk,fused", [(1024, True), (2048, True), (3072, True),
+                                      (4096, True), (5120, False),
+                                      (8192, False)])
+def test_fused_backward_rule_matches_jax(Sk, fused):
+    """``fused_backward`` takes the fused single sweep exactly where the
+    JAX package does at its default key block: ``Sk // block_k <=
+    MAX_FUSED_BWD_NK`` (``flash_attention.py:415-416``)."""
+    from deepspeed_tpu.ops.pallas.flash_attention import (MAX_FUSED_BWD_NK,
+                                                          resolve_env_blocks)
+    block_k = resolve_env_blocks()[1]
+    assert (Sk // block_k <= MAX_FUSED_BWD_NK) == fused
+    assert port_kernels.fused_backward(Sk) == fused
+
+
+def test_fused_backward_constants_match_jax():
+    from deepspeed_tpu.ops.pallas.flash_attention import (MAX_FUSED_BWD_NK,
+                                                          resolve_env_blocks)
+    assert port_module.MAX_FUSED_BWD_NK == MAX_FUSED_BWD_NK
+    assert port_module.FUSED_BWD_BLOCK_K == resolve_env_blocks()[1]
+
+
+#: the gradient cases held against both JAX backward forms: (causal,
+#: kv_lens, window)
+GRAD_MODES = {"causal": (True, False, None), "non-causal": (False, False, None),
+              "kv_lens": (False, True, None), "window": (True, False, 100)}
+
+
+@pytest.mark.parametrize("mode", sorted(GRAD_MODES))
+@pytest.mark.parametrize("Sk,jax_form", [(512, "fused"), (640, "two_kernel")])
+def test_backward_forms_match_jax_pallas_kernel(pallas_interpret, Sk, jax_form,
+                                                mode):
+    """dq, dk and dv of the port's ``flash_attention`` (its plain backward
+    here, the function both CUDA forms compute) against ``jax.vjp`` of the
+    Pallas ``flash_attention`` in interpret mode at 128-wide blocks: Sk 512
+    is nk 4, JAX's fused single sweep (``_bwd_dkv_kernel`` with
+    ``emit_dq``), Sk 640 nk 5, its two-kernel backward; causal, non-causal,
+    ragged ``kv_lens`` and a window of 100.  fp32, 1e-5."""
+    from deepspeed_tpu.ops.pallas.flash_attention import (MAX_FUSED_BWD_NK,
+                                                          flash_attention)
+    assert (Sk // 128 <= MAX_FUSED_BWD_NK) == (jax_form == "fused")
+    causal, ragged, window = GRAD_MODES[mode]
+    q, k, v = _qkv(2, Sk, Sk, 2, 32, seed=Sk + len(mode))
+    do = np.random.default_rng(Sk).standard_normal(q.shape).astype(np.float32)
+    lens = np.array([Sk - 77, 200], np.int32) if ragged else None
+    _, vjp = jax.vjp(lambda q_, k_, v_: flash_attention(
+        q_, k_, v_, causal=causal, block_q=128, block_k=128,
+        kv_lens=None if lens is None else jnp.asarray(lens), window=window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o, _ = port_flash(*leaves, causal=causal, window=window,
+                      kv_lens=None if lens is None else torch.from_numpy(lens))
+    grads = torch.autograd.grad(o, leaves, torch.from_numpy(do))
+    for g, r, name in zip(grads, ref, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("Sk", [128, 5120])
+def test_cpu_backward_launches_no_kernel(Sk):
+    """On CPU tensors the backward runs the plain version on either side of
+    the fused rule (Sk 128: the fused form, 5120: the pair) and counts no
+    launch of ``flash_bwd_fused``, ``flash_bwd_dq`` or ``flash_bwd_dkv``."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 8, Sk, 2, 32, seed=Sk))
+    do = torch.ones_like(q)
+    scale = 1.0 / math.sqrt(32)
+    o, lse = flash_attention_reference(q, k, v, True, scale)
+    port_kernels.reset_launch_counts()
+    grads = port_kernels.flash_attention_backward(q, k, v, o, lse, do, True,
+                                                  scale)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do, True, scale)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    counts = port_kernels.launch_counts()
+    assert {n: counts[n] for n in ("flash_bwd_fused", "flash_bwd_dq",
+                                   "flash_bwd_dkv")} == dict.fromkeys(
+        ("flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"), 0)

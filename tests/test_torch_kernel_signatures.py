@@ -111,8 +111,8 @@ ENTRY_POINTS = c_entry_points()
 
 
 def test_every_entry_point_is_found():
-    # the 18 C entry points of the port's kernels
-    assert len(ENTRY_POINTS) == 18, sorted(ENTRY_POINTS)
+    # the 19 C entry points of the port's kernels
+    assert len(ENTRY_POINTS) == 19, sorted(ENTRY_POINTS)
 
 
 @pytest.mark.parametrize("symbol", sorted(ENTRY_POINTS))
@@ -149,6 +149,7 @@ OPTION_ENTRY_POINTS = [
     ("flash_fwd", ("window",)),
     ("flash_bwd_dq", ("window",)),
     ("flash_bwd_dkv", ("window",)),
+    ("flash_bwd_fused", ("window",)),
     ("decode_attn", ("window", "slopes")),
     ("decode_attn_int8", ("window", "slopes")),
     ("chunk_attn", ("window", "slopes")),
