@@ -8,7 +8,9 @@ imports JAX.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
-   reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128) of
+   reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128, and
+   80 and 96 for the kernels that take them, ``KERNEL_HEAD_DIMS``; a D 80
+   or 96 one fails if it spills more than its kernel's D 128 one) of
    ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
    ``flash_bwd_fused_tc`` (failing if it spills more than
    ``flash_bwd_dkv_tc``),
@@ -25,7 +27,10 @@ imports JAX.  In order it
    its backward, fused ``AdamW``) and the card's bound for the work; the
    flash forward at B4 S512, B1 S128 and the GPT step's B16 S1024, the
    backward pair at B16 S1024 and B1 S128 (two launches of each bitwise
-   equal); the
+   equal); ``flash_fwd``, ``flash_bwd_fused``, ``decode_attn(_int8)`` and
+   ``chunk_attn(_int8)`` at GPT-2 760M's (D 96) and 2.7B's (D 80) shapes,
+   each timed in turns with its D 128 instantiation at the same B, S, H
+   and failing above ``HEAD_DIM_RATIO`` of it (``check_head_dims``); the
    block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
    layout, block 64; two launches of each bitwise equal) beside the dense
    flash trio at the same shape, with its bounds and SDPA's causal forward
@@ -127,6 +132,15 @@ imports JAX.  In order it
    cache; each family must launch the option kernels it runs
    (``FAMILY_OPTIONS``: ``flash_fwd[window]``, ``decode_attn[window]``,
    ``decode_attn[alibi]``, ... and their int8 variants);
+5c. with every launch count at 0 before each engine's run, drives GPT-2
+   760M (d 1536, 16 heads of 96) and GPT-2 2.7B (d 2560, 32 heads of
+   80) at full width and depth (random weights, bf16) through
+   ``init_inference`` → ``generate`` and a ``SlotBatcher`` (760M: phase
+   3's and 4's sizes, then phase 5's int8 weights and cache; 2.7B: the
+   families' sizes), exact launches (``flash_fwd`` a layer per prefill,
+   ``decode_attn`` a layer per token), logits of a 32-token prompt
+   against an fp32 host forward, batched = alone, a profile
+   (``run_wide_serving``);
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -142,6 +156,11 @@ imports JAX.  In order it
    0, Adam 1), the row at seq 1024 held
    to 0.02 or to ``FAMILY_SENSITIVITY`` times its error with every layer
    global, MFU beside the live band's attention FLOPs;
+6c. the same for GPT-2 760M (micro-batch 16) and 2.7B (micro-batch 8) at
+   seq 1024 through the D 96 and 80 kernels, 2 warm-up and 5 timed
+   steps (``WIDE_TRAIN_STEPS``): ``flash_fwd`` and
+   ``flash_bwd_fused`` a layer per step, the pair 0; the row check at
+   1024 and 256 tokens (``run_wide_training``);
 7. the same for the sparse training path: the same model at seq 4096
    under the Fixed block-sparse layout (block 64), micro-batch 4, with the
    live-pair attention FLOPs beside MFU; then a few steps of that model
@@ -171,7 +190,10 @@ imports JAX.  In order it
    backward through autograd at [16, 1024, 4096] bf16, rate 0.1: one
    launch of each kernel per call, y and dx zero where the mask drops;
 11. prints the kernels line (one row per kernel, and one per kernel
-   option, such as ``decode_attn[window]``; ``nhwc_bias_add_add`` and
+   option, such as ``decode_attn[window]``; an attention kernel's row
+   carries ``head_dims``: its launches at each head dim over the main
+   paths, their profiled runs and logits checks included, which
+   ``launches`` leaves out; ``nhwc_bias_add_add`` and
    ``nhwc_bias_add_bias_add``, which no path of the JAX package calls,
    are held in the check phase only and say so; ``bf16_fp16_kernel``
    names the tensor-core kernel a wrapper launches on bf16 and fp16
@@ -230,7 +252,9 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import \
     aligned_do_and_delta
 from deepspeed_tpu_torch.ops.kernels.fused_lamb import lamb_plan
 from deepspeed_tpu_torch.ops.kernels.quantizer import _quantize_ref
-from deepspeed_tpu_torch.ops.kernels.utils import HEAD_DIMS
+from deepspeed_tpu_torch.ops.kernels.utils import (HEAD_DIMS,
+                                                   KERNEL_HEAD_DIMS,
+                                                   PAIR_HEAD_DIMS)
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, VariableSparsityConfig)
@@ -350,12 +374,20 @@ def _tc_instance(mangled: str):
     return None
 
 
+#: the head dims each tensor-core kernel is instantiated for (its
+#: wrapper's, ``KERNEL_HEAD_DIMS``)
+TC_DIMS = {tc: KERNEL_HEAD_DIMS[src] for src, tc in TC_SOURCES.items()}
+#: the head dims that run in the tile of D 128 (``csrc/common.cuh``
+#: ``tile_dim``), each held to its kernel's D 128 instantiation
+PADDED_DIMS = tuple(D for D in HEAD_DIMS if 64 < D < 128)
+
+
 def _tc_wanted():
     """Every (kernel, dtype, D) the tensor-core sources must hold."""
     want = [(k, dt, D) for k in TC_SOURCES.values() for dt in TC_TYPES.values()
-            for D in HEAD_DIMS]
+            for D in TC_DIMS[k]]
     return want + [(k, dt + suffix, D) for k, suffix in TC_BOOL.items()
-                   for dt in TC_TYPES.values() for D in HEAD_DIMS]
+                   for dt in TC_TYPES.values() for D in TC_DIMS[k]]
 
 
 def check_ptxas_tc():
@@ -389,7 +421,7 @@ def check_ptxas_tc():
         "unbanded one")
     for dt in TC_TYPES.values():
         for suffix in ("", " band"):
-            for D in HEAD_DIMS:
+            for D in PAIR_HEAD_DIMS:
                 fused = rows.get(("flash_bwd_fused_tc", dt + suffix, D), (0, 1 << 30))
                 pair = rows.get(("flash_bwd_dkv_tc", dt + suffix, D), (0, -1))
                 if fused[1] > pair[1]:
@@ -398,6 +430,15 @@ def check_ptxas_tc():
                         f"{fused[1]} bytes, flash_bwd_dkv_tc {pair[1]}")
     log("[ptxas] flash_bwd_fused_tc spills no more than flash_bwd_dkv_tc at "
         "each dtype, D and band")
+    for kernel, dt, D in _tc_wanted():
+        if D in PADDED_DIMS:
+            have = rows.get((kernel, dt, D), (0, 1 << 30))[1]
+            twin = rows.get((kernel, dt, 128), (0, -1))[1]
+            if have > twin:
+                raise AssertionError(f"{kernel} {dt} D{D} spills {have} bytes, "
+                                     f"its D128 instantiation {twin}")
+    log(f"[ptxas] every D{PADDED_DIMS} instantiation spills no more than its "
+        "kernel's D128 one")
     return {f"{k}<{dt},{D}>": {"registers": r, "spill_stores": sp}
             for (k, dt, D), (r, sp) in rows.items()}
 
@@ -459,7 +500,8 @@ def check_decode_build():
     """Registers and spill stores (``-Xptxas -v``) of every decode
     instantiation, and its HMMA (mma.sync) and UTMALDG (TMA load) counts
     from ``cuobjdump -sass``; fails if one has no TMA load, an mma one no
-    HMMA, or a bf16 D64 one spills."""
+    HMMA, a bf16 D64 one spills, or a D 80 or 96 one spills more than
+    its kernel's D 128 one."""
     rows = {}
     rep = build.ptxas_reports.get("decode_attn", "")
     for part in re.split(r"Compiling entry function '", rep)[1:]:
@@ -485,10 +527,13 @@ def check_decode_build():
             f"{spill} bytes; [sass] HMMA {hmma}, UTMALDG {tma}")
     bad = [w for w in DECODE_WANTED if w not in rows or not rows[w][3]
            or (w[0] == "decode_attn_mma" and not rows[w][2])
-           or (w[1] == "bf16" and w[2] == 64 and rows[w][1])]
+           or (w[1] == "bf16" and w[2] == 64 and rows[w][1])
+           or (w[2] in PADDED_DIMS
+               and rows[w][1] > rows.get((w[0], w[1], 128), [0, -1])[1])]
     if bad:
         raise AssertionError(f"decode kernels without TMA or HMMA, not "
-                             f"built, or spilling: {bad}")
+                             f"built, spilling (bf16 D64), or spilling more "
+                             f"than their D128 instantiation: {bad}")
     return {f"{k}<{dt},{D}>": {"registers": r, "spill_stores": sp,
                                "HMMA": hm, "UTMALDG": t}
             for (k, dt, D), (r, sp, hm, t) in rows.items()}
@@ -1275,7 +1320,8 @@ def check_flash_kv_lens(B=64, S=128, H=16, D=64):
 
 
 def check_kv_lens_sweep(H=2):
-    """Every dtype and head dim the flash trio is built for, with lengths
+    """Every dtype and head dim the flash trio is built for (at D 80 and
+    96 the forward and ``flash_bwd_fused``), with lengths
     0 (clamped to 1), 1, a partial tile, both sides of and on a 64-key
     tile edge and S, causal or not, at S 128 and 129: forward and backward
     within the sweep's relative tolerance, lse within 1e-3, and the dk and
@@ -1298,9 +1344,7 @@ def check_kv_lens_sweep(H=2):
                 q, k, v, do = (rnd(B, S, H, D) for _ in range(4))
                 o, lse = kernels.flash_fwd(q, k, v, causal, scale, lens)
                 _, delta = aligned_do_and_delta(do, o)
-                dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal,
-                                          scale, kv_lens=lens)
-                dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta,
+                dq, dk, dv = _backward_kernels(q, k, v, do, lse, delta,
                                                causal, scale, kv_lens=lens)
                 o32, lse32 = flash_attention_reference(
                     q.float(), k.float(), v.float(), causal, scale, lens)
@@ -1339,7 +1383,9 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
     0..S-Sq-1 with ragged per-row positions (frontiers that split a
     warp's key groups once hung ``decode_attn``), and their int8-cache
     variants on the same cache quantized (against the plain version on
-    the dequantized cache), and ``flash_fwd`` at an odd width.  Returns
+    the dequantized cache), ``flash_fwd`` at an odd width, and the flash
+    backward at ``BWD_SWEEP`` (the pair; at D 80 and 96 the fused
+    kernel).  Returns
     the worst error per (dtype, D)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
@@ -1706,7 +1752,8 @@ OPTION_CHUNK_SQ = (7, 65, 129)
 
 def check_option_sweep(Smax=300, B=3):
     """The band and ALiBi options at every dtype and head dim the kernels
-    take: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at each
+    take: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (at D 80
+    and 96, which the pair is not built for, ``flash_bwd_fused``) at each
     tile-edge length and at ``OPTION_FLASH_CROSS`` with each window of
     ``SWEEP_WINDOWS`` (None: Sk + 5, past every row; O, lse, dq, dk and
     dv, the backward from the kernel's own O and lse), and
@@ -1742,10 +1789,8 @@ def check_option_sweep(Smax=300, B=3):
                     track(o, ref)
                     lse_err = max(lse_err, (lse - rl).abs().max().item())
                     do_, delta = aligned_do_and_delta(do, o)
-                    grads = (kernels.flash_bwd_dq(q, k, v, do_, lse, delta,
-                                                  True, scale, window=w),
-                             *kernels.flash_bwd_dkv(q, k, v, do_, lse, delta,
-                                                    True, scale, window=w))
+                    grads = _backward_kernels(q, k, v, do_, lse, delta, True,
+                                              scale, window=w)
                     for g, r in zip(grads, flash_attention_backward_reference(
                             q.float(), k.float(), v.float(), o.float(), lse,
                             do.float(), True, scale, window=w)):
@@ -1802,6 +1847,19 @@ BWD_SWEEP = ((77, 77, True), (40, 100, True), (100, 40, True),
              (255, 255, True), (257, 257, True), (257, 255, False))
 
 
+def _backward_kernels(q, k, v, do, lse, delta, causal, scale, **kw):
+    """(dq, dk, dv) from the backward pair, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv``, at the head dims they are built for; at D 80 and 96,
+    which only the fused kernel takes, from ``flash_bwd_fused`` (the
+    fused kernel is swept at every D by ``check_bwd_fused_sweep``)."""
+    if q.shape[-1] not in PAIR_HEAD_DIMS:
+        return kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal, scale,
+                                       **kw)
+    return (kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, **kw),
+            *kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                                   **kw))
+
+
 def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
     """Worst relative error of O, dq, dk, dv against the fp32 plain
     forward and backward; raises on an lse off by more than 1e-3, a
@@ -1820,8 +1878,7 @@ def _bwd_sweep_err(rnd, Sq, Sk, D, causal, B=2, H=3):
     fwd_err = ((o.float() - o32).abs().max()
                / o32.abs().max().clamp(min=1.0)).item()
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    dq, dk, dv = _backward_kernels(q, k, v, do, lse, delta, causal, scale)
     ref = flash_attention_backward_reference(
         q.float(), k.float(), v.float(), o.float(), lse, do.float(), causal,
         scale)
@@ -1932,16 +1989,20 @@ def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
         return fn(q_, k_, v_, do_, lse_, delta_, causal, scale, **kw)
 
     # in turns (fused, pair, pair, fused), each the mean of its two turns,
-    # so that both see the card in the same state
+    # so that both see the card in the same state; at D 80 and 96, which
+    # the pair is not built for, the fused kernel alone (check_head_dims
+    # holds it to its D 128 instantiation instead)
+    has_pair = D in PAIR_HEAD_DIMS
     turns = {"fused": [], "dq": [], "dkv": []}
     for order in (("fused", "pair"), ("pair", "fused")):
         for which in order:
             if which == "fused":
                 turns["fused"].append(time_ms(lambda i: run(kernels.flash_bwd_fused, i), 10))
-            else:
+            elif has_pair:
                 turns["dq"].append(time_ms(lambda i: run(kernels.flash_bwd_dq, i), 10))
                 turns["dkv"].append(time_ms(lambda i: run(kernels.flash_bwd_dkv, i), 10))
-    ms, ms_dq, ms_dkv = (sum(turns[k]) / 2 for k in ("fused", "dq", "dkv"))
+    ms = sum(turns["fused"]) / 2
+    ms_dq, ms_dkv = (sum(turns[k]) / 2 if has_pair else None for k in ("dq", "dkv"))
     plain_ms = eager_ms(lambda: _plain_bwd_rows(q, k, v, o, lse, do, causal,
                                                 scale, lens, window), 1,
                         warmup=1)
@@ -1972,23 +2033,142 @@ def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
     name = "flash_bwd_fused[window]" if window else "flash_bwd_fused"
     row = _report(name, shape, max(errs), min(tols), ms, plain_ms, lib_ms,
                   nbytes, 10 * D * pairs)
-    pair = ms_dq + ms_dkv
+    pair = ms_dq + ms_dkv if has_pair else None
     share = wait.item() / (torch.cuda.get_device_properties(0).multi_processor_count
                            * _sm_clock_hz() * ms * 1e-3)
     row.update(pair_ms=pair, pair_dq_ms=ms_dq, pair_dkv_ms=ms_dkv,
-               vs_pair=ms / pair, errs_dq_dk_dv=errs, tols_dq_dk_dv=tols,
-               wait_cycles=wait.item(), wait_share=share, pairs=pairs,
-               bitwise_repeats=repeats)
-    log(f"[{name}] {shape}: {ms:.4f} ms against the pair's {ms_dq:.4f} + "
-        f"{ms_dkv:.4f} = {pair:.4f} ms ({ms / pair:.3f}x"
-        + (f"; at most {FUSED_BWD_RATIO}x)" if gated else "; reported)")
-        + f"; dq, dk, dv errs {[f'{e:.3e}' for e in errs]}; the ordered dq sum "
-        f"waited {wait.item()} cycles in all CTAs, {share:.4f} of the "
-        f"kernel's SM-cycles")
+               vs_pair=ms / pair if has_pair else None, errs_dq_dk_dv=errs,
+               tols_dq_dk_dv=tols, wait_cycles=wait.item(), wait_share=share,
+               pairs=pairs, bitwise_repeats=repeats)
+    against = (f"against the pair's {ms_dq:.4f} + {ms_dkv:.4f} = {pair:.4f} ms "
+               f"({ms / pair:.3f}x" + (f"; at most {FUSED_BWD_RATIO}x)" if gated
+                                      else "; reported)")
+               if has_pair else f"(no pair at D{D})")
+    log(f"[{name}] {shape}: {ms:.4f} ms {against}; dq, dk, dv errs "
+        f"{[f'{e:.3e}' for e in errs]}; the ordered dq sum waited "
+        f"{wait.item()} cycles in all CTAs, {share:.4f} of the kernel's "
+        f"SM-cycles")
     if gated and not ms <= FUSED_BWD_RATIO * pair:
         raise AssertionError(f"{name} {shape}: {ms} ms > {FUSED_BWD_RATIO} x "
                              f"the pair's {pair} ms")
     return row
+
+
+# ------------------------------------------------ head dims 80 and 96
+
+#: GPT-2 760M's and 2.7B's attention heads (model, training micro-batch,
+#: heads, head dim); seq 1024.  Their D 96 and 80 run in the tile of D 128
+#: (``csrc/common.cuh`` ``tile_dim``)
+HEAD_DIM_SHAPES = (("GPT-2 760M", 16, 16, 96), ("GPT-2 2.7B", 8, 32, 80))
+#: the serving rows' batches: 8 decode slots over S_max 1024 at ragged
+#: positions, one 128-token extend chunk at pos 640
+HEAD_DIM_DECODE_B, HEAD_DIM_SMAX, HEAD_DIM_CHUNK = 8, 1024, (128, 640)
+#: a D 80 or 96 kernel may take at most this share of its D 128
+#: instantiation's time at the same B, S, H: it does the same work or less
+HEAD_DIM_RATIO = 1.05
+
+
+def _head_dim_runner(kind, B, H, D, gen):
+    """``fn(i)`` for ``time_ms``: one launch of ``kind`` at head dim ``D``
+    on the row's shape (flash: B x S 1024, causal; decode: the serving
+    slots at ragged positions; chunk: one extend chunk), rotating over
+    input sets (cache layers) that keep each launch's reads out of L2."""
+    S = HEAD_DIM_SMAX
+    scale = 1.0 / math.sqrt(D)
+    if kind in ("flash_fwd", "flash_bwd_fused"):
+        n = max(2, min(8, (120 << 20) // (4 * B * S * H * D * 2)))
+        sets = []
+        for q, k, v in _qkv_views(n, B, S, H, D, gen):
+            if kind == "flash_fwd":
+                sets.append((q, k, v))
+                continue
+            do = torch.randn((B, S, H, D), generator=gen, device="cuda",
+                             dtype=torch.float32).to(torch.bfloat16)
+            o, lse = kernels.flash_fwd(q, k, v, True, scale)
+            sets.append((q, k, v, do, lse, aligned_do_and_delta(do, o)[1]))
+        if kind == "flash_fwd":
+            return lambda i: kernels.flash_fwd(*sets[i % n], True, scale)
+        return lambda i: kernels.flash_bwd_fused(*sets[i % n], True, scale)
+    int8 = kind.endswith("_int8")
+    kernel = getattr(kernels, kind)
+    if kind.startswith("decode"):
+        Sq = 1
+        pos = torch.as_tensor(np.random.default_rng(3).integers(0, S, B)
+                              .astype(np.int32)).cuda()
+    else:
+        Sq, pos = HEAD_DIM_CHUNK
+    ck, cv, L = _caches(B, S, H, D, gen)
+    kv = _int8_cache(ck, cv)[2:] if int8 else (ck, cv)
+    q = _qkv_views(1, B, Sq, H, D, gen)[0][0]
+    return lambda i: kernel(q, *(t[i % L] for t in kv[:2]), pos, scale,
+                            *(t[i % L] for t in kv[2:]))
+
+
+def _vs_d128(row, kind, B, H, D, n):
+    """Time ``kind`` at head dim D and at D 128 on the same B, S, H in
+    turns (D, 128, 128, D; each the mean of its two turns), put both in
+    ``row`` (its ``ms`` becomes the in-turns time) and fail unless D takes
+    at most ``HEAD_DIM_RATIO`` of D 128's time."""
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    runs = {D: _head_dim_runner(kind, B, H, D, gen),
+            128: _head_dim_runner(kind, B, H, 128, gen)}
+    turns = {D: [], 128: []}
+    for order in ((D, 128), (128, D)):
+        for d in order:
+            turns[d].append(time_ms(runs[d], n))
+    ms, twin = sum(turns[D]) / 2, sum(turns[128]) / 2
+    row.update(ms=ms, d128_ms=twin, vs_d128=ms / twin, head_dim=D)
+    log(f"[head dim] {kind} {row['shape']}: {ms:.4f} ms against D128's "
+        f"{twin:.4f} ms at the same B, S, H ({ms / twin:.3f}x; at most "
+        f"{HEAD_DIM_RATIO}x)")
+    if not ms <= HEAD_DIM_RATIO * twin:
+        raise AssertionError(f"{kind} D{D} {row['shape']}: {ms} ms > "
+                             f"{HEAD_DIM_RATIO} x D128's {twin} ms")
+    del runs
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_head_dims():
+    """The four kernels of the serving and dense training paths at GPT-2
+    760M's (D 96) and 2.7B's (D 80) shapes: ``flash_fwd`` and
+    ``flash_bwd_fused`` at the training micro-batch, seq 1024, causal;
+    ``decode_attn(_int8)`` over the 8 serving slots at ragged positions and
+    ``chunk_attn(_int8)`` on a 128-token chunk at pos 640 (S_max 1024);
+    each against its plain version and SDPA as the other rows, then timed
+    in turns with its D 128 instantiation at the same B, S, H
+    (``HEAD_DIM_RATIO``); and ``flash_attention_backward`` at D 80 past
+    Sk 4096 (the pair's route) must raise."""
+    rows = []
+    Sq, pos = HEAD_DIM_CHUNK
+    for model, B, H, D in HEAD_DIM_SHAPES:
+        log(f"[head dim] {model}: B{B} S{HEAD_DIM_SMAX} H{H} D{D}")
+        rows.append(_vs_d128(check_flash(B, HEAD_DIM_SMAX, H, D), "flash_fwd",
+                             B, H, D, 20))
+        rows.append(_vs_d128(check_flash_bwd_fused(
+            B, HEAD_DIM_SMAX, H, D, True, None, False, False),
+            "flash_bwd_fused", B, H, D, 10))
+        for int8 in (False, True):
+            name = "decode_attn" + ("_int8" if int8 else "")
+            rows.append(_vs_d128(check_decode(
+                B=HEAD_DIM_DECODE_B, Smax=HEAD_DIM_SMAX, H=H, D=D, int8=int8,
+                kind="ragged"), name, HEAD_DIM_DECODE_B, H, D, 50))
+            name = "chunk_attn" + ("_int8" if int8 else "")
+            rows.append(_vs_d128(check_chunk(pos, Sq=Sq, Smax=HEAD_DIM_SMAX,
+                                             H=H, D=D, int8=int8),
+                                 name, 1, H, D, 50))
+    # past Sk 4096 the backward takes the pair, which is not built at D 80
+    # or 96: its wrapper refuses before any launch
+    q = torch.zeros((1, 4097, 1, 80), device="cuda", dtype=torch.bfloat16)
+    o, lse = kernels.flash_fwd(q, q, q, True, 0.1)
+    try:
+        kernels.flash_attention_backward(q, q, q, o, lse, q, True, 0.1)
+    except ValueError as e:
+        log(f"[head dim] flash_attention_backward at D80, Sk 4097 (the pair's "
+            f"route) raises: {e}")
+    else:
+        raise AssertionError("flash_attention_backward ran the pair at D80")
+    return rows
 
 
 #: the fused sweep's key lengths at Sk 300: one key, one short of, on and
@@ -2283,7 +2463,7 @@ def check_sparse_sweep(B=2, H=2):
     rng = np.random.default_rng(4)
     worst = {}
     for dt, tol in SWEEP_TOL.items():
-        for D in HEAD_DIMS:
+        for D in KERNEL_HEAD_DIMS["block_sparse_fwd"]:
             errs = []
             for block, S in SPARSE_SWEEP_SHAPES:
                 n = S // block
@@ -2729,6 +2909,108 @@ def run_family(model, cfg, seed, option):
 
 
 
+# ---------------------------------- GPT-2 760M and 2.7B (head dims 96, 80)
+
+#: the JAX package's GPT-2 presets whose heads are 96 (760M: d 1536, 16
+#: heads) and 80 (2.7B: d 2560, 32 heads) wide, at full width and depth,
+#: random weights from a seed: (result key, model, config, seed, int8
+#: serving too, training micro-batch, training row check's tokens)
+WIDE_MODELS = (("gpt2_760m", "GPT-2 760M", gpt.GPT2_760M, 760, True, 16, 1024),
+               ("gpt2_2_7b", "GPT-2 2.7B", gpt.GPT2_2_7B, 2700, False, 8, 256))
+
+
+def run_wide_serving(model, cfg, seed, int8):
+    """GPT-2 760M's or 2.7B's serving path in bf16 through
+    ``init_inference``: ``generate`` (760M: phase 3's 4 ragged prompts x
+    64 tokens and phase 4's 16 requests over 8 slots; 2.7B: the families'
+    ``FAMILY_LENS`` x ``FAMILY_NEW`` and 6 requests), exact launches of
+    the generate (``flash_fwd`` once a layer per prefill, 5 prefills;
+    ``decode_attn`` once a layer per token; no chunk), batched = alone,
+    full-width logits of a 32-token prompt within 5% of an fp32 forward
+    on the host, peak memory above the weights, a profile; with ``int8``
+    phase 5's int8 weights and cache on the same weights, decode timed in
+    turns against bf16.  Counts at 0 before the engine's runs.  Returns
+    (results, counts)."""
+    L = cfg.n_layer
+    params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                {"dtype": "bfloat16"})
+    params_host = _host_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lens, new, n_req, budget = ((512, 384, 200, 77), 64, 16, (32, 129)) \
+        if int8 else (FAMILY_LENS, FAMILY_NEW, 6, (16, 33))
+    kernels.reset_launch_counts()
+    res = {"head_dim": cfg.head_dim,
+           "generate": run_generate(engine, cfg, "bf16", model, lens, new)}
+    gen_counts = kernels.launch_counts()
+    want = {"flash_fwd": 5 * L, "decode_attn": new * L, "chunk_attn": 0,
+            "flash_bwd_fused": 0}
+    log(f"[{model}] D{cfg.head_dim} generate launches: "
+        + ", ".join(f"{k} {gen_counts[k]} (want {n})" for k, n in want.items()))
+    if any(gen_counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{model} generate launches {gen_counts}, want "
+                             f"{want}")
+    res["serving"], serve_counts = run_serving(engine, cfg, n_req, budget,
+                                               model)
+    res["resident_gib"] = resident / 2 ** 30
+    res["peak_above_resident_gib"] = \
+        (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    log(f"[{model}] bf16 weights resident {res['resident_gib']:.3f} GiB, "
+        f"generate and serving peak above them "
+        f"{res['peak_above_resident_gib']:.3f} GiB")
+    res["full_width_logits"], logits = check_full_width_logits(
+        engine, cfg, params_host, f"{model} bf16")
+    res["profile"] = profile_generate(engine, cfg,
+                                      f"{model} generate 4x16 tokens")
+    counts = _add(gen_counts, serve_counts)
+    if int8:
+        bf16 = {"engine": engine, "param_bytes": param_bytes(engine.params),
+                "logits": logits, "tokens": res["generate"]["tokens"]}
+        res["int8"], int8_counts = run_int8_serving(cfg, params_host, bf16,
+                                                    model)
+        counts = _add(counts, int8_counts)
+        del bf16
+    del engine, params_host
+    torch.cuda.empty_cache()
+    res["launches"] = counts
+    return res, counts
+
+
+#: the two models' timed training steps after 2 warm-up ones: 5, not
+#: phase 6's 10, to keep the whole run near 550 s of command time
+WIDE_TRAIN_STEPS = 5
+
+
+def run_wide_training(model, base, micro, row_seq, warmup=2,
+                      steps=WIDE_TRAIN_STEPS):
+    """GPT-2 760M's or 2.7B's training path at phase 6's setup (seq 1024,
+    bf16, remat ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, gas 1) at
+    micro-batch ``micro``, through the D 96 or 80 kernels: seq 1024 is one
+    key block, so each step launches ``flash_fwd`` and ``flash_bwd_fused``
+    once a layer and the pair never; the row check at ``row_seq`` tokens
+    (a one-row fp32 host forward of 2.7B is about 5 TFLOP and 10.6 GB at
+    1024); then a profile of 2 steps.  Returns (results, counts)."""
+    cfg = dataclasses.replace(base, max_seq_len=1024, dtype=torch.bfloat16,
+                              remat=True, remat_policy="attn_out")
+    L = cfg.n_layer
+    want = {"flash_fwd": L, "flash_bwd_fused": L, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "fused_adam": 1}
+    label = f"{model} train"
+    res, counts, engine, batch = _train_full_width(
+        label, model, cfg, micro, want, warmup, steps, row_seq)
+    res["head_dim"] = cfg.head_dim
+    res["profile"] = device_profile(
+        f"{label} 2 steps", lambda: [engine.train_batch_fused(batch)
+                                     for _ in range(2)], FLASH_KERNELS)
+    del engine, batch
+    torch.cuda.empty_cache()
+    return res, counts
+
+
 #: the flash trio's kernels, by a substring of their names in a profile
 FLASH_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc",
                  "flash_bwd_fused_tc")
@@ -2831,7 +3113,7 @@ def compare_decode(engines, cfg, rounds=4, n=33):
     return samples
 
 
-def run_int8_serving(cfg, params_host, bf16):
+def run_int8_serving(cfg, params_host, bf16, model="GPT-2 350M"):
     """Phase 5: the int8 slice at full width, every launch count at 0
     before the engine is built: ``init_inference(..., dtype="int8",
     kv_cache_dtype="int8")`` (4 quantizer launches), then phase 3's
@@ -2851,7 +3133,7 @@ def run_int8_serving(cfg, params_host, bf16):
            "kv_bytes_per_token": kv_bytes_per_token(engine.model_config,
                                                     "int8"),
            "kv_bytes_per_token_bf16": kv_bytes_per_token(engine.model_config)}
-    log(f"[int8] GPT-2 350M int8 weights: {res['param_bytes']:,} parameter "
+    log(f"[int8] {model} int8 weights: {res['param_bytes']:,} parameter "
         f"bytes against {res['param_bytes_bf16']:,} in bf16 "
         f"({res['param_bytes'] / res['param_bytes_bf16']:.3f}x); KV cache "
         f"{res['kv_bytes_per_token']:,} bytes per token per row against "
@@ -2859,9 +3141,10 @@ def run_int8_serving(cfg, params_host, bf16):
         f"({res['kv_bytes_per_token'] / res['kv_bytes_per_token_bf16']:.3f}"
         f"x); quantizer launches at init {init_counts['quantizer']}")
     kernels.reset_launch_counts()
-    res["generate"] = run_generate(engine, cfg, "int8 weights + int8 cache")
+    res["generate"] = run_generate(engine, cfg, "int8 weights + int8 cache",
+                                   model)
     gen_counts = kernels.launch_counts()
-    res["serving"], serve_counts = run_serving(engine, cfg)
+    res["serving"], serve_counts = run_serving(engine, cfg, model=model)
     res["serving"]["peak_above_resident_gib"] = \
         (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
     counts = {k: init_counts[k] + gen_counts[k] + serve_counts[k]
@@ -2881,7 +3164,7 @@ def run_int8_serving(cfg, params_host, bf16):
         "max_abs_logit_diff": (logits - bf16["logits"]).abs().max().item(),
         "argmax_agreement": (logits.argmax(-1) == bf16["logits"].argmax(-1))
         .float().mean().item()}
-    log(f"[int8] vs bf16 (report only): greedy token agreement "
+    log(f"[int8] {model} vs bf16 (report only): greedy token agreement "
         f"{res['vs_bf16']['greedy_token_agreement']:.3f}, first divergence "
         f"per row {res['vs_bf16']['first_divergence_per_row']}, largest "
         f"logit difference {res['vs_bf16']['max_abs_logit_diff']:.4f}, "
@@ -2906,11 +3189,11 @@ def run_int8_serving(cfg, params_host, bf16):
                              f"{gen_counts} (want {want}), serving "
                              f"{serve_counts}")
     res["profile"] = profile_generate(engine, cfg,
-                                      "int8 generate 4x16 tokens")
+                                      f"{model} int8 generate 4x16 tokens")
     turns = compare_decode({"bf16": bf16["engine"], "int8": engine}, cfg)
     med = {k: float(np.median(v)) for k, v in turns.items()}
     res["decode_ms_per_token_in_turns"] = {"samples": turns, "median": med}
-    log(f"[int8] decode ms per token in turns (bf16, int8, int8, bf16, "
+    log(f"[int8] {model} decode ms per token in turns (bf16, int8, int8, bf16, "
         f"...; 4 ragged rows, 32 steps): bf16 "
         f"{[round(x, 3) for x in turns['bf16']]} median {med['bf16']:.3f}, "
         f"int8 {[round(x, 3) for x in turns['int8']]} median "
@@ -3359,14 +3642,17 @@ def _train_full_width(label, model, cfg, micro, want, warmup, steps, row_seq):
     host_cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=False)
     host_params = _host_tree(engine.state["master"])
     host_tokens = {"tokens": torch.from_numpy(row["tokens"])}
+    t_host = time.perf_counter()
     with torch.no_grad():
         host_row = float(gpt.loss_fn(host_params, host_tokens, host_cfg))
+    host_s = time.perf_counter() - t_host
     row_rel = abs(card_row - host_row) / abs(host_row)
     log(f"[{label}] one row of {row_seq} tokens before the first step: bf16 "
-        f"card loss {card_row:.5f}, fp32 host loss {host_row:.5f}, relative "
-        f"diff {row_rel:.4f} (tol 0.02)")
+        f"card loss {card_row:.5f}, fp32 host loss {host_row:.5f} ({host_s:.1f} "
+        f"s on the host), relative diff {row_rel:.4f} (tol 0.02)")
     row_res = {"row_loss_card_bf16": card_row, "row_loss_host_fp32": host_row,
-               "row_rel_diff": row_rel, "row_rule": "0.02"}
+               "row_rel_diff": row_rel, "row_rule": "0.02", "row_seq": row_seq,
+               "row_host_s": host_s}
     if not row_rel <= 0.02 and cfg.local_attention_window > 0:
         unbanded = {"local_attention_window": 0,
                     "local_attention_alternating": False}
@@ -3953,7 +4239,10 @@ def main() -> int:
               *[check_decode_option(opt, int8) for opt in ("window", "alibi")
                 for int8 in (False, True)],
               *[check_chunk_option(opt, int8) for opt in ("window", "alibi")
-                for int8 in (False, True)]]
+                for int8 in (False, True)],
+              *check_head_dims(),
+              *[row for _, _, H, D in HEAD_DIM_SHAPES
+                for row in check_kv_append(H=H, D=D)]]
     check_adam_skip()
     check_lamb_skip()
     result["quantizer_sweep"] = check_quantizer_sweep()
@@ -3981,6 +4270,9 @@ def main() -> int:
                    for k, v in params.items()}
     del params
     kernels.reset_launch_counts()
+    # read once, after every path: the profiled runs and logits checks,
+    # which the launch counts leave out, count here too
+    kernels.reset_head_dim_launches()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     result["generate"] = run_generate(engine, cfg)
@@ -4014,6 +4306,11 @@ def main() -> int:
         result["launches"][key] = family_counts
         counts = _add(counts, family_counts)
 
+    for key, model, cfg, seed, int8, _, _ in WIDE_MODELS:
+        result[key], wide_counts = run_wide_serving(model, cfg, seed, int8)
+        result["launches"][key] = wide_counts
+        counts = _add(counts, wide_counts)
+
     result["training"], train_counts, trainer, batch = run_training()
     result["launches"]["training"] = train_counts
     counts = {k: counts[k] + train_counts[k] for k in counts}
@@ -4035,6 +4332,12 @@ def main() -> int:
         "neo train", result["neo_training"], result["neo_training_profile"])
     del trainer
     torch.cuda.empty_cache()
+
+    for key, model, cfg, _, _, micro, row_seq in WIDE_MODELS:
+        result[f"{key}_training"], wide_counts = run_wide_training(
+            model, cfg, micro, row_seq)
+        result["launches"][f"{key}_training"] = wide_counts
+        counts = _add(counts, wide_counts)
 
     result["sparse_training"], sparse_counts, trainer, batch = \
         run_sparse_training()
@@ -4070,6 +4373,9 @@ def main() -> int:
     result["launches"]["bias_gelu_op"] = op_counts
     counts = {k: counts[k] + op_counts[k] for k in counts}
 
+    dims = kernels.head_dim_launches()
+    result["head_dim_launches"] = dims
+    log(f"[head dims] main-path launches by head dim: {dims}")
     first = {}
     for row in checks:
         first.setdefault(row["name"], row)
@@ -4085,6 +4391,8 @@ def main() -> int:
                      "library_ms": row["library_ms"]})
         if base in TC_ENTRY:
             line[-1]["bf16_fp16_kernel"] = TC_ENTRY[base]
+        if base in dims:
+            line[-1]["head_dims"] = {str(D): n for D, n in dims[base].items()}
         if name in CHECK_ONLY:
             line[-1]["paths"] = ("none: no path of the JAX package calls it; "
                                  "held in the check phase only")
@@ -4095,7 +4403,11 @@ def main() -> int:
     log(smi)
     log(f"[launches] generate {gen_counts}, serving {serve_counts}, int8 "
         f"serving {int8_counts}, GPT-Neo {result['launches']['gpt_neo']}, "
-        f"BLOOM {result['launches']['bloom']}, training {train_counts}, "
+        f"BLOOM {result['launches']['bloom']}, GPT-2 760M "
+        f"{result['launches']['gpt2_760m']}, GPT-2 2.7B "
+        f"{result['launches']['gpt2_2_7b']}, GPT-2 760M training "
+        f"{result['launches']['gpt2_760m_training']}, GPT-2 2.7B training "
+        f"{result['launches']['gpt2_2_7b_training']}, training {train_counts}, "
         f"GPT-Neo training {neo_counts}, sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
         f"{ROUTE_SEQ} {route_counts}, diffusion "

@@ -24,12 +24,18 @@
 namespace attn_tc {
 
 // a [rows, D] 16-bit tile in shared memory: HALVES TMA boxes of COLS
-// columns, ROWB bytes a box row (hopper.cuh)
+// columns, ROWB bytes a box row (hopper.cuh); D 80 and 96 in the boxes of
+// D 128 (common.cuh tile_dim), the second one past D zero-filled.  KSTEPS:
+// the 16-column depth steps of a product whose depth is D, the exact D.
 template <int D>
 struct Boxes {
-    static constexpr int HALVES = D > 64 ? D / 64 : 1;
-    static constexpr int COLS = D < 64 ? D : 64;
+    static constexpr int DT = HeadDim<D>::TILE;
+    static constexpr int HALVES = DT > 64 ? DT / 64 : 1;
+    static constexpr int COLS = DT < 64 ? DT : 64;
     static constexpr int ROWB = 2 * COLS;
+    static constexpr int KSTEPS = D / 16;
+    static_assert(HALVES * COLS == DT && KSTEPS * 16 == D && D > (HALVES - 1) * COLS,
+                  "the boxes cover D, each of them holds a column of it");
 };
 
 constexpr int BK = 64;             // keys per k-tile of the forward and dQ
@@ -84,7 +90,7 @@ __device__ __forceinline__ void fwd_step(FwdState<D>& st, const hopper::Frag& fr
     float sc[BK / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < B::KSTEPS; ++kk)
         hopper::mma_ss<T, BK>(sc, hopper::tile_desc<B::ROWB>(q_addr + hopper::kstep<QR, B::ROWB>(kk)),
                               hopper::tile_desc<B::ROWB>(k_addr + hopper::kstep<BK, B::ROWB>(kk)), kk > 0);
     hopper::wgmma_commit();
@@ -140,9 +146,9 @@ __device__ __forceinline__ void fwd_step(FwdState<D>& st, const hopper::Frag& fr
 }
 
 // The forward's epilogue: O = acc / l for rows row0 + fragment row below
-// `limit` (obase: the (b, h) slice, rows o_ss apart), and, where lse is
-// given (the (b, h) row of [B, H, S]), lse = m + log(l).  A row that saw
-// no key keeps m = -inf and l = 0: O = 0, lse = -inf.
+// `limit`, columns below D (obase: the (b, h) slice, rows o_ss apart),
+// and, where lse is given (the (b, h) row of [B, H, S]), lse = m + log(l).
+// A row that saw no key keeps m = -inf and l = 0: O = 0, lse = -inf.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_finish(const FwdState<D>& st, const hopper::Frag& fr, int t, T* obase,
                                            long long o_ss, int row0, int limit, float* lse) {
@@ -152,7 +158,8 @@ __device__ __forceinline__ void fwd_finish(const FwdState<D>& st, const hopper::
     for (int r = 0; r < 2; ++r) lf[r] = fmaxf(hopper::quad_sum(st.l[r]), 1e-30f);
 #pragma unroll
     for (int hf = 0; hf < B::HALVES; ++hf)
-        hopper::store_frag<T, B::COLS>(st.o[hf], obase, o_ss, row0, hf * 64, limit, 1.f / lf[0], 1.f / lf[1], fr);
+        hopper::store_frag<T, B::COLS>(st.o[hf], obase, o_ss, row0, hf * 64, limit, 1.f / lf[0], 1.f / lf[1], fr,
+                                       D - hf * 64);
     if (lse != nullptr && (t & 3) == 0) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -228,11 +235,11 @@ __device__ __forceinline__ void dkv_step(DkvAcc<D>& acc, const hopper::Frag& fr,
     float st[BQ / 2], dpt[BQ / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < B::KSTEPS; ++kk)
         hopper::mma_ss<T, BQ>(st, hopper::tile_desc<B::ROWB>(k_addr + hopper::kstep<KR, B::ROWB>(kk)),
                               hopper::tile_desc<B::ROWB>(q_addr + hopper::kstep<BQ, B::ROWB>(kk)), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < B::KSTEPS; ++kk)
         hopper::mma_ss<T, BQ>(dpt, hopper::tile_desc<B::ROWB>(v_addr + hopper::kstep<KR, B::ROWB>(kk)),
                               hopper::tile_desc<B::ROWB>(do_addr + hopper::kstep<BQ, B::ROWB>(kk)), kk > 0);
     hopper::wgmma_commit();
@@ -272,15 +279,16 @@ __device__ __forceinline__ void dkv_step(DkvAcc<D>& acc, const hopper::Frag& fr,
     }
 }
 
-// Store a warpgroup's dK and dV (rows row0 + fragment row below `limit`)
+// Store a warpgroup's dK and dV (rows row0 + fragment row below `limit`,
+// columns below D)
 template <typename T, int D>
 __device__ __forceinline__ void dkv_finish(const DkvAcc<D>& acc, const hopper::Frag& fr, T* dkp, long long dk_ss,
                                            T* dvp, long long dv_ss, int row0, int limit) {
     using B = Boxes<D>;
 #pragma unroll
     for (int hf = 0; hf < B::HALVES; ++hf) {
-        hopper::store_frag<T, B::COLS>(acc.dk[hf], dkp, dk_ss, row0, hf * 64, limit, 1.f, 1.f, fr);
-        hopper::store_frag<T, B::COLS>(acc.dv[hf], dvp, dv_ss, row0, hf * 64, limit, 1.f, 1.f, fr);
+        hopper::store_frag<T, B::COLS>(acc.dk[hf], dkp, dk_ss, row0, hf * 64, limit, 1.f, 1.f, fr, D - hf * 64);
+        hopper::store_frag<T, B::COLS>(acc.dv[hf], dvp, dv_ss, row0, hf * 64, limit, 1.f, 1.f, fr, D - hf * 64);
     }
 }
 
@@ -344,11 +352,11 @@ __device__ __forceinline__ void dq_step(DqAcc<D>& acc, const hopper::Frag& fr, u
     float sc[BK / 2], dp[BK / 2];
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < B::KSTEPS; ++kk)
         hopper::mma_ss<T, BK>(sc, hopper::tile_desc<B::ROWB>(q_addr + hopper::kstep<QR, B::ROWB>(kk)),
                               hopper::tile_desc<B::ROWB>(k_addr + hopper::kstep<BK, B::ROWB>(kk)), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < B::KSTEPS; ++kk)
         hopper::mma_ss<T, BK>(dp, hopper::tile_desc<B::ROWB>(do_addr + hopper::kstep<QR, B::ROWB>(kk)),
                               hopper::tile_desc<B::ROWB>(v_addr + hopper::kstep<BK, B::ROWB>(kk)), kk > 0);
     hopper::wgmma_commit();
@@ -377,14 +385,15 @@ __device__ __forceinline__ void dq_step(DqAcc<D>& acc, const hopper::Frag& fr, u
     for (int hf = 0; hf < B::HALVES; ++hf) hopper::fence_regs(acc.dq[hf]);
 }
 
-// Store a warpgroup's dQ (rows row0 + fragment row below `limit`)
+// Store a warpgroup's dQ (rows row0 + fragment row below `limit`, columns
+// below D)
 template <typename T, int D>
 __device__ __forceinline__ void dq_finish(const DqAcc<D>& acc, const hopper::Frag& fr, T* dqp, long long dq_ss,
                                           int row0, int limit) {
     using B = Boxes<D>;
 #pragma unroll
     for (int hf = 0; hf < B::HALVES; ++hf)
-        hopper::store_frag<T, B::COLS>(acc.dq[hf], dqp, dq_ss, row0, hf * 64, limit, 1.f, 1.f, fr);
+        hopper::store_frag<T, B::COLS>(acc.dq[hf], dqp, dq_ss, row0, hf * 64, limit, 1.f, 1.f, fr, D - hf * 64);
 }
 
 }  // namespace attn_tc

@@ -59,6 +59,12 @@
 //
 // fp32 keeps the FMA kernel of flash_tile.cuh (wgmma reads V transposed,
 // which it does for 16-bit operands only).
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tiles of
+// 128 (common.cuh tile_dim): S = Q.K^T stops at D's last 16-column step;
+// P.V computes the padded columns (zeros TMA fills in, or over the int8
+// cache whatever the ring held: the widening writes D's columns only) and
+// they are neither staged nor stored.
 #include "flash_tile.cuh"
 #include "hopper.cuh"
 
@@ -85,8 +91,10 @@ struct ChunkParams {
 
 template <int D, bool Q8>
 struct ChunkCfg {
-    static constexpr int HALVES = D > 64 ? D / 64 : 1;     // boxes per row
-    static constexpr int COLS = D < 64 ? D : 64;            // columns per box
+    static constexpr int DT = HeadDim<D>::TILE;             // D 80, 96: D 128's boxes
+    static constexpr int HALVES = DT > 64 ? DT / 64 : 1;   // boxes per row
+    static constexpr int COLS = DT < 64 ? DT : 64;          // columns per box
+    static_assert(HALVES * COLS == DT && D > (HALVES - 1) * COLS, "each box holds a column of D");
     static constexpr int ROWB = 2 * COLS;                   // bytes per box row
     static constexpr int STAGES = D > 64 ? 2 : 3;
     // the producer: a warp that issues TMA loads, or with an int8 cache a
@@ -142,6 +150,7 @@ template <typename T, int D>
 __device__ __forceinline__ void widen_tile(uint8_t* tile, const uint8_t* codes, int lane) {
     using C = ChunkCfg<D, true>;
     constexpr int VPR = D / 16;                   // 16-byte code vectors per row
+    static_assert(VPR * 16 == D, "whole 16-byte code vectors a row");
 #pragma unroll 4
     for (int id = lane; id < CH_BK * VPR; id += C::PRODUCERS) {
         const int j = id / VPR, vv = id % VPR;
@@ -304,7 +313,7 @@ __global__ void __launch_bounds__(ChunkCfg<D, Q8>::THREADS, 1) chunk_attn_tc(con
             float sc[CH_BK / 2];
             hopper::wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk)
+            for (int kk = 0; kk < D / 16; ++kk)   // D's columns only
                 hopper::mma_ss<T, CH_BK>(sc, hopper::tile_desc<C::ROWB>(q_addr + hopper::kstep<CH_BQ, C::ROWB>(kk)),
                                          hopper::tile_desc<C::ROWB>(k_addr + hopper::kstep<CH_BK, C::ROWB>(kk)), kk > 0);
             hopper::wgmma_commit();
@@ -391,11 +400,13 @@ __global__ void __launch_bounds__(ChunkCfg<D, Q8>::THREADS, 1) chunk_attn_tc(con
 #pragma unroll
         for (int hf = 0; hf < C::HALVES; ++hf)
 #pragma unroll
-            for (int j = 0; j < C::COLS / 8; ++j)
+            for (int j = 0; j < C::COLS / 8; ++j) {
+                if (hf * 64 + 8 * j >= D) continue;     // the padded columns stay out
 #pragma unroll
                 for (int r = 0; r < 2; ++r)
                     *reinterpret_cast<float2*>(acc_s + (fr.row + 8 * r) * C::ACC_LD + hf * 64 + 8 * j + fr.col) =
                         make_float2(o[hf][4 * j + 2 * r], o[hf][4 * j + 2 * r + 1]);
+            }
     }
 
     hopper::cluster_sync();                       // every partial is staged
@@ -485,6 +496,8 @@ cudaError_t run_chunk_tc(ChunkParams& p, const void* q, const void* k, const voi
     switch (D) {                                                          \
         case 32: return launch_chunk_tc<T, 32, Q8>(p, B, stream);         \
         case 64: return launch_chunk_tc<T, 64, Q8>(p, B, stream);         \
+        case 80: return launch_chunk_tc<T, 80, Q8>(p, B, stream);         \
+        case 96: return launch_chunk_tc<T, 96, Q8>(p, B, stream);         \
         case 128: return launch_chunk_tc<T, 128, Q8>(p, B, stream);       \
         default: return cudaErrorInvalidValue;                            \
     }

@@ -21,6 +21,26 @@ enum DType { kF32 = 0, kF16 = 1, kBF16 = 2 };
 // elements of T in one 16-byte vector
 template <typename T> struct VecWidth { static constexpr int value = 16 / sizeof(T); };
 
+// The head dim of the tile an attention kernel computes head dim D in
+// (ops/kernels/utils.py tile_dim): D itself at 32, 64 and 128; D 80 and 96
+// (GPT-2 2.7B, 760M) in the tile of 128.  A tensor-core tile's second
+// 64-column box then runs past D: TMA zero-fills its columns past D
+// (dims[0] = D) and still counts the whole box's bytes; products whose
+// depth is D stop at D's last 16-column step, those whose N is D compute
+// the padded columns and never store them.  An FMA kernel's row of D
+// floats is padded with zeros to the tile, so its lanes stay a power of
+// two a row.
+__host__ __device__ constexpr int tile_dim(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : 128; }
+
+// every D the attention kernels take lies in a tile of a whole number of
+// 16-column steps (the k16 depth of wgmma and mma.sync)
+template <int D>
+struct HeadDim {
+    static_assert(D == 32 || D == 64 || D == 80 || D == 96 || D == 128, "head dims of these kernels");
+    static_assert(D % 16 == 0 && D <= tile_dim(D), "a head dim of whole 16-column steps");
+    static constexpr int TILE = tile_dim(D);
+};
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -39,7 +39,8 @@
 //   about 16 mantissa bits).  No wgmma: its 64-row operand would be 1/64
 //   used.
 // - fp32 caches, and int8 codes under any query type (decode_attn_fma):
-//   G groups of D / VEC lanes, a group two keys of each tile, one 16-byte
+//   G groups of TPK lanes (D / VEC up to a power of two), a group two
+//   keys of each tile, one 16-byte
 //   shared-memory read per lane per row, fp32 FMAs; int8 codes widen on
 //   integer and add units, and the scales multiply a row's sum
 //   (S_j = k_scale_j q . codes_j, acc += (p_j v_scale_j) codes_j), not each
@@ -61,6 +62,14 @@
 //   shared memory) and arrives on rank 0's mbarrier, then leaves; rank 0
 //   combines the n partials in rank order, O = sum acc_r e^(m_r - m) /
 //   sum l_r e^(m_r - m).  Fixed orders, no atomics: bitwise repeatable.
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M): the mma
+// kernel's tiles take D 128's two 64-column boxes (common.cuh tile_dim;
+// TMA zero-fills the columns past D and moves D's bytes from memory), its
+// q . K^T stops at D's last 16-column step and P . V covers D's 8-column
+// blocks only; the FMA kernel's rows stay D elements (D * sizeof(C) bytes,
+// a multiple of 16) and a row takes the next power of two of D / VEC
+// lanes, those past the row idle.
 //
 // Tried on the card and slower (PERF.md): per-row cp.async.bulk copies,
 // per-thread cp.async, the FMA consumer for bf16, the mma consumer for
@@ -219,13 +228,23 @@ struct MmaCfg {
     static constexpr int WARPS = 8;
     static constexpr int THREADS = 32 * WARPS;
     static constexpr int KT = 16 * WARPS;                   // keys per tile, 16 a warp
-    static constexpr int ROWB = D >= 64 ? 128 : 64;         // bytes of a swizzled box row
+    static constexpr int DT = HeadDim<D>::TILE;             // D 80, 96: D 128's boxes
+    static constexpr int ROWB = DT >= 64 ? 128 : 64;        // bytes of a swizzled box row
     static constexpr int CPB = ROWB / 16;                   // 16-byte chunks per box row
     static constexpr int BOX_COLS = ROWB / 2;
-    static constexpr int BOXES = D / BOX_COLS;              // column boxes across a row
+    static constexpr int BOXES = DT / BOX_COLS;             // column boxes across a row
+    static_assert(BOXES * BOX_COLS == DT && D > (BOXES - 1) * BOX_COLS, "each box holds a column of D");
     static constexpr int BOX_BYTES = DEC_SUB * ROWB;
     static constexpr int BOX_STRIDE = KT * ROWB;
-    static constexpr int TILE = KT * D * 2;                 // a [KT, D] tile
+    static constexpr int TILE = BOXES * BOX_STRIDE;         // a [KT, D] tile in its boxes
+    // q . K^T in 32-column steps of two mma.sync each, the second of the
+    // last step left out where D ends 16 columns into it (D 80)
+    static constexpr int KSTEPS = D / 16;
+    static constexpr int K2 = (KSTEPS + 1) / 2;
+    // one CTA an SM at the tile of 128 (its ring alone takes two stages of
+    // 64 KB), so that ptxas gives the D 80 and 96 accumulators the
+    // registers D 128's take rather than aim at two CTAs an SM and spill
+    static constexpr int MIN_CTAS = DT == 128 ? 1 : 2;
     static constexpr int STAGE = 2 * TILE;                  // K, then V
     static constexpr int STAGES = DEC_RING / STAGE < 2 ? 2 : DEC_RING / STAGE > 8 ? 8 : DEC_RING / STAGE;
     static constexpr int RING = STAGES * STAGE;
@@ -245,7 +264,7 @@ __device__ __forceinline__ uint32_t chunk_at(int r, int c) {
 // the fragment), and O += P . V with P = hi + lo, two 16-bit parts, as the
 // A operand straight from the S fragment.
 template <typename T, int D>
-__global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const __grid_constant__ DecodeParams p) {
+__global__ void __launch_bounds__(MmaCfg<T, D>::THREADS, MmaCfg<T, D>::MIN_CTAS) decode_attn_mma(const __grid_constant__ DecodeParams p) {
     using Cf = MmaCfg<T, D>;
     constexpr int KT = Cf::KT, STAGES = Cf::STAGES;
     extern __shared__ uint8_t smem_raw[];
@@ -265,11 +284,11 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
     const bool early = rank == 0 && p.window <= 0;
     // q as row 0 of the A operand: lanes 0-3 hold columns 2 lane, +1 and
     // 2 lane + 8, +9 of each 16-column step, everything else is zero
-    uint32_t qa[D / 16][2];
+    uint32_t qa[Cf::KSTEPS][2];
     {
         const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + 2 * lane;
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < Cf::KSTEPS; ++kk) {
             qa[kk][0] = lane < 4 ? *reinterpret_cast<const uint32_t*>(qp + 16 * kk) : 0u;
             qa[kk][1] = lane < 4 ? *reinterpret_cast<const uint32_t*>(qp + 16 * kk + 8) : 0u;
         }
@@ -345,13 +364,17 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
 #pragma unroll
                     for (int e = 0; e < 4; ++e) sf[nb][e] = 0.f;
 #pragma unroll
-                    for (int k2 = 0; k2 < D / 32; ++k2) {
+                    for (int k2 = 0; k2 < Cf::K2; ++k2) {
+                        // (at D 80 the last step's second half reads the
+                        // box's zero-filled columns, and is not multiplied)
                         uint32_t kb[4];
                         hopper::ldmatrix_x4<false>(kb, ks_addr + chunk_at<Cf>(r0 + 8 * nb + lane % 8, 4 * k2 + lane / 8));
                         const uint32_t a0[4] = {qa[2 * k2][0], 0u, qa[2 * k2][1], 0u};
-                        const uint32_t a1[4] = {qa[2 * k2 + 1][0], 0u, qa[2 * k2 + 1][1], 0u};
                         hopper::mma_16816<T>(sf[nb], a0, kb[0], kb[1]);
-                        hopper::mma_16816<T>(sf[nb], a1, kb[2], kb[3]);
+                        if (2 * k2 + 1 < Cf::KSTEPS) {
+                            const uint32_t a1[4] = {qa[2 * k2 + 1][0], 0u, qa[2 * k2 + 1][1], 0u};
+                            hopper::mma_16816<T>(sf[nb], a1, kb[2], kb[3]);
+                        }
                     }
                 }
                 // scores of lanes 0-3 (row 0): keys r0 + 8 nb + 2 lane + e,
@@ -389,7 +412,7 @@ __global__ void __launch_bounds__(MmaCfg<T, D>::THREADS) decode_attn_mma(const _
                 const uint32_t alo[4] = {hopper::pack2<T>(pv[0] - f0h.x, pv[1] - f0h.y), 0u,
                                          hopper::pack2<T>(pv[2] - f1h.x, pv[3] - f1h.y), 0u};
 #pragma unroll
-                for (int d2 = 0; d2 < D / 16; ++d2) {
+                for (int d2 = 0; d2 < Cf::KSTEPS; ++d2) {
                     uint32_t vb[4];
                     hopper::ldmatrix_x4<true>(vb, vs_addr + chunk_at<Cf>(r0 + lane % 8 + 8 * ((lane / 8) % 2), 2 * d2 + lane / 16));
                     hopper::mma_16816<T>(o[2 * d2], ahi, vb[0], vb[1]);
@@ -456,7 +479,12 @@ struct FmaCfg {
     static constexpr int THREADS = 256;
     static constexpr int STAGES = 3;
     static constexpr int VEC = VecWidth<C>::value;          // cache elements per 16 bytes
-    static constexpr int TPK = D / VEC;                     // lanes per key row
+    static constexpr int VPR = D / VEC;                     // 16-byte vectors of a row
+    static_assert(VPR * VEC == D && VPR <= 32, "whole 16-byte vectors a row, a warp at most");
+    // lanes per key row: the next power of two of VPR (the group merge's
+    // butterfly and the row sums' shuffles stay within a group); lanes
+    // VPR .. TPK - 1 of a group idle (D 80, 96)
+    static constexpr int TPK = VPR <= 1 ? 1 : VPR <= 2 ? 2 : VPR <= 4 ? 4 : VPR <= 8 ? 8 : VPR <= 16 ? 16 : 32;
     static constexpr int G = THREADS / TPK;                 // key groups
     static constexpr int U = 2;                             // keys per group per tile
     static constexpr int KT = U * G;                        // keys per tile
@@ -473,7 +501,7 @@ struct FmaCfg {
     static constexpr int SMEM = RING + 128;                 // + alignment slack
 };
 
-// G groups of D / VEC lanes, a group U keys of each tile (key u G + g),
+// G groups of TPK lanes, a group U keys of each tile (key u G + g),
 // one 16-byte shared-memory read per lane per key row, fp32 FMAs.  Over
 // int8 codes the scales multiply the row's sum, S_j = k_scale_j (q .
 // codes_j) and acc += (p_j v_scale_j) codes_j, not each element.
@@ -496,8 +524,16 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
     const int b = blockIdx.z;
     const int pos_b = p.pos != nullptr ? p.pos[b] : p.pos_scalar;
     const bool early = rank == 0 && p.window <= 0;
+    // a lane past the row (D 80, 96) reads nothing and adds 0 to its row's
+    // sums; its accumulator is never stored
+    const bool in_row = Cf::VPR == TPK || lane < Cf::VPR;
     float qf[VEC];
-    load_widen<T, VEC>(static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + lane * VEC, qf);
+    if (in_row) {
+        load_widen<T, VEC>(static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + lane * VEC, qf);
+    } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qf[e] = 0.f;
+    }
 
     Ring<Cf> rg{p, ring, full, h, b, 0, 0};
     if (tid == 0) {
@@ -572,7 +608,8 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
             for (int u = 0; u < U; ++u) {
                 // a row past the frontier may not have been loaded: its
                 // score is -inf by the select, and its V row is skipped
-                const uint4 raw = *reinterpret_cast<const uint4*>(kt + (u * G + g) * Cf::ROW_BYTES);
+                const uint4 raw = in_row ? *reinterpret_cast<const uint4*>(kt + (u * G + g) * Cf::ROW_BYTES)
+                                         : make_uint4(0u, 0u, 0u, 0u);
                 float kf[VEC];
                 if constexpr (Q8)
                     widen16_fast(raw, kf);
@@ -598,7 +635,8 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
             for (int u = 0; u < U; ++u) {
                 if (j0 + u * G < kend) {
                     const float pw = expf(sc[u] - m_new);
-                    const uint4 raw = *reinterpret_cast<const uint4*>(vt + (u * G + g) * Cf::ROW_BYTES);
+                    const uint4 raw = in_row ? *reinterpret_cast<const uint4*>(vt + (u * G + g) * Cf::ROW_BYTES)
+                                             : make_uint4(0u, 0u, 0u, 0u);
                     float vf[VEC];
                     if constexpr (Q8)
                         widen16_fast(raw, vf);
@@ -644,8 +682,10 @@ __global__ void __launch_bounds__(FmaCfg<T, C, D>::THREADS) decode_attn_fma(cons
         const int warp = tid / 32;
         if (tid % 32 == lane) {                          // the warp's first group
             if (lane == 0) { m_s[warp] = m; l_s[warp] = l; }
+            if (in_row) {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acc_s[warp * D + lane * VEC + e] = acc[e];
+                for (int e = 0; e < VEC; ++e) acc_s[warp * D + lane * VEC + e] = acc[e];
+            }
         }
         __syncthreads();
         if (tid < D) {
@@ -738,6 +778,8 @@ int dispatch_decode(int dtype, int B, int H, int D, DecodeParams& p, const Cache
     switch (D) {                                                           \
         case 32: return static_cast<int>(CALL(32));                       \
         case 64: return static_cast<int>(CALL(64));                       \
+        case 80: return static_cast<int>(CALL(80));                       \
+        case 96: return static_cast<int>(CALL(96));                       \
         case 128: return static_cast<int>(CALL(128));                     \
         default: return static_cast<int>(cudaErrorInvalidValue);          \
     }

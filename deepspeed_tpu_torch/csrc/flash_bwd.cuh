@@ -59,13 +59,18 @@ __device__ __forceinline__ int key_limit(const BwdArgs& a, int b) {
 }
 
 // rows [r0, r0 + ROWS) of a strided [S, D] head slice into shared memory as
-// fp32, with 16-byte loads (neighbouring threads on neighbouring addresses);
-// rows at or past S are zero
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(float4 (*dst)[D / 4], const T* base, long long row_stride,
+// fp32 rows of DT >= D columns, with 16-byte loads (neighbouring threads on
+// neighbouring addresses); rows at or past S, and the columns past D, are
+// zero
+template <typename T, int D, int ROWS, int DT = D>
+__device__ __forceinline__ void load_rows(float4 (*dst)[DT / 4], const T* base, long long row_stride,
                                           int r0, int S) {
     constexpr int VEC = VecWidth<T>::value;
     constexpr int VPR = D / VEC;
+    static_assert(VPR * VEC == D && DT >= D, "whole 16-byte vectors a row");
+    if constexpr (DT > D)
+        for (int id = threadIdx.x; id < ROWS * (DT - D) / 4; id += DS_BWD_THREADS)
+            dst[id / ((DT - D) / 4)][D / 4 + id % ((DT - D) / 4)] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int id = threadIdx.x; id < ROWS * VPR; id += DS_BWD_THREADS) {
         const int j = id / VPR, vv = id % VPR;
         float f[VEC];

@@ -62,9 +62,16 @@
 // q-tiles' running sums are still in L2.
 //
 // fp32 (flash_fused_fma): flash_dkv_fma's sweep (a CTA of 128 threads per
-// (b, h, key tile), a key row on D/16 lanes), plus each q-tile's dS in
+// (b, h, key tile), a key row on DT/16 lanes), plus each q-tile's dS in
 // shared memory and the CTA's dQ share = dS.K from its keys on FMAs,
 // summed in the same order (k-tile-major grid, ascending q-tiles).
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// DT = 128 (common.cuh tile_dim): the tensor-core kernel's S^T and dP^T
+// stop at D's last 16-column step, dK, dV and the dQ share are computed
+// over the padded columns (zeros TMA fills in) and stored below D only;
+// the FMA kernel pads its rows with zeros.  The workspace's sum is
+// [BQ, DT] per q-tile either way.
 #include <algorithm>
 
 #include "attn_tc.cuh"
@@ -159,25 +166,27 @@ __device__ __forceinline__ void ordered_add(const FusedWs& ws, long long tile, i
 // the fp32 kernel's q-tile, shared with the wrapper's workspace size
 // (ops/kernels/flash_attention.py fused_q_tile)
 template <int D> struct FmaTile {
-    static constexpr int TPR = D / 16;                 // lanes per key row
+    static constexpr int DT = HeadDim<D>::TILE;        // the padded row
+    static constexpr int TPR = DT / 16;                // lanes per key row
     static constexpr int BK = DS_BWD_THREADS / TPR;    // keys per CTA
-    static constexpr int BQ = D <= 64 ? 64 : 32;       // queries per q-tile
+    static constexpr int BQ = DT <= 64 ? 64 : 32;      // queries per q-tile
     static constexpr int RT = DS_BWD_THREADS / BQ;     // threads per row of the dQ share
-    static constexpr int NV = D / 4 / RT;              // float4 of the share a thread holds
-    static constexpr int SMEM = (2 * BQ + BK) * D * 4 + BQ * (BK + 1) * 4 + 2 * BQ * 4;
+    static constexpr int NV = DT / 4 / RT;             // float4 of the share a thread holds
+    static_assert(NV * RT * 4 == DT, "the share covers the padded row");
+    static constexpr int SMEM = (2 * BQ + BK) * DT * 4 + BQ * (BK + 1) * 4 + 2 * BQ * 4;
 };
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
 flash_fused_fma(const BwdArgs a, const FusedWs ws) {
     using F = FmaTile<D>;
-    constexpr int TPR = F::TPR, BK = F::BK, BQ = F::BQ, NV = F::NV;
+    constexpr int DT = F::DT, TPR = F::TPR, BK = F::BK, BQ = F::BQ, NV = F::NV;
     constexpr int NCH = 4;                             // float4 chunks per lane
     extern __shared__ float4 fsm[];
-    float4 (*qs)[D / 4] = reinterpret_cast<float4 (*)[D / 4]>(fsm);
-    float4 (*dos)[D / 4] = reinterpret_cast<float4 (*)[D / 4]>(fsm + BQ * D / 4);
-    float4 (*ks)[D / 4] = reinterpret_cast<float4 (*)[D / 4]>(fsm + 2 * BQ * D / 4);
-    float (*dss)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(fsm + (2 * BQ + BK) * D / 4);
+    float4 (*qs)[DT / 4] = reinterpret_cast<float4 (*)[DT / 4]>(fsm);
+    float4 (*dos)[DT / 4] = reinterpret_cast<float4 (*)[DT / 4]>(fsm + BQ * DT / 4);
+    float4 (*ks)[DT / 4] = reinterpret_cast<float4 (*)[DT / 4]>(fsm + 2 * BQ * DT / 4);
+    float (*dss)[BK + 1] = reinterpret_cast<float (*)[BK + 1]>(fsm + (2 * BQ + BK) * DT / 4);
     float* lses = &dss[0][0] + BQ * (BK + 1);
     float* deltas = lses + BQ;
 
@@ -210,8 +219,9 @@ flash_fused_fma(const BwdArgs a, const FusedWs ws) {
     float4 k[NCH], v[NCH], dk[NCH], dv[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        k[c] = key_ok ? load4(kp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-        v[c] = key_ok ? load4(vp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const bool ok = key_ok && (c * TPR + t) * 4 < D;   // the padded columns: zero
+        k[c] = ok ? load4(kp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[c] = ok ? load4(vp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         dk[c] = make_float4(0.f, 0.f, 0.f, 0.f);
         dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
         ks[r][c * TPR + t] = k[c];
@@ -223,8 +233,8 @@ flash_fused_fma(const BwdArgs a, const FusedWs ws) {
 
     for (int q0 = qstart; q0 < qend; q0 += BQ) {
         __syncthreads();                          // the previous tile is consumed
-        load_rows<T, D, BQ>(qs, qp, a.q_ss, q0, a.Sq);
-        load_rows<T, D, BQ>(dos, dop, a.do_ss, q0, a.Sq);
+        load_rows<T, D, BQ, DT>(qs, qp, a.q_ss, q0, a.Sq);
+        load_rows<T, D, BQ, DT>(dos, dop, a.do_ss, q0, a.Sq);
         for (int i = tid; i < BQ; i += DS_BWD_THREADS) {
             const bool ok = q0 + i < a.Sq;
             lses[i] = ok ? a.lse[stat0 + q0 + i] : 0.f;
@@ -280,7 +290,8 @@ flash_fused_fma(const BwdArgs a, const FusedWs ws) {
                 if (q0 + qr >= a.Sq) return;
                 T* row = dqp + (long long)(q0 + qr) * a.dq_ss + cs * 4;
 #pragma unroll
-                for (int c = 0; c < NV; ++c) store4(row + 4 * c, sum[c].x, sum[c].y, sum[c].z, sum[c].w);
+                for (int c = 0; c < NV; ++c)
+                    if (cs * 4 + 4 * c < D) store4(row + 4 * c, sum[c].x, sum[c].y, sum[c].z, sum[c].w);
             });
     }
     if (ws.wait_cycles != nullptr && tid == 0 && waited > 0)
@@ -291,6 +302,7 @@ flash_fused_fma(const BwdArgs a, const FusedWs ws) {
     T* dvp = static_cast<T*>(a.dv) + b * a.dv_sb + (long long)kj * a.dv_ss + h * a.dv_sh;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
+        if ((c * TPR + t) * 4 >= D) continue;
         store4(dkp + (c * TPR + t) * 4, dk[c].x, dk[c].y, dk[c].z, dk[c].w);
         store4(dvp + (c * TPR + t) * 4, dv[c].x, dv[c].y, dv[c].z, dv[c].w);
     }
@@ -344,9 +356,10 @@ struct FusedCfg : attn_tc::Boxes<D> {
     static constexpr int DS_TILE = FU_BK * DS_ROWB;
     // the CTA's dQ share of a q-tile: NM wgmma fragments of 64 rows by
     // 2 NF columns (NF fp32 a thread of the producer warpgroup), NIDX
-    // float4 in the accumulator (D 128: the two halves of D)
-    static constexpr int NM = D == 128 ? 2 : 1;
-    static constexpr int NF = D == 64 ? 32 : 16;
+    // float4 in the accumulator (the tile of 128: the two halves of it)
+    static constexpr int DT = attn_tc::Boxes<D>::DT;
+    static constexpr int NM = DT == 128 ? 2 : 1;
+    static constexpr int NF = DT == 64 ? 32 : 16;
     static constexpr int NIDX = NM * NF * 32;
     static constexpr int K_BYTES = HALVES * FU_BK * ROWB;   // one of K, V
     static constexpr int T_BYTES = HALVES * BQ * ROWB;      // one of Q, dO
@@ -356,7 +369,7 @@ struct FusedCfg : attn_tc::Boxes<D> {
     static constexpr int STAT_OFF = ACC_OFF + 2 * NIDX * 16;   // stage s: lse, then delta
     static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BQ * 4;
     static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES + 6) + 1024;   // + alignment slack
-    static_assert(NIDX * 4 == BQ * D, "the share covers the q-tile");
+    static_assert(NIDX * 4 == BQ * DT, "the share covers the q-tile's padded rows");
 };
 
 // x, through an asm the compiler keeps in order among the other asm
@@ -547,7 +560,7 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
             }
             // the share from the staged dS^T, both operands MN-major:
             //   D 32:      dQ = dS.K (A: dS^T [keys][64 queries], B: K [keys][32])
-            //   D 64, 128: dQ^T = K^T.dS^T (A: K's box m, B: dS^T [keys][BQ])
+            //   D 64 up:   dQ^T = K^T.dS^T (A: K's box m, B: dS^T [keys][BQ])
             const uint32_t ds = ds_all + slot * C::DS_TILE;
             hopper::mbar_wait(&staged_full[slot], (i >> 1) & 1);
             float f[C::NM][C::NF];
@@ -604,8 +617,9 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
                     for (int jj = 0; jj < C::NF / 4; ++jj) {
                         // .x, .y: row fr.row, columns 8 jj + fr.col and the
                         // next; .z, .w: row fr.row + 8.  D 32: rows are
-                        // queries, columns D; D 64, 128: rows are D (D 128:
-                        // m its half), columns queries
+                        // queries, columns D; D 64 and up: rows are D (the
+                        // tile of 128: m its half; rows past D padding),
+                        // columns queries
                         const float4 x = vec(m, jj);
                         const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -613,7 +627,7 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
                             const int row = fr.row + 8 * (e >> 1), col = 8 * jj + fr.col + (e & 1);
                             const int q = q0 + (D == 32 ? row : col);
                             const int d = D == 32 ? col : 64 * m + row;
-                            if (q < p.Sq) dqp[(long long)q * p.dq_ss + d] = from_float<T>(xs[e]);
+                            if ((q < p.Sq) & (d < D)) dqp[(long long)q * p.dq_ss + d] = from_float<T>(xs[e]);
                         }
                     }
             }
@@ -684,11 +698,11 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
         float st[BQ / 2], dpt[BQ / 2];
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < Bx::KSTEPS; ++kk)
             hopper::mma_ss<T, BQ>(st, hopper::tile_desc<Bx::ROWB>(k_addr + hopper::kstep<FU_BK, Bx::ROWB>(kk)),
                                   hopper::tile_desc<Bx::ROWB>(q_addr + hopper::kstep<BQ, Bx::ROWB>(kk)), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < Bx::KSTEPS; ++kk)
             hopper::mma_ss<T, BQ>(dpt, hopper::tile_desc<Bx::ROWB>(v_addr + hopper::kstep<FU_BK, Bx::ROWB>(kk)),
                                   hopper::tile_desc<Bx::ROWB>(do_addr + hopper::kstep<BQ, Bx::ROWB>(kk)), kk > 0);
         hopper::wgmma_commit();
@@ -854,8 +868,8 @@ cudaError_t launch_fused_tc(const BwdArgs& a, const FusedWs& ws, int dtype, cuda
 
 }  // namespace
 
-// acc: fp32, B * H * ceil(Sq / BQ) * BQ * D (BQ: 64 at D <= 64, 32 at
-// D 128); counters: int32, B * H * ceil(Sq / BQ), zero before the first
+// acc: fp32, B * H * ceil(Sq / BQ) * BQ * tile_dim(D) (BQ: 64 at D <= 64,
+// 32 above); counters: int32, B * H * ceil(Sq / BQ), zero before the first
 // launch (each launch leaves them zero); wait_cycles: null, or one
 // uint64 the CTAs' waiting cycles are added to.
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
@@ -880,6 +894,8 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, cons
     switch (D) {                                                         \
         case 32: return static_cast<int>(LAUNCH<T, 32>(a, ws, ##__VA_ARGS__, stream));   \
         case 64: return static_cast<int>(LAUNCH<T, 64>(a, ws, ##__VA_ARGS__, stream));   \
+        case 80: return static_cast<int>(LAUNCH<T, 80>(a, ws, ##__VA_ARGS__, stream));   \
+        case 96: return static_cast<int>(LAUNCH<T, 96>(a, ws, ##__VA_ARGS__, stream));   \
         case 128: return static_cast<int>(LAUNCH<T, 128>(a, ws, ##__VA_ARGS__, stream)); \
         default: return static_cast<int>(cudaErrorInvalidValue);        \
     }

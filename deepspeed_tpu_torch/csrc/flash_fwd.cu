@@ -44,6 +44,11 @@
 //
 // fp32 keeps the FMA kernel of flash_tile.cuh (wgmma transposes 16-bit
 // operands only).
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// 128 (common.cuh tile_dim): S = Q.K^T stops at D's last 16-column step,
+// O's columns past D are computed on the zeros TMA fills in and never
+// stored.
 #include "attn_tc.cuh"
 #include "flash_tile.cuh"
 
@@ -66,11 +71,11 @@ struct FwdParams {
     int window;                    // band width, 0: none (causal only)
 };
 
+// D 80 and 96 take D 128's boxes and stages (attn_tc.cuh Boxes)
 template <int D>
-struct FwdCfg {
-    static constexpr int HALVES = D > 64 ? D / 64 : 1;     // TMA boxes per row
-    static constexpr int COLS = D < 64 ? D : 64;            // columns per box
-    static constexpr int ROWB = 2 * COLS;                   // bytes per box row
+struct FwdCfg : attn_tc::Boxes<D> {
+    using attn_tc::Boxes<D>::HALVES;                        // TMA boxes per row
+    using attn_tc::Boxes<D>::ROWB;                          // bytes per box row
     static constexpr int STAGES = D > 64 ? 2 : 3;
     static constexpr int Q_BYTES = HALVES * FWD_BQ * ROWB;
     static constexpr int KV_BYTES = HALVES * FWD_BK * ROWB; // one of K, V
@@ -290,6 +295,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, f
     switch (D) {                                                       \
         case 32: return static_cast<int>(launch_fwd_tc<T, 32>(p, B, stream));   \
         case 64: return static_cast<int>(launch_fwd_tc<T, 64>(p, B, stream));   \
+        case 80: return static_cast<int>(launch_fwd_tc<T, 80>(p, B, stream));   \
+        case 96: return static_cast<int>(launch_fwd_tc<T, 96>(p, B, stream));   \
         case 128: return static_cast<int>(launch_fwd_tc<T, 128>(p, B, stream)); \
         default: return static_cast<int>(cudaErrorInvalidValue);      \
     }

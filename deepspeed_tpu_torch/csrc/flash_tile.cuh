@@ -6,8 +6,11 @@
 // bits.
 //
 // One CTA of 128 threads owns a (b, h, q-tile).  A query row is held by
-// TPR = D/16 neighbouring lanes, each owning four float4 chunks of the
-// head dim (chunk c*TPR + t), so a warp's reads of a shared-memory K or V
+// TPR = DT/16 neighbouring lanes (DT = tile_dim(D): D 80 and 96 padded to
+// 128 with zeros, so TPR stays a power of two and the row reductions'
+// full-mask shuffles stay within a row), each owning four float4 chunks
+// of the padded row (chunk c*TPR + t; the chunks past D hold zeros in q,
+// K and V, and are not stored), so a warp's reads of a shared-memory K or V
 // row touch TPR consecutive float4s and broadcast them to every row of
 // the warp: no bank conflicts.  The CTA walks the k-tiles up to its
 // causal frontier only; each k-tile is loaded once from device memory
@@ -80,14 +83,16 @@ template <typename T, int D, bool CHUNK, typename C = T>
 __global__ void __launch_bounds__(DS_TILE_THREADS)
 attn_tile_kernel(const TileArgs a) {
     constexpr bool Q8 = std::is_same<C, int8_t>::value;
-    constexpr int TPR = D / 16;                   // lanes per query row
+    constexpr int DT = HeadDim<D>::TILE;          // the padded row
+    constexpr int TPR = DT / 16;                  // lanes per query row
     constexpr int BQ = DS_TILE_THREADS / TPR;     // query rows per CTA
-    constexpr int BK = D <= 64 ? 64 : 32;         // keys per k-tile
+    constexpr int BK = DT <= 64 ? 64 : 32;        // keys per k-tile
     constexpr int NCH = 4;                        // float4 chunks per lane
     constexpr int VEC = VecWidth<C>::value;
     constexpr int VPR = D / VEC;                  // 16-byte vectors per row
-    __shared__ float4 ks[BK][D / 4];
-    __shared__ float4 vs[BK][D / 4];
+    static_assert(VPR * VEC == D, "whole 16-byte vectors a row");
+    __shared__ float4 ks[BK][DT / 4];
+    __shared__ float4 vs[BK][DT / 4];
 
     const int tid = threadIdx.x;
     const int r = tid / TPR;
@@ -126,10 +131,18 @@ attn_tile_kernel(const TileArgs a) {
     const C* kp = static_cast<const C*>(a.k) + b * a.k_sb + h * a.k_sh;
     const C* vp = static_cast<const C*>(a.v) + b * a.v_sb + h * a.v_sh;
 
+    // the padded columns of the tiles: zero, never written by the loads
+    if constexpr (DT > D)
+        for (int id = tid; id < BK * (DT - D) / 4; id += DS_TILE_THREADS) {
+            const int j = id / ((DT - D) / 4), c4 = D / 4 + id % ((DT - D) / 4);
+            ks[j][c4] = vs[j][c4] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+
     float4 q[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        q[c] = row_ok ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const bool col_ok = (c * TPR + t) * 4 < D;
+        q[c] = row_ok && col_ok ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         if (CHUNK) {
             q[c].x *= a.scale; q[c].y *= a.scale; q[c].z *= a.scale; q[c].w *= a.scale;
         }
@@ -222,14 +235,15 @@ attn_tile_kernel(const TileArgs a) {
     T* op = static_cast<T*>(a.o) + b * a.o_sb + (long long)qi * a.o_ss + h * a.o_sh;
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-        store4(op + (c * TPR + t) * 4, acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
+        if ((c * TPR + t) * 4 < D)
+            store4(op + (c * TPR + t) * 4, acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
     if (!CHUNK && t == 0 && a.lse != nullptr)
         a.lse[((long long)b * a.H + h) * a.Sq + qi] = m + logf(lf);
 }
 
 template <typename T, int D, bool CHUNK, typename C>
 static cudaError_t launch_tile(const TileArgs& a, cudaStream_t stream) {
-    constexpr int BQ = DS_TILE_THREADS / (D / 16);
+    constexpr int BQ = DS_TILE_THREADS / (HeadDim<D>::TILE / 16);
     const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
     attn_tile_kernel<T, D, CHUNK, C><<<grid, DS_TILE_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
@@ -243,6 +257,8 @@ static cudaError_t dispatch_tile(int D, const TileArgs& a, cudaStream_t stream) 
     switch (D) {
         case 32: return launch_tile<float, 32, CHUNK, C>(a, stream);
         case 64: return launch_tile<float, 64, CHUNK, C>(a, stream);
+        case 80: return launch_tile<float, 80, CHUNK, C>(a, stream);
+        case 96: return launch_tile<float, 96, CHUNK, C>(a, stream);
         case 128: return launch_tile<float, 128, CHUNK, C>(a, stream);
         default: return cudaErrorInvalidValue;
     }

@@ -13,7 +13,9 @@
 // into shared memory through one TMA box per 64 columns (one box of 32
 // columns at D 32): rows of 128 bytes under the 128-byte swizzle (64 bytes
 // under the 64-byte swizzle at D 32), each box at a 1024-byte aligned
-// base.  wgmma reads such a tile in two ways:
+// base.  D 80 and 96 take D 128's two boxes (common.cuh tile_dim): the map's
+// innermost extent is D, so TMA fills the second box's columns past D with
+// zeros, and a load's transaction bytes are the whole boxes'.  wgmma reads such a tile in two ways:
 //   K-major: the tile's rows are the M or N rows of the product and D is
 //     its depth (S = Q.K^T: both operands);
 //   MN-major (transposed): the tile's rows are the depth and D the N (or
@@ -535,10 +537,13 @@ __device__ __forceinline__ void to_operand(const float (&d)[N / 2], uint32_t (&a
 
 // Store a warpgroup's [64, N] accumulator rows (rows r0 + fragment row,
 // columns c0 + ...) to a strided T matrix, times a per-row factor, rows
-// at or past `limit` skipped.
+// at or past `limit` skipped, and the 8-column chunks at or past `cols`
+// (a multiple of 8: the padded columns of a tile wider than the matrix;
+// a constant once the caller's loops unroll).
 template <typename T, int N>
 __device__ __forceinline__ void store_frag(const float (&d)[N / 2], T* base, long long row_stride,
-                                           int r0, int c0, int limit, float f0, float f1, const Frag& fr) {
+                                           int r0, int c0, int limit, float f0, float f1, const Frag& fr,
+                                           int cols = N) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int r = r0 + fr.row + 8 * half;
@@ -547,7 +552,8 @@ __device__ __forceinline__ void store_frag(const float (&d)[N / 2], T* base, lon
         T* p = base + (long long)r * row_stride + c0 + fr.col;
 #pragma unroll
         for (int j = 0; j < N / 8; ++j)
-            *reinterpret_cast<uint32_t*>(p + 8 * j) = pack2<T>(d[4 * j + 2 * half] * f, d[4 * j + 2 * half + 1] * f);
+            if (8 * j < cols)
+                *reinterpret_cast<uint32_t*>(p + 8 * j) = pack2<T>(d[4 * j + 2 * half] * f, d[4 * j + 2 * half + 1] * f);
     }
 }
 

@@ -76,6 +76,21 @@ def reset_launch_counts() -> None:
             opts[opt] = 0
 
 
+def head_dim_launches() -> dict:
+    """The attention wrappers' launches at each head dim, by kernel name
+    ({"flash_fwd": {64: n, 96: m}, ...}), counted since
+    :func:`reset_head_dim_launches` (:func:`reset_launch_counts` leaves
+    them, so that one reading can span several paths)."""
+    return {name: dict(sorted(type(k).dim_launches.items()))
+            for name, k in KERNELS.items() if hasattr(type(k), "dim_launches")}
+
+
+def reset_head_dim_launches() -> None:
+    for k in KERNELS.values():
+        if hasattr(type(k), "dim_launches"):
+            type(k).dim_launches.clear()
+
+
 __all__ = ["KERNELS", "adam_hyper", "bias_gelu_backward_reference",
            "bias_gelu_bwd", "bias_gelu_dropout",
            "bias_gelu_forward_reference", "bias_gelu_fwd",
@@ -95,12 +110,13 @@ __all__ = ["KERNELS", "adam_hyper", "bias_gelu_backward_reference",
            "fused_adam_reference", "fused_adam_step", "fused_backward",
            "fused_lamb",
            "fused_lamb_phase1", "fused_lamb_phase2", "fused_lamb_reference",
-           "keep_mask", "lamb_hyper", "launch_counts",
+           "head_dim_launches", "keep_mask", "lamb_hyper", "launch_counts",
            "make_index_tables", "mha_reference", "nhwc_bias_add",
            "nhwc_bias_add_add", "nhwc_bias_add_bias_add",
            "nhwc_bias_add_reference", "quantize", "quantize_kv",
            "quantize_kv_append", "quantize_kv_into",
            "quantize_kv_into_reference",
-           "quantize_rows", "quantizer_kernel", "reset_launch_counts",
+           "quantize_rows", "quantizer_kernel", "reset_head_dim_launches",
+           "reset_launch_counts",
            "sparse_plan", "spatial_add_kernel", "spatial_bias_add_kernel",
            "spatial_kernel"]

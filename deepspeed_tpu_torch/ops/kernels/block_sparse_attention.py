@@ -47,8 +47,8 @@ from .flash_attention import (AttentionFn, PackedAttentionFn,
                               aligned_do_and_delta,
                               masked_attention_backward_reference,
                               masked_attention_reference)
-from .utils import (DTYPE_CODES, check_kernel_inputs, check_stats, on_cuda,
-                    softmax_scale, strides3)
+from .utils import (DTYPE_CODES, check_kernel_inputs, check_stats,
+                    count_head_dim, on_cuda, softmax_scale, strides3)
 
 #: the layout block sizes the kernels take (``csrc/block_sparse.cuh``)
 BLOCKS = (16, 32, 64, 128)
@@ -314,6 +314,7 @@ class _BlockSparseFwd:
     kernel launches (never plain-version calls)."""
 
     launches = 0
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, plan: SparsePlan, scale: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -331,6 +332,7 @@ class _BlockSparseFwd:
                     float(scale), int(plan.causal), _stream(q))
         build.check_status("block_sparse_fwd", status)
         _BlockSparseFwd.launches += 1
+        count_head_dim(_BlockSparseFwd, q.shape[-1])
         return o, lse
 
 
@@ -340,6 +342,7 @@ class _BlockSparseBwdDq:
     table in fp32, the tile table in bf16 and fp16)."""
 
     launches = 0
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, do, lse, delta, plan: SparsePlan,
                  scale: float, out: Optional[torch.Tensor] = None
@@ -362,6 +365,7 @@ class _BlockSparseBwdDq:
                     float(scale), int(plan.causal), _stream(q))
         build.check_status("block_sparse_bwd_dq", status)
         _BlockSparseBwdDq.launches += 1
+        count_head_dim(_BlockSparseBwdDq, q.shape[-1])
         return dq
 
 
@@ -371,6 +375,7 @@ class _BlockSparseBwdDkv:
     tables."""
 
     launches = 0
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, do, lse, delta, plan: SparsePlan,
                  scale: float,
@@ -398,6 +403,7 @@ class _BlockSparseBwdDkv:
                     int(plan.causal), _stream(q))
         build.check_status("block_sparse_bwd_dkv", status)
         _BlockSparseBwdDkv.launches += 1
+        count_head_dim(_BlockSparseBwdDkv, q.shape[-1])
         return dk, dv
 
 

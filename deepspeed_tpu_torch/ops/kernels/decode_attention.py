@@ -45,7 +45,7 @@ import torch
 
 from . import build
 from .quantizer import _quantize_ref, quantize_rows
-from .utils import DTYPE_CODES, check_kernel_inputs, on_cuda
+from .utils import DTYPE_CODES, check_kernel_inputs, count_head_dim, on_cuda
 
 Pos = Union[int, torch.Tensor]
 
@@ -207,7 +207,8 @@ def _option_args(name: str, q, window: Optional[int],
 class _CacheKernel:
     """Shared launch path of the cache kernels' wrappers; ``launches``
     counts kernel launches (never plain-version calls), and
-    ``option_launches`` those with a window and with ALiBi slopes.  The
+    ``option_launches`` those with a window and with ALiBi slopes,
+    ``dim_launches`` those at each head dim.  The
     int8 variants (``int8 = True``) take ``k_scale, v_scale`` after
     ``scale`` and hand the C entry point their pointers and (b, s, h)
     strides."""
@@ -228,11 +229,12 @@ class _CacheKernel:
         return (k_scale.data_ptr(), v_scale.data_ptr(),
                 *k_scale.stride()[:3], *v_scale.stride()[:3])
 
-    def _launch(self, args, window=None, slopes=None) -> None:
+    def _launch(self, args, D: int, window=None, slopes=None) -> None:
         fn = build.function(self.source, self.argtypes, self.symbol)
         build.check_status(self.source, fn(*args))
         cls = type(self)
         cls.launches += 1
+        count_head_dim(cls, D)
         if window is not None:
             cls.option_launches["window"] += 1
         if slopes is not None:
@@ -244,6 +246,7 @@ class _DecodeAttn(_CacheKernel):
 
     launches = 0
     option_launches = {"window": 0, "alibi": 0}
+    dim_launches: dict = {}
     source = symbol = "decode_attn"
     argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_longlong] * 10 + _POS_TAIL)
@@ -271,7 +274,7 @@ class _DecodeAttn(_CacheKernel):
                       o.stride(0), o.stride(2), *extra, pos_ptr, pos_scalar,
                       *opts, float(scale),
                       torch.cuda.current_stream(q.device).cuda_stream),
-                     window, slopes)
+                     D, window, slopes)
         return o
 
 
@@ -280,6 +283,7 @@ class _ChunkAttn(_CacheKernel):
 
     launches = 0
     option_launches = {"window": 0, "alibi": 0}
+    dim_launches: dict = {}
     source = symbol = "chunk_attn"
     argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                 + [ctypes.c_longlong] * 12 + _POS_TAIL)
@@ -304,7 +308,7 @@ class _ChunkAttn(_CacheKernel):
                       o.stride(0), o.stride(1), o.stride(2), *extra,
                       pos_ptr, pos_scalar, *opts, float(scale),
                       torch.cuda.current_stream(q.device).cuda_stream),
-                     window, slopes)
+                     D, window, slopes)
         return o
 
 
@@ -314,6 +318,7 @@ class _DecodeAttnInt8(_DecodeAttn):
 
     launches = 0
     option_launches = {"window": 0, "alibi": 0}
+    dim_launches: dict = {}
     symbol = "decode_attn_int8"
     argtypes = _DecodeAttn.argtypes[:-len(_POS_TAIL)] + _SCALES + _POS_TAIL
     int8 = True
@@ -325,6 +330,7 @@ class _ChunkAttnInt8(_ChunkAttn):
 
     launches = 0
     option_launches = {"window": 0, "alibi": 0}
+    dim_launches: dict = {}
     symbol = "chunk_attn_int8"
     argtypes = _ChunkAttn.argtypes[:-len(_POS_TAIL)] + _SCALES + _POS_TAIL
     int8 = True
@@ -337,6 +343,7 @@ class _QuantizeKvAppend(_CacheKernel):
 
     launches = 0
     option_launches: dict = {}
+    dim_launches: dict = {}
     source = "quantizer"
     symbol = "quantize_kv_append"
     argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
@@ -385,7 +392,7 @@ class _QuantizeKvAppend(_CacheKernel):
                       k_scale.data_ptr(), v_scale.data_ptr(),
                       *k_scale.stride()[:3], *v_scale.stride()[:3],
                       pos_ptr, pos_scalar,
-                      torch.cuda.current_stream(k.device).cuda_stream))
+                      torch.cuda.current_stream(k.device).cuda_stream), D)
 
 
 decode_attn = _DecodeAttn()

@@ -46,8 +46,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .utils import (DTYPE_CODES, check_kernel_inputs, check_stats, on_cuda,
-                    softmax_scale, strides3)
+from .utils import (DTYPE_CODES, check_kernel_inputs, check_stats,
+                    count_head_dim, on_cuda, softmax_scale, strides3,
+                    tile_dim)
 
 
 def mha_reference(q, k, v, causal: bool = True,
@@ -177,10 +178,11 @@ def _lens_arg(name: str, kv_lens: Optional[torch.Tensor], B: int, device):
 class _FlashFwd:
     """The ``flash_fwd`` kernel's wrapper; ``launches`` counts kernel
     launches (never plain-version calls), ``option_launches`` those with
-    a window."""
+    a window, ``dim_launches`` those at each head dim."""
 
     launches = 0
     option_launches = {"window": 0}
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, causal: bool, scale: float,
                  kv_lens: Optional[torch.Tensor] = None,
@@ -208,6 +210,7 @@ class _FlashFwd:
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_fwd", status)
         _FlashFwd.launches += 1
+        count_head_dim(_FlashFwd, D)
         if window is not None:
             _FlashFwd.option_launches["window"] += 1
         return o, lse
@@ -237,6 +240,7 @@ class _FlashBwdDq:
 
     launches = 0
     option_launches = {"window": 0}
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
                  out: Optional[torch.Tensor] = None,
@@ -259,6 +263,7 @@ class _FlashBwdDq:
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_dq", status)
         _FlashBwdDq.launches += 1
+        count_head_dim(_FlashBwdDq, D)
         if window is not None:
             _FlashBwdDq.option_launches["window"] += 1
         return dq
@@ -271,6 +276,7 @@ class _FlashBwdDkv:
 
     launches = 0
     option_launches = {"window": 0}
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -297,6 +303,7 @@ class _FlashBwdDkv:
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_dkv", status)
         _FlashBwdDkv.launches += 1
+        count_head_dim(_FlashBwdDkv, D)
         if window is not None:
             _FlashBwdDkv.option_launches["window"] += 1
         return dk, dv
@@ -331,8 +338,8 @@ def fused_backward(Sk: int) -> bool:
 
 def fused_q_tile(D: int) -> int:
     """The fused kernels' q-tile (``csrc/flash_bwd_fused.cu`` ``FusedCfg``
-    and ``FmaTile``): its workspace holds one fp32 [q-tile, D] sum and one
-    counter per (b, h, q-tile)."""
+    and ``FmaTile``): its workspace holds one fp32 [q-tile, tile_dim(D)]
+    sum and one counter per (b, h, q-tile)."""
     return 32 if D > 64 else 64
 
 
@@ -362,6 +369,7 @@ class _FlashBwdFused:
 
     launches = 0
     option_launches = {"window": 0}
+    dim_launches: dict = {}
 
     def __call__(self, q, k, v, do, lse, delta, causal: bool, scale: float,
                  out: Optional[Sequence[torch.Tensor]] = None,
@@ -386,7 +394,8 @@ class _FlashBwdFused:
                              "tensor on the inputs' device")
         bq = fused_q_tile(D)
         tiles = B * H * -(-Sq // bq)
-        acc = torch.empty(tiles * bq * D, dtype=torch.float32, device=q.device)
+        acc = torch.empty(tiles * bq * tile_dim(D), dtype=torch.float32,
+                          device=q.device)
         counters = _fused_counters(q.device, tiles)
         fn = build.function("flash_bwd_fused", _FUSED_ARGTYPES)
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -401,6 +410,7 @@ class _FlashBwdFused:
                     torch.cuda.current_stream(q.device).cuda_stream)
         build.check_status("flash_bwd_fused", status)
         _FlashBwdFused.launches += 1
+        count_head_dim(_FlashBwdFused, D)
         if window is not None:
             _FlashBwdFused.option_launches["window"] += 1
         return dq, dk, dv
@@ -445,7 +455,8 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
     """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the
     kernels write into ``out`` (three [B, S, H, D] views) when given:
     ``flash_bwd_fused`` where :func:`fused_backward` holds for Sk, else
-    ``flash_bwd_dq`` and ``flash_bwd_dkv``.  On the CPU the plain version
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``, whose wrappers refuse the head
+    dims the pair is not instantiated for (80 and 96) before any launch.  On the CPU the plain version
     (the same function) runs and is copied into ``out``."""
     if not on_cuda(q, k, v, o, lse, do):
         grads = flash_attention_backward_reference(q, k, v, o, lse, do,

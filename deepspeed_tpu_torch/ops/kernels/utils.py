@@ -16,8 +16,34 @@ import torch
 
 #: the C interface's dtype codes (``csrc/common.cuh`` ``DType``)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-#: the head dims the kernels are instantiated for (``csrc`` ``switch (D)``)
-HEAD_DIMS = (32, 64, 128)
+#: the head dims each attention kernel is instantiated for (its source's
+#: ``switch (D)``): the kernels of the serving and dense training paths
+#: (``flash_fwd``, ``flash_bwd_fused``, ``decode_attn``, ``chunk_attn``
+#: and their int8-cache forms) also take 80 and 96, which run in the tile
+#: of 128 (``csrc/common.cuh`` ``tile_dim``); the two-kernel backward and
+#: the block-sparse trio take (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
+PAIR_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = {
+    **{name: HEAD_DIMS for name in (
+        "flash_fwd", "flash_bwd_fused", "decode_attn", "decode_attn_int8",
+        "chunk_attn", "chunk_attn_int8")},
+    **{name: PAIR_HEAD_DIMS for name in (
+        "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
+        "block_sparse_bwd_dq", "block_sparse_bwd_dkv")},
+}
+
+
+def tile_dim(D: int) -> int:
+    """The head dim of the tile a kernel computes D in (``csrc/common.cuh``
+    ``tile_dim``): D 80 and 96 in the tile of 128."""
+    return 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def count_head_dim(cls, D: int) -> None:
+    """Add one launch at head dim ``D`` to a wrapper class's
+    ``dim_launches`` (head dim -> launches)."""
+    cls.dim_launches[D] = cls.dim_launches.get(D, 0) + 1
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -36,16 +62,18 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 def check_kernel_inputs(name: str, *tensors: torch.Tensor) -> torch.dtype:
     """Validate what every attention kernel takes: one dtype among
-    fp32/fp16/bf16, a head dim it was instantiated for, a unit-stride last
-    dim and 16-byte aligned rows.  Returns the dtype."""
+    fp32/fp16/bf16, a head dim the kernel ``name`` was instantiated for
+    (:data:`KERNEL_HEAD_DIMS`), a unit-stride last dim and 16-byte aligned
+    rows.  Returns the dtype."""
     dtype = tensors[0].dtype
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {dtype} not supported "
                         f"(want one of {list(DTYPE_CODES)})")
     D = tensors[0].shape[-1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not supported (want one of "
-                         f"{HEAD_DIMS})")
+    dims = KERNEL_HEAD_DIMS[name]
+    if D not in dims:
+        raise ValueError(f"{name}: head dim {D} not supported (the kernel "
+                         f"is instantiated for {dims})")
     vec = 16 // tensors[0].element_size()
     for t in tensors:
         if t.dtype != dtype:

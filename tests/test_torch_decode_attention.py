@@ -41,15 +41,26 @@ def _both(jax_fn, q, ck, cv, pos):
     return out.numpy(), ref
 
 
-@pytest.mark.parametrize("Sq,pos", [
-    (1, 100), (1, [37, 200]),            # decode kernel, scalar / ragged
-    (8, 64), (8, [5, 180]),              # chunk kernel, scalar / ragged
-    (16, 130), (16, [0, 239]),
-])
-def test_cached_attention_matches_jax_kernels(pallas_interpret, Sq, pos):
+#: (Sq, pos) of the kernel parity cases: decode, then chunks, each with a
+#: scalar and a ragged pos
+CACHE_CASES = [(1, 100), (1, [37, 200]), (8, 64), (8, [5, 180]), (16, 130),
+               (16, [0, 239])]
+
+
+def _case_id(Sq, pos, i):
+    return f"{Sq}-{pos if isinstance(pos, int) else f'pos{i}'}"
+
+
+@pytest.mark.parametrize("Sq,pos,D", [
+    pytest.param(Sq, pos, D, id=_case_id(Sq, pos, i)
+                 + ("" if D == 64 else f"-D{D}"))
+    for D in (64, 80, 96) for i, (Sq, pos) in enumerate(CACHE_CASES)])
+def test_cached_attention_matches_jax_kernels(pallas_interpret, Sq, pos, D):
+    """Head dim 64, and 80 and 96 (GPT-2 2.7B, 760M; the JAX kernels take
+    any head dim as one block)."""
     from deepspeed_tpu.ops.pallas.decode_attention import cached_attention \
         as jax_cached
-    q, ck, cv = _inputs(2, Sq, 256, 2, 64, seed=Sq)
+    q, ck, cv = _inputs(2, Sq, 256, 2, D, seed=Sq)
     out, ref = _both(jax_cached, q, ck, cv, pos)
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
 
@@ -75,27 +86,34 @@ def test_cached_attention_untiled_shapes_match_reference(Smax, Sq, pos):
 LOW_TOL = {"bfloat16": 1e-2, "float16": 2e-3, "int8": 1e-2}
 
 
-@pytest.mark.parametrize("Sq,pos", [
-    (7, 0), (63, 0), (65, 0), (129, 0),          # q-tile 0 sees one k-tile
-    (7, 249), (63, 193), (65, 191), (129, 127),  # pos + Sq = S_max
-    (64, 192),                                   # the JAX chunk kernel tiles
-    (65, [0, 191]),                              # ragged: one row at each end
+@pytest.mark.parametrize("Sq,pos,D", [
+    *[pytest.param(Sq, pos, 64, id=f"{Sq}-{pos}") for Sq, pos in (
+        (7, 0), (63, 0), (65, 0), (129, 0),          # q-tile 0 sees one k-tile
+        (7, 249), (63, 193), (65, 191), (129, 127),  # pos + Sq = S_max
+        (64, 192))],                                 # the JAX chunk kernel tiles
+    pytest.param(65, [0, 191], 64, id="65-pos9"),    # ragged: one row at each end
+    # head dims 80 and 96: one k-tile, the cache's end, the tiled chunk,
+    # ragged rows
+    *[pytest.param(Sq, pos, D, id=f"{Sq}-{pos}-D{D}" if isinstance(pos, int)
+                   else f"{Sq}-ragged-D{D}")
+      for D in (80, 96)
+      for Sq, pos in ((65, 0), (129, 127), (64, 192), (65, [0, 191]))],
 ])
 @pytest.mark.parametrize("cache", ["bfloat16", "float16", "int8"])
-def test_chunk_tile_edges_low_precision(pallas_interpret, cache, Sq, pos):
+def test_chunk_tile_edges_low_precision(pallas_interpret, cache, Sq, pos, D):
     """The plain chunk path (what ``chip_smoke.py`` holds ``chunk_attn``
     and ``chunk_attn_int8`` against on the card) at the edges of the
     tensor-core kernel's 64-query and 64-key tiles, in bf16, fp16 and over
     an int8 cache (bf16 q), against the JAX package's ``cached_attention``
     in fp32 on the same rounded inputs: the Pallas chunk kernel in
     interpret mode where it tiles (Sq 64), its dense reference elsewhere.
-    S_max 256."""
+    S_max 256; head dim 64, and 80 and 96 at four of the edges."""
     from deepspeed_tpu.ops.pallas.decode_attention import cached_attention \
         as jax_cached
     from deepspeed_tpu_torch.ops.kernels import quantize_kv
     dtype = torch.float16 if cache == "float16" else torch.bfloat16
     q, ck, cv = (torch.from_numpy(a).to(dtype)
-                 for a in _inputs(2, Sq, 256, 2, 64, seed=Sq * 7 + len(cache)))
+                 for a in _inputs(2, Sq, 256, 2, D, seed=Sq * 7 + len(cache)))
     tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) \
         else pos
     jpos = jnp.asarray(pos, jnp.int32) if isinstance(pos, list) else pos

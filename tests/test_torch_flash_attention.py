@@ -104,11 +104,13 @@ def test_flash_rows_without_keys_are_zero():
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("Sq,Sk", EDGES)
-@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("D", [32, 64, 80, 96])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_tile_edges_low_precision(dtype, D, Sq, Sk, causal):
     """bf16 and fp16 through the plain version (what ``chip_smoke.py``
-    holds the kernel against) at the tile edges, against the JAX
+    holds the kernel against) at the tile edges, at the head dims the
+    kernel computes in tiles of their own (32, 64) and in the tile of 128
+    (80, 96: GPT-2 2.7B, 760M), against the JAX
     reference in fp32 on the same rounded inputs; lse within 1e-5 of the
     masked logsumexp (it is fp32 in both), -inf on rows with no key."""
     from deepspeed_tpu.ops.pallas.flash_attention import mha_reference
@@ -248,20 +250,26 @@ GRAD_MODES = {"causal": (True, False, None), "non-causal": (False, False, None),
 
 
 @pytest.mark.parametrize("mode", sorted(GRAD_MODES))
-@pytest.mark.parametrize("Sk,jax_form", [(512, "fused"), (640, "two_kernel")])
+@pytest.mark.parametrize("Sk,jax_form,D", [
+    pytest.param(512, "fused", 32, id="512-fused"),
+    pytest.param(640, "two_kernel", 32, id="640-two_kernel"),
+    pytest.param(512, "fused", 80, id="512-fused-D80"),
+    pytest.param(512, "fused", 96, id="512-fused-D96")])
 def test_backward_forms_match_jax_pallas_kernel(pallas_interpret, Sk, jax_form,
-                                                mode):
+                                                D, mode):
     """dq, dk and dv of the port's ``flash_attention`` (its plain backward
     here, the function both CUDA forms compute) against ``jax.vjp`` of the
     Pallas ``flash_attention`` in interpret mode at 128-wide blocks: Sk 512
     is nk 4, JAX's fused single sweep (``_bwd_dkv_kernel`` with
     ``emit_dq``), Sk 640 nk 5, its two-kernel backward; causal, non-causal,
-    ragged ``kv_lens`` and a window of 100.  fp32, 1e-5."""
+    ragged ``kv_lens`` and a window of 100.  Head dim 32, and 80 and 96 in
+    the fused form (the only one the port builds at those dims).  fp32,
+    1e-5."""
     from deepspeed_tpu.ops.pallas.flash_attention import (MAX_FUSED_BWD_NK,
                                                           flash_attention)
     assert (Sk // 128 <= MAX_FUSED_BWD_NK) == (jax_form == "fused")
     causal, ragged, window = GRAD_MODES[mode]
-    q, k, v = _qkv(2, Sk, Sk, 2, 32, seed=Sk + len(mode))
+    q, k, v = _qkv(2, Sk, Sk, 2, D, seed=Sk + len(mode))
     do = np.random.default_rng(Sk).standard_normal(q.shape).astype(np.float32)
     lens = np.array([Sk - 77, 200], np.int32) if ragged else None
     _, vjp = jax.vjp(lambda q_, k_, v_: flash_attention(
