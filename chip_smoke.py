@@ -8,9 +8,9 @@ imports JAX.  In order it
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    hand-written kernels (``deepspeed_tpu_torch/csrc``) from the checkout;
-   reports each tensor-core instantiation (bf16, fp16; D 32, 64, 128, and
-   80 and 96 for the kernels that take them, ``KERNEL_HEAD_DIMS``; a D 80
-   or 96 one fails if it spills more than its kernel's D 128 one) of
+   reports each tensor-core instantiation (bf16, fp16; every head dim of
+   ``KERNEL_HEAD_DIMS``, 32, 64, 80, 96 and 128; a D 80 or 96 one fails if
+   it spills more than its kernel's D 128 one) of
    ``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``,
    ``flash_bwd_fused_tc`` (failing if it spills more than
    ``flash_bwd_dkv_tc``),
@@ -29,8 +29,11 @@ imports JAX.  In order it
    backward pair at B16 S1024 and B1 S128 (two launches of each bitwise
    equal); ``flash_fwd``, ``flash_bwd_fused``, ``decode_attn(_int8)`` and
    ``chunk_attn(_int8)`` at GPT-2 760M's (D 96) and 2.7B's (D 80) shapes,
+   the backward pair at B4 S4096 H16 D96 and B2 S4096 H32 D80 and the
+   block-sparse trio at B4 S4096 H16 D96 and H32 D80 (Fixed, block 64),
    each timed in turns with its D 128 instantiation at the same B, S, H
-   and failing above ``HEAD_DIM_RATIO`` of it (``check_head_dims``); the
+   and failing above ``HEAD_DIM_RATIO`` of it, and the backward at D 80
+   past Sk 4096 on the pair, one launch each (``check_head_dims``); the
    block-sparse trio at the sparse slice's shape (B4 S4096 H16 D64, Fixed
    layout, block 64; two launches of each bitwise equal) beside the dense
    flash trio at the same shape, with its bounds and SDPA's causal forward
@@ -160,12 +163,18 @@ imports JAX.  In order it
    seq 1024 through the D 96 and 80 kernels, 2 warm-up and 5 timed
    steps (``WIDE_TRAIN_STEPS``): ``flash_fwd`` and
    ``flash_bwd_fused`` a layer per step, the pair 0; the row check at
-   1024 and 256 tokens (``run_wide_training``);
+   1024 and 256 tokens (``run_wide_training``); then 2.7B at seq 8192,
+   micro-batch 1, past four key blocks of 1024: ``flash_fwd``,
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` a layer per step at D 80,
+   ``flash_bwd_fused`` 0, the row check at 256 tokens;
 7. the same for the sparse training path: the same model at seq 4096
    under the Fixed block-sparse layout (block 64), micro-batch 4, with the
-   live-pair attention FLOPs beside MFU; then a few steps of that model
-   with dense causal flash, for comparison (its backward on the fused
-   kernel: seq 4096 is four key blocks of 1024);
+   live-pair attention FLOPs beside MFU; 7b. GPT-2 760M the same way
+   through the D 96 block-sparse trio (a layer per step each, no flash
+   kernel), 2 warm-up and 5 timed steps, the row check at 1024 tokens;
+   then a few steps of the 350M model with dense causal flash, for
+   comparison (its backward on the fused kernel: seq 4096 is four key
+   blocks of 1024);
 8. the same for the BERT slice: BERT-large MLM at seq 128 (bf16, remat,
    the flash trio with per-row key lengths) under the BERT tutorial's LAMB
    (lr 11e-3, clip 1.0), micro-batch 64 of right-padded rows, with step
@@ -209,6 +218,7 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -247,14 +257,14 @@ from deepspeed_tpu_torch.ops.kernels import (
     flash_attention_reference, fused_adam_reference, fused_lamb_reference,
     lamb_hyper, quantize, quantize_kv, quantize_kv_into,
     quantize_kv_into_reference, quantize_rows, sparse_plan)
-from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import BLOCKS
+from deepspeed_tpu_torch.ops.kernels.block_sparse_attention import (
+    BLOCKS, SparsePlan)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import \
     aligned_do_and_delta
 from deepspeed_tpu_torch.ops.kernels.fused_lamb import lamb_plan
 from deepspeed_tpu_torch.ops.kernels.quantizer import _quantize_ref
 from deepspeed_tpu_torch.ops.kernels.utils import (HEAD_DIMS,
-                                                   KERNEL_HEAD_DIMS,
-                                                   PAIR_HEAD_DIMS)
+                                                   KERNEL_HEAD_DIMS)
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, VariableSparsityConfig)
@@ -275,6 +285,8 @@ BF16_REL_TOL = 1e-2
 #: logit margin at the first differing step is below this (fp32 logits)
 TIE_TOL = 0.05
 OUT_DIR = "chiprun_out"
+#: the run's start, for the ``[time]`` lines between its phases
+T0 = time.perf_counter()
 ACCEL = get_accelerator()
 
 SOURCES = {"flash_fwd": ("deepspeed_tpu_torch/csrc/flash_fwd.cu",
@@ -421,7 +433,7 @@ def check_ptxas_tc():
         "unbanded one")
     for dt in TC_TYPES.values():
         for suffix in ("", " band"):
-            for D in PAIR_HEAD_DIMS:
+            for D in HEAD_DIMS:
                 fused = rows.get(("flash_bwd_fused_tc", dt + suffix, D), (0, 1 << 30))
                 pair = rows.get(("flash_bwd_dkv_tc", dt + suffix, D), (0, -1))
                 if fused[1] > pair[1]:
@@ -539,12 +551,19 @@ def check_decode_build():
             for (k, dt, D), (r, sp, hm, t) in rows.items()}
 
 
+@functools.cache
+def _side_stream():
+    """The one side stream of ``time_ms``'s warm-up: cuBLAS keeps a 32 MiB
+    workspace for each stream it has run on, for the rest of the run."""
+    return torch.cuda.Stream()
+
+
 def time_ms(fn, n: int, warmup: int = 2) -> float:
     """Mean device ms of ``fn(i)`` over ``n`` calls.  The calls are
     captured into one CUDA graph and the graph's replay is timed with CUDA
     events, so the host's launch overhead (Python, ctypes) does not hide
     the device time of short kernels."""
-    side = torch.cuda.Stream()
+    side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(warmup):
@@ -651,7 +670,8 @@ def check_flash_bwd(B, S, H=16, D=64):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` against the fp32 plain
     backward, from bf16 q, k, v (views of [B, S, 3, H, D]), dO and the
     forward kernel's O and lse.  Plain ms is the whole plain backward (dq,
-    dk and dv in one function); library ms is the backward of
+    dk and dv in one function, one batch row at a time: ``_plain_bwd``);
+    library ms is the backward of
     ``scaled_dot_product_attention(is_causal=True)``, timed alone, which
     also computes all three."""
     gen = torch.Generator(device="cuda").manual_seed(7 * B + S)
@@ -670,9 +690,7 @@ def check_flash_bwd(B, S, H=16, D=64):
     dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
     dq2 = kernels.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
     dk2, dv2 = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
-    ref = flash_attention_backward_reference(
-        q.float(), k.float(), v.float(), o.float(), lse, do.float(), True,
-        scale)
+    ref = _plain_bwd(q, k, v, o, lse, do, True, scale)
     ACCEL.synchronize()
     repeat = {"flash_bwd_dq": bool(torch.equal(dq, dq2)),
               "flash_bwd_dkv": bool(torch.equal(dk, dk2)
@@ -691,14 +709,10 @@ def check_flash_bwd(B, S, H=16, D=64):
             return fn(q_, k_, v_, do_, lse_, delta_, True, scale)
         return run
 
-    def plain(i):
-        q_, k_, v_, do_, o_, lse_, _ = sets[i % n]
-        return flash_attention_backward_reference(q_, k_, v_, o_, lse_, do_,
-                                                  True, scale)
-
     ms_dq = time_ms(kernel(kernels.flash_bwd_dq), 10)
     ms_dkv = time_ms(kernel(kernels.flash_bwd_dkv), 10)
-    plain_ms = time_ms(plain, 2)
+    plain_ms = eager_ms(lambda: _plain_bwd(q, k, v, o, lse, do, True, scale),
+                        1, warmup=1)
     leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves,
                                                            is_causal=True)
@@ -1320,8 +1334,7 @@ def check_flash_kv_lens(B=64, S=128, H=16, D=64):
 
 
 def check_kv_lens_sweep(H=2):
-    """Every dtype and head dim the flash trio is built for (at D 80 and
-    96 the forward and ``flash_bwd_fused``), with lengths
+    """Every dtype and head dim the flash trio is built for, with lengths
     0 (clamped to 1), 1, a partial tile, both sides of and on a 64-key
     tile edge and S, causal or not, at S 128 and 129: forward and backward
     within the sweep's relative tolerance, lse within 1e-3, and the dk and
@@ -1384,9 +1397,8 @@ def check_sweep(S=300, Sq=7, B=3, H=2):
     warp's key groups once hung ``decode_attn``), and their int8-cache
     variants on the same cache quantized (against the plain version on
     the dequantized cache), ``flash_fwd`` at an odd width, and the flash
-    backward at ``BWD_SWEEP`` (the pair; at D 80 and 96 the fused
-    kernel).  Returns
-    the worst error per (dtype, D)."""
+    backward pair at ``BWD_SWEEP``.  Returns the worst error per (dtype,
+    D)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
     for dt, tol in SWEEP_TOL.items():
@@ -1752,8 +1764,7 @@ OPTION_CHUNK_SQ = (7, 65, 129)
 
 def check_option_sweep(Smax=300, B=3):
     """The band and ALiBi options at every dtype and head dim the kernels
-    take: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (at D 80
-    and 96, which the pair is not built for, ``flash_bwd_fused``) at each
+    take: ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at each
     tile-edge length and at ``OPTION_FLASH_CROSS`` with each window of
     ``SWEEP_WINDOWS`` (None: Sk + 5, past every row; O, lse, dq, dk and
     dv, the backward from the kernel's own O and lse), and
@@ -1849,12 +1860,8 @@ BWD_SWEEP = ((77, 77, True), (40, 100, True), (100, 40, True),
 
 def _backward_kernels(q, k, v, do, lse, delta, causal, scale, **kw):
     """(dq, dk, dv) from the backward pair, ``flash_bwd_dq`` and
-    ``flash_bwd_dkv``, at the head dims they are built for; at D 80 and 96,
-    which only the fused kernel takes, from ``flash_bwd_fused`` (the
-    fused kernel is swept at every D by ``check_bwd_fused_sweep``)."""
-    if q.shape[-1] not in PAIR_HEAD_DIMS:
-        return kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal, scale,
-                                       **kw)
+    ``flash_bwd_dkv``, at every head dim (the fused kernel is swept by
+    ``check_bwd_fused_sweep``)."""
     return (kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale, **kw),
             *kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
                                    **kw))
@@ -1910,15 +1917,25 @@ FUSED_BWD_SHAPES = ((16, 1024, 16, 64, True, None, False, True),
 FUSED_REPEATS = 20
 
 
-def _plain_bwd_rows(q, k, v, o, lse, do, causal, scale, lens, window):
-    """The fp32 plain backward, one batch row at a time (one row's fp32
-    scores at S 4096 H 16 are 1 GiB)."""
-    rows = [flash_attention_backward_reference(
-        q[i:i + 1].float(), k[i:i + 1].float(), v[i:i + 1].float(),
-        o[i:i + 1].float(), lse[i:i + 1], do[i:i + 1].float(), causal, scale,
-        None if lens is None else lens[i:i + 1], window)
-        for i in range(q.shape[0])]
-    return [torch.cat(parts) for parts in zip(*rows)]
+def _batch_rows(fn, *args, **kw):
+    """``fn(*args, **kw)`` one batch row at a time, its outputs
+    concatenated: every tensor argument is batch-first and is cut to the
+    row, the others pass as they are (one row's fp32 scores at S 4096 H
+    16 are 1 GiB)."""
+    def cut(a, i):
+        return a[i:i + 1] if isinstance(a, torch.Tensor) else a
+    B = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+    parts = [fn(*(cut(a, i) for a in args),
+                **{name: cut(a, i) for name, a in kw.items()})
+             for i in range(B)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def _plain_bwd(q, k, v, o, lse, do, causal, scale, lens=None, window=None):
+    """The fp32 plain flash backward of bf16 inputs, row by row."""
+    return _batch_rows(flash_attention_backward_reference, q.float(),
+                       k.float(), v.float(), o.float(), lse, do.float(),
+                       causal, scale, kv_lens=lens, window=window)
 
 
 def _sm_clock_hz():
@@ -1964,7 +1981,7 @@ def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
     repeats = FUSED_REPEATS if (B, S, D) == (16, 1024, 64) else 2
     same = all(all(torch.equal(a, b) for a, b in zip(
         grads, kernels.flash_bwd_fused(*bwd, **kw))) for _ in range(repeats - 1))
-    ref = _plain_bwd_rows(q, k, v, o, lse, do, causal, scale, lens, window)
+    ref = _plain_bwd(q, k, v, o, lse, do, causal, scale, lens, window)
     ACCEL.synchronize()
     errs = [(a.float() - r).abs().max().item() for a, r in zip(grads, ref)]
     tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
@@ -1989,23 +2006,19 @@ def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
         return fn(q_, k_, v_, do_, lse_, delta_, causal, scale, **kw)
 
     # in turns (fused, pair, pair, fused), each the mean of its two turns,
-    # so that both see the card in the same state; at D 80 and 96, which
-    # the pair is not built for, the fused kernel alone (check_head_dims
-    # holds it to its D 128 instantiation instead)
-    has_pair = D in PAIR_HEAD_DIMS
+    # so that both see the card in the same state
     turns = {"fused": [], "dq": [], "dkv": []}
     for order in (("fused", "pair"), ("pair", "fused")):
         for which in order:
             if which == "fused":
                 turns["fused"].append(time_ms(lambda i: run(kernels.flash_bwd_fused, i), 10))
-            elif has_pair:
+            else:
                 turns["dq"].append(time_ms(lambda i: run(kernels.flash_bwd_dq, i), 10))
                 turns["dkv"].append(time_ms(lambda i: run(kernels.flash_bwd_dkv, i), 10))
     ms = sum(turns["fused"]) / 2
-    ms_dq, ms_dkv = (sum(turns[k]) / 2 if has_pair else None for k in ("dq", "dkv"))
-    plain_ms = eager_ms(lambda: _plain_bwd_rows(q, k, v, o, lse, do, causal,
-                                                scale, lens, window), 1,
-                        warmup=1)
+    ms_dq, ms_dkv = (sum(turns[k]) / 2 for k in ("dq", "dkv"))
+    plain_ms = eager_ms(lambda: _plain_bwd(q, k, v, o, lse, do, causal,
+                                           scale, lens, window), 1, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
     if window:
@@ -2033,17 +2046,16 @@ def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
     name = "flash_bwd_fused[window]" if window else "flash_bwd_fused"
     row = _report(name, shape, max(errs), min(tols), ms, plain_ms, lib_ms,
                   nbytes, 10 * D * pairs)
-    pair = ms_dq + ms_dkv if has_pair else None
+    pair = ms_dq + ms_dkv
     share = wait.item() / (torch.cuda.get_device_properties(0).multi_processor_count
                            * _sm_clock_hz() * ms * 1e-3)
     row.update(pair_ms=pair, pair_dq_ms=ms_dq, pair_dkv_ms=ms_dkv,
-               vs_pair=ms / pair if has_pair else None, errs_dq_dk_dv=errs,
+               vs_pair=ms / pair, errs_dq_dk_dv=errs,
                tols_dq_dk_dv=tols, wait_cycles=wait.item(), wait_share=share,
                pairs=pairs, bitwise_repeats=repeats)
     against = (f"against the pair's {ms_dq:.4f} + {ms_dkv:.4f} = {pair:.4f} ms "
                f"({ms / pair:.3f}x" + (f"; at most {FUSED_BWD_RATIO}x)" if gated
-                                      else "; reported)")
-               if has_pair else f"(no pair at D{D})")
+                                      else "; reported)"))
     log(f"[{name}] {shape}: {ms:.4f} ms {against}; dq, dk, dv errs "
         f"{[f'{e:.3e}' for e in errs]}; the ordered dq sum waited "
         f"{wait.item()} cycles in all CTAs, {share:.4f} of the kernel's "
@@ -2060,6 +2072,12 @@ def check_flash_bwd_fused(B, S, H, D, causal, window, ragged, gated):
 #: heads, head dim); seq 1024.  Their D 96 and 80 run in the tile of D 128
 #: (``csrc/common.cuh`` ``tile_dim``)
 HEAD_DIM_SHAPES = (("GPT-2 760M", 16, 16, 96), ("GPT-2 2.7B", 8, 32, 80))
+#: the backward pair's rows at seq 4096, past which GPT-2 760M and 2.7B
+#: train on it (B, H, D), and the block-sparse trio's under the Fixed
+#: layout at block 64 (the sparse training slice's shape)
+HEAD_DIM_LONG_S = 4096
+PAIR_HEAD_DIM_SHAPES = (("GPT-2 760M", 4, 16, 96), ("GPT-2 2.7B", 2, 32, 80))
+SPARSE_HEAD_DIM_SHAPES = (("GPT-2 760M", 4, 16, 96), ("GPT-2 2.7B", 4, 32, 80))
 #: the serving rows' batches: 8 decode slots over S_max 1024 at ragged
 #: positions, one 128-token extend chunk at pos 640
 HEAD_DIM_DECODE_B, HEAD_DIM_SMAX, HEAD_DIM_CHUNK = 8, 1024, (128, 640)
@@ -2068,15 +2086,24 @@ HEAD_DIM_DECODE_B, HEAD_DIM_SMAX, HEAD_DIM_CHUNK = 8, 1024, (128, 640)
 HEAD_DIM_RATIO = 1.05
 
 
-def _head_dim_runner(kind, B, H, D, gen):
+def _head_dim_runner(kind, B, H, D, gen, S=HEAD_DIM_SMAX):
     """``fn(i)`` for ``time_ms``: one launch of ``kind`` at head dim ``D``
-    on the row's shape (flash: B x S 1024, causal; decode: the serving
-    slots at ragged positions; chunk: one extend chunk), rotating over
+    on the row's shape (flash: B x S, causal; block-sparse: B x S under
+    the Fixed layout at block 64; decode: the serving slots at ragged
+    positions over S_max 1024; chunk: one extend chunk), rotating over
     input sets (cache layers) that keep each launch's reads out of L2."""
-    S = HEAD_DIM_SMAX
     scale = 1.0 / math.sqrt(D)
-    if kind in ("flash_fwd", "flash_bwd_fused"):
-        n = max(2, min(8, (120 << 20) // (4 * B * S * H * D * 2)))
+    n = max(2, min(8, (120 << 20) // (4 * B * S * H * D * 2)))
+    if kind.startswith("block_sparse"):
+        cfg = fixed_layout_config(H)
+        plan = sparse_plan(cfg.make_layout(S), cfg.block, True, "cuda")
+        sets = _sparse_sets(n, B, S, H, D, gen)
+        if kind == "block_sparse_fwd":
+            return lambda i: kernels.block_sparse_fwd(*sets[i % n][:3], plan,
+                                                      scale)
+        stats = _forward_stats(kernels.block_sparse_fwd, sets, plan, scale)
+        return _bwd_runner(getattr(kernels, kind), sets, stats, plan, scale)
+    if kind.startswith("flash"):
         sets = []
         for q, k, v in _qkv_views(n, B, S, H, D, gen):
             if kind == "flash_fwd":
@@ -2086,9 +2113,9 @@ def _head_dim_runner(kind, B, H, D, gen):
                              dtype=torch.float32).to(torch.bfloat16)
             o, lse = kernels.flash_fwd(q, k, v, True, scale)
             sets.append((q, k, v, do, lse, aligned_do_and_delta(do, o)[1]))
-        if kind == "flash_fwd":
-            return lambda i: kernels.flash_fwd(*sets[i % n], True, scale)
-        return lambda i: kernels.flash_bwd_fused(*sets[i % n], True, scale)
+        kernel = getattr(kernels, kind)
+        return lambda i: kernel(*sets[i % n], True, scale)
+    S = HEAD_DIM_SMAX
     int8 = kind.endswith("_int8")
     kernel = getattr(kernels, kind)
     if kind.startswith("decode"):
@@ -2104,14 +2131,14 @@ def _head_dim_runner(kind, B, H, D, gen):
                             *(t[i % L] for t in kv[2:]))
 
 
-def _vs_d128(row, kind, B, H, D, n):
+def _vs_d128(row, kind, B, H, D, n, S=HEAD_DIM_SMAX):
     """Time ``kind`` at head dim D and at D 128 on the same B, S, H in
     turns (D, 128, 128, D; each the mean of its two turns), put both in
     ``row`` (its ``ms`` becomes the in-turns time) and fail unless D takes
     at most ``HEAD_DIM_RATIO`` of D 128's time."""
     gen = torch.Generator(device="cuda").manual_seed(D)
-    runs = {D: _head_dim_runner(kind, B, H, D, gen),
-            128: _head_dim_runner(kind, B, H, 128, gen)}
+    runs = {D: _head_dim_runner(kind, B, H, D, gen, S),
+            128: _head_dim_runner(kind, B, H, 128, gen, S)}
     turns = {D: [], 128: []}
     for order in ((D, 128), (128, D)):
         for d in order:
@@ -2130,15 +2157,17 @@ def _vs_d128(row, kind, B, H, D, n):
 
 
 def check_head_dims():
-    """The four kernels of the serving and dense training paths at GPT-2
-    760M's (D 96) and 2.7B's (D 80) shapes: ``flash_fwd`` and
-    ``flash_bwd_fused`` at the training micro-batch, seq 1024, causal;
-    ``decode_attn(_int8)`` over the 8 serving slots at ragged positions and
-    ``chunk_attn(_int8)`` on a 128-token chunk at pos 640 (S_max 1024);
-    each against its plain version and SDPA as the other rows, then timed
-    in turns with its D 128 instantiation at the same B, S, H
-    (``HEAD_DIM_RATIO``); and ``flash_attention_backward`` at D 80 past
-    Sk 4096 (the pair's route) must raise."""
+    """The attention kernels at GPT-2 760M's (D 96) and 2.7B's (D 80)
+    shapes: ``flash_fwd`` and ``flash_bwd_fused`` at the training
+    micro-batch, seq 1024, causal; ``decode_attn(_int8)`` over the 8
+    serving slots at ragged positions and ``chunk_attn(_int8)`` on a
+    128-token chunk at pos 640 (S_max 1024); the backward pair at
+    ``PAIR_HEAD_DIM_SHAPES`` and the block-sparse trio at
+    ``SPARSE_HEAD_DIM_SHAPES`` (seq 4096); each against its plain version
+    and SDPA as the other rows, then timed in turns with its D 128
+    instantiation at the same B, S, H (``HEAD_DIM_RATIO``); and
+    ``flash_attention_backward`` at D 80 past Sk 4096 must run the pair,
+    one launch of each, and match the plain backward."""
     rows = []
     Sq, pos = HEAD_DIM_CHUNK
     for model, B, H, D in HEAD_DIM_SHAPES:
@@ -2157,17 +2186,39 @@ def check_head_dims():
             rows.append(_vs_d128(check_chunk(pos, Sq=Sq, Smax=HEAD_DIM_SMAX,
                                              H=H, D=D, int8=int8),
                                  name, 1, H, D, 50))
-    # past Sk 4096 the backward takes the pair, which is not built at D 80
-    # or 96: its wrapper refuses before any launch
-    q = torch.zeros((1, 4097, 1, 80), device="cuda", dtype=torch.bfloat16)
-    o, lse = kernels.flash_fwd(q, q, q, True, 0.1)
-    try:
-        kernels.flash_attention_backward(q, q, q, o, lse, q, True, 0.1)
-    except ValueError as e:
-        log(f"[head dim] flash_attention_backward at D80, Sk 4097 (the pair's "
-            f"route) raises: {e}")
-    else:
-        raise AssertionError("flash_attention_backward ran the pair at D80")
+    S = HEAD_DIM_LONG_S
+    for model, B, H, D in PAIR_HEAD_DIM_SHAPES:
+        log(f"[head dim] {model}: the backward pair at B{B} S{S} H{H} D{D}")
+        for row in check_flash_bwd(B, S, H, D):
+            rows.append(_vs_d128(row, row["name"], B, H, D, 10, S))
+    for model, B, H, D in SPARSE_HEAD_DIM_SHAPES:
+        log(f"[head dim] {model}: the block-sparse trio at B{B} S{S} H{H} "
+            f"D{D}, Fixed block 64")
+        for row in check_block_sparse(B, S, H, D):
+            rows.append(_vs_d128(row, row["name"], B, H, D,
+                                 20 if row["name"].endswith("fwd") else 10, S))
+    # past Sk 4096 the backward takes the pair, at D 80 as at every D
+    gen = torch.Generator(device="cuda").manual_seed(4097)
+    q, k, v, do = (torch.randn((1, 4097, 2, 80), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = kernels.flash_fwd(q, k, v, True, 0.1)
+    before = kernels.launch_counts()
+    grads = kernels.flash_attention_backward(q, k, v, o, lse, do, True, 0.1)
+    took = {name: kernels.launch_counts()[name] - before[name]
+            for name in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")}
+    ref = flash_attention_backward_reference(q.float(), k.float(), v.float(),
+                                             o.float(), lse, do.float(), True,
+                                             0.1)
+    err = max(((g.float() - r).abs().max() / r.abs().max().clamp(min=1.0))
+              .item() for g, r in zip(grads, ref))
+    tol = SWEEP_TOL[torch.bfloat16]
+    log(f"[head dim] flash_attention_backward at B1 Sk 4097 H2 D80 (the "
+        f"pair's route): launches {took}, worst relative err {err:.3e} (tol "
+        f"{tol:.0e})")
+    if took != {"flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_bwd_fused": 0} \
+            or not err <= tol:
+        raise AssertionError(f"flash_attention_backward at D80 Sk 4097: "
+                             f"launches {took}, err {err}")
     return rows
 
 
@@ -2296,13 +2347,16 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
     (GPT-2 350M's heads, seq 4096, the Fixed layout at block 64), bf16,
     against the fp32 plain versions on the same inputs (the forward
     kernel's O and lse feed the backward pair).  Plain ms is the plain
-    forward, or the whole plain backward; library ms is
+    forward, or the whole plain backward, both one batch row at a time
+    (``_batch_rows``); library ms is
     ``scaled_dot_product_attention`` with the expanded [H, S, S] boolean
     mask, forward or its backward (dq, dk, dv together).  Also times the
-    port's dense causal flash trio at the same shape: what the sparsity
-    buys."""
+    port's dense causal flash trio at the same shape, and its plain
+    versions row by row: what the sparsity buys."""
     cfg = fixed_layout_config(H)
-    plan = sparse_plan(cfg.make_layout(S), cfg.block, True, "cuda")
+    # a plan of its own, not the cache's: the plain versions cache the
+    # [H, S, S] mask on it (0.5 GiB at H 32), freed when this returns
+    plan = SparsePlan(cfg.make_layout(S), cfg.block, True, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(31)
     n = 4                                   # 200 MB of inputs: past the L2
     sets = _sparse_sets(n, B, S, H, D, gen)
@@ -2329,15 +2383,22 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
     if not all(repeat.values()):
         raise AssertionError(f"block-sparse: two launches differ {repeat}")
     del o2, lse2, dq2, dk2, dv2
-    o32, lse32 = block_sparse_attention_reference(q.float(), k.float(),
-                                                  v.float(), plan, scale)
+
+    def plain_fwd_fn(q, k, v):
+        return _batch_rows(block_sparse_attention_reference, q, k, v, plan,
+                           scale)
+
+    def plain_bwd_fn(q, k, v, o, lse, do):
+        return _batch_rows(block_sparse_attention_backward_reference, q, k,
+                           v, o, lse, do, plan, scale)
+
+    o32, lse32 = plain_fwd_fn(q.float(), k.float(), v.float())
     fwd_err = (o.float() - o32).abs().max().item()
     fwd_tol = BF16_REL_TOL * max(1.0, o32.abs().max().item())
     lse_err = (lse - lse32).abs().max().item()
     del o32, lse32
-    ref = block_sparse_attention_backward_reference(
-        q.float(), k.float(), v.float(), o.float(), lse, do.float(), plan,
-        scale)
+    ref = plain_bwd_fn(q.float(), k.float(), v.float(), o.float(), lse,
+                       do.float())
     ACCEL.synchronize()
     errs = [(a.float() - r).abs().max().item() for a, r in zip((dq, dk, dv), ref)]
     tols = [BF16_REL_TOL * max(1.0, r.abs().max().item()) for r in ref]
@@ -2351,10 +2412,8 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
                                 plan, scale), 10)
     ms_dkv = time_ms(_bwd_runner(kernels.block_sparse_bwd_dkv, sets, stats,
                                  plan, scale), 10)
-    plain_fwd = eager_ms(lambda: block_sparse_attention_reference(
-        q, k, v, plan, scale), 2, 1)
-    plain_bwd = eager_ms(lambda: block_sparse_attention_backward_reference(
-        q, k, v, o, lse, do, plan, scale), 2, 1)
+    plain_fwd = eager_ms(lambda: plain_fwd_fn(q, k, v), 2, 1)
+    plain_bwd = eager_ms(lambda: plain_bwd_fn(q, k, v, o, lse, do), 2, 1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bmask = plan.mask()[None]
     lib_fwd = time_ms(lambda i: sdpa(*(t.transpose(1, 2) for t in sets[i % n][:3]),
@@ -2385,6 +2444,12 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
     dense["sdpa_bwd"] = eager_ms(lambda: torch.autograd.grad(
         out, leaves, do.transpose(1, 2), retain_graph=True), 5)
     del out, leaves
+    # the dense trio's plain versions, one batch row at a time
+    o_dense, lse_dense, _ = dense_stats[0]
+    dense["plain_fwd"] = eager_ms(lambda: _batch_rows(
+        flash_attention_reference, q, k, v, True, scale), 1, 1)
+    dense["plain_bwd"] = eager_ms(lambda: _plain_bwd(
+        q, k, v, o_dense, lse_dense, do, True, scale), 1, 1)
     for name, per_pair in (("flash_fwd", 4), ("flash_bwd_dq", 6),
                            ("flash_bwd_dkv", 8)):
         dense[f"{name}_bound_ms"] = per_pair * D * dense_pairs / BF16_FLOPS * 1e3
@@ -2399,7 +2464,9 @@ def check_block_sparse(B=4, S=4096, H=16, D=64):
         f"{dense['flash_bwd_dkv']:.4f} ms (bound "
         f"{dense['flash_bwd_dkv_bound_ms']:.4f}), all bound by operations; "
         f"SDPA causal forward {dense['sdpa_fwd']:.4f} ms, its backward "
-        f"{dense['sdpa_bwd']:.4f} ms ({dense_pairs} pairs)")
+        f"{dense['sdpa_bwd']:.4f} ms ({dense_pairs} pairs); the plain "
+        f"forward {dense['plain_fwd']:.4f} ms, backward "
+        f"{dense['plain_bwd']:.4f} ms, row by row")
     rows = [_report("block_sparse_fwd", shape, fwd_err, fwd_tol, ms_fwd,
                     plain_fwd, lib_fwd, 4 * elem + stat_bytes, 4 * D * pairs),
             _report("block_sparse_bwd_dq", shape, errs[0], tols[0], ms_dq,
@@ -2983,23 +3050,31 @@ def run_wide_serving(model, cfg, seed, int8):
 #: the two models' timed training steps after 2 warm-up ones: 5, not
 #: phase 6's 10, to keep the whole run near 550 s of command time
 WIDE_TRAIN_STEPS = 5
+#: GPT-2 2.7B past four key blocks of 1024, where the backward takes the
+#: pair: seq 8192 at micro-batch 1 (8192 tokens a step, as micro-batch 8
+#: at seq 1024)
+LONG_SEQ, LONG_MICRO_BATCH = 8192, 1
 
 
 def run_wide_training(model, base, micro, row_seq, warmup=2,
-                      steps=WIDE_TRAIN_STEPS):
-    """GPT-2 760M's or 2.7B's training path at phase 6's setup (seq 1024,
-    bf16, remat ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, gas 1) at
-    micro-batch ``micro``, through the D 96 or 80 kernels: seq 1024 is one
-    key block, so each step launches ``flash_fwd`` and ``flash_bwd_fused``
-    once a layer and the pair never; the row check at ``row_seq`` tokens
-    (a one-row fp32 host forward of 2.7B is about 5 TFLOP and 10.6 GB at
-    1024); then a profile of 2 steps.  Returns (results, counts)."""
-    cfg = dataclasses.replace(base, max_seq_len=1024, dtype=torch.bfloat16,
+                      steps=WIDE_TRAIN_STEPS, seq=1024):
+    """GPT-2 760M's or 2.7B's training path at phase 6's setup (bf16, remat
+    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, gas 1) at seq ``seq`` and
+    micro-batch ``micro``, through the D 96 or 80 kernels: each step
+    launches ``flash_fwd`` once a layer, and the backward as the JAX
+    package routes it: ``flash_bwd_fused`` once a layer up to four key
+    blocks of 1024 (seq 1024: one), past them the pair, ``flash_bwd_dq``
+    and ``flash_bwd_dkv`` once a layer each; the row check at ``row_seq``
+    tokens (a one-row fp32 host forward of 2.7B is about 5 TFLOP and 10.6
+    GB at 1024); then a profile of 2 steps.  Returns (results, counts)."""
+    cfg = dataclasses.replace(base, max_seq_len=seq, dtype=torch.bfloat16,
                               remat=True, remat_policy="attn_out")
     L = cfg.n_layer
-    want = {"flash_fwd": L, "flash_bwd_fused": L, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "fused_adam": 1}
-    label = f"{model} train"
+    fused = kernels.fused_backward(seq)
+    want = {"flash_fwd": L, "flash_bwd_fused": L if fused else 0,
+            "flash_bwd_dq": 0 if fused else L,
+            "flash_bwd_dkv": 0 if fused else L, "fused_adam": 1}
+    label = f"{model} train" + ("" if seq == 1024 else f" seq {seq}")
     res, counts, engine, batch = _train_full_width(
         label, model, cfg, micro, want, warmup, steps, row_seq)
     res["head_dim"] = cfg.head_dim
@@ -3368,23 +3443,26 @@ def run_neo_training(warmup=2, steps=10):
     return res, counts, engine, batch
 
 
-def run_sparse_training(warmup=2, steps=10):
-    """Phase 7: the sparse training slice, GPT-2 350M at seq 4096 under
-    the Fixed block-sparse layout, micro-batch 4; counts reset before and
-    read after.  The one-row bf16-vs-fp32 host check runs at seq 1024
-    under the same layout config (the host's plain attention at 4096 would
-    take minutes)."""
-    cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=SPARSE_SEQ,
+def run_sparse_training(warmup=2, steps=10, model="GPT-2 350M",
+                        base=gpt.GPT2_350M, label="sparse train"):
+    """Phase 7: the sparse training slice, GPT-2 350M (or, phase 7b, GPT-2
+    760M through the D 96 kernels) at seq 4096 under the Fixed
+    block-sparse layout, micro-batch 4; counts reset before and read
+    after: the block-sparse trio once a layer per step, no flash kernel.
+    The one-row bf16-vs-fp32 host check runs at seq 1024 under the same
+    layout config (the host's plain attention at 4096 would take
+    minutes)."""
+    cfg = dataclasses.replace(base, max_seq_len=SPARSE_SEQ,
                               dtype=torch.bfloat16, remat=True,
                               remat_policy="attn_out",
-                              sparse_attention=fixed_layout_config())
+                              sparse_attention=fixed_layout_config(base.n_head))
     want = {"block_sparse_fwd": cfg.n_layer, "block_sparse_bwd_dq": cfg.n_layer,
             "block_sparse_bwd_dkv": cfg.n_layer, "fused_adam": 1,
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_bwd_fused": 0}
     res, counts, engine, batch = _train_full_width(
-        "sparse train", "GPT-2 350M", cfg, SPARSE_MICRO_BATCH, want, warmup,
-        steps, row_seq=1024)
+        label, model, cfg, SPARSE_MICRO_BATCH, want, warmup, steps,
+        row_seq=1024)
     plan = kernels.config_plan(cfg.sparse_attention, SPARSE_SEQ, True, "cuda")
     D, n = cfg.head_dim, SPARSE_SEQ // plan.block
     # attention FLOPs per step on live pairs: forward 4·D, dq 6·D, dk/dv
@@ -3398,7 +3476,8 @@ def run_sparse_training(warmup=2, steps=10):
                 "attention_flops_per_step_dense_term": dense_term,
                 "causal_block_density": plan.live_blocks / (
                     cfg.n_head * n * (n + 1) / 2)})
-    log(f"[sparse train] {plan.live_blocks} live blocks per row "
+    res["head_dim"] = D
+    log(f"[{label}] {plan.live_blocks} live blocks per row "
         f"({res['causal_block_density']:.3f} of the causal triangle), "
         f"attention FLOPs per step on live pairs {live:.4e} vs the dense "
         f"term of flops_per_token {dense_term:.4e}")
@@ -4211,6 +4290,10 @@ def main() -> int:
 
     t_build = build.build_all()
     log(f"[build] kernels {build.sources()} ready in {t_build:.1f} s")
+    log("[build] seconds per source (nvcc in parallel, from the build's "
+        "start): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                               sorted(build.build_seconds.items(),
+                                      key=lambda kv: -kv[1])))
     for name, rep in build.ptxas_reports.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", rep)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
@@ -4219,9 +4302,11 @@ def main() -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
             f"{spills} bytes")
     result["build_s"] = t_build
+    result["build_s_per_source"] = dict(build.build_seconds)
     result["ptxas_tensor_core"] = check_ptxas_tc()
     result["sass_tensor_core"] = check_sass()
     result["decode_build"] = check_decode_build()
+    log(f"[time] build and build checks done at {time.perf_counter() - T0:.1f} s")
 
     checks = [check_flash(4, 512), check_flash(1, 128), check_flash(16, 1024),
               *[check_decode(B=B, kind=kind) for B, kind in DECODE_CASES],
@@ -4243,6 +4328,7 @@ def main() -> int:
               *check_head_dims(),
               *[row for _, _, H, D in HEAD_DIM_SHAPES
                 for row in check_kv_append(H=H, D=D)]]
+    log(f"[time] kernel checks done at {time.perf_counter() - T0:.1f} s")
     check_adam_skip()
     check_lamb_skip()
     result["quantizer_sweep"] = check_quantizer_sweep()
@@ -4259,6 +4345,7 @@ def main() -> int:
     result["tiny_training_bert"] = check_tiny_training(bert_model=True)
     result["tiny_training_neo"] = check_tiny_training(neo=True)
     result["tiny_diffusion"] = check_tiny_diffusion()
+    log(f"[time] sweeps and tiny models done at {time.perf_counter() - T0:.1f} s")
 
     cfg = gpt.GPT2_350M
     params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(1234),
@@ -4311,6 +4398,7 @@ def main() -> int:
         result["launches"][key] = wide_counts
         counts = _add(counts, wide_counts)
 
+    log(f"[time] serving paths done at {time.perf_counter() - T0:.1f} s")
     result["training"], train_counts, trainer, batch = run_training()
     result["launches"]["training"] = train_counts
     counts = {k: counts[k] + train_counts[k] for k in counts}
@@ -4338,6 +4426,12 @@ def main() -> int:
             model, cfg, micro, row_seq)
         result["launches"][f"{key}_training"] = wide_counts
         counts = _add(counts, wide_counts)
+    result["gpt2_2_7b_long_training"], long_counts = run_wide_training(
+        "GPT-2 2.7B", gpt.GPT2_2_7B, LONG_MICRO_BATCH, row_seq=256,
+        seq=LONG_SEQ)
+    result["launches"]["gpt2_2_7b_long_training"] = long_counts
+    counts = _add(counts, long_counts)
+    log(f"[time] wide training paths done at {time.perf_counter() - T0:.1f} s")
 
     result["sparse_training"], sparse_counts, trainer, batch = \
         run_sparse_training()
@@ -4348,7 +4442,20 @@ def main() -> int:
                                          for _ in range(2)], SPARSE_KERNELS)
     del trainer
     torch.cuda.empty_cache()
+    result["gpt2_760m_sparse_training"], wide_counts, trainer, batch = \
+        run_sparse_training(model="GPT-2 760M", base=gpt.GPT2_760M,
+                            label="760M sparse train",
+                            steps=WIDE_TRAIN_STEPS)
+    result["launches"]["gpt2_760m_sparse_training"] = wide_counts
+    counts = _add(counts, wide_counts)
+    result["gpt2_760m_sparse_training_profile"] = device_profile(
+        "760M sparse train 2 steps", lambda: [trainer.train_batch_fused(batch)
+                                              for _ in range(2)],
+        SPARSE_KERNELS)
+    del trainer
+    torch.cuda.empty_cache()
     result["dense_at_sparse_shape"] = run_dense_at_sparse_shape()
+    log(f"[time] sparse training paths done at {time.perf_counter() - T0:.1f} s")
 
     result["bert_training"], bert_counts, trainer, batch = run_bert_training()
     result["launches"]["bert_training"] = bert_counts
@@ -4365,6 +4472,8 @@ def main() -> int:
     result["launches"]["route_check"] = route_counts
     counts = {k: counts[k] + route_counts[k] for k in counts}
 
+    log(f"[time] BERT training and the route check done at "
+        f"{time.perf_counter() - T0:.1f} s")
     result["diffusion"], diffusion_counts = run_diffusion()
     result["launches"]["diffusion"] = diffusion_counts
     counts = {k: counts[k] + diffusion_counts[k] for k in counts}
@@ -4407,7 +4516,10 @@ def main() -> int:
         f"{result['launches']['gpt2_760m']}, GPT-2 2.7B "
         f"{result['launches']['gpt2_2_7b']}, GPT-2 760M training "
         f"{result['launches']['gpt2_760m_training']}, GPT-2 2.7B training "
-        f"{result['launches']['gpt2_2_7b_training']}, training {train_counts}, "
+        f"{result['launches']['gpt2_2_7b_training']}, GPT-2 2.7B training at "
+        f"seq {LONG_SEQ} {long_counts}, GPT-2 760M sparse training "
+        f"{result['launches']['gpt2_760m_sparse_training']}, training "
+        f"{train_counts}, "
         f"GPT-Neo training {neo_counts}, sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
         f"{ROUTE_SEQ} {route_counts}, diffusion "
@@ -4416,6 +4528,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    log(f"[time] whole run {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": ACCEL.device_name(0),

@@ -18,12 +18,14 @@
 // block is positional: key j is visible to query i iff j <= i.
 //
 // The FMA kernels.  One CTA owns `rows` = min(128 / TPR, block) rows of one
-// block (query rows for the forward and dq, key rows for dk/dv), TPR = D/16
+// block (query rows for the forward and dq, key rows for dk/dv), TPR = DT/16
 // neighbouring lanes per row, each lane holding four float4 chunks of the
 // head dim (chunk c*TPR + t), as in flash_tile.cuh; so a CTA has 32 to 128
-// threads.  It walks its block's live list, and inside each live block the
-// other side in chunks of CHUNK = min(block, 64) rows (32 at D = 128),
-// staged in shared memory as fp32.  Rows and chunks never cross a layout
+// threads.  DT = tile_dim(D) (common.cuh): D 80 and 96 padded to 128 with
+// zeros, so TPR stays a power of two; the chunks past D hold zeros and are
+// not stored.  It walks its block's live list, and inside each live block
+// the other side in chunks of CHUNK = min(block, 64) rows (32 in the tile
+// of 128), staged in shared memory as fp32.  Rows and chunks never cross a layout
 // block, so the tiles are independent of the layout block size.  Every
 // loop trip count is the CTA's (the live count, the block's chunks), so
 // the full-mask shuffles that reduce a row's dot products never diverge.
@@ -69,13 +71,18 @@ __device__ __forceinline__ const T* row_ptr(const View& v, int b, int s, int h) 
     return static_cast<const T*>(v.p) + b * v.sb + (long long)s * v.ss + h * v.sh;
 }
 
-// rows [r0, r0 + ROWS) of one (b, h) slice into shared memory as fp32, with
-// 16-byte loads (neighbouring threads on neighbouring addresses); the rows
-// lie inside one layout block, so all are in range
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void stage_rows(float4 (*dst)[D / 4], const View& src, int b, int h, int r0) {
+// rows [r0, r0 + ROWS) of one (b, h) slice into shared memory as fp32 rows
+// of DT >= D columns, with 16-byte loads (neighbouring threads on
+// neighbouring addresses); the rows lie inside one layout block, so all
+// are in range; the columns past D are zero
+template <typename T, int D, int ROWS, int DT = D>
+__device__ __forceinline__ void stage_rows(float4 (*dst)[DT / 4], const View& src, int b, int h, int r0) {
     constexpr int VEC = VecWidth<T>::value;
     constexpr int VPR = D / VEC;
+    static_assert(VPR * VEC == D && DT >= D, "whole 16-byte vectors a row");
+    if constexpr (DT > D)
+        for (int id = threadIdx.x; id < ROWS * (DT - D) / 4; id += blockDim.x)
+            dst[id / ((DT - D) / 4)][D / 4 + id % ((DT - D) / 4)] = make_float4(0.f, 0.f, 0.f, 0.f);
     const T* base = row_ptr<T>(src, b, r0, h);
     for (int id = threadIdx.x; id < ROWS * VPR; id += blockDim.x) {
         const int j = id / VPR, vv = id % VPR;
@@ -98,10 +105,11 @@ __device__ __forceinline__ void axpy4s(float4& acc, float s, const float4& x) {
 // the launch every kernel shares: `rows` rows of one layout block per CTA
 template <int D>
 __host__ __forceinline__ void sparse_grid(const SparseArgs& a, dim3& grid, dim3& block) {
-    constexpr int max_rows = DS_SPARSE_THREADS / (D / 16);
+    constexpr int TPR = HeadDim<D>::TILE / 16;
+    constexpr int max_rows = DS_SPARSE_THREADS / TPR;
     const int rows = a.block < max_rows ? a.block : max_rows;
     grid = dim3(a.S / rows, a.H, a.B);
-    block = dim3(rows * (D / 16));
+    block = dim3(rows * TPR);
 }
 
 // the tensor-core kernels' table (one direction)
@@ -133,8 +141,8 @@ __host__ __forceinline__ bool sparse_args_ok(const SparseArgs& a) {
 }
 
 // the fp32 FMA kernels' launch by head dim and CHUNK = min(block, CMAX):
-// 64 rows at D <= 64 and 32 at D = 128 keep the two staged fp32 tiles
-// within 32 KB of static shared memory
+// 64 rows at D <= 64 and 32 in the tile of 128 (D 80, 96, 128) keep the
+// two staged fp32 tiles within 32 KB of static shared memory
 #define DS_SPARSE_CHUNK(LAUNCH, T, DD, CMAX)                                      \
     switch (a.block < CMAX ? a.block : CMAX) {                                    \
         case 16: return LAUNCH<T, DD, 16>(a, stream);                             \
@@ -146,6 +154,8 @@ __host__ __forceinline__ bool sparse_args_ok(const SparseArgs& a) {
     switch (D) {                                                                  \
         case 32: DS_SPARSE_CHUNK(LAUNCH, T, 32, 64)                               \
         case 64: DS_SPARSE_CHUNK(LAUNCH, T, 64, 64)                               \
+        case 80: DS_SPARSE_CHUNK(LAUNCH, T, 80, 32)                               \
+        case 96: DS_SPARSE_CHUNK(LAUNCH, T, 96, 32)                               \
         case 128: DS_SPARSE_CHUNK(LAUNCH, T, 128, 32)                             \
         default: return cudaErrorInvalidValue;                                    \
     }

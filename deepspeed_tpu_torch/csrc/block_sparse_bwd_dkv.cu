@@ -32,16 +32,23 @@
 // key row on TPR = D/16 lanes with its fp32 dK and dV in registers; under
 // causal masking the chunks that end before the tile's first key are
 // skipped.  It is bound by the FMA issue rate.
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// 128 (common.cuh tile_dim), with D 128's stages ("D 128" above): S^T and
+// dP^T stop at D's last 16-column step, dK and dV are computed over the
+// padded columns (zeros TMA fills into Q and dO) and stored below D only;
+// the FMA kernel pads its rows with zeros (block_sparse.cuh).
 #include "attn_tc.cuh"
 #include "block_sparse.cuh"
 
 template <typename T, int D, int QC>
 __global__ void __launch_bounds__(DS_SPARSE_THREADS)
 block_sparse_bwd_dkv_kernel(const SparseArgs a) {
-    constexpr int TPR = D / 16;                   // lanes per key row
+    constexpr int DT = HeadDim<D>::TILE;          // the padded row
+    constexpr int TPR = DT / 16;                  // lanes per key row
     constexpr int NCH = 4;                        // float4 chunks per lane
-    __shared__ float4 qs[QC][D / 4];
-    __shared__ float4 dos[QC][D / 4];
+    __shared__ float4 qs[QC][DT / 4];
+    __shared__ float4 dos[QC][DT / 4];
     __shared__ float lses[QC];
     __shared__ float deltas[QC];
 
@@ -64,8 +71,9 @@ block_sparse_bwd_dkv_kernel(const SparseArgs a) {
     float4 k[NCH], v[NCH], dk[NCH], dv[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        k[c] = load4(kp + (c * TPR + t) * 4);
-        v[c] = load4(vp + (c * TPR + t) * 4);
+        const bool ok = (c * TPR + t) * 4 < D;    // the padded columns: zero
+        k[c] = ok ? load4(kp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[c] = ok ? load4(vp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         dk[c] = make_float4(0.f, 0.f, 0.f, 0.f);
         dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -77,8 +85,8 @@ block_sparse_bwd_dkv_kernel(const SparseArgs a) {
         if (a.causal) q_first = max(q_first, (k0 / QC) * QC);
         for (int q0 = q_first; q0 < q_end; q0 += QC) {
             __syncthreads();                      // the previous chunk is consumed
-            stage_rows<T, D, QC>(qs, a.q, b, h, q0);
-            stage_rows<T, D, QC>(dos, a.dout, b, h, q0);
+            stage_rows<T, D, QC, DT>(qs, a.q, b, h, q0);
+            stage_rows<T, D, QC, DT>(dos, a.dout, b, h, q0);
             for (int i = tid; i < QC; i += blockDim.x) {
                 lses[i] = a.lse[stat0 + q0 + i];
                 deltas[i] = a.delta[stat0 + q0 + i];
@@ -120,6 +128,7 @@ block_sparse_bwd_dkv_kernel(const SparseArgs a) {
     T* dvp = const_cast<T*>(row_ptr<T>(a.out1, b, kj, h));
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
+        if ((c * TPR + t) * 4 >= D) continue;
         store4(dkp + (c * TPR + t) * 4, dk[c].x, dk[c].y, dk[c].z, dk[c].w);
         store4(dvp + (c * TPR + t) * 4, dv[c].x, dv[c].y, dv[c].z, dv[c].w);
     }
@@ -345,6 +354,8 @@ extern "C" int block_sparse_bwd_dkv(const void* q, const void* k, const void* v,
     switch (D) {                                                                       \
         case 32: return static_cast<int>(launch_dkv_tc<T, 32>(p, a, dtype, stream));   \
         case 64: return static_cast<int>(launch_dkv_tc<T, 64>(p, a, dtype, stream));   \
+        case 80: return static_cast<int>(launch_dkv_tc<T, 80>(p, a, dtype, stream));   \
+        case 96: return static_cast<int>(launch_dkv_tc<T, 96>(p, a, dtype, stream));   \
         case 128: return static_cast<int>(launch_dkv_tc<T, 128>(p, a, dtype, stream)); \
         default: return static_cast<int>(cudaErrorInvalidValue);                      \
     }

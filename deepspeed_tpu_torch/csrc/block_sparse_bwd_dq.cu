@@ -45,16 +45,23 @@
 // chunks of KC keys staged once in shared memory as fp32, 3*D FMAs per
 // live pair (s = q.k, dP = dO.v, dQ += dS*k).  It is bound by the FMA
 // issue rate.
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// 128 (common.cuh tile_dim), with D 128's stages ("D 128" above): S and dP
+// stop at D's last 16-column step, dQ's padded columns are computed on the
+// zeros TMA fills into K and never stored (dq is a view into the packed
+// gradient); the FMA kernel pads its rows with zeros (block_sparse.cuh).
 #include "attn_tc.cuh"
 #include "block_sparse.cuh"
 
 template <typename T, int D, int KC>
 __global__ void __launch_bounds__(DS_SPARSE_THREADS)
 block_sparse_bwd_dq_kernel(const SparseArgs a) {
-    constexpr int TPR = D / 16;                   // lanes per query row
+    constexpr int DT = HeadDim<D>::TILE;          // the padded row
+    constexpr int TPR = DT / 16;                  // lanes per query row
     constexpr int NCH = 4;                        // float4 chunks per lane
-    __shared__ float4 ks[KC][D / 4];
-    __shared__ float4 vs[KC][D / 4];
+    __shared__ float4 ks[KC][DT / 4];
+    __shared__ float4 vs[KC][DT / 4];
 
     const int rows = blockDim.x / TPR;
     const int tid = threadIdx.x;
@@ -74,8 +81,9 @@ block_sparse_bwd_dq_kernel(const SparseArgs a) {
     float4 q[NCH], dout[NCH], acc[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        q[c] = load4(qp + (c * TPR + t) * 4);
-        dout[c] = load4(dop + (c * TPR + t) * 4);
+        const bool ok = (c * TPR + t) * 4 < D;    // the padded columns: zero
+        q[c] = ok ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        dout[c] = ok ? load4(dop + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     const long long stat = ((long long)b * a.H + h) * a.S + qi;
@@ -89,8 +97,8 @@ block_sparse_bwd_dq_kernel(const SparseArgs a) {
         if (a.causal) k_end = min(k_end, q0 + rows);
         for (int k0 = k_first; k0 < k_end; k0 += KC) {
             __syncthreads();                      // the previous chunk is consumed
-            stage_rows<T, D, KC>(ks, a.k, b, h, k0);
-            stage_rows<T, D, KC>(vs, a.v, b, h, k0);
+            stage_rows<T, D, KC, DT>(ks, a.k, b, h, k0);
+            stage_rows<T, D, KC, DT>(vs, a.v, b, h, k0);
             __syncthreads();
 #pragma unroll 4
             for (int j = 0; j < KC; ++j) {
@@ -120,7 +128,7 @@ block_sparse_bwd_dq_kernel(const SparseArgs a) {
     T* dqp = const_cast<T*>(row_ptr<T>(a.out0, b, qi, h));
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-        store4(dqp + (c * TPR + t) * 4, acc[c].x, acc[c].y, acc[c].z, acc[c].w);
+        if ((c * TPR + t) * 4 < D) store4(dqp + (c * TPR + t) * 4, acc[c].x, acc[c].y, acc[c].z, acc[c].w);
 }
 
 template <typename T, int D, int KC>
@@ -322,6 +330,8 @@ extern "C" int block_sparse_bwd_dq(const void* q, const void* k, const void* v, 
     switch (D) {                                                               \
         case 32: return static_cast<int>(launch_dq_tc<T, 32>(p, stream));     \
         case 64: return static_cast<int>(launch_dq_tc<T, 64>(p, stream));     \
+        case 80: return static_cast<int>(launch_dq_tc<T, 80>(p, stream));     \
+        case 96: return static_cast<int>(launch_dq_tc<T, 96>(p, stream));     \
         case 128: return static_cast<int>(launch_dq_tc<T, 128>(p, stream));   \
         default: return static_cast<int>(cudaErrorInvalidValue);              \
     }

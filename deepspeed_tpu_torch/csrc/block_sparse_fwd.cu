@@ -32,16 +32,23 @@
 // only): one CTA per `rows` query rows of one q-block, sweeping the live
 // k-blocks of its row of the block table in chunks of KC keys widened to
 // fp32 in shared memory; it is bound by the FMA issue rate.
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// 128 (common.cuh tile_dim), with D 128's stages ("D 128" above): S =
+// Q.K^T stops at D's last 16-column step, O's padded columns are computed
+// on the zeros TMA fills into V and never stored; the FMA kernel pads its
+// rows with zeros (block_sparse.cuh).
 #include "attn_tc.cuh"
 #include "block_sparse.cuh"
 
 template <typename T, int D, int KC>
 __global__ void __launch_bounds__(DS_SPARSE_THREADS)
 block_sparse_fwd_kernel(const SparseArgs a) {
-    constexpr int TPR = D / 16;                   // lanes per query row
+    constexpr int DT = HeadDim<D>::TILE;          // the padded row
+    constexpr int TPR = DT / 16;                  // lanes per query row
     constexpr int NCH = 4;                        // float4 chunks per lane
-    __shared__ float4 ks[KC][D / 4];
-    __shared__ float4 vs[KC][D / 4];
+    __shared__ float4 ks[KC][DT / 4];
+    __shared__ float4 vs[KC][DT / 4];
 
     const int rows = blockDim.x / TPR;
     const int tid = threadIdx.x;
@@ -60,7 +67,7 @@ block_sparse_fwd_kernel(const SparseArgs a) {
     float4 q[NCH], acc[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        q[c] = load4(qp + (c * TPR + t) * 4);
+        q[c] = (c * TPR + t) * 4 < D ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     float m = -INFINITY;
@@ -72,8 +79,8 @@ block_sparse_fwd_kernel(const SparseArgs a) {
         if (a.causal) k_end = min(k_end, q0 + rows);   // later keys: masked for the whole tile
         for (int k0 = k_first; k0 < k_end; k0 += KC) {
             __syncthreads();                      // the previous chunk is consumed
-            stage_rows<T, D, KC>(ks, a.k, b, h, k0);
-            stage_rows<T, D, KC>(vs, a.v, b, h, k0);
+            stage_rows<T, D, KC, DT>(ks, a.k, b, h, k0);
+            stage_rows<T, D, KC, DT>(vs, a.v, b, h, k0);
             __syncthreads();
 
             float s[KC];
@@ -120,7 +127,8 @@ block_sparse_fwd_kernel(const SparseArgs a) {
     T* op = const_cast<T*>(row_ptr<T>(a.out0, b, qi, h));
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-        store4(op + (c * TPR + t) * 4, acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
+        if ((c * TPR + t) * 4 < D)
+            store4(op + (c * TPR + t) * 4, acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
     if (t == 0) a.lse[((long long)b * a.H + h) * a.S + qi] = m + logf(lf);
 }
 
@@ -294,6 +302,8 @@ extern "C" int block_sparse_fwd(const void* q, const void* k, const void* v, voi
     switch (D) {                                                                \
         case 32: return static_cast<int>(launch_fwd_tc<T, 32>(p, stream));     \
         case 64: return static_cast<int>(launch_fwd_tc<T, 64>(p, stream));     \
+        case 80: return static_cast<int>(launch_fwd_tc<T, 80>(p, stream));     \
+        case 96: return static_cast<int>(launch_fwd_tc<T, 96>(p, stream));     \
         case 128: return static_cast<int>(launch_fwd_tc<T, 128>(p, stream));   \
         default: return static_cast<int>(cudaErrorInvalidValue);               \
     }

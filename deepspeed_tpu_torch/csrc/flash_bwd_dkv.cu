@@ -17,9 +17,9 @@
 // bf16 and fp16 (flash_bwd_dkv_tc): the Hopper design.  One CTA owns a
 // (b, h, 128-key) tile: two consumer warpgroups of 64 keys and a producer
 // warp.  K and V are loaded once with TMA; the q-tiles of Q and dO (64
-// rows, 32 at D 128) stream through a ring of shared-memory stages guarded
-// by full and empty mbarriers, from the first q-tile at or below the
-// causal frontier to the end.  The producer warp's lanes copy each
+// rows, 32 in the tile of 128) stream through a ring of shared-memory
+// stages guarded by full and empty mbarriers, from the first q-tile at or
+// below the causal frontier to the end.  The producer warp's lanes copy each
 // q-tile's lse (times log2 e) and delta into its stage, loaded one tile
 // ahead so their latency hides behind the wait for a free stage.  Per
 // q-tile each consumer runs the step it shares with
@@ -42,21 +42,28 @@
 // past Sq arrive as zeros with lse and delta 0 and add exactly 0).
 //
 // fp32 keeps the FMA kernel below (flash_dkv_fma): a CTA of 128 threads
-// per (b, h, k-tile), a key row on TPR = D/16 lanes, each q-tile widened
+// per (b, h, k-tile), a key row on TPR = DT/16 lanes, each q-tile widened
 // to fp32 in shared memory and reused by all key rows; under a band its
 // q-tile walk ends where the tile's last key leaves the band.
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// DT = 128 (common.cuh tile_dim): the tensor-core kernel's S^T and dP^T
+// stop at D's last 16-column step, dK and dV are computed over the padded
+// columns (zeros TMA fills into Q and dO) and stored below D only; the
+// FMA kernel pads its rows with zeros.
 #include "attn_tc.cuh"
 #include "flash_bwd.cuh"
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
 flash_dkv_fma(const BwdArgs a) {
-    constexpr int TPR = D / 16;                   // lanes per key row
+    constexpr int DT = HeadDim<D>::TILE;          // the padded row
+    constexpr int TPR = DT / 16;                  // lanes per key row
     constexpr int BK = DS_BWD_THREADS / TPR;      // key rows per CTA
-    constexpr int BQ = D <= 64 ? 64 : 32;         // query rows per q-tile
+    constexpr int BQ = DT <= 64 ? 64 : 32;        // query rows per q-tile
     constexpr int NCH = 4;                        // float4 chunks per lane
-    __shared__ float4 qs[BQ][D / 4];
-    __shared__ float4 dos[BQ][D / 4];
+    __shared__ float4 qs[BQ][DT / 4];
+    __shared__ float4 dos[BQ][DT / 4];
     __shared__ float lses[BQ];
     __shared__ float deltas[BQ];
 
@@ -89,16 +96,17 @@ flash_dkv_fma(const BwdArgs a) {
     float4 k[NCH], v[NCH], dk[NCH], dv[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        k[c] = key_ok ? load4(kp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-        v[c] = key_ok ? load4(vp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const bool ok = key_ok && (c * TPR + t) * 4 < D;   // the padded columns: zero
+        k[c] = ok ? load4(kp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[c] = ok ? load4(vp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         dk[c] = make_float4(0.f, 0.f, 0.f, 0.f);
         dv[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
 
     for (int q0 = qstart; q0 < qend; q0 += BQ) {
         __syncthreads();                          // the previous tile is consumed
-        load_rows<T, D, BQ>(qs, qp, a.q_ss, q0, a.Sq);
-        load_rows<T, D, BQ>(dos, dop, a.do_ss, q0, a.Sq);
+        load_rows<T, D, BQ, DT>(qs, qp, a.q_ss, q0, a.Sq);
+        load_rows<T, D, BQ, DT>(dos, dop, a.do_ss, q0, a.Sq);
         for (int i = tid; i < BQ; i += DS_BWD_THREADS) {
             const bool ok = q0 + i < a.Sq;
             lses[i] = ok ? a.lse[stat0 + q0 + i] : 0.f;
@@ -143,6 +151,7 @@ flash_dkv_fma(const BwdArgs a) {
     T* dvp = static_cast<T*>(a.dv) + b * a.dv_sb + (long long)kj * a.dv_ss + h * a.dv_sh;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
+        if ((c * TPR + t) * 4 >= D) continue;
         store4(dkp + (c * TPR + t) * 4, dk[c].x, dk[c].y, dk[c].z, dk[c].w);
         store4(dvp + (c * TPR + t) * 4, dv[c].x, dv[c].y, dv[c].z, dv[c].w);
     }
@@ -150,7 +159,7 @@ flash_dkv_fma(const BwdArgs a) {
 
 template <typename T, int D>
 static cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-    constexpr int BK = DS_BWD_THREADS / (D / 16);
+    constexpr int BK = DS_BWD_THREADS / (HeadDim<D>::TILE / 16);
     const dim3 grid((a.Sk + BK - 1) / BK, a.H, a.B);
     flash_dkv_fma<T, D><<<grid, DS_BWD_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
@@ -431,6 +440,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
     switch (D) {                                                         \
         case 32: return static_cast<int>(LAUNCH<T, 32>(a, ##__VA_ARGS__, stream));   \
         case 64: return static_cast<int>(LAUNCH<T, 64>(a, ##__VA_ARGS__, stream));   \
+        case 80: return static_cast<int>(LAUNCH<T, 80>(a, ##__VA_ARGS__, stream));   \
+        case 96: return static_cast<int>(LAUNCH<T, 96>(a, ##__VA_ARGS__, stream));   \
         case 128: return static_cast<int>(LAUNCH<T, 128>(a, ##__VA_ARGS__, stream)); \
         default: return static_cast<int>(cudaErrorInvalidValue);        \
     }

@@ -19,7 +19,7 @@
 // (4-D maps over the strided [B, S, H, D] views, so packed qkv and an
 // aligned dO load in place), then streams the K and V k-tiles (64 keys)
 // through a ring of shared-memory stages guarded by full and empty
-// mbarriers (3 stages at D <= 64, 2 at D 128), from key 0 to the causal
+// mbarriers (3 stages at D <= 64, 2 in the tile of 128), from key 0 to the causal
 // frontier or the key length: k-tiles past either are never loaded.
 // Each consumer thread reads its two rows' lse (times log2 e) and delta
 // into registers once, before the loop (rows past Sq get 0 and are
@@ -32,8 +32,8 @@
 //   dQ += dS.K                    (wgmma, dS from registers, the same K
 //                                  tile read MN-major)
 // with fp32 accumulators; only tiles that cross the causal, key-length or
-// Sq edge are masked (JAX _block_crosses_mask).  At D 128 dQ is two N=64
-// products over K's two 64-column boxes.  dQ is written once per element
+// Sq edge are masked (JAX _block_crosses_mask).  In the tile of 128 dQ is
+// two N=64 products over K's two 64-column boxes.  dQ is written once per element
 // through the strided dq view (no atomics: two launches are bitwise
 // equal), and the heaviest causal q-tiles run first (the q-tile index is
 // the grid's slowest dimension, reversed).
@@ -54,21 +54,29 @@
 // only 16-bit operands, and dQ += dS.K reads K transposed.  One CTA of 128
 // threads owns a (b, h, q-tile) and walks the k-tiles up to its causal
 // frontier (from its first row's band start under a window); a query
-// row is held by TPR = D/16 neighbouring lanes, each k-tile widened to
+// row is held by TPR = DT/16 neighbouring lanes, each k-tile widened to
 // fp32 in shared memory and reused by all BQ rows, 3*D FMAs per visible
 // pair.
+//
+// Head dims 32, 64, 128, and 80 and 96 (GPT-2 2.7B, 760M) in the tile of
+// DT = 128 (common.cuh tile_dim): the tensor-core kernel's S and dP stop
+// at D's last 16-column step, dQ's padded columns are computed on the
+// zeros TMA fills into K and never stored (dq may be a view into a wider
+// tensor); the FMA kernel pads its rows with zeros, so TPR stays a power
+// of two and the row's shuffles stay within it.
 #include "attn_tc.cuh"
 #include "flash_bwd.cuh"
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DS_BWD_THREADS)
 flash_bwd_dq_kernel(const BwdArgs a) {
-    constexpr int TPR = D / 16;                   // lanes per query row
+    constexpr int DT = HeadDim<D>::TILE;          // the padded row
+    constexpr int TPR = DT / 16;                  // lanes per query row
     constexpr int BQ = DS_BWD_THREADS / TPR;      // query rows per CTA
-    constexpr int BK = D <= 64 ? 64 : 32;         // keys per k-tile
+    constexpr int BK = DT <= 64 ? 64 : 32;        // keys per k-tile
     constexpr int NCH = 4;                        // float4 chunks per lane
-    __shared__ float4 ks[BK][D / 4];
-    __shared__ float4 vs[BK][D / 4];
+    __shared__ float4 ks[BK][DT / 4];
+    __shared__ float4 vs[BK][DT / 4];
 
     const int tid = threadIdx.x;
     const int r = tid / TPR;
@@ -98,8 +106,9 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     float4 q[NCH], dout[NCH], acc[NCH];
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-        q[c] = row_ok ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
-        dout[c] = row_ok ? load4(dop + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        const bool ok = row_ok && (c * TPR + t) * 4 < D;   // the padded columns: zero
+        q[c] = ok ? load4(qp + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        dout[c] = ok ? load4(dop + (c * TPR + t) * 4) : make_float4(0.f, 0.f, 0.f, 0.f);
         acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     const long long stat = ((long long)b * a.H + h) * a.Sq + qi;
@@ -108,8 +117,8 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 
     for (int k0 = kbeg; k0 < kend; k0 += BK) {
         __syncthreads();                          // the previous tile is consumed
-        load_rows<T, D, BK>(ks, kp, a.k_ss, k0, klim);
-        load_rows<T, D, BK>(vs, vp, a.v_ss, k0, klim);
+        load_rows<T, D, BK, DT>(ks, kp, a.k_ss, k0, klim);
+        load_rows<T, D, BK, DT>(vs, vp, a.v_ss, k0, klim);
         __syncthreads();
 #pragma unroll 4
         for (int j = 0; j < BK; ++j) {
@@ -141,12 +150,12 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     T* dqp = static_cast<T*>(a.dq) + b * a.dq_sb + (long long)qi * a.dq_ss + h * a.dq_sh;
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-        store4(dqp + (c * TPR + t) * 4, acc[c].x, acc[c].y, acc[c].z, acc[c].w);
+        if ((c * TPR + t) * 4 < D) store4(dqp + (c * TPR + t) * 4, acc[c].x, acc[c].y, acc[c].z, acc[c].w);
 }
 
 template <typename T, int D>
 static cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-    constexpr int BQ = DS_BWD_THREADS / (D / 16);
+    constexpr int BQ = DS_BWD_THREADS / (HeadDim<D>::TILE / 16);
     const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
     flash_bwd_dq_kernel<T, D><<<grid, DS_BWD_THREADS, 0, stream>>>(a);
     return cudaGetLastError();
@@ -380,6 +389,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
     switch (D) {                                                         \
         case 32: return static_cast<int>(LAUNCH<T, 32>(a, ##__VA_ARGS__, stream));   \
         case 64: return static_cast<int>(LAUNCH<T, 64>(a, ##__VA_ARGS__, stream));   \
+        case 80: return static_cast<int>(LAUNCH<T, 80>(a, ##__VA_ARGS__, stream));   \
+        case 96: return static_cast<int>(LAUNCH<T, 96>(a, ##__VA_ARGS__, stream));   \
         case 128: return static_cast<int>(LAUNCH<T, 128>(a, ##__VA_ARGS__, stream)); \
         default: return static_cast<int>(cudaErrorInvalidValue);        \
     }

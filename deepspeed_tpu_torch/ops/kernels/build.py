@@ -37,6 +37,9 @@ _lock = threading.Lock()
 #: ptxas register/shared-memory report of each library built by this
 #: process, by source name
 ptxas_reports: Dict[str, str] = {}
+#: seconds from the start of the concurrent build to the end of each
+#: source's nvcc, by source name
+build_seconds: Dict[str, float] = {}
 
 
 def sources() -> List[str]:
@@ -67,18 +70,29 @@ def _build(names: List[str]) -> None:
     """Compile every library in ``names`` concurrently."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    t0 = time.perf_counter()
+    procs, outputs = {}, {}
+
+    def wait(name, proc):
+        # drains the pipes (ptxas's report can outgrow them) and times
+        # this source alone
+        outputs[name] = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+
     for name in names:
         out = BUILD_DIR / f"{name}.{_digest(name)}.so"
         tmp = BUILD_DIR / f"{name}.{_digest(name)}.{os.getpid()}.tmp.so"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp, out)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        procs[name] = (proc, tmp, out,
+                       threading.Thread(target=wait, args=(name, proc)))
+        procs[name][3].start()
     failures = []
-    for name, (proc, tmp, out) in procs.items():
-        stdout, stderr = proc.communicate()
+    for name, (proc, tmp, out, waiter) in procs.items():
+        waiter.join()
+        stdout, stderr = outputs[name]
         if proc.returncode != 0:
             failures.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n"
                             f"{stdout}{stderr}")

@@ -455,9 +455,9 @@ def flash_attention_backward(q, k, v, o, lse, do, causal: bool, scale: float,
     """(dq, dk, dv) from the forward's saved O and lse.  On CUDA the
     kernels write into ``out`` (three [B, S, H, D] views) when given:
     ``flash_bwd_fused`` where :func:`fused_backward` holds for Sk, else
-    ``flash_bwd_dq`` and ``flash_bwd_dkv``, whose wrappers refuse the head
-    dims the pair is not instantiated for (80 and 96) before any launch.  On the CPU the plain version
-    (the same function) runs and is copied into ``out``."""
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``, at every head dim the forward
+    takes.  On the CPU the plain version (the same function) runs and is
+    copied into ``out``."""
     if not on_cuda(q, k, v, o, lse, do):
         grads = flash_attention_backward_reference(q, k, v, o, lse, do,
                                                    causal, scale, kv_lens,

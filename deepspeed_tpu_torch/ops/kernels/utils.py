@@ -17,21 +17,13 @@ import torch
 #: the C interface's dtype codes (``csrc/common.cuh`` ``DType``)
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 #: the head dims each attention kernel is instantiated for (its source's
-#: ``switch (D)``): the kernels of the serving and dense training paths
-#: (``flash_fwd``, ``flash_bwd_fused``, ``decode_attn``, ``chunk_attn``
-#: and their int8-cache forms) also take 80 and 96, which run in the tile
-#: of 128 (``csrc/common.cuh`` ``tile_dim``); the two-kernel backward and
-#: the block-sparse trio take (32, 64, 128)
+#: ``switch (D)``): 32, 64 and 128, and 80 and 96, which run in the tile
+#: of 128 (``csrc/common.cuh`` ``tile_dim``)
 HEAD_DIMS = (32, 64, 80, 96, 128)
-PAIR_HEAD_DIMS = (32, 64, 128)
-KERNEL_HEAD_DIMS = {
-    **{name: HEAD_DIMS for name in (
-        "flash_fwd", "flash_bwd_fused", "decode_attn", "decode_attn_int8",
-        "chunk_attn", "chunk_attn_int8")},
-    **{name: PAIR_HEAD_DIMS for name in (
-        "flash_bwd_dq", "flash_bwd_dkv", "block_sparse_fwd",
-        "block_sparse_bwd_dq", "block_sparse_bwd_dkv")},
-}
+KERNEL_HEAD_DIMS = {name: HEAD_DIMS for name in (
+    "flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+    "decode_attn", "decode_attn_int8", "chunk_attn", "chunk_attn_int8",
+    "block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")}
 
 
 def tile_dim(D: int) -> int:

@@ -79,10 +79,15 @@ def _fixed(S, H, block, causal):
     ).make_layout(S)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [256, 512])
-def test_matches_jax_pallas_kernel(pallas_interpret, S, causal):
-    q, k, v, w = _inputs(1, S, 2, 64, seed=S + causal)
+@pytest.mark.parametrize("S,causal,D", [
+    *[pytest.param(S, c, 64, id=f"{S}-{c}") for c in (True, False)
+      for S in (256, 512)],
+    *[pytest.param(256, c, D, id=f"256-{c}-D{D}") for c in (True, False)
+      for D in (80, 96)]])
+def test_matches_jax_pallas_kernel(pallas_interpret, S, causal, D):
+    """Head dim 64, and GPT-2 2.7B's 80 and 760M's 96, which the Pallas
+    kernel takes as one block and the CUDA kernels in the tile of 128."""
+    q, k, v, w = _inputs(1, S, 2, D, seed=S + causal)
     lay = _fixed(S, 2, 128, causal)
     ref = _jax(jbsa.block_sparse_attention, q, k, v, w, lay, 128, causal)
     out, grads, _ = _port(q, k, v, w, lay, 128, causal)

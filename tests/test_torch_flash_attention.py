@@ -254,7 +254,9 @@ GRAD_MODES = {"causal": (True, False, None), "non-causal": (False, False, None),
     pytest.param(512, "fused", 32, id="512-fused"),
     pytest.param(640, "two_kernel", 32, id="640-two_kernel"),
     pytest.param(512, "fused", 80, id="512-fused-D80"),
-    pytest.param(512, "fused", 96, id="512-fused-D96")])
+    pytest.param(512, "fused", 96, id="512-fused-D96"),
+    pytest.param(640, "two_kernel", 80, id="640-two_kernel-D80"),
+    pytest.param(640, "two_kernel", 96, id="640-two_kernel-D96")])
 def test_backward_forms_match_jax_pallas_kernel(pallas_interpret, Sk, jax_form,
                                                 D, mode):
     """dq, dk and dv of the port's ``flash_attention`` (its plain backward
@@ -262,9 +264,8 @@ def test_backward_forms_match_jax_pallas_kernel(pallas_interpret, Sk, jax_form,
     Pallas ``flash_attention`` in interpret mode at 128-wide blocks: Sk 512
     is nk 4, JAX's fused single sweep (``_bwd_dkv_kernel`` with
     ``emit_dq``), Sk 640 nk 5, its two-kernel backward; causal, non-causal,
-    ragged ``kv_lens`` and a window of 100.  Head dim 32, and 80 and 96 in
-    the fused form (the only one the port builds at those dims).  fp32,
-    1e-5."""
+    ragged ``kv_lens`` and a window of 100.  Head dims 32, 80 and 96 in
+    both forms.  fp32, 1e-5."""
     from deepspeed_tpu.ops.pallas.flash_attention import (MAX_FUSED_BWD_NK,
                                                           flash_attention)
     assert (Sk // 128 <= MAX_FUSED_BWD_NK) == (jax_form == "fused")

@@ -122,7 +122,7 @@ def test_packed_qkv_gradient_is_one_buffer():
 @pytest.mark.parametrize("Sq,Sk,causal", [
     (63, 63, True), (65, 65, False), (129, 129, True), (127, 65, False),
     (129, 63, True), (65, 129, True)])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_backward_tile_edges_low_precision(dtype, D, Sq, Sk, causal):
     """bf16 and fp16 through the plain backward (what ``chip_smoke.py``

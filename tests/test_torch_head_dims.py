@@ -23,11 +23,13 @@ import torch
 import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.ops.sparse_attention import FixedSparsityConfig
+from deepspeed_tpu.runtime.utils import global_grad_norm as jax_grad_norm
 from deepspeed_tpu_torch.models import convert, gpt
 from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.ops.kernels.utils import (HEAD_DIMS,
-                                                   KERNEL_HEAD_DIMS,
-                                                   PAIR_HEAD_DIMS, tile_dim)
+                                                   KERNEL_HEAD_DIMS, tile_dim)
+from deepspeed_tpu_torch.runtime.utils import global_grad_norm
 
 from tests.unit.common import random_tokens
 
@@ -114,22 +116,25 @@ def trajectory(request):
     engine = _jax_engine(1, 1, model_fields=fields)
     init = jax.device_get(engine.state["master"])
     losses = _run(engine, _batches(), 1, True)
-    return dict(D=D, fields=fields, init=init, losses=losses)
+    return dict(D=D, fields=fields, init=init, losses=losses,
+                norm=float(engine.get_global_grad_norm()))
 
 
 def test_training_trajectory_matches_jax(trajectory):
-    """The three steps' losses, at 1e-5.  The final master params are not
-    held at 1e-5 at this size: Adam moves an element whose gradient is
-    near eps by up to lr times its relative gradient noise (one of
-    294,912 ``wo_mlp`` elements ends 2.8e-5 apart at D 96), and the
-    engines' last global gradient norms differ by 1.6e-5 to 4.3e-5
-    relative at seq 128 at D 64 as well; each step's loss and gradients
-    agree to 1e-6 (``test_loss_and_grads_match_jax``)."""
+    """The three steps' losses, at 1e-5, and the last global gradient
+    norm, at 1e-6 (the sum-of-powers form on both sides,
+    ``test_global_grad_norm_matches_jax``).  The final master params are
+    not held at 1e-5 at this size: Adam moves an element whose gradient
+    is near eps by up to lr times its relative gradient noise (one of
+    294,912 ``wo_mlp`` elements ends 2.8e-5 apart at D 96); each step's
+    loss and gradients agree to 1e-6 (``test_loss_and_grads_match_jax``)."""
     ref = trajectory
     engine = _port_engine(ref["init"], 1, 1, model_fields=ref["fields"])
     losses = _run(engine, _batches(), 1, True)
     assert len(losses) == STEPS
     np.testing.assert_allclose(losses, ref["losses"], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(engine.get_global_grad_norm(), ref["norm"],
+                               rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("D", sorted(MODELS), ids=lambda D: f"D{D}")
@@ -152,6 +157,84 @@ def test_loss_and_grads_match_jax(D):
                                atol=TOL)
     _assert_tree_close(convert.to_numpy_params(jax.tree_util.tree_map(
         lambda p: p.grad, tparams)), jax.device_get(jgrads), TOL)
+
+
+# ------------------------------------------------ block-sparse attention
+
+#: the sparse training slice's layout kind at the tiny model's size:
+#: Fixed, block 16 (8 blocks at seq 128), a layout per head
+SPARSE = FixedSparsityConfig(num_heads=2, block=16, num_local_blocks=2,
+                             different_layout_per_head=True,
+                             num_different_global_patterns=2,
+                             attention="unidirectional")
+
+
+@pytest.mark.parametrize("D", sorted(MODELS), ids=lambda D: f"D{D}")
+def test_sparse_loss_and_grads_match_jax(D):
+    """The loss and every gradient of ``loss_fn`` at seq 128 under the
+    Fixed layout (the block-sparse trio's plain versions at D, remat
+    ``attn_out`` as the training path runs it) against
+    ``jax.value_and_grad`` of the JAX ``loss_fn``, at 1e-5."""
+    jcfg = dataclasses.replace(_jax_config(D), vocab_size=256,
+                               sparse_attention=SPARSE)
+    params = jgpt.init(jcfg, jax.random.PRNGKey(5))
+    batch = random_tokens(4, SEQ, seed=11)
+    jloss, jgrads = jax.value_and_grad(lambda p: jgpt.loss_fn(
+        p, jax.tree_util.tree_map(jnp.asarray, batch), jcfg))(params)
+    tcfg = dataclasses.replace(convert.config_from_jax(jcfg, torch.float32),
+                               remat=True, remat_policy="attn_out")
+    assert tcfg.sparse_attention is not None and tcfg.head_dim == D
+    tparams = convert.from_jax_params(jax.device_get(params))
+    for p in jax.tree_util.tree_leaves(tparams):
+        p.requires_grad_(True)
+    loss = gpt.loss_fn(tparams, {"tokens": torch.from_numpy(
+        batch["tokens"]).long()}, tcfg)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL,
+                               atol=TOL)
+    _assert_tree_close(convert.to_numpy_params(jax.tree_util.tree_map(
+        lambda p: p.grad, tparams)), jax.device_get(jgrads), TOL)
+
+
+def test_sparse_training_trajectory_matches_jax():
+    """Three Adam steps (ZeRO 1, the fused step) of the tiny D 96 model
+    under the Fixed layout, from the JAX engine's initial params: the
+    losses at 1e-5, falling."""
+    fields = {**MODELS[96], "max_seq_len": SEQ, "sparse_attention": SPARSE}
+    jeng = _jax_engine(1, 1, model_fields=fields)
+    init = jax.device_get(jeng.state["master"])
+    jlosses = _run(jeng, _batches(), 1, True)
+    peng = _port_engine(init, 1, 1, model_fields=fields)
+    assert peng.module.meta["config"].sparse_attention is not None
+    plosses = _run(peng, _batches(), 1, True)
+    np.testing.assert_allclose(plosses, jlosses, rtol=TOL, atol=TOL)
+    assert plosses[-1] < plosses[0]
+
+
+# ------------------------------------------------- the global gradient norm
+
+@pytest.mark.parametrize("norm_type", [2.0, float("inf")], ids=["l2", "inf"])
+def test_global_grad_norm_matches_jax(norm_type):
+    """The port's ``global_grad_norm`` (a tree's leaves, and the one flat
+    buffer the engine holds them in) against the JAX package's (the root
+    of the leaves' summed powers, or their largest |g|) on one gradient
+    tree: step 1's gradients of the tiny D 96 model, at 1e-6 relative.
+    A single fp32 ``vector_norm`` over the flat buffer, summed lane by
+    lane on the host, was 4.6e-5 off here."""
+    jcfg = _jax_config(96)
+    params = jgpt.init(jcfg, jax.random.PRNGKey(96))
+    batch = _batches()[0]
+    grads = jax.device_get(jax.grad(lambda p: jgpt.loss_fn(
+        p, jax.tree_util.tree_map(jnp.asarray, batch), jcfg))(params))
+    want = float(jax_grad_norm(grads, norm_type))
+    tree = convert.from_jax_params(grads)
+    flat = torch.cat([t.reshape(-1) for t in jax.tree_util.tree_leaves(tree)])
+    assert flat.numel() == sum(np.size(g) for g in
+                               jax.tree_util.tree_leaves(grads))
+    for got in (global_grad_norm(tree, norm_type),
+                global_grad_norm(flat, norm_type)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), want, rtol=1e-6, atol=0)
 
 
 # --------------------------------------------- the wrappers and the sources
@@ -178,11 +261,14 @@ def _switch_cases(text):
 
 @pytest.mark.parametrize("name", sorted(SOURCES))
 def test_wrapper_dims_are_the_instantiated_dims(name):
-    """Every ``switch (D)`` of the kernel's source (and of the FMA tile it
-    dispatches its fp32 inputs to) lists exactly the wrapper's dims."""
+    """Every ``switch (D)`` of the kernel's source (and of the FMA tile or
+    block-sparse dispatch it sends its fp32 inputs to) lists exactly the
+    wrapper's dims."""
     text = (CSRC / SOURCES[name]).read_text()
     if name in ("flash_fwd", "chunk_attn", "chunk_attn_int8"):
         text += (CSRC / "flash_tile.cuh").read_text()
+    if name.startswith("block_sparse"):
+        text += (CSRC / "block_sparse.cuh").read_text()
     switches = _switch_cases(text)
     assert switches, f"no switch (D) in {SOURCES[name]}"
     for cases in switches:
@@ -190,8 +276,11 @@ def test_wrapper_dims_are_the_instantiated_dims(name):
 
 
 def test_head_dim_tuples():
+    """Every attention kernel takes every head dim of the repo's GPT-2
+    presets, 80 and 96 in the tile of 128."""
     assert KERNEL_HEAD_DIMS.keys() == SOURCES.keys()
-    assert set(HEAD_DIMS) - set(PAIR_HEAD_DIMS) == {80, 96}
+    assert all(dims == HEAD_DIMS for dims in KERNEL_HEAD_DIMS.values())
+    assert HEAD_DIMS == (32, 64, 80, 96, 128)
     assert {D: tile_dim(D) for D in HEAD_DIMS} == {32: 32, 64: 64, 80: 128,
                                                    96: 128, 128: 128}
 
@@ -207,14 +296,17 @@ def _bwd_args(D, S=8):
                                   "block_sparse_fwd", "block_sparse_bwd_dq",
                                   "block_sparse_bwd_dkv"])
 def test_pair_and_block_sparse_refuse_padded_dims(name, D):
-    """The two-kernel backward and the block-sparse trio are instantiated
-    for (32, 64, 128): their wrappers refuse D 48, 80 and 96 before any
+    """The two-kernel backward and the block-sparse trio take D 80 and 96
+    (GPT-2 2.7B and 760M, in the tile of 128) and refuse D 48 before any
     launch, naming the kernel and its dims (checked on CPU tensors; the
     checks are plain Python)."""
     from deepspeed_tpu_torch.ops.kernels.utils import check_kernel_inputs
+    if D in HEAD_DIMS:
+        assert check_kernel_inputs(name, *_bwd_args(D)[:4]) == torch.float32
+        return
     with pytest.raises(ValueError, match=rf"{name}: head dim {D} not "
                        rf"supported \(the kernel is instantiated for "
-                       rf"\(32, 64, 128\)\)"):
+                       rf"\(32, 64, 80, 96, 128\)\)"):
         check_kernel_inputs(name, *_bwd_args(D)[:4])
     if name.startswith("flash"):
         with pytest.raises(ValueError, match=rf"{name}: head dim {D}"):
