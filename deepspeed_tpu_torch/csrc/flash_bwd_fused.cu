@@ -20,8 +20,8 @@
 // written once; at GPT-2 350M's training shape (B16 S1024 H16 D64 causal)
 // 8.6e10 FLOPs over 237 MB, above the card's 295 bf16 FLOPs per byte, so
 // the least time is the operations over 989 TFLOP/s.  The accumulator's
-// traffic (a write, and a read per contributor after the first) is the
-// design's cost and outside the bound.
+// traffic (a write or an add in L2 per contributor) is the design's cost
+// and outside the bound.
 //
 // The ordered sum.  The contributors of a q-tile are the key tiles whose
 // walk includes it: under causal masking, the key length and a band, a
@@ -37,23 +37,36 @@
 // no key) are written as zeros by key tile 0.  With wait_cycles given, the
 // cycles CTAs spent waiting for their turn are summed there.
 //
-// bf16 and fp16 (flash_bwd_fused_tc): flash_bwd_dkv_tc's sweep (a CTA per
-// (b, h, 128 keys), q-tiles of Q and dO through a TMA ring, K and V loaded
-// once) with a third warpgroup.  The two consumer warpgroups do what
-// flash_bwd_dkv_tc's do (S^T, dP^T, P^T and dS^T over their 64 keys, dV
-// and dK on wgmma) and also write dS^T into a shared tile of the CTA's 128
-// keys (two, used in turns, so they run up to two q-tiles ahead).  The
-// producer warpgroup's first warp keeps the ring loaded; all four of its
-// warps compute each q-tile's dQ share over the 128 keys from that tile,
-// both operands MN-major in shared memory:
-//   D 64, 128: dQ^T = K^T.dS^T (M = D: K's box, two at D 128)
-//   D 32:      dQ = dS.K       (M = the 64 queries)
-// and add it to the running sum: one bulk copy brings the sum so far in as
-// soon as the CTA's turn has come (a q-tile ahead where it already has),
-// and the share stays in the wgmma fragment's layout, as the accumulator
-// does (each thread's values at 16-byte vectors of their own), so only the
-// last contributor maps it to dq's rows.  The consumers never wait on the
-// sum; the dQ work overlaps their dK and dV work.
+// bf16 and fp16 (flash_bwd_fused_tc): a CTA per (b, h, 128 keys) walks
+// q-tiles of 64 queries at every head dim; 384 threads in three
+// warpgroups, which share the register file unevenly (setmaxnreg: the two
+// consumer warpgroups 232 registers a thread, the producer 40).
+//   The consumers (64 keys each, K and V loaded once) compute per q-tile
+//   S = Q.K^T and dP = dO.V^T as m64n64 products with the queries as the
+//   M rows, as FlashAttention-3 does (a thread's lse and delta are its two
+//   rows', not sixteen columns'), and write P and dS rounded to T into
+//   shared [64 queries][128 keys] tiles (dS two, used in turns).  Once both
+//   have (a named barrier), each runs in one group dV += P^T.dO and dK +=
+//   dS^T.Q over its 64 keys (its box of the tiles read MN-major) and its
+//   part of the CTA's dQ share = dS.K over the 128 keys (the dS tile
+//   K-major, K MN-major): D 128 (and 80, 96) one 64-column box of K each,
+//   D 64 one half of the box each, D 32 the first warpgroup alone.  No
+//   operand stays in registers across a product, so a consumer holds dK,
+//   dV and either S and dP or the share.  The share goes from the wgmma
+//   fragment into a staging tile (two where shared memory allows, else
+//   one) in the fragment's own layout (each thread's values at 16-byte
+//   vectors of their own), which the accumulator in global memory keeps.
+//   The producer's first warp keeps the ring of Q, dO, lse and delta
+//   loaded; its second warp's first lane adds each staged share in key
+//   order: the first contributor stores it with a bulk copy, a middle one
+//   adds it with a bulk reduce-add (in L2: the sum never comes back to the
+//   SM), the last one reduce-adds it too and bulk-loads the whole sum back
+//   into the staging tile, which warps 1-3 round to T into dq.  The bulk
+//   group is complete (cp.async.bulk.wait_group, the async proxy fenced)
+//   before the next turn is released.  The consumers wait on the sum only
+//   when every staging tile is still in it.  A q-tile with one
+//   contributor (every q-tile of a short sequence) has no sum: the
+//   consumers round their share into dq themselves.
 //
 // Order.  Each CTA walks its q-tiles from the last down, and the grid
 // takes (b, h) pairs in dispatch groups, key tile by key tile within a
@@ -71,7 +84,7 @@
 // stop at D's last 16-column step, dK, dV and the dQ share are computed
 // over the padded columns (zeros TMA fills in) and stored below D only;
 // the FMA kernel pads its rows with zeros.  The workspace's sum is
-// [BQ, DT] per q-tile either way.
+// [BQ, DT] per q-tile either way (BQ: FusedCfg's, FmaTile's).
 #include <algorithm>
 
 #include "attn_tc.cuh"
@@ -325,7 +338,17 @@ namespace {
 
 constexpr int FU_BK = 128;              // keys per CTA: two warpgroups of 64
 constexpr int FU_THREADS = 384;         // two consumer warpgroups, the producer warpgroup
-constexpr int BAR_SUM = 3;              // named barrier of the producer warpgroup
+constexpr int BAR_CONS = 1;             // named barrier of the two consumer warpgroups
+constexpr int BAR_SUM = 2;              // named barrier of the producer's warps 1-3
+constexpr int SUM_THREADS = 96;         // the producer's warps 1-3: dq of a last contributor
+// registers a thread after setmaxnreg, within the launch's 168 x 384:
+// the producer keeps 40 (at FlashAttention-3's 24 ptxas spilled 12-52
+// bytes in the ordered sum's loop), the consumers take the rest (at most
+// 223 used at D 128)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(2 * 128 * CONSUMER_REGS + 128 * PRODUCER_REGS <= 168 * FU_THREADS,
+              "the consumers take no more registers than the producer gives back");
 
 struct FusedParams {
     CUtensorMap k, v;                   // rows of 128 per box
@@ -348,28 +371,38 @@ template <int D>
 struct FusedCfg : attn_tc::Boxes<D> {
     using attn_tc::Boxes<D>::HALVES;
     using attn_tc::Boxes<D>::ROWB;
-    static constexpr int BQ = D > 64 ? 32 : 64;             // queries per q-tile
-    static constexpr int STAGES = D > 64 ? 2 : 3;
-    // the CTA's dS^T of a q-tile: [128 keys][BQ queries], DS_ROWB-byte rows,
-    // two buffers used in turns
-    static constexpr int DS_ROWB = 2 * BQ;
-    static constexpr int DS_TILE = FU_BK * DS_ROWB;
-    // the CTA's dQ share of a q-tile: NM wgmma fragments of 64 rows by
-    // 2 NF columns (NF fp32 a thread of the producer warpgroup), NIDX
-    // float4 in the accumulator (the tile of 128: the two halves of it)
     static constexpr int DT = attn_tc::Boxes<D>::DT;
-    static constexpr int NM = DT == 128 ? 2 : 1;
-    static constexpr int NF = DT == 64 ? 32 : 16;
-    static constexpr int NIDX = NM * NF * 32;
+    // queries per q-tile, shared with the wrapper's workspace size
+    // (ops/kernels/flash_attention.py fused_q_tile)
+    static constexpr int BQ = 64;
+    static constexpr int STAGES = DT > 64 ? 2 : 3;
+    // P and dS of a q-tile, [64 queries][128 keys] as the two warpgroups'
+    // boxes of 64 keys (128-byte swizzled rows): P one tile (a warpgroup
+    // reads only its own box), dS two used in turns (the dQ share reads
+    // both boxes)
+    static constexpr int BOX = BQ * 128;
+    static constexpr int PS_TILE = 2 * BOX;
+    // the dQ share: DQ_WGS consumer warpgroups, each the [64, DQ_N]
+    // fragment of columns DQ_N * wg.. (NF fp32 a thread); SHARE bytes,
+    // staged in SUMS tiles used in turns (two where they fit)
+    static constexpr int DQ_WGS = DT == 32 ? 1 : 2;
+    static constexpr int DQ_N = DT / DQ_WGS;
+    static constexpr int NF = DQ_N / 2;
+    static constexpr int SHARE = BQ * DT * 4;
+    static_assert(DQ_WGS * 128 * NF * 4 == SHARE, "the share covers the q-tile's padded rows");
     static constexpr int K_BYTES = HALVES * FU_BK * ROWB;   // one of K, V
     static constexpr int T_BYTES = HALVES * BQ * ROWB;      // one of Q, dO
     static constexpr int TILE_OFF = 2 * K_BYTES;            // stage s: Q, then dO
-    static constexpr int DS_OFF = TILE_OFF + STAGES * 2 * T_BYTES;
-    static constexpr int ACC_OFF = DS_OFF + 2 * DS_TILE;    // two sums so far
-    static constexpr int STAT_OFF = ACC_OFF + 2 * NIDX * 16;   // stage s: lse, then delta
+    static constexpr int P_OFF = TILE_OFF + STAGES * 2 * T_BYTES;
+    static constexpr int DS_OFF = P_OFF + PS_TILE;
+    static constexpr int SUM_OFF = DS_OFF + 2 * PS_TILE;
+    // lse and delta a stage, the barriers, the alignment slack
+    static constexpr int REST = STAGES * 2 * BQ * 4 + 8 * (1 + 2 * STAGES + 5) + 1024;
+    static constexpr int SUMS = SUM_OFF + 2 * SHARE + REST <= 232448 ? 2 : 1;
+    static constexpr int STAT_OFF = SUM_OFF + SUMS * SHARE;  // stage s: lse, then delta
     static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BQ * 4;
-    static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES + 6) + 1024;   // + alignment slack
-    static_assert(NIDX * 4 == BQ * DT, "the share covers the q-tile's padded rows");
+    static constexpr int SMEM = STAT_OFF + REST;
+    static_assert(SMEM <= 232448, "one CTA's shared memory on the H100");
 };
 
 // x, through an asm the compiler keeps in order among the other asm
@@ -378,6 +411,81 @@ struct FusedCfg : attn_tc::Boxes<D> {
 __device__ __forceinline__ uint32_t opaque(uint32_t x) {
     asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
     return x;
+}
+
+// A CTA's place in the grid and its walk of q-tiles, from its block
+// index.  The grid is one dimension in dispatch groups of p.group (b, h)
+// pairs, key tile by key tile within a group: a key tile's predecessors of
+// the same (b, h) always come earlier.  Each role builds it anew after the
+// branch on the role, from a block index the compiler cannot see through
+// (opaque), so that nothing computed before the branch stays live into a
+// role's register budget (the producer's 40 spilled it otherwise).
+template <int BQ, bool BANDED>
+struct Place {
+    int kt, b, h, k0, klim, off, win, qstart, nq;
+    long long tile0;                    // the (b, h)'s first q-tile among all
+
+    __device__ __forceinline__ Place(const FusedParams& p, int block) {
+        const int per_group = p.group * p.nkt;
+        const int g = block / per_group;
+        const int in_group = block % per_group;
+        const int gsize = min(p.group, gridDim.x / p.nkt - g * p.group);
+        kt = in_group / gsize;
+        const int bh = g * p.group + in_group % gsize;
+        h = bh % p.H;
+        b = bh / p.H;
+        k0 = kt * FU_BK;
+        klim = p.kv_lens != nullptr ? min(p.Sk, max(1, p.kv_lens[b])) : p.Sk;
+        off = p.Sk - p.Sq;
+        win = BANDED ? p.window : 0;
+        // the q-tiles [qstart, qend) of flash_bwd_dkv_tc's walk
+        qstart = ((p.causal ? max(0, k0 - off) : 0) / BQ) * BQ;
+        const int qend = BANDED ? min(p.Sq, max(0, k0 + FU_BK - 1 - off + win)) : p.Sq;
+        nq = qstart < qend ? (qend - qstart + BQ - 1) / BQ : 0;
+        tile0 = (long long)bh * ((p.Sq + BQ - 1) / BQ);
+    }
+
+    // q-tile i of the walk, which goes down the q-tiles from the last: a
+    // key tile that starts after its predecessor (the dispatch groups see
+    // to it) then finds it ahead on every q-tile, and the sum so far still
+    // in L2
+    __device__ __forceinline__ int q0(int i) const { return qstart + (nq - 1 - i) * BQ; }
+
+    // the (b, h) slice of a [B, S, H, D] gradient
+    template <typename T>
+    __device__ __forceinline__ T* slice(void* base, long long sb, long long sh) const {
+        return static_cast<T*>(base) + b * sb + h * sh;
+    }
+};
+
+// P and dS of a warpgroup's 64 keys for one q-tile, from S = Q.K^T and
+// dP = dO.V^T in the accumulator's layout (query rows, key columns):
+// P = exp(S scale - lse), 0 where vis says no (MASKED; a select, never
+// -inf arithmetic: rows with no key have lse = -inf), dS = P (dP - delta)
+// scale from the unrounded P, both rounded to T into [64 queries][64 keys]
+// boxes of 128-byte swizzled rows (p_box, ds_box).  lse2, dlt: the
+// thread's two rows' lse times log2 e and delta.
+template <typename T, bool MASKED, typename Vis>
+__device__ __forceinline__ void stage_p_ds(const float (&sc)[32], const float (&dp)[32], const float (&lse2)[2],
+                                           const float (&dlt)[2], float scale2, float scale, const hopper::Frag& fr,
+                                           const Vis& vis, uint32_t p_box, uint32_t ds_box) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r;
+            const int c = 8 * j + fr.col;
+            float p0 = hopper::ex2(fmaf(sc[e], scale2, -lse2[r]));
+            float p1 = hopper::ex2(fmaf(sc[e + 1], scale2, -lse2[r]));
+            if (MASKED) {
+                p0 = vis(r, c) ? p0 : 0.f;
+                p1 = vis(r, c + 1) ? p1 : 0.f;
+            }
+            const uint32_t o = hopper::swizzled<128>(fr.row + 8 * r, j) + 2 * fr.col;
+            hopper::st_shared_u32(p_box + o, hopper::pack2<T>(p0, p1));
+            hopper::st_shared_u32(ds_box + o, hopper::pack2<T>(p0 * (dp[e] - dlt[r]) * scale,
+                                                               p1 * (dp[e + 1] - dlt[r]) * scale));
+        }
 }
 
 // BANDED: causal with a window (built apart, so that the causal kernel
@@ -394,49 +502,28 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
     uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
     uint64_t* full = kv_bar + 1;
     uint64_t* empty = full + C::STAGES;
-    uint64_t* staged_full = empty + C::STAGES;    // per buffer: the consumers wrote dS^T
-    uint64_t* staged_empty = staged_full + 2;     // per buffer: the dQ share was computed from it
-    uint64_t* acc_bar = staged_empty + 2;         // per buffer: the sum so far has landed
-    float4* acc_s = reinterpret_cast<float4*>(smem + C::ACC_OFF);
+    uint64_t* sum_full = empty + C::STAGES;    // per staging tile: the consumers wrote the share
+    uint64_t* sum_empty = sum_full + 2;        // per staging tile: the sum has read it
+    uint64_t* sum_in = sum_empty + 2;          // the whole sum has landed (a last contributor)
 
-    // the grid is one dimension in dispatch groups of p.group (b, h)
-    // pairs, key tile by key tile within a group: a key tile's
-    // predecessors of the same (b, h) always come earlier
-    const int per_group = p.group * p.nkt;
-    const int g = blockIdx.x / per_group;
-    const int in_group = blockIdx.x % per_group;
-    const int gsize = min(p.group, gridDim.x / p.nkt - g * p.group);
-    const int kt = in_group / gsize;
-    const int bh = g * p.group + in_group % gsize;
-    const int h = bh % p.H;
-    const int b = bh / p.H;
-    const int k0 = kt * FU_BK;
-    const int klim = p.kv_lens != nullptr ? min(p.Sk, max(1, p.kv_lens[b])) : p.Sk;
-    const int off = p.Sk - p.Sq;
-    const int win = BANDED ? p.window : 0;
-    T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-    T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-    T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
-    if (kt == 0) zero_unwalked<T, D, FU_BK, BQ>(dqp, p.dq_ss, p.Sq, klim, off, p.causal, win);
-    if (k0 >= klim) {
-        // padding keys only: dK = dV = 0, nothing loaded, no dQ share
-        const int rows = min(FU_BK, p.Sk - k0);
-        for (int id = threadIdx.x; id < rows * D; id += FU_THREADS) {
-            const long long r = k0 + id / D;
-            dkp[r * p.dk_ss + id % D] = from_float<T>(0.f);
-            dvp[r * p.dv_ss + id % D] = from_float<T>(0.f);
+    {
+        const Place<BQ, BANDED> w(p, blockIdx.x);
+        if (w.kt == 0)
+            zero_unwalked<T, D, FU_BK, BQ>(w.template slice<T>(p.dq, p.dq_sb, p.dq_sh), p.dq_ss, p.Sq, w.klim, w.off,
+                                          p.causal, w.win);
+        if (w.k0 >= w.klim) {
+            // padding keys only: dK = dV = 0, nothing loaded, no dQ share
+            T* dkp = w.template slice<T>(p.dk, p.dk_sb, p.dk_sh);
+            T* dvp = w.template slice<T>(p.dv, p.dv_sb, p.dv_sh);
+            const int rows = min(FU_BK, p.Sk - w.k0);
+            for (int id = threadIdx.x; id < rows * D; id += FU_THREADS) {
+                const long long r = w.k0 + id / D;
+                dkp[r * p.dk_ss + id % D] = from_float<T>(0.f);
+                dvp[r * p.dv_ss + id % D] = from_float<T>(0.f);
+            }
+            return;
         }
-        return;
     }
-    // the q-tiles [qstart, qend) of flash_bwd_dkv_tc's walk
-    const int qstart = ((p.causal ? max(0, k0 - off) : 0) / BQ) * BQ;
-    const int qend = BANDED ? min(p.Sq, max(0, k0 + FU_BK - 1 - off + win)) : p.Sq;
-    const int nq = qstart < qend ? (qend - qstart + BQ - 1) / BQ : 0;
-    // the walk goes down the q-tiles, from the last: a key tile that starts
-    // after its predecessor (the dispatch groups see to it) then finds it
-    // ahead on every q-tile, and the sum so far still in L2
-    auto walk = [=](int i) { return qstart + (nq - 1 - i) * BQ; };
-    const long long tile0 = (long long)bh * ((p.Sq + BQ - 1) / BQ);   // the (b, h)'s first q-tile
     const uint32_t k_all = hopper::smem_u32(smem);          // K's 128 keys
     const uint32_t ds_all = hopper::smem_u32(smem + C::DS_OFF);
 
@@ -446,57 +533,54 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
             hopper::mbar_init(&full[s], 32);      // the producer warp's lanes
             hopper::mbar_init(&empty[s], 8);      // one arrival per consumer warp
         }
-        for (int s = 0; s < 2; ++s) {
-            hopper::mbar_init(&staged_full[s], 256);   // every consumer thread
-            hopper::mbar_init(&staged_empty[s], 4);    // one arrival per producer warp
-            hopper::mbar_init(&acc_bar[s], 1);
+        for (int s = 0; s < C::SUMS; ++s) {
+            hopper::mbar_init(&sum_full[s], C::DQ_WGS * 128);   // every thread that holds a share
+            hopper::mbar_init(&sum_empty[s], 1);
         }
+        hopper::mbar_init(sum_in, 1);
         hopper::fence_barrier_init();
     }
     __syncthreads();
 
-    const int wg = threadIdx.x / 128;
+    // the role, warp-uniform as the compiler sees it (CUTLASS's
+    // canonical_warp_group_idx); the two branches never meet again
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
     if (wg == 2) {
-        // The producer warpgroup.  Its first warp loads, as
-        // flash_bwd_dkv_tc's producer warp (lane 0 the TMA loads, every
-        // lane the q-tile's lse and delta, zeros past Sq), up to STAGES
-        // q-tiles ahead of the dQ share it computes next (so a wait for a
-        // free stage never waits on a share not yet computed).  All four
-        // warps compute each q-tile's dQ share over the CTA's 128 keys from
-        // the staged dS^T, then add it in key order to the sum so far
-        // (contributors()), which one bulk copy brings in as soon as this
-        // CTA's turn has come, a q-tile ahead where it has already come;
-        // the last contributor writes dq instead.
+        hopper::setmaxnreg_dec<PRODUCER_REGS>();
+        const Place<BQ, BANDED> w(p, opaque(blockIdx.x));
+        const int nq = w.nq, kt = w.kt, b = w.b, h = w.h, k0 = w.k0;
+        auto walk = [=](int i) { return w.q0(i); };
         if (nq == 0) return;
         const int pt = threadIdx.x - 256;
-        const int pw = pt / 32;
         const int lane = pt % 32;
-        constexpr int PER_LANE = BQ / 32;
-        const long long stat0 = ((long long)b * p.H + h) * p.Sq;
-        float lse_r[PER_LANE], delta_r[PER_LANE];
-        auto stats = [&](int q0) {
-#pragma unroll
-            for (int j = 0; j < PER_LANE; ++j) {
-                const int q = q0 + lane + 32 * j;
-                const bool ok = q < p.Sq;
-                lse_r[j] = ok ? p.lse[stat0 + q] * hopper::LOG2E : 0.f;
-                delta_r[j] = ok ? p.delta[stat0 + q] : 0.f;
+        if (pt < 32) {
+            // warp 0: K and V once, then the walk's q-tiles into the ring
+            // (lane 0 the TMA loads, every lane the q-tile's lse and
+            // delta, zeros past Sq), STAGES q-tiles ahead of the consumers
+            if (lane == 0) {
+                hopper::mbar_expect_tx(kv_bar, 2 * C::K_BYTES);
+                for (int hf = 0; hf < C::HALVES; ++hf) {
+                    hopper::tma_load_4d(smem + hf * FU_BK * C::ROWB, &p.k, kv_bar, hf * 64, h, k0, b);
+                    hopper::tma_load_4d(smem + C::K_BYTES + hf * FU_BK * C::ROWB, &p.v, kv_bar, hf * 64, h, k0,
+                                        b);
+                }
             }
-        };
-        int loaded = 0;                           // the q-tiles of the walk loaded so far
-        // warp 0: the walk's q-tiles [loaded, upto) into the ring
-        auto load_upto = [&](int upto) {
-            for (; loaded < min(nq, upto); ++loaded) {
-                const int i = loaded;
+            const float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
+            const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
+            for (int i = 0; i < nq; ++i) {
                 const int s = i % C::STAGES;
                 const int q0 = walk(i);
-                hopper::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
-                float* st = reinterpret_cast<float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
+                float stat[4];
 #pragma unroll
-                for (int j = 0; j < PER_LANE; ++j) {
-                    st[lane + 32 * j] = lse_r[j];
-                    st[BQ + lane + 32 * j] = delta_r[j];
+                for (int j = 0; j < 2; ++j) {
+                    const int q = q0 + lane + 32 * j;
+                    stat[j] = q < p.Sq ? lse[q] * hopper::LOG2E : 0.f;
+                    stat[2 + j] = q < p.Sq ? delta[q] : 0.f;
                 }
+                hopper::mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+                float* sts = reinterpret_cast<float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) sts[(j >> 1) * BQ + lane + 32 * (j & 1)] = stat[j];
                 if (lane == 0) {
                     hopper::mbar_expect_tx(&full[s], 2 * C::T_BYTES);
                     uint8_t* qs = smem + C::TILE_OFF + s * 2 * C::T_BYTES;
@@ -508,303 +592,299 @@ __global__ void __launch_bounds__(FU_THREADS, 1) flash_bwd_fused_tc(const __grid
                 } else {
                     hopper::mbar_arrive(&full[s]);
                 }
-                if (i + 1 < nq) stats(walk(i + 1));
             }
-        };
-        if (pw == 0) {
-            if (lane == 0) {
-                hopper::mbar_expect_tx(kv_bar, 2 * C::K_BYTES);
-                for (int hf = 0; hf < C::HALVES; ++hf) {
-                    hopper::tma_load_4d(smem + hf * FU_BK * C::ROWB, &p.k, kv_bar, hf * 64, h, k0, b);
-                    hopper::tma_load_4d(smem + C::K_BYTES + hf * FU_BK * C::ROWB, &p.v, kv_bar, hf * 64, h, k0,
-                                        b);
-                }
-            }
-            stats(walk(0));
-            load_upto(C::STAGES);
+            return;
         }
-        hopper::mbar_wait(kv_bar, 0);
-
-        const hopper::Frag fr(pt);
+        // warps 1-3: each q-tile's staged share into the sum, in key order
+        // (contributors()); lane 0 of warp 1 (st 0) waits for the turn and
+        // runs the bulk copies, all three write dq of a last contributor.
+        // They meet at a named barrier on every q-tile, and the staging
+        // tile is freed only after it: a thread that fell two phases of
+        // sum_full behind (its parity seen again, incomplete) would wait
+        // for a share the consumers stage only after the tile is freed.
+        const int st = pt - 32;
         long long waited = 0;
-        // q-tile i of the walk: its place in the order (rank, count)
-        auto order = [&](int i) {
-            const int2 c = contributors<BQ>(walk(i), klim, off, p.causal, win, FU_BK);
+        int landed = 0;                           // parity of sum_in's next landing
+        int staged = 0;                           // the shares staged so far
+        for (int i = 0; i < nq; ++i) {
+            const int q0 = walk(i);
+            const int2 c = contributors<BQ>(q0, w.klim, w.off, p.causal, w.win, FU_BK);
             const int rank = kt - c.x;
             if (static_cast<unsigned>(rank) >= static_cast<unsigned>(c.y)) __trap();
-            return make_int2(rank, c.y);
-        };
-        // warp 1's lane 0: the sum so far of q-tile i into buffer i & 1
-        // once the turn has come (with `wait`; else only if it has come)
-        int fetched = 0;                          // bit b: buffer b's sum so far is requested
-        auto fetch = [&](int i, bool wait) {
-            const int rank = order(i).x;
-            int* cnt = p.ws.counters + tile0 + walk(i) / BQ;
-            if (rank == 0 || (fetched >> (i & 1) & 1) || (!wait && ld_acquire(cnt) != rank)) return;
-            if (wait) waited += wait_turn(cnt, rank);
-            hopper::fence_proxy_async_global();
-            hopper::mbar_expect_tx(&acc_bar[i & 1], C::NIDX * 16);
-            hopper::bulk_load(acc_s + (i & 1) * C::NIDX,
-                              reinterpret_cast<float4*>(p.ws.acc) + (tile0 + walk(i) / BQ) * C::NIDX,
-                              C::NIDX * 16, &acc_bar[i & 1]);
-            fetched |= 1 << (i & 1);
-        };
-        int loads = 0;                            // bit b: parity of buffer b's next landing
-        for (int i = 0; i < nq; ++i) {
-            const int slot = i & 1;
-            const int q0 = walk(i);
-            if (pw == 0) load_upto(i + C::STAGES);
-            if (pt == 32) {
-                fetch(i, true);
-                if (i + 1 < nq) fetch(i + 1, false);
+            if (c.y == 1) continue;               // the consumers wrote dq
+            const int slot = staged % C::SUMS;
+            const int phase = (staged / C::SUMS) & 1;
+            ++staged;
+            const bool last = rank == c.y - 1;
+            int* cnt = p.ws.counters + w.tile0 + q0 / BQ;
+            float* acc = p.ws.acc + (w.tile0 + q0 / BQ) * (BQ * C::DT);
+            uint8_t* share = smem + C::SUM_OFF + slot * C::SHARE;
+            hopper::mbar_wait(&sum_full[slot], phase);
+            if (st == 0 && rank > 0) {
+                waited += wait_turn(cnt, rank);
+                hopper::fence_proxy_async_global();
             }
-            // the share from the staged dS^T, both operands MN-major:
-            //   D 32:      dQ = dS.K (A: dS^T [keys][64 queries], B: K [keys][32])
-            //   D 64 up:   dQ^T = K^T.dS^T (A: K's box m, B: dS^T [keys][BQ])
-            const uint32_t ds = ds_all + slot * C::DS_TILE;
-            hopper::mbar_wait(&staged_full[slot], (i >> 1) & 1);
-            float f[C::NM][C::NF];
-            hopper::wgmma_fence();
-#pragma unroll
-            for (int m = 0; m < C::NM; ++m)
-#pragma unroll
-                for (int kk = 0; kk < FU_BK / 16; ++kk) {
-                    if constexpr (D == 32)
-                        hopper::mma_ss_tt<T, 2 * C::NF>(f[m], hopper::tile_desc<128>(ds + kk * 16 * 128),
-                                                        hopper::tile_desc<64>(k_all + kk * 16 * 64), kk > 0);
+            if (!last) {
+                if (st == 0) {
+                    if (rank == 0)
+                        hopper::bulk_store(acc, share, C::SHARE);
                     else
-                        hopper::mma_ss_tt<T, 2 * C::NF>(
-                            f[m], hopper::tile_desc<128>(k_all + m * FU_BK * 128 + kk * 16 * 128),
-                            hopper::tile_desc<C::DS_ROWB>(ds + kk * 16 * C::DS_ROWB), kk > 0);
+                        hopper::bulk_reduce_add(acc, share, C::SHARE);
+                    hopper::bulk_commit();
+                    hopper::bulk_wait_read();
                 }
+                hopper::named_sync(BAR_SUM, SUM_THREADS);
+                if (st == 0) {
+                    hopper::mbar_arrive(&sum_empty[slot]);
+                    hopper::bulk_wait();
+                    hopper::fence_proxy_async_global();
+                    st_release(cnt, rank + 1);
+                }
+                continue;
+            }
+            // the last: the share added in L2, then the whole sum back into
+            // its staging tile
+            if (st == 0) {
+                hopper::bulk_reduce_add(acc, share, C::SHARE);
+                hopper::bulk_commit();
+                hopper::bulk_wait();
+                hopper::fence_proxy_async_global();
+                hopper::mbar_expect_tx(sum_in, C::SHARE);
+                hopper::bulk_load(share, acc, C::SHARE, sum_in);
+            }
+            hopper::mbar_wait(sum_in, landed);
+            landed ^= 1;
+            // the sum, in the fragments' layout: vector id is thread id %
+            // 128's vector jj of warpgroup w's fragment; .x, .y: query
+            // row, columns col and col + 1, .z, .w: row + 8
+            const float4* sum = reinterpret_cast<const float4*>(share);
+            for (int id = st; id < C::SHARE / 16; id += SUM_THREADS) {
+                const float4 x = sum[id];
+                const hopper::Frag fr(id % 128);
+                const int jj = id / 128 % (C::NF / 4);
+                const int col = id / (128 * (C::NF / 4)) * C::DQ_N + 8 * jj + fr.col;
+                const int q = q0 + fr.row;
+                if (col < D) {
+                    T* row = w.template slice<T>(p.dq, p.dq_sb, p.dq_sh) + (long long)q * p.dq_ss + col;
+                    if (q < p.Sq) *reinterpret_cast<uint32_t*>(row) = hopper::pack2<T>(x.x, x.y);
+                    if (q + 8 < p.Sq) *reinterpret_cast<uint32_t*>(row + 8 * p.dq_ss) = hopper::pack2<T>(x.z, x.w);
+                }
+            }
+            hopper::named_sync(BAR_SUM, SUM_THREADS);
+            if (st == 0) {
+                *cnt = 0;
+                hopper::mbar_arrive(&sum_empty[slot]);
+            }
+        }
+        if (p.ws.wait_cycles != nullptr && st == 0 && waited > 0)
+            atomicAdd(p.ws.wait_cycles, static_cast<unsigned long long>(waited));
+    } else {
+        hopper::setmaxnreg_inc<CONSUMER_REGS>();
+        const Place<BQ, BANDED> w(p, opaque(blockIdx.x));
+        const int nq = w.nq, k0 = w.k0, klim = w.klim, off = w.off, win = w.win, qstart = w.qstart;
+        auto walk = [=](int i) { return w.q0(i); };
+        // consumer warpgroup wg: keys kw .. kw + 63
+        const int t = threadIdx.x % 128;
+        const hopper::Frag fr(t);
+        const int kw = k0 + 64 * wg;
+        attn_tc::DkvAcc<D> acc;
+        acc.init();
+        const uint32_t k_own = k_all + 64 * wg * C::ROWB;      // this warpgroup's K rows
+        // the B operand of this warpgroup's dQ share: K's box wg (the
+        // tile of 128), half wg of the box (D 64), the box (D 32)
+        const uint32_t k_dq = k_all + (C::DT == 128 ? wg * FU_BK * 128 : C::DT == 64 ? wg * 64 : 0);
+        const uint32_t p_own = hopper::smem_u32(smem + C::P_OFF) + wg * C::BOX;
+
+        // under a band, this warpgroup's own q-tiles, [i_lo, i_hi) of [0, nq)
+        // counted up from qstart (flash_bwd_dkv_tc); on the others its dS is 0
+        int i_lo = 0, i_hi = nq;
+        if constexpr (BANDED) {
+            const int last_row = kw + 63 - off + win - 1;
+            const int lo = min(nq, max(0, kw - off - qstart) / BQ);
+            i_hi = __shfl_sync(0xffffffffu, kw >= klim || last_row < qstart ? lo
+                               : max(lo, min(nq, (last_row - qstart) / BQ + 1)), 0);
+            i_lo = __shfl_sync(0xffffffffu, lo, 0);
+        }
+        // the masks' bounds, fixed over the loop: a q-tile below q_diag
+        // crosses the diagonal, one with edge set the key length, one at or
+        // past q_band the band's lower edge
+        const int q_diag = kw + 63 - off;
+        const bool edge = kw + 64 > klim;
+        const int q_band = kw - off + win - BQ + 1;
+
+        // One q-tile i of the walk.  Active (some key of this warpgroup
+        // sees it): S = Q.K^T and dP = dO.V^T over its 64 keys (queries as
+        // the M rows, as FlashAttention-3 does: a thread's lse and delta
+        // are its two rows'), P and dS rounded into the warpgroup's boxes
+        // of the P and dS tiles; idle (under a band): the stage freed once
+        // its data has landed (so that the arrival cannot count toward the
+        // stage's previous tile), the warpgroup's box of dS zero.  Then,
+        // once both warpgroups have staged dS, dV += P^T.dO and dK +=
+        // dS^T.Q (active; P^T, dS^T: the boxes read MN-major) and this
+        // warpgroup's part of the dQ share in one group, and the share
+        // into its staging tile, or into dq where it is the q-tile's only
+        // contributor.  (Captures by value but for the accumulators and
+        // the count of staged shares: through a captured reference the
+        // shared-memory pointers lost their address space, and lse and
+        // delta were read with generic loads.)
+        int staged = 0;                           // the shares staged so far
+        auto tile = [=, &acc, &staged](int i, auto active) {
+            constexpr bool ACTIVE = decltype(active)::value;
+            const int s = i % C::STAGES;
+            const int q0 = walk(i);
+            hopper::mbar_wait_no_trap(&full[s], (i / C::STAGES) & 1);
+            const uint32_t q_addr = hopper::smem_u32(smem + C::TILE_OFF + s * 2 * C::T_BYTES);
+            const uint32_t do_addr = q_addr + C::T_BYTES;
+            const uint32_t ds = opaque(ds_all + (i & 1) * C::PS_TILE);
+            const uint32_t ds_own = ds + wg * C::BOX;
+            if constexpr (ACTIVE) {
+                const float* lse_s = reinterpret_cast<const float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
+                const uint32_t v_own = k_own + C::K_BYTES;
+                float sc[32], dp[32];
+                hopper::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < Bx::KSTEPS; ++kk)
+                    hopper::mma_ss<T, 64>(sc, hopper::tile_desc<Bx::ROWB>(q_addr + hopper::kstep<BQ, Bx::ROWB>(kk)),
+                                          hopper::tile_desc<Bx::ROWB>(k_own + hopper::kstep<FU_BK, Bx::ROWB>(kk)),
+                                          kk > 0);
+#pragma unroll
+                for (int kk = 0; kk < Bx::KSTEPS; ++kk)
+                    hopper::mma_ss<T, 64>(dp, hopper::tile_desc<Bx::ROWB>(do_addr + hopper::kstep<BQ, Bx::ROWB>(kk)),
+                                          hopper::tile_desc<Bx::ROWB>(v_own + hopper::kstep<FU_BK, Bx::ROWB>(kk)),
+                                          kk > 0);
+                hopper::wgmma_commit();
+                hopper::wgmma_wait0();
+                hopper::fence_regs(sc);
+                hopper::fence_regs(dp);
+
+                int qi[2];
+                float lse2[2], dlt[2];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    qi[r] = q0 + fr.row + 8 * r;
+                    lse2[r] = lse_s[fr.row + 8 * r];
+                    dlt[r] = lse_s[BQ + fr.row + 8 * r];
+                }
+                const float scale2 = p.scale * hopper::LOG2E;
+                if constexpr (BANDED) {
+                    // only q-tiles that cross the causal, key-length or band
+                    // edge are masked; row r sees keys lo[r] .. hi[r] of the
+                    // warpgroup's (rows past Sq have zero Q and dO, lse and
+                    // delta: their P feeds dV times dO = 0, their dS is 0)
+                    const bool crosses = edge | (q0 < q_diag) | (q0 >= q_band);
+                    int lo[2], hi[2];
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        lo[r] = qi[r] + off - win + 1 - kw;
+                        hi[r] = min(qi[r] + off, klim - 1) - kw;
+                    }
+                    auto vis = [=](int r, int c) { return (c >= lo[r]) & (c <= hi[r]); };
+                    if (crosses)
+                        stage_p_ds<T, true>(sc, dp, lse2, dlt, scale2, p.scale, fr, vis, p_own, ds_own);
+                    else
+                        stage_p_ds<T, false>(sc, dp, lse2, dlt, scale2, p.scale, fr, vis, p_own, ds_own);
+                } else {
+                    // only q-tiles that cross the causal, key-length or Sq edge are masked
+                    const int Sq = p.Sq;
+                    const bool causal = p.causal;
+                    const bool crosses = (causal & (q0 < q_diag)) | edge | (q0 + BQ > Sq);
+                    auto vis = [=](int r, int c) {
+                        const int key = kw + c;
+                        return (key < klim) & (qi[r] < Sq) & (!causal | (key <= qi[r] + off));
+                    };
+                    if (crosses)
+                        stage_p_ds<T, true>(sc, dp, lse2, dlt, scale2, p.scale, fr, vis, p_own, ds_own);
+                    else
+                        stage_p_ds<T, false>(sc, dp, lse2, dlt, scale2, p.scale, fr, vis, p_own, ds_own);
+                }
+            } else {
+                if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
+                for (int o = 16 * t; o < C::BOX; o += 16 * 128)
+                    asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(ds_own + o), "r"(0) : "memory");
+            }
+            hopper::fence_proxy_async();
+            hopper::named_sync(BAR_CONS, 256);
+
+            // dV += P^T.dO and dK += dS^T.Q (active: A the warpgroup's box
+            // MN-major, B dO and Q MN-major), and the dQ share dQ[64
+            // queries, DQ_N] = dS.K over the 128 keys (A the dS tile
+            // K-major, B this warpgroup's columns of K MN-major)
+            float f[C::NF];
+            if constexpr (ACTIVE) {
+#pragma unroll
+                for (int hf = 0; hf < Bx::HALVES; ++hf) {
+                    hopper::fence_regs(acc.dv[hf]);
+                    hopper::fence_regs(acc.dk[hf]);
+                }
+            }
+            hopper::wgmma_fence();
+            if constexpr (ACTIVE) {
+#pragma unroll
+                for (int hf = 0; hf < Bx::HALVES; ++hf)
+#pragma unroll
+                    for (int kk = 0; kk < BQ / 16; ++kk)
+                        hopper::mma_ss<T, Bx::COLS, 1, 1>(
+                            acc.dv[hf], hopper::tile_desc<128>(p_own + kk * 16 * 128),
+                            hopper::tile_desc<Bx::ROWB>(do_addr + hf * BQ * Bx::ROWB + kk * 16 * Bx::ROWB), 1);
+#pragma unroll
+                for (int hf = 0; hf < Bx::HALVES; ++hf)
+#pragma unroll
+                    for (int kk = 0; kk < BQ / 16; ++kk)
+                        hopper::mma_ss<T, Bx::COLS, 1, 1>(
+                            acc.dk[hf], hopper::tile_desc<128>(ds_own + kk * 16 * 128),
+                            hopper::tile_desc<Bx::ROWB>(q_addr + hf * BQ * Bx::ROWB + kk * 16 * Bx::ROWB), 1);
+            }
+            const bool shares = C::DQ_WGS == 2 || wg == 0;
+            if (shares) {
+#pragma unroll
+                for (int kk = 0; kk < FU_BK / 16; ++kk)
+                    hopper::mma_ss<T, C::DQ_N, 0, 1>(f, hopper::tile_desc<128>(ds + hopper::kstep<BQ, 128>(kk)),
+                                                     hopper::tile_desc<Bx::ROWB>(k_dq + kk * 16 * Bx::ROWB), kk > 0);
+            }
             hopper::wgmma_commit();
             hopper::wgmma_wait0();
+            if constexpr (ACTIVE) {
 #pragma unroll
-            for (int m = 0; m < C::NM; ++m) hopper::fence_regs(f[m]);
-            __syncwarp();
-            if (lane == 0) hopper::mbar_arrive(&staged_empty[slot]);
-
-            const int2 c = order(i);
-            const int rank = c.x;
-            const bool last = rank == c.y - 1;
-            int* cnt = p.ws.counters + tile0 + q0 / BQ;
-            float4* acc = reinterpret_cast<float4*>(p.ws.acc) + (tile0 + q0 / BQ) * C::NIDX;
-            const float4* acc_i = acc_s + slot * C::NIDX;
-            if (rank > 0) {
-                hopper::mbar_wait(&acc_bar[slot], loads >> slot & 1);
-                loads ^= 1 << slot;
-            }
-            // this thread's vector jj of fragment m, at (m * NF / 4 + jj) *
-            // 128 + pt: the sum so far added to the share.  The dq path is
-            // a loop of its own (one loop with both spilled at D 64).
-            auto vec = [&](int m, int jj) {
-                float4 x = make_float4(f[m][4 * jj], f[m][4 * jj + 1], f[m][4 * jj + 2], f[m][4 * jj + 3]);
-                if (rank > 0) {
-                    const float4 y = acc_i[(m * (C::NF / 4) + jj) * 128 + pt];
-                    x = make_float4(y.x + x.x, y.y + x.y, y.z + x.z, y.w + x.w);
+                for (int hf = 0; hf < Bx::HALVES; ++hf) {
+                    hopper::fence_regs(acc.dv[hf]);
+                    hopper::fence_regs(acc.dk[hf]);
                 }
-                return x;
-            };
-            if (!last) {
-#pragma unroll
-                for (int m = 0; m < C::NM; ++m)
-#pragma unroll
-                    for (int jj = 0; jj < C::NF / 4; ++jj) __stcg(acc + (m * (C::NF / 4) + jj) * 128 + pt, vec(m, jj));
-            } else {
-#pragma unroll
-                for (int m = 0; m < C::NM; ++m)
-#pragma unroll
-                    for (int jj = 0; jj < C::NF / 4; ++jj) {
-                        // .x, .y: row fr.row, columns 8 jj + fr.col and the
-                        // next; .z, .w: row fr.row + 8.  D 32: rows are
-                        // queries, columns D; D 64 and up: rows are D (the
-                        // tile of 128: m its half; rows past D padding),
-                        // columns queries
-                        const float4 x = vec(m, jj);
-                        const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const int row = fr.row + 8 * (e >> 1), col = 8 * jj + fr.col + (e & 1);
-                            const int q = q0 + (D == 32 ? row : col);
-                            const int d = D == 32 ? col : 64 * m + row;
-                            if ((q < p.Sq) & (d < D)) dqp[(long long)q * p.dq_ss + d] = from_float<T>(xs[e]);
-                        }
-                    }
+                if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
             }
-            // the sum so far is read (buffer slot may be fetched into
-            // again), the stores made before the release
-            hopper::named_sync(BAR_SUM, 128);
-            fetched &= ~(1 << slot);
-            if (pt == 32) {
-                if (!last)
-                    st_release(cnt, rank + 1);
-                else if (rank > 0)
-                    *cnt = 0;
+            if (!shares) return;
+            hopper::fence_regs(f);
+            if (contributors<BQ>(q0, klim, off, p.causal, win, FU_BK).y == 1) {
+                // the q-tile's only contributor: the share is dq
+                hopper::store_frag<T, C::DQ_N>(f, w.template slice<T>(p.dq, p.dq_sb, p.dq_sh), p.dq_ss, q0,
+                                               wg * C::DQ_N, p.Sq, 1.f, 1.f, fr, D - wg * C::DQ_N);
+                return;
             }
-        }
-        if (p.ws.wait_cycles != nullptr && pt == 32 && waited > 0)
-            atomicAdd(p.ws.wait_cycles, static_cast<unsigned long long>(waited));
-        return;
-    }
-
-    // consumer warpgroup wg: keys kw .. kw + 63
-    const int t = threadIdx.x % 128;
-    const hopper::Frag fr(t);
-    const int kw = k0 + 64 * wg;
-    const int kj[2] = {kw + fr.row, kw + fr.row + 8};
-    attn_tc::DkvAcc<D> acc;
-    acc.init();
-    const uint32_t k_own = k_all + 64 * wg * C::ROWB;      // this warpgroup's K rows
-
-    // under a band, this warpgroup's own q-tiles, [i_lo, i_hi) of [0, nq)
-    // counted up from qstart (flash_bwd_dkv_tc); on the others its dS^T is 0
-    int i_lo = 0, i_hi = nq;
-    if constexpr (BANDED) {
-        const int last_row = kw + 63 - off + win - 1;
-        const int lo = min(nq, max(0, kw - off - qstart) / BQ);
-        i_hi = __shfl_sync(0xffffffffu, kw >= klim || last_row < qstart ? lo
-                           : max(lo, min(nq, (last_row - qstart) / BQ + 1)), 0);
-        i_lo = __shfl_sync(0xffffffffu, lo, 0);
-    }
-    // the masks' bounds, fixed over the loop (the consumers run at their
-    // register cap): a q-tile below q_diag crosses the diagonal, one with
-    // edge set the key length; under a band, as flash_bwd_dkv_tc's
-    const int q_diag = kw + 63 - off;
-    const bool edge = kw + 64 > klim;
-    int a = 0, w[2] = {0, 0}, q_band = 0;
-    if constexpr (BANDED) {
-        a = kj[0] - off;
+            {
+                const int slot = staged % C::SUMS;
+                hopper::mbar_wait_no_trap(&sum_empty[slot], ((staged / C::SUMS) & 1) ^ 1);
+                ++staged;
+                float4* dst = reinterpret_cast<float4*>(smem + C::SUM_OFF + slot * C::SHARE) +
+                              wg * (C::NF / 4) * 128 + t;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) w[r] = kj[r] < klim ? win : 0;
-        q_band = kw - off + win - BQ + 1;
-    }
+                for (int jj = 0; jj < C::NF / 4; ++jj)
+                    dst[jj * 128] = make_float4(f[4 * jj], f[4 * jj + 1], f[4 * jj + 2], f[4 * jj + 3]);
+                hopper::fence_proxy_async();
+                hopper::mbar_arrive(&sum_full[slot]);
+            }
+        };
 
-    // one q-tile this warpgroup computes: dkv_step's products, with dS^T
-    // staged for the producer warpgroup's dQ share.  (Captures by value but
-    // for the accumulators: through a captured reference the shared-memory
-    // pointers lost their address space, and lse and delta were read with
-    // generic loads.)
-    auto active = [=, &acc](int i) {
-        const int s = i % C::STAGES;
-        const int q0 = walk(i);
-        const int Sq = p.Sq;
-        const bool causal = p.causal;
-        hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
-        const uint32_t k_addr = k_own;
-        const uint32_t v_addr = k_addr + C::K_BYTES;
-        const uint32_t q_addr = hopper::smem_u32(smem + C::TILE_OFF + s * 2 * C::T_BYTES);
-        const uint32_t do_addr = q_addr + C::T_BYTES;
-        const float* lse_s = reinterpret_cast<const float*>(smem + C::STAT_OFF + s * 2 * BQ * 4);
-        float st[BQ / 2], dpt[BQ / 2];
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < Bx::KSTEPS; ++kk)
-            hopper::mma_ss<T, BQ>(st, hopper::tile_desc<Bx::ROWB>(k_addr + hopper::kstep<FU_BK, Bx::ROWB>(kk)),
-                                  hopper::tile_desc<Bx::ROWB>(q_addr + hopper::kstep<BQ, Bx::ROWB>(kk)), kk > 0);
-#pragma unroll
-        for (int kk = 0; kk < Bx::KSTEPS; ++kk)
-            hopper::mma_ss<T, BQ>(dpt, hopper::tile_desc<Bx::ROWB>(v_addr + hopper::kstep<FU_BK, Bx::ROWB>(kk)),
-                                  hopper::tile_desc<Bx::ROWB>(do_addr + hopper::kstep<BQ, Bx::ROWB>(kk)), kk > 0);
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-        hopper::fence_regs(st);
-        hopper::fence_regs(dpt);
-
-        const float scale2 = p.scale * hopper::LOG2E;
-        uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+        if (nq > 0) hopper::mbar_wait_no_trap(kv_bar, 0);
         if constexpr (BANDED) {
-            // only q-tiles that cross the causal, key-length or band edge
-            // are masked (flash_bwd_dkv_tc)
-            const bool crosses = edge | (q0 < q_diag) | (q0 >= q_band);
-            auto vis = [=](int r, int c) {
-                return static_cast<unsigned>(q0 + c - a - 8 * r) < static_cast<unsigned>(w[r]);
-            };
-            if (crosses)
-                attn_tc::dkv_operands<T, BQ, true>(st, dpt, pa, dsa, lse_s, lse_s + BQ, scale2, p.scale, fr, vis);
-            else
-                attn_tc::dkv_operands<T, BQ, false>(st, dpt, pa, dsa, lse_s, lse_s + BQ, scale2, p.scale, fr, vis);
+            // the walk's index i is q-tile nq - 1 - i counted up
+            for (int i = 0; i < nq - i_hi; ++i) tile(i, std::false_type());
+            for (int i = nq - i_hi; i < nq - i_lo; ++i) tile(i, std::true_type());
+            for (int i = nq - i_lo; i < nq; ++i) tile(i, std::false_type());
         } else {
-            // only q-tiles that cross the causal, key-length or Sq edge are masked
-            const bool crosses = (causal & (q0 < q_diag)) | edge | (q0 + BQ > Sq);
-            auto vis = [=](int r, int c) {
-                const int key = kj[r];
-                const int qi = q0 + c;
-                return (key < klim) & (qi < Sq) & (!causal | (key <= qi + off));
-            };
-            if (crosses)
-                attn_tc::dkv_operands<T, BQ, true>(st, dpt, pa, dsa, lse_s, lse_s + BQ, scale2, p.scale, fr, vis);
-            else
-                attn_tc::dkv_operands<T, BQ, false>(st, dpt, pa, dsa, lse_s, lse_s + BQ, scale2, p.scale, fr, vis);
+            for (int i = 0; i < nq; ++i) tile(i, std::true_type());
         }
-        // dS^T into this warpgroup's rows of buffer i & 1: dsa[kk][j] holds
-        // key fr.row + 8 (j & 1) of the warpgroup's, queries
-        // 16 kk + 8 (j >> 1) + fr.col and the next
-        hopper::mbar_wait(&staged_empty[i & 1], ((i >> 1) & 1) ^ 1);
-        const uint32_t ds = opaque(ds_all + (i & 1) * C::DS_TILE);
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int key = 64 * wg + fr.row + 8 * (j & 1);
-                const int q = 16 * kk + 8 * (j >> 1) + fr.col;
-                hopper::st_shared_u32(ds + hopper::swizzled<C::DS_ROWB>(key, q / 8) + 2 * fr.col, dsa[kk][j]);
-            }
-        hopper::fence_proxy_async();
-        hopper::mbar_arrive(&staged_full[i & 1]);
-
-#pragma unroll
-        for (int hf = 0; hf < Bx::HALVES; ++hf) {
-            hopper::fence_regs(acc.dv[hf]);
-            hopper::fence_regs(acc.dk[hf]);
-        }
-        hopper::wgmma_fence();
-#pragma unroll
-        for (int hf = 0; hf < Bx::HALVES; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk)
-                hopper::mma_rs<T, Bx::COLS>(acc.dv[hf], pa[kk],
-                                            hopper::tile_desc<Bx::ROWB>(do_addr + hf * BQ * Bx::ROWB + kk * 16 * Bx::ROWB));
-#pragma unroll
-        for (int hf = 0; hf < Bx::HALVES; ++hf)
-#pragma unroll
-            for (int kk = 0; kk < BQ / 16; ++kk)
-                hopper::mma_rs<T, Bx::COLS>(acc.dk[hf], dsa[kk],
-                                            hopper::tile_desc<Bx::ROWB>(q_addr + hf * BQ * Bx::ROWB + kk * 16 * Bx::ROWB));
-        hopper::wgmma_commit();
-        hopper::wgmma_wait0();
-#pragma unroll
-        for (int hf = 0; hf < Bx::HALVES; ++hf) {
-            hopper::fence_regs(acc.dv[hf]);
-            hopper::fence_regs(acc.dk[hf]);
-        }
-        if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
-    };
-
-    // a q-tile none of this warpgroup's keys is seen by (under a band):
-    // freed once its data has landed (so that the arrival cannot count
-    // toward the stage's previous tile), its rows of dS^T zero
-    auto idle = [=](int i) {
-        const int s = i % C::STAGES;
-        hopper::mbar_wait(&full[s], (i / C::STAGES) & 1);
-        if ((t & 31) == 0) hopper::mbar_arrive(&empty[s]);
-        hopper::mbar_wait(&staged_empty[i & 1], ((i >> 1) & 1) ^ 1);
-        const uint32_t ds = ds_all + (i & 1) * C::DS_TILE + wg * 64 * C::DS_ROWB;
-        for (int o = 16 * t; o < 64 * C::DS_ROWB; o += 16 * 128)
-            asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(ds + o), "r"(0) : "memory");
-        hopper::fence_proxy_async();
-        hopper::mbar_arrive(&staged_full[i & 1]);
-    };
-
-    if (nq > 0) hopper::mbar_wait(kv_bar, 0);
-    if constexpr (BANDED) {
-        // the walk's index i is q-tile nq - 1 - i counted up
-        for (int i = 0; i < nq - i_hi; ++i) idle(i);
-        for (int i = nq - i_hi; i < nq - i_lo; ++i) active(i);
-        for (int i = nq - i_lo; i < nq; ++i) idle(i);
-    } else {
-        for (int i = 0; i < nq; ++i) active(i);
+        attn_tc::dkv_finish<T, D>(acc, fr, w.template slice<T>(p.dk, p.dk_sb, p.dk_sh), p.dk_ss,
+                                  w.template slice<T>(p.dv, p.dv_sb, p.dv_sh), p.dv_ss, kw, p.Sk);
     }
-    attn_tc::dkv_finish<T, D>(acc, fr, dkp, p.dk_ss, dvp, p.dv_ss, kw, p.Sk);
 }
 
 // The (b, h) pairs of a dispatch group: enough that key tile j of a (b, h)
@@ -860,6 +940,7 @@ cudaError_t launch_fused_tc(const BwdArgs& a, const FusedWs& ws, int dtype, cuda
     return cudaGetLastError();
 }
 
+
 template <typename T, int D>
 cudaError_t launch_fused_tc(const BwdArgs& a, const FusedWs& ws, int dtype, cudaStream_t stream) {
     return banded(a) ? launch_fused_tc<T, D, true>(a, ws, dtype, stream)
@@ -868,8 +949,9 @@ cudaError_t launch_fused_tc(const BwdArgs& a, const FusedWs& ws, int dtype, cuda
 
 }  // namespace
 
-// acc: fp32, B * H * ceil(Sq / BQ) * BQ * tile_dim(D) (BQ: 64 at D <= 64,
-// 32 above); counters: int32, B * H * ceil(Sq / BQ), zero before the first
+// acc: fp32, B * H * ceil(Sq / BQ) * BQ * tile_dim(D) (BQ: FusedCfg's 64
+// for bf16 and fp16, FmaTile's for fp32: 64 at D <= 64, 32 above);
+// counters: int32, B * H * ceil(Sq / BQ), zero before the first
 // launch (each launch leaves them zero); wait_cycles: null, or one
 // uint64 the CTAs' waiting cycles are added to.
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,

@@ -20,7 +20,9 @@
 //     its depth (S = Q.K^T: both operands);
 //   MN-major (transposed): the tile's rows are the depth and D the N (or
 //     M) columns (O += P.V: V, dK += dS^T.Q: Q; flash_bwd_fused's
-//     dQ^T = K^T.dS^T: K as A, dS^T as B).
+//     dV += P^T.dO, dK += dS^T.Q: its [queries][keys] boxes of P and dS
+//     as A, and dQ = dS.K: K as B, at D 64 each warpgroup's N = 32 half
+//     of K's box from a start 64 bytes into the swizzled row).
 // Both swizzles group 8 rows into one 1024- (512-) byte atom; the
 // descriptor's two strides both hold that atom's size, which is the step
 // between 8-row groups in either use, and neither operand spans more than
@@ -174,6 +176,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         if (clock64() - start > (1ll << 32)) __trap();
 }
 
+// mbar_wait for code that runs after a setmaxnreg.inc: ptxas allocates
+// such a region within its new register count only if no trap is reached
+// from it (one __trap there kept a consumer at the launch's 168 registers,
+// without a warning), so a wait that outlasts ~2^32 cycles stores to
+// address 0 instead, and the launch fails with an illegal address
+__device__ __forceinline__ void mbar_wait_no_trap(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    if (mbar_try_wait(addr, parity)) return;
+    const long long start = clock64();
+    while (!mbar_try_wait(addr, parity))
+        if (clock64() - start > (1ll << 32)) asm volatile("st.global.u32 [%0], %1;\n" ::"l"(0ull), "r"(0) : "memory");
+}
+
 // make this thread's ordinary shared-memory writes visible to the async
 // proxy (wgmma operands, TMA); the writer fences, then signals a barrier
 __device__ __forceinline__ void fence_proxy_async() {
@@ -201,10 +216,54 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
         : "memory");
 }
 
-// order this thread's earlier global accesses (an ld.acquire) before its
-// later async-proxy ones (a bulk copy from global memory)
+// order this thread's global accesses across the generic and the async
+// proxy: an ld.acquire before a later bulk copy, a completed bulk write
+// before a later st.release
 __device__ __forceinline__ void fence_proxy_async_global() {
     asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from shared to global memory by the bulk
+// copy engine, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                     reinterpret_cast<uint64_t>(dst)),
+                 "r"(smem_u32(src)), "r"(bytes)
+                 : "memory");
+}
+
+// dst[i] += src[i] over `bytes` of fp32 (a multiple of 16), the adds done
+// in L2 by the bulk copy engine, in this thread's bulk group
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src, uint32_t bytes) {
+    asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                     reinterpret_cast<uint64_t>(dst)),
+                 "r"(smem_u32(src)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// this thread's bulk groups have read their shared-memory sources
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's bulk groups are complete, their global writes made
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// ---- register budgets of warp-specialised kernels: a warpgroup gives
+// registers back (dec) or takes them (inc), every warp of it together,
+// right after the branch on its role; ptxas allocates the code that
+// follows within the new count
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Byte offset of 16-byte chunk `chunk` of row r in a tile with ROWB-byte
@@ -365,9 +424,12 @@ template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi
     "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
     "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// D[64, N] (+)= A[64, 16] . B[16, N], A and B from shared memory, both
-// K-major; fp32 accumulators, N/2 a thread.  accumulate = 0 overwrites D.
-template <typename T, int N>
+// D[64, N] (+)= A[64, 16] . B[16, N], A and B from shared memory, each
+// K-major (0) or MN-major (1: transposed, its M or N rows contiguous and
+// the depth as the tile's rows, as tile_desc describes an MN-major tile)
+// as TA and TB say; fp32 accumulators, N/2 a thread.  accumulate = 0
+// overwrites D.
+template <typename T, int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
     static_assert(N == 32 || N == 64, "wgmma widths of these kernels");
     constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
@@ -375,57 +437,24 @@ __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t 
         if constexpr (BF)
             asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                          "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_O32
-                         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
+                         ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
         else
             asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
                          "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DS_O32
-                         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
+                         ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
     } else {
         if constexpr (BF)
             asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
                          "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " DS_O16
-                         ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
+                         ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
         else
             asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
                          "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " DS_O16
-                         ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
-    }
-}
-
-// D[64, N] (+)= A[64, 16] . B[16, N], A and B from shared memory, both
-// MN-major (transposed: A's 64 M rows and B's N columns contiguous, the
-// depth as the tile's rows, as tile_desc describes an MN-major tile);
-// accumulate = 0 overwrites D
-template <typename T, int N>
-__device__ __forceinline__ void mma_ss_tt(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
-    static_assert(N == 32 || N == 64, "wgmma widths of these kernels");
-    constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
-    if constexpr (N == 64) {
-        if constexpr (BF)
-            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_O32
-                         ", %32, %33, p, 1, 1, 1, 1;\n}\n"
-                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
-        else
-            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-                         "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " DS_O32
-                         ", %32, %33, p, 1, 1, 1, 1;\n}\n"
-                         : DS_R32(d) : "l"(da), "l"(db), "r"(accumulate));
-    } else {
-        if constexpr (BF)
-            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " DS_O16
-                         ", %16, %17, p, 1, 1, 1, 1;\n}\n"
-                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
-        else
-            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-                         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " DS_O16
-                         ", %16, %17, p, 1, 1, 1, 1;\n}\n"
-                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate));
+                         ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+                         : DS_R16(d) : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
     }
 }
 

@@ -336,11 +336,29 @@ def fused_backward(Sk: int) -> bool:
     return -(-int(Sk) // FUSED_BWD_BLOCK_K) <= MAX_FUSED_BWD_NK
 
 
-def fused_q_tile(D: int) -> int:
-    """The fused kernels' q-tile (``csrc/flash_bwd_fused.cu`` ``FusedCfg``
-    and ``FmaTile``): its workspace holds one fp32 [q-tile, tile_dim(D)]
-    sum and one counter per (b, h, q-tile)."""
-    return 32 if D > 64 else 64
+#: the q-tile of the fused kernels (``csrc/flash_bwd_fused.cu``): the
+#: tensor-core kernel's (bf16, fp16; ``FusedCfg::BQ``) at every head dim,
+#: the fp32 FMA kernel's (``FmaTile::BQ``) by its padded row
+FUSED_TC_Q_TILE = 64
+FUSED_FMA_Q_TILE = {32: 64, 64: 64, 128: 32}
+
+
+def fused_q_tile(D: int, dtype: torch.dtype) -> int:
+    """The q-tile of the fused kernel that takes ``dtype`` at head dim
+    ``D``."""
+    if dtype == torch.float32:
+        return FUSED_FMA_Q_TILE[tile_dim(D)]
+    return FUSED_TC_Q_TILE
+
+
+def fused_workspace(B: int, Sq: int, H: int, D: int,
+                    dtype: torch.dtype) -> Tuple[int, int]:
+    """(fp32 elements of the sum, int32 counters) the fused kernel of
+    ``dtype`` needs: one [q-tile, tile_dim(D)] sum and one counter per
+    (b, h, q-tile)."""
+    bq = fused_q_tile(D, dtype)
+    tiles = B * H * -(-Sq // bq)
+    return tiles * bq * tile_dim(D), tiles
 
 
 #: the fused kernel's counters per device: zero before its first launch,
@@ -392,10 +410,8 @@ class _FlashBwdFused:
                                         or wait_cycles.device != q.device):
             raise ValueError("flash_bwd_fused: wait_cycles must be an int64 "
                              "tensor on the inputs' device")
-        bq = fused_q_tile(D)
-        tiles = B * H * -(-Sq // bq)
-        acc = torch.empty(tiles * bq * tile_dim(D), dtype=torch.float32,
-                          device=q.device)
+        n_acc, tiles = fused_workspace(B, Sq, H, D, q.dtype)
+        acc = torch.empty(n_acc, dtype=torch.float32, device=q.device)
         counters = _fused_counters(q.device, tiles)
         fn = build.function("flash_bwd_fused", _FUSED_ARGTYPES)
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

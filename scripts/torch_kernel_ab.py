@@ -13,6 +13,11 @@ inputs made from one seed:
   S128 non-causal with ragged ``kv_lens``;
 - ``flash_bwd_dq`` and ``flash_bwd_dkv`` at B16 S1024 and B4 S4096
   causal, and at B64 S128 with ``kv_lens``;
+- ``flash_bwd_fused`` at ``chip_smoke.py``'s ``FUSED_BWD_SHAPES`` (B16
+  S1024 H16 D64 causal, B8 S2048 H16 D128 causal and with a window of 256,
+  B4 S4096 H16 D64 causal, B64 S128 H16 D64 with ragged ``kv_lens``) and
+  at GPT-2 760M's and 2.7B's training shapes (B16 S1024 H16 D96, B8 S1024
+  H32 D80, causal);
 - ``block_sparse_fwd``, ``block_sparse_bwd_dq`` and
   ``block_sparse_bwd_dkv`` at B4 S4096 H16 D64 causal under the Fixed
   layout at block 64 (the sparse training slice's);
@@ -141,6 +146,36 @@ def _worker(root: str, only: str) -> dict:
             *data[i % n], *stats[i % n], causal, scale, **kw), 10)
         timed(f"flash_bwd_dkv {tag}", lambda i: kernels.flash_bwd_dkv(
             *data[i % n], *stats[i % n], causal, scale, **kw), 10)
+
+    fused_shapes = ((16, 1024, 16, 64, True, None, False),
+                    (8, 2048, 16, 128, True, None, False),
+                    (8, 2048, 16, 128, True, 256, False),
+                    (4, 4096, 16, 64, True, None, False),
+                    (64, 128, 16, 64, False, None, True),
+                    (16, 1024, 16, 96, True, None, False),
+                    (8, 1024, 32, 80, True, None, False))
+    for B, S, Hf, Df, causal, window, ragged in fused_shapes:
+        case = (f"flash_bwd_fused B{B} S{S} H{Hf} D{Df} "
+                + ("causal" if causal else "kv_lens")
+                + (f" window {window}" if window else ""))
+        if not wanted(case):
+            continue
+        count = max(2, min(8, (120 << 20) // (4 * B * S * Hf * Df * 2)))
+        lens = (torch.from_numpy(np.random.default_rng(1).integers(
+            1, S + 1, B).astype(np.int32)).cuda() if ragged else None)
+        sc = 1.0 / Df ** 0.5
+        data = []
+        for _ in range(count):
+            qkv = torch.randn((B, S, 3, Hf, Df), generator=gen, device="cuda"
+                              ).to(torch.bfloat16)
+            do = torch.randn((B, S, Hf, Df), generator=gen, device="cuda"
+                             ).to(torch.bfloat16)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            o, lse = kernels.flash_fwd(q, k, v, causal, sc, lens, window)
+            data.append((q, k, v, do, lse, aligned_do_and_delta(do, o)[1]))
+        timed(case, lambda i: kernels.flash_bwd_fused(
+            *data[i % count], causal, sc, kv_lens=lens, window=window), 10)
+        del data
 
     tag = "B4 S4096 causal, Fixed block 64"
     sparse_cases = [f"{k} {tag}" for k in ("block_sparse_fwd",

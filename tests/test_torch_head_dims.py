@@ -285,6 +285,66 @@ def test_head_dim_tuples():
                                                    96: 128, 128: 128}
 
 
+def _c_int(expr, **names):
+    """A C integer expression of names, comparisons and ``?:`` (one level
+    a branch) as Python evaluates it."""
+    m = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr.strip())
+    if m:
+        return _c_int(m[2], **names) if _c_int(m[1], **names) else \
+            _c_int(m[3], **names)
+    return int(eval(expr, {}, names))
+
+
+def _struct_q_tile(name, D):
+    """``BQ`` of ``csrc/flash_bwd_fused.cu``'s ``struct name`` at head dim
+    ``D`` (its tile ``tile_dim(D)``), from the source's expression."""
+    text = (CSRC / "flash_bwd_fused.cu").read_text()
+    body = re.search(r"struct " + name + r"\b[^{]*\{(.*?)\n\};", text, re.S)
+    assert body, f"no struct {name} in flash_bwd_fused.cu"
+    expr = re.search(r"static constexpr int BQ = ([^;]+);", body.group(1))
+    assert expr, f"no BQ in struct {name}"
+    return _c_int(expr.group(1), D=D, DT=tile_dim(D))
+
+
+#: the fused backward's kernel for each dtype: the tensor-core kernel's
+#: q-tile struct for bf16 and fp16, the FMA kernel's for fp32
+FUSED_TILE_STRUCTS = {torch.bfloat16: "FusedCfg", torch.float16: "FusedCfg",
+                      torch.float32: "FmaTile"}
+
+
+@pytest.mark.parametrize("dtype", sorted(FUSED_TILE_STRUCTS, key=str),
+                         ids=str)
+def test_fused_q_tile_is_the_sources(dtype):
+    """``fused_q_tile`` (the wrapper's workspace) gives the q-tile of the
+    kernel the dtype runs, at every head dim: ``FusedCfg::BQ`` (64 at
+    every D since the tensor-core kernel's redesign) for bf16 and fp16,
+    ``FmaTile::BQ`` (32 in the tile of 128) for fp32."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import fused_q_tile
+    got = {D: fused_q_tile(D, dtype) for D in KERNEL_HEAD_DIMS["flash_bwd_fused"]}
+    want = {D: _struct_q_tile(FUSED_TILE_STRUCTS[dtype], D) for D in got}
+    assert got == want
+    if dtype != torch.float32:
+        assert set(got.values()) == {64}
+
+
+@pytest.mark.parametrize("Sq", [1, 63, 64, 65, 2048])
+def test_fused_workspace_covers_the_kernels_tiles(Sq):
+    """The sum and the counters ``_FlashBwdFused`` allocates
+    (``fused_workspace``) cover every q-tile of the kernel each dtype runs:
+    one fp32 [BQ, tile_dim(D)] sum and one counter per (b, h, q-tile), BQ
+    the source's, at every head dim and at q-tile edges."""
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import \
+        fused_workspace
+    B, H = 3, 5
+    for dtype, struct in FUSED_TILE_STRUCTS.items():
+        for D in KERNEL_HEAD_DIMS["flash_bwd_fused"]:
+            bq = _struct_q_tile(struct, D)
+            tiles = B * H * -(-Sq // bq)
+            n_acc, n_counters = fused_workspace(B, Sq, H, D, dtype)
+            assert n_acc >= tiles * bq * tile_dim(D), (dtype, D, Sq)
+            assert n_counters >= tiles, (dtype, D, Sq)
+
+
 def _bwd_args(D, S=8):
     q, k, v, do = (torch.zeros(1, S, 2, D) for _ in range(4))
     stats = torch.zeros(1, 2, S)
