@@ -154,6 +154,22 @@ imports JAX.  In order it
    loss, finite and falling losses; reports step time, tokens/s, MFU and
    peak memory, and profiles 2 steps, beside the same path's numbers
    with the two-kernel backward;
+6a. with every launch count at 0, checkpoints the same configuration at
+   full width and depth (``run_checkpoint_resume``): two engines from one
+   seed take 4 ``train_batch_fused`` steps bitwise equal (every flat
+   buffer, the moments, the scale state, the losses); an engine saves
+   after 2 steps (``save_checkpoint``, sync), another with ``async_save``
+   and steps at once after the save; ``verify_tag`` passes on the newer
+   tag; an engine built from another seed loads ``latest`` (the async
+   tag) and takes the last 2 steps, bitwise equal to the straight run
+   (counters and optimizer step too); after ``corrupt_file`` on the newer
+   tag a load of ``latest`` falls back to the older (sync) one, says so,
+   and resumes bitwise equal too.  Prints the tag's
+   bytes, save seconds (snapshot, write, manifest), load seconds (verify,
+   read, copy to the card), GB/s and the async caller's blocking seconds
+   beside the card's name and power limit; 17 steps' exact launches
+   (``flash_fwd`` and ``flash_bwd_fused`` 24 a step, Adam 1).  The tags
+   go to a temporary directory the phase removes;
 6b. the same for GPT-Neo 1.3B (published widths, random weights) at its
    context of 2048, micro-batch 8: exact launches per step (``flash_fwd``
    and ``flash_bwd_fused`` 24 each, their window option 12 each, the pair
@@ -224,9 +240,12 @@ import json
 import math
 import os
 import re
+import logging
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 # The host's fp32 references (the tiny models trained on the host, the
@@ -269,7 +288,11 @@ from deepspeed_tpu_torch.ops.kernels.utils import (HEAD_DIMS,
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, VariableSparsityConfig)
+from deepspeed_tpu_torch.runtime.checkpoint_engine import (
+    async_checkpoint_engine, native_checkpoint_engine, verify_tag)
 from deepspeed_tpu_torch.runtime.model import from_bert, from_gpt
+from deepspeed_tpu_torch.utils.fault_injection import corrupt_file
+from deepspeed_tpu_torch.utils.logging import logger as port_logger
 from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
 from tests.torch_diffusers_export import export_unet_sd, export_vae_sd
 
@@ -3415,6 +3438,280 @@ def run_training(warmup=2, steps=10):
                              want, warmup, steps, row_seq=cfg.max_seq_len)
 
 
+# ------------------------------------------------------------ checkpoints
+
+#: the checkpoint phase's straight run, and the step after which it saves
+CKPT_STEPS = 4
+CKPT_SAVE_AT = 2
+
+
+class _CkptTimers:
+    """Seconds spent in the checkpoint path's parts, timed by wrapping the
+    functions the save and load call: the host snapshot, the npz writes,
+    the manifest, the verification, the npz reads and the copy into the
+    engine's buffers.  Only the outermost call of a recursive part counts,
+    and only calls on the thread that opened the timers (an async save's
+    writers are timed as the caller's wait)."""
+
+    PARTS = ((native_checkpoint_engine, "snapshot_host", "snapshot"),
+             (async_checkpoint_engine, "snapshot_host", "snapshot"),
+             (native_checkpoint_engine, "atomic_write_npz", "write"),
+             (native_checkpoint_engine, "write_manifest", "manifest"),
+             (native_checkpoint_engine, "verify_tag", "verify"),
+             (native_checkpoint_engine.NativeCheckpointEngine, "load", "read"),
+             (native_checkpoint_engine, "_copy_into", "copy"))
+
+    def __init__(self):
+        self.seconds = {}
+        self._saved = []
+        self._depth = 0
+        self._thread = threading.get_ident()
+
+    def _wrap(self, fn, part):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            if threading.get_ident() != self._thread or self._depth:
+                return fn(*args, **kwargs)
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ACCEL.synchronize()
+                self.seconds[part] = self.seconds.get(part, 0.0) + \
+                    time.perf_counter() - t0
+                self._depth -= 1
+        return timed
+
+    def __enter__(self):
+        for owner, name, part in self.PARTS:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, part))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+        return False
+
+
+class _LogLines(logging.Handler):
+    """Collects the port logger's messages while it is attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _engine_state(engine):
+    """Every piece of training state, cloned on the card: the flat
+    buffers, the optimizer's tensors and step, the scale state, the
+    counters."""
+    tensors = {f"flat/{k}": v.clone() for k, v in engine._flat.items()}
+    for k, v in engine.state["opt_state"].items():
+        if torch.is_tensor(v):
+            tensors[f"opt/{k}"] = v.clone()
+    for k, v in engine.state["scale"].items():
+        tensors[f"scale/{k}"] = v.clone()
+    host = (engine.state["opt_state"]["step"], engine.micro_steps,
+            engine.global_steps, engine.global_samples, engine.skipped_steps)
+    return tensors, host
+
+
+def _state_diff(got, want):
+    """The names of the state pieces that differ bitwise."""
+    (gt, gh), (wt, wh) = got, want
+    bad = [k for k in wt if not torch.equal(gt[k], wt[k])]
+    if gh != wh:
+        bad.append(f"counters {gh} != {wh}")
+    return bad
+
+
+def run_checkpoint_resume(smi):
+    """Phase 6a (module docstring): checkpoint resume at bench.py's
+    training configuration, full width and depth; ``smi`` is the card's
+    name and power limit, printed beside the timings.  Returns (results,
+    counts)."""
+    cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
+                              dtype=torch.bfloat16, remat=True,
+                              remat_policy="attn_out")
+    rng = np.random.default_rng(18)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size,
+                                       (TRAIN_MICRO_BATCH,
+                                        cfg.max_seq_len + 1))}
+               for _ in range(CKPT_STEPS)]
+    seed, other_seed = 2024, 77
+
+    def engine(seed_, async_save=False):
+        e, *_ = deepspeed_tpu_torch.initialize(
+            model=from_gpt(cfg),
+            config={**TRAIN_CONFIG, "checkpoint": {"async_save": async_save}},
+            generator=torch.Generator(device="cuda").manual_seed(seed_))
+        return e
+
+    def steps(e, bs):
+        return torch.stack([e.train_batch_fused(b) for b in bs])
+
+    def check(label, got, want, got_losses=None, want_losses=None):
+        bad = _state_diff(got, want)
+        if got_losses is not None and not torch.equal(got_losses,
+                                                      want_losses):
+            bad.append(f"losses {got_losses.tolist()} != "
+                       f"{want_losses.tolist()}")
+        log(f"[checkpoint] {label}: bitwise equal {not bad}"
+            + (f" (differ: {bad})" if bad else ""))
+        if bad:
+            raise AssertionError(f"checkpoint {label}: {bad}")
+
+    def resumed(label, e):
+        """The loaded engine ``e`` takes the straight run's last steps."""
+        tail = steps(e, batches[CKPT_SAVE_AT:])
+        check(label, _engine_state(e), straight, tail,
+              losses[CKPT_SAVE_AT:])
+
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    a = engine(seed)
+    losses = steps(a, batches)
+    straight = _engine_state(a)
+    n_elems = a._flat["master"].numel()
+    del a
+    a2 = engine(seed)
+    losses2 = steps(a2, batches)
+    check(f"two straight runs of {CKPT_STEPS} steps", _engine_state(a2),
+          straight, losses2, losses)
+    del a2
+    torch.cuda.empty_cache()
+
+    res = {"config": f"GPT-2 350M seq {cfg.max_seq_len} bf16 remat attn_out, "
+                     f"Adam lr 1e-4 wd 0.01, ZeRO 1, micro "
+                     f"{TRAIN_MICRO_BATCH}, gas 1; {CKPT_SAVE_AT} + save + "
+                     f"load + {CKPT_STEPS - CKPT_SAVE_AT} steps",
+           "elements": n_elems, "losses": losses.tolist()}
+    ckpt_dir = tempfile.mkdtemp(prefix="ds_torch_ckpt_")
+    lines = _LogLines()
+    port_logger.addHandler(lines)
+    try:
+        disk = shutil.disk_usage(ckpt_dir)
+        log(f"[checkpoint] tags under {ckpt_dir}: {disk.free / 1e9:.1f} GB "
+            f"free of {disk.total / 1e9:.1f} GB")
+        # a sync save after CKPT_SAVE_AT steps, its parts timed
+        b = engine(seed)
+        steps(b, batches[:CKPT_SAVE_AT])
+        ACCEL.synchronize()
+        with _CkptTimers() as timers:
+            t0 = time.perf_counter()
+            b.save_checkpoint(ckpt_dir, tag="sync")
+            save_s = time.perf_counter() - t0
+        save_parts = dict(timers.seconds)
+        del b
+        tag_bytes = _dir_bytes(os.path.join(ckpt_dir, "sync"))
+
+        # an async save, the saver stepping at once: the newer tag
+        b = engine(seed, async_save=True)
+        steps(b, batches[:CKPT_SAVE_AT])
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        b.save_checkpoint(ckpt_dir, tag="async")
+        block_s = time.perf_counter() - t0
+        steps(b, batches[CKPT_SAVE_AT:CKPT_SAVE_AT + 1])
+        ACCEL.synchronize()
+        b._checkpoint_engine.wait()
+        async_total_s = time.perf_counter() - t0
+        del b
+        with open(os.path.join(ckpt_dir, "latest")) as f:
+            latest = f.read().strip()
+        t0 = time.perf_counter()
+        ok, problems = verify_tag(ckpt_dir, "async")
+        verify_s = time.perf_counter() - t0
+        if latest != "async" or not ok:
+            raise AssertionError(f"checkpoint: latest names {latest!r}; "
+                                 f"verify_tag: {problems}")
+
+        # another seed's engine loads latest (the async tag), its parts
+        # timed, and takes the last steps
+        c = engine(other_seed)
+        ACCEL.synchronize()
+        with _CkptTimers() as timers:
+            t0 = time.perf_counter()
+            c.load_checkpoint(ckpt_dir)
+            ACCEL.synchronize()
+            load_s = time.perf_counter() - t0
+        load_parts = dict(timers.seconds)
+        resumed(f"{CKPT_SAVE_AT} steps + async save + a step at once, "
+                f"load + {CKPT_STEPS - CKPT_SAVE_AT} steps vs straight", c)
+        del c
+        torch.cuda.empty_cache()
+
+        # corrupt the newer tag (its first npz in the manifest's order:
+        # the walk rejects it after hashing 1.4 of its 7.1 GB); a load of
+        # latest falls back to the sync tag, says so, and resumes from it
+        corrupt_file(os.path.join(ckpt_dir, "async", "model_states.npz"))
+        bad, _ = verify_tag(ckpt_dir, "async")
+        d = engine(other_seed)
+        del lines.lines[:]
+        t0 = time.perf_counter()
+        _, client = d.load_checkpoint(ckpt_dir)
+        ACCEL.synchronize()
+        fallback_s = time.perf_counter() - t0
+        said = [m for m in lines.lines if "FELL BACK to tag sync" in m]
+        log(f"[checkpoint] after corrupt_file on the newer tag 'async': "
+            f"verify_tag async {bad}, load(tag=None) fell back to 'sync' "
+            f"in {fallback_s:.2f} s, the log says {said}")
+        if bad or not said or client.get("global_steps") != CKPT_SAVE_AT:
+            raise AssertionError("checkpoint: no fallback past the corrupt "
+                                 "tag")
+        resumed(f"{CKPT_SAVE_AT} steps + sync save, fallback load + "
+                f"{CKPT_STEPS - CKPT_SAVE_AT} steps vs straight", d)
+        del d
+    finally:
+        port_logger.removeHandler(lines)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    counts = kernels.launch_counts()
+    n_steps = 2 * CKPT_STEPS + 2 * (CKPT_STEPS - CKPT_SAVE_AT) + \
+        2 * CKPT_SAVE_AT + 1
+    want = {"flash_fwd": cfg.n_layer, "flash_bwd_fused": cfg.n_layer,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "fused_adam": 1}
+    wrong = {k: counts[k] for k, n in want.items()
+             if counts[k] != n * n_steps}
+    gb = tag_bytes / 1e9
+    res.update(
+        tag_bytes=tag_bytes, save_s=save_s, save_parts_s=save_parts,
+        load_s=load_s, load_parts_s=load_parts, save_gb_per_s=gb / save_s,
+        load_gb_per_s=gb / load_s, async_block_s=block_s,
+        async_save_then_step_s=async_total_s, verify_s=verify_s,
+        verify_gb_per_s=gb / verify_s, fallback_load_s=fallback_s,
+        steps=n_steps, launches=counts, phase_s=time.perf_counter() - t_phase)
+    log(f"[checkpoint] on {smi}: {res['config']}: one tag {tag_bytes} "
+        f"bytes ({n_elems} elements x 5 fp32-sized trees)")
+    log(f"[checkpoint] sync save {save_s:.2f} s ({gb / save_s:.2f} GB/s): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in save_parts.items()))
+    log(f"[checkpoint] load {load_s:.2f} s ({gb / load_s:.2f} GB/s): "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in load_parts.items()))
+    log(f"[checkpoint] async save: caller blocked {block_s:.2f} s against "
+        f"the sync save's {save_s:.2f} s; save + one step + the writers' "
+        f"end {async_total_s:.2f} s; verify_tag {verify_s:.2f} s "
+        f"({gb / verify_s:.2f} GB/s)")
+    log(f"[checkpoint] {n_steps} steps, launches {counts}; phase "
+        f"{res['phase_s']:.1f} s")
+    if wrong:
+        raise AssertionError(f"checkpoint: launches per step off {want}: "
+                             f"{wrong} over {n_steps} steps")
+    return res, counts
+
+
 #: the GPT-Neo training slice: GPT-Neo 1.3B at its published context of
 #: 2048, micro-batch 8: 16,384 tokens per step, as GPT-2 350M's
 NEO_MICRO_BATCH = 8
@@ -4429,6 +4726,10 @@ def main() -> int:
         "train", result["training"], result["training_profile"])
     del trainer
     torch.cuda.empty_cache()
+    result["checkpoint_resume"], ckpt_counts = run_checkpoint_resume(smi)
+    result["launches"]["checkpoint_resume"] = ckpt_counts
+    counts = _add(counts, ckpt_counts)
+    log(f"[time] checkpoint resume done at {time.perf_counter() - T0:.1f} s")
 
     result["neo_training"], neo_counts, trainer, batch = run_neo_training()
     result["launches"]["neo_training"] = neo_counts
@@ -4539,7 +4840,7 @@ def main() -> int:
         f"{result['launches']['gpt2_2_7b_training']}, GPT-2 2.7B training at "
         f"seq {LONG_SEQ} {long_counts}, GPT-2 760M sparse training "
         f"{result['launches']['gpt2_760m_sparse_training']}, training "
-        f"{train_counts}, "
+        f"{train_counts}, checkpoint resume {ckpt_counts}, "
         f"GPT-Neo training {neo_counts}, sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
         f"{ROUTE_SEQ} {route_counts}, diffusion "

@@ -5,13 +5,14 @@ the reference's ``deepspeed/runtime/config.py``: ``DeepSpeedConfig`` :717,
 the batch algebra ``_set_batch_related_parameters`` :954).  It reads the
 sections the training path runs: the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``steps_per_print``, ``zero_optimization`` (stage 0 or 1) and
-``sparse_attention`` (kept raw, as the JAX package keeps it).  Any other
-top-level section raises :class:`DeepSpeedConfigError`: a config that asks
-for checkpointing, telemetry or another unported feature must not train
-silently without it.  HF-style ``"auto"`` values resolve as in the JAX
-package, except that a fully automatic batch triple takes micro-batch 1
-(the memory-model sizing is not ported).
+``steps_per_print``, ``zero_optimization`` (stage 0 or 1),
+``sparse_attention`` (kept raw, as the JAX package keeps it) and
+``checkpoint`` (the typed durability section,
+``checkpoint_engine/config.py``).  Any other top-level section raises
+:class:`DeepSpeedConfigError`: a config that asks for telemetry or another
+unported feature must not train silently without it.  HF-style ``"auto"``
+values resolve as in the JAX package, except that a fully automatic batch
+triple takes micro-batch 1 (the memory-model sizing is not ported).
 
 The data-parallel world size of the batch algebra is ``world_size`` (1 on
 the one device the port trains on).
@@ -25,6 +26,7 @@ import os
 from typing import Any, Dict, Union
 
 from . import constants as C
+from .checkpoint_engine.config import DeepSpeedCheckpointConfig
 from .zero.config import ZERO_OPTIMIZATION, DeepSpeedZeroConfig
 
 
@@ -40,7 +42,7 @@ PORTED_SECTIONS = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.STEPS_PER_PRINT, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.OPTIMIZER, C.SCHEDULER,
-    C.SPARSE_ATTENTION, ZERO_OPTIMIZATION})
+    C.SPARSE_ATTENTION, C.CHECKPOINT, ZERO_OPTIMIZATION})
 _FP16_KEYS = frozenset({C.FP16_ENABLED, C.FP16_AUTO_CAST, C.FP16_LOSS_SCALE,
                         C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
                         C.FP16_HYSTERESIS, C.FP16_MIN_LOSS_SCALE,
@@ -169,6 +171,38 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(ZERO_OPTIMIZATION, {}))
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
+
+        self._initialize_checkpoint(pd.get(C.CHECKPOINT, {}))
+
+    def _initialize_checkpoint(self, ckpt_dict: Dict[str, Any]) -> None:
+        """The ``checkpoint`` section (JAX ``runtime/config.py:243-256``):
+        the typed durability config, tag validation and the universal
+        checkpoint switch, read under its typed name and under the JAX
+        package's ``load_universal`` key."""
+        if not isinstance(ckpt_dict, dict):
+            raise DeepSpeedConfigError(f"'{C.CHECKPOINT}' must be a dict")
+        typed = {k: v for k, v in ckpt_dict.items()
+                 if k != C.LOAD_UNIVERSAL_CHECKPOINT}
+        try:
+            self.checkpoint_config = DeepSpeedCheckpointConfig.from_dict(typed)
+        except (TypeError, ValueError) as e:
+            raise DeepSpeedConfigError(f"invalid 'checkpoint' section: {e}") from e
+        self.checkpoint_tag_validation_mode = str(ckpt_dict.get(
+            C.CHECKPOINT_TAG_VALIDATION,
+            C.CHECKPOINT_TAG_VALIDATION_DEFAULT)).lower().capitalize()
+        self.checkpoint_tag_validation_enabled = \
+            self.checkpoint_tag_validation_mode != "Ignore"
+        self.checkpoint_tag_validation_fail = \
+            self.checkpoint_tag_validation_mode == "Fail"
+        self.load_universal_checkpoint = bool(ckpt_dict.get(
+            C.LOAD_UNIVERSAL_CHECKPOINT,
+            C.LOAD_UNIVERSAL_CHECKPOINT_DEFAULT)) or \
+            self.checkpoint_config.load_universal_checkpoint
+        if self.load_universal_checkpoint:
+            raise NotImplementedError(
+                "checkpoint.load_universal_checkpoint: universal checkpoints "
+                "(deepspeed_tpu/checkpoint/) are not ported yet (ROADMAP.md "
+                "Queue 1 #8)")
 
     # ------------------------------------------------------------- batch math
     def _batch_assertion(self) -> None:

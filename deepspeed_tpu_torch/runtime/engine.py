@@ -35,13 +35,23 @@ then moves on the device, and the host reads the overflow flag once per
 step, to count a skipped step and to step the LR schedule only when the
 step was taken (``engine.py:1884-1901``).
 
-Left out of this slice (ROADMAP.md Queue 1): checkpointing, the data
-loader, PLD, curriculum, compression, telemetry, the monitor, the
-gradient-collapse modes, offload and ZeRO ≥ 2.
+Checkpoints (``save_checkpoint``/``load_checkpoint``, JAX ``engine.py:
+1996-2235``) are written in the JAX package's layout
+(``checkpoint_engine/``): the flat buffers are saved as trees of per-leaf
+views, the optimizer's state as ``opt_state/{step, exp_avg, exp_avg_sq}``
+with an int32 ``step``, and a load copies into the flat buffers in place,
+so the autograd leaves and the accumulator views keep training the loaded
+state.
+
+Left out (ROADMAP.md Queue 1): the data loader, PLD, curriculum,
+compression, telemetry, the monitor, the gradient-collapse modes, offload
+and ZeRO ≥ 2, and with them their checkpoint branches.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -54,6 +64,11 @@ from ..ops.optimizer import TpuOptimizer, get_optimizer_class
 from ..utils.logging import log_dist
 from ..utils.timer import ThroughputTimer
 from . import loss_scaler as ls
+from .checkpoint_engine.async_checkpoint_engine import AsyncCheckpointEngine
+from .checkpoint_engine.commit import (CollectiveConsensusChannel,
+                                       CommitContext, process_world_size)
+from .checkpoint_engine.native_checkpoint_engine import (
+    load_engine_checkpoint, save_engine_checkpoint)
 from .config import DeepSpeedConfig
 from .lr_schedules import get_lr_schedule_class
 from .model import ModelSpec
@@ -114,6 +129,15 @@ class DeepSpeedEngine:
 
         self._pending: Optional[torch.Tensor] = None
         self._training = True
+
+        # checkpoint backend: async_save runs writers in the background,
+        # committing before the latest marker publishes
+        self._checkpoint_engine = AsyncCheckpointEngine(
+            self._config.checkpoint_config) \
+            if self._config.checkpoint_config.async_save else None
+        # commit/consensus context: attached by the caller, else built at
+        # the first save or load (_commit_context)
+        self._commit_ctx: Optional[CommitContext] = None
         log_dist(f"DeepSpeedEngine configured: ZeRO stage "
                  f"{self.zero_optimization_stage()} on {self.device}; "
                  f"dtype={self.compute_dtype}, "
@@ -152,6 +176,10 @@ class DeepSpeedEngine:
     @property
     def dp_world_size(self) -> int:
         return 1
+
+    @property
+    def global_rank(self) -> int:
+        return 0
 
     @property
     def cur_scale(self) -> float:
@@ -390,3 +418,138 @@ class DeepSpeedEngine:
 
     def eval(self) -> "DeepSpeedEngine":
         return self.train(False)
+
+    # ------------------------------------------------------------------ checkpoint
+    def set_commit_context(self, ctx: Optional[CommitContext]) -> None:
+        """Attach a :class:`~.checkpoint_engine.commit.CommitContext`
+        (journal, heartbeat monitor) for the saves' two-phase commit."""
+        self._commit_ctx = ctx
+
+    def _commit_context(self) -> Optional[CommitContext]:
+        """The commit context for this save/load: the attached one, else a
+        default over the process world (one rank, no channel; a world of
+        more than one process raises in ``CollectiveConsensusChannel``).
+        ``None`` when the protocol is disabled in config."""
+        cfg = self._config.checkpoint_config.commit_config
+        if not cfg.enabled:
+            return None
+        if self._commit_ctx is None:
+            world = process_world_size()
+            self._commit_ctx = CommitContext(
+                world_size=world, rank=self.global_rank, config=cfg,
+                channel=CollectiveConsensusChannel(world_size=world)
+                if world > 1 else None)
+        return self._commit_ctx
+
+    def _checkpoint_state(self) -> Dict[str, Any]:
+        """The engine state in the JAX engine's tree layout, every tensor
+        a view of the flat buffers (the optimizer's ``step`` a fresh int32
+        scalar): what a save writes and a load copies into.  Optimizer
+        entries that are not a buffer over the master (LAMB's segments)
+        follow from the model's layout and are not state."""
+        n = self._flat["master"].numel()
+        opt: Dict[str, Any] = {}
+        for key, value in self.state["opt_state"].items():
+            if key == "step":
+                opt[key] = torch.tensor(value, dtype=torch.int32)
+            elif torch.is_tensor(value) and value.numel() == n:
+                opt[key] = self._tree(value)
+        return {"params": self.state["params"], "master": self.state["master"],
+                "opt_state": opt, "grad_acc": self.state["grad_acc"],
+                "scale": self.state["scale"]}
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True) -> bool:
+        """Write ``<save_dir>/<tag>`` (default ``global_step<N>``) in the
+        JAX package's layout, run the commit protocol and move ``latest``;
+        with ``async_save`` the files are written in the background from a
+        host copy taken before this returns."""
+        tag = tag or f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update({
+            "micro_steps": self.micro_steps,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+        })
+        if self._lr_scheduler is not None:
+            client_state["lr_scheduler"] = self._lr_scheduler.state_dict()
+        client_state["optimizer_param_groups"] = self.optimizer.param_groups
+        save_engine_checkpoint(save_dir, tag, self._checkpoint_state(),
+                               client_state,
+                               separate_master=self._separate_master,
+                               save_latest=save_latest,
+                               engine=self._checkpoint_engine,
+                               config=self._config.checkpoint_config,
+                               manifest_meta={
+                                   "world_size": self.dp_world_size,
+                                   "writer": {"rank": self.global_rank},
+                               },
+                               commit_ctx=self._commit_context())
+        self._copy_recovery_script(save_dir)
+        return True
+
+    def _copy_recovery_script(self, save_dir: str) -> None:
+        """Drop a fp32-recovery shim next to the checkpoints (the
+        reference's ``engine.py:3249``), atomically and once."""
+        if self.global_rank != 0:
+            return
+        path = os.path.join(save_dir, "zero_to_fp32.py")
+        if os.path.exists(path):
+            return
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(
+                "#!/usr/bin/env python3\n"
+                '"""Recover a consolidated fp32 state dict from this '
+                'checkpoint dir.\nUsage: python zero_to_fp32.py . out.npz '
+                '[tag]\n"""\n'
+                "import sys\n"
+                "from deepspeed_tpu_torch.utils.zero_to_fp32 import main\n"
+                "sys.exit(main())\n")
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Load ``tag`` (default: ``latest``, falling back past corrupt
+        tags to the newest that verifies) into the engine's buffers in
+        place; returns ``(load_dir, client_state)``, or ``(None, {})``
+        when nothing was loaded."""
+        if self._checkpoint_engine is not None:
+            # never read our own in-flight async writes (also re-raises a
+            # background write failure here instead of losing it)
+            self._checkpoint_engine.wait()
+        # a world of more than one process would need the resume consensus
+        # of the JAX engine: building its context raises (Queue 1 #7)
+        self._commit_context()
+        load_optimizer_states = load_optimizer_states and not load_module_only
+        view = self._checkpoint_state()
+        state, client_state = load_engine_checkpoint(
+            load_dir, tag, view, load_optimizer_states=load_optimizer_states,
+            separate_master=self._separate_master,
+            config=self._config.checkpoint_config)
+        if state is None:
+            return None, {}
+        client_state.pop("_ckpt_tag", None)
+        if load_optimizer_states and "step" in view["opt_state"]:
+            self.state["opt_state"]["step"] = int(view["opt_state"]["step"])
+        self.micro_steps = client_state.get("micro_steps", 0)
+        self.global_steps = client_state.get("global_steps", 0)
+        self.global_samples = client_state.get("global_samples", 0)
+        self.skipped_steps = client_state.get("skipped_steps", 0)
+        if load_lr_scheduler_states and self._lr_scheduler is not None and \
+                "lr_scheduler" in client_state:
+            self._lr_scheduler.load_state_dict(client_state["lr_scheduler"])
+        if "optimizer_param_groups" in client_state and load_optimizer_states:
+            restored = client_state["optimizer_param_groups"]
+            if len(restored) == len(self.optimizer.param_groups):
+                self.optimizer.param_groups = restored
+            else:
+                log_dist(
+                    f"checkpoint has {len(restored)} param groups but the "
+                    f"optimizer was constructed with "
+                    f"{len(self.optimizer.param_groups)}; keeping the "
+                    "constructed groups (hyperparams from the checkpoint "
+                    "are NOT restored)", ranks=[0], level=logging.WARNING)
+        return load_dir, client_state

@@ -39,8 +39,11 @@ def test_every_module_imports_without_jax():
     # 2 of int8 serving (the quantizer kernel module, inference/quantization),
     # 10 of diffusion serving (the spatial and bias-GeLU kernel modules,
     # models/diffusion, inference/diffusion_pipeline, model_implementations
-    # and its diffusers unet/vae, module_inject and its policies)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 58
+    # and its diffusers unet/vae, module_inject and its policies), 14 of
+    # checkpointing (runtime/checkpoint_engine and its seven modules,
+    # runtime/supervision and its events, utils/{jsonl, lock_watch,
+    # fault_injection, zero_to_fp32})
+    assert int(res.stdout.strip().splitlines()[-1]) >= 72
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -63,6 +66,20 @@ def test_int8_serving_modules_are_importable():
     assert callable(quantize) and callable(quantize_kv)
     assert callable(quantize_params_int8) and Int8Param.__module__ == \
         "deepspeed_tpu_torch.inference.quantization"
+
+
+def test_checkpoint_modules_are_importable():
+    from deepspeed_tpu_torch.runtime import checkpoint_engine as ce
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.async_checkpoint_engine \
+        import AsyncCheckpointEngine
+    from deepspeed_tpu_torch.runtime.supervision.events import EventKind
+    from deepspeed_tpu_torch.utils import fault_injection, zero_to_fp32
+    assert {"save_engine_checkpoint", "load_engine_checkpoint", "verify_tag",
+            "CommitContext", "DeepSpeedCheckpointConfig"} <= set(dir(ce))
+    assert issubclass(AsyncCheckpointEngine, ce.CheckpointEngine)
+    assert EventKind.CKPT_COMMITTED == "ckpt.committed"
+    assert "ckpt.publish_commit" in fault_injection.FAULT_POINTS
+    assert callable(zero_to_fp32.main)
 
 
 def test_diffusion_modules_are_importable():

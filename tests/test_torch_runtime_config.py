@@ -110,7 +110,7 @@ def test_sparse_attention_section_kept_raw_like_jax(section):
 
 
 @pytest.mark.parametrize("d,exc,match", [
-    ({"train_batch_size": 8, "checkpoint": {}}, DeepSpeedConfigError,
+    ({"train_batch_size": 8, "supervision": {}}, DeepSpeedConfigError,
      "not ported"),
     ({"train_batch_size": 8, "fp16": {"enabled": True, "loss_scal": 1}},
      DeepSpeedConfigError, "unknown keys"),
@@ -132,6 +132,43 @@ def test_sparse_attention_section_kept_raw_like_jax(section):
 def test_unported_features_raise(d, exc, match):
     with pytest.raises(exc, match=match):
         DeepSpeedConfig(d)
+
+
+@pytest.mark.parametrize("section", [
+    {}, {"async_save": True, "keep_last": 2, "tag_validation": "Fail"},
+    {"tag_validation": "ignore", "retries": {"max_attempts": 5},
+     "commit": {"barrier_deadline_s": 10.0}}])
+def test_checkpoint_section_parses_like_jax(section):
+    """The ``checkpoint`` section is ported (JAX ``runtime/config.py:
+    243-256``): the typed config and the tag-validation flags as the JAX
+    package reads them."""
+    d = {"train_batch_size": 8, "checkpoint": section}
+    want = JConfig(d, mesh_manager=make_mesh(dp=8))
+    got = DeepSpeedConfig(d, world_size=8)
+    def fields(d):     # the JAX models carry a `_deprecated_fields` field
+        return {k: fields(v) if isinstance(v, dict) else v
+                for k, v in d.items() if k != "_deprecated_fields"}
+
+    assert got.checkpoint_config.to_dict() == \
+        fields(want.checkpoint_config.to_dict())
+    for name in ("checkpoint_tag_validation_mode",
+                 "checkpoint_tag_validation_enabled",
+                 "checkpoint_tag_validation_fail",
+                 "load_universal_checkpoint"):
+        assert getattr(got, name) == getattr(want, name), name
+
+
+@pytest.mark.parametrize("key", ["load_universal_checkpoint",
+                                 "load_universal"])
+def test_universal_checkpoint_raises(key):
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
+        DeepSpeedConfig({"train_batch_size": 8, "checkpoint": {key: True}})
+
+
+def test_unknown_section_still_raises_beside_checkpoint():
+    with pytest.raises(DeepSpeedConfigError, match="not ported"):
+        DeepSpeedConfig({"train_batch_size": 8, "checkpoint": {},
+                         "telemetry": {}})
 
 
 SCHEDULES = {
