@@ -154,29 +154,48 @@ imports JAX.  In order it
    loss, finite and falling losses; reports step time, tokens/s, MFU and
    peak memory, and profiles 2 steps, beside the same path's numbers
    with the two-kernel backward;
-6a. with every launch count at 0, checkpoints the same configuration at
-   full width and depth (``run_checkpoint_resume``): two engines from one
-   seed take 4 ``train_batch_fused`` steps bitwise equal (every flat
-   buffer, the moments, the scale state, the losses); an engine saves
-   after 2 steps (``save_checkpoint``, sync), another with ``async_save``
-   and steps at once after the save; ``verify_tag`` passes on the newer
-   tag; an engine built from another seed loads ``latest`` (the async
-   tag) and takes the last 2 steps, bitwise equal to the straight run
-   (counters and optimizer step too); after ``corrupt_file`` on the newer
-   tag a load of ``latest`` falls back to the older (sync) one, says so,
-   and resumes bitwise equal too.  Prints the tag's
-   bytes, save seconds (snapshot, write, manifest), load seconds (verify,
-   read, copy to the card), GB/s and the async caller's blocking seconds
-   beside the card's name and power limit; 17 steps' exact launches
-   (``flash_fwd`` and ``flash_bwd_fused`` 24 a step, Adam 1).  The tags
-   go to a temporary directory the phase removes;
-6b. the same for GPT-Neo 1.3B (published widths, random weights) at its
+6b. with every launch count at 0, the preemptible run of the same
+   configuration at full width and depth (``run_preemptible``):
+   ``initialize(training_data=...)`` over 256 seeded rows of 1025 tokens
+   (``data.resumable``, shuffled) → ``ElasticTrainRunner.run``. Two
+   straight 8-step runs bitwise equal (every flat buffer, the moments,
+   the scale state, the losses, the loader state); the second runs under
+   a 3 s step watchdog whose first step ``HangFor`` holds past the
+   deadline until ``on_expire`` releases it: one ``watchdog.expired``
+   with every thread's stack, no kill, the thread stopped at the end. An
+   async engine saves at step 2 and steps at once; ``SignalAtStep``
+   (SIGTERM) at step 3 drains into a committed tag (``preempt.signal``,
+   ``ckpt.preempt_save``); ``CorruptRandomBytes`` on that tag; an engine
+   from another seed resumes, falls back to the step-2 tag, its loader on
+   batch 2, and runs to step 8 bitwise equal to the straight run.  A
+   ``NaNLossWindow`` at step 3 rolls back (``nan_abort_threshold`` 1,
+   ``max_rollbacks`` 2) past the corrupt tag to step 2, quarantines
+   exactly [2, 3), and its replay to step 8 (a save there journals
+   ``rollback.recovered``) is bitwise equal to a straight run whose loader
+   had [2, 3) installed (the scaler's good-step count restarts at the
+   reset); that save's tag (sync) verifies and loads into an engine from
+   another seed bitwise equal to the rollback run's end, its loader on
+   the same position.  With spans and the metrics stream on, a step's spans are
+   ``train.step`` around ``train.fwd``, ``train.bwd``,
+   ``train.optimizer`` and ``train.host_sync``, the runs' inventory adds
+   ``train.data_fetch``, ``ckpt.save``, ``ckpt.commit``, ``ckpt.load``,
+   ``elastic.resume`` and ``elastic.rollback``, the trace validates, the
+   ``wall_clock_breakdown`` lines print, ``metrics.jsonl`` rows carry
+   ``train.tokens_per_s`` and ``train.mfu``; step ms with telemetry off
+   and on in turns (reported only).  Prints the tag's bytes, the async
+   save's block, the drain's seconds, the resume's load seconds (verify,
+   read, copy; each load timed to a device barrier), the rollback's and
+   the recovery save's seconds and the recovery tag's load beside the
+   card's name and power limit; 50 steps' exact launches (``flash_fwd``
+   and ``flash_bwd_fused`` 24 a step, Adam 1).  The tags go to a
+   temporary directory the phase removes;
+6c. the same for GPT-Neo 1.3B (published widths, random weights) at its
    context of 2048, micro-batch 8: exact launches per step (``flash_fwd``
    and ``flash_bwd_fused`` 24 each, their window option 12 each, the pair
    0, Adam 1), the row at seq 1024 held
    to 0.02 or to ``FAMILY_SENSITIVITY`` times its error with every layer
    global, MFU beside the live band's attention FLOPs;
-6c. the same for GPT-2 760M (micro-batch 16) and 2.7B (micro-batch 8) at
+6d. the same for GPT-2 760M (micro-batch 16) and 2.7B (micro-batch 8) at
    seq 1024 through the D 96 and 80 kernels, 2 warm-up and 5 timed
    steps (``WIDE_TRAIN_STEPS``): ``flash_fwd`` and
    ``flash_bwd_fused`` a layer per step, the pair 0; the row check at
@@ -288,10 +307,15 @@ from deepspeed_tpu_torch.ops.kernels.utils import (HEAD_DIMS,
 from deepspeed_tpu_torch.ops.sparse_attention import (
     BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
     FixedSparsityConfig, VariableSparsityConfig)
+from deepspeed_tpu_torch.elasticity import ElasticTrainRunner
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     async_checkpoint_engine, native_checkpoint_engine, verify_tag)
+from deepspeed_tpu_torch.runtime.data_pipeline import ResumableDataLoader
 from deepspeed_tpu_torch.runtime.model import from_bert, from_gpt
-from deepspeed_tpu_torch.utils.fault_injection import corrupt_file
+from deepspeed_tpu_torch.runtime.supervision import read_events
+from deepspeed_tpu_torch.telemetry import (read_metrics, trace_events,
+                                           validate_trace)
+from deepspeed_tpu_torch.utils import fault_injection
 from deepspeed_tpu_torch.utils.logging import logger as port_logger
 from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
 from tests.torch_diffusers_export import export_unet_sd, export_vae_sd
@@ -3438,11 +3462,26 @@ def run_training(warmup=2, steps=10):
                              want, warmup, steps, row_seq=cfg.max_seq_len)
 
 
-# ------------------------------------------------------------ checkpoints
+# ------------------------------------------------------------ the preemptible run
 
-#: the checkpoint phase's straight run, and the step after which it saves
-CKPT_STEPS = 4
-CKPT_SAVE_AT = 2
+#: the preemptible run's straight runs, in steps, and its token set: rows
+#: of seq + 1 tokens, enough for the runs' batches within one epoch
+PREEMPT_STEPS = 8
+PREEMPT_ROWS = 256
+#: where phase 6b delivers SIGTERM, and the step its NaN window poisons:
+#: one step past the verified tag of step 2
+PREEMPT_AT = 3
+NAN_AT = 3
+#: the watchdog's deadline for a step in the straight run it watches
+#: (steps take ~0.25 s), and the longest the injected hang may block
+HANG_DEADLINE_S = 3.0
+HANG_MAX_S = 60.0
+#: the spans a fused training step records
+STEP_SPANS = {"train.step", "train.fwd", "train.bwd", "train.optimizer",
+              "train.host_sync"}
+#: every span of the phase: a step's, the runner's, the checkpoints'
+RUN_SPANS = STEP_SPANS | {"train.data_fetch", "ckpt.save", "ckpt.commit",
+                          "ckpt.load", "elastic.resume", "elastic.rollback"}
 
 
 class _CkptTimers:
@@ -3537,177 +3576,407 @@ def _state_diff(got, want):
     return bad
 
 
-def run_checkpoint_resume(smi):
-    """Phase 6a (module docstring): checkpoint resume at bench.py's
-    training configuration, full width and depth; ``smi`` is the card's
-    name and power limit, printed beside the timings.  Returns (results,
-    counts)."""
+class _TokenRows:
+    """The phase's dataset: seeded rows of tokens, one sample a row."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return {"tokens": self.rows[i]}
+
+
+def _synced_timer(fn, seconds):
+    """``fn`` timed to the end of the device work it queued: a barrier
+    before the clock is read; each call's seconds go to ``seconds``."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            ACCEL.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    return timed
+
+
+def _span_seconds(tracer, name):
+    return [r.dur for r in tracer.spans() if r.name == name]
+
+
+def _events(save_dir, kind=None):
+    return read_events(os.path.join(save_dir, "events.jsonl"), kind=kind)
+
+
+def run_preemptible(smi):
+    """Phase 6b (module docstring): the preemptible run at bench.py's
+    training configuration, full width and depth, through
+    ``initialize(training_data=...)`` → the ``ResumableDataLoader`` →
+    ``ElasticTrainRunner.run``; ``smi`` is the card's name and power
+    limit, printed beside the timings.  Returns (results, counts)."""
     cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
                               dtype=torch.bfloat16, remat=True,
                               remat_policy="attn_out")
-    rng = np.random.default_rng(18)
-    batches = [{"tokens": rng.integers(0, cfg.vocab_size,
-                                       (TRAIN_MICRO_BATCH,
-                                        cfg.max_seq_len + 1))}
-               for _ in range(CKPT_STEPS)]
+    rows = np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (PREEMPT_ROWS, cfg.max_seq_len + 1),
+        dtype=np.int32)
+    data = _TokenRows(rows)
     seed, other_seed = 2024, 77
+    N = PREEMPT_STEPS
+    work = tempfile.mkdtemp(prefix="ds_torch_preempt_")
 
-    def engine(seed_, async_save=False):
-        e, *_ = deepspeed_tpu_torch.initialize(
-            model=from_gpt(cfg),
-            config={**TRAIN_CONFIG, "checkpoint": {"async_save": async_save}},
+    def engine(seed_, **extra):
+        e, _, loader, _ = deepspeed_tpu_torch.initialize(
+            model=from_gpt(cfg), training_data=data,
+            config={**TRAIN_CONFIG,
+                    "data": {"resumable": True, "shuffle": True, "seed": 19},
+                    **extra},
             generator=torch.Generator(device="cuda").manual_seed(seed_))
-        return e
+        if not isinstance(loader, ResumableDataLoader) or \
+                e.data_iterator is not loader:
+            raise AssertionError("preemptible: initialize(training_data) "
+                                 "did not register a ResumableDataLoader")
+        return e, loader
 
-    def steps(e, bs):
-        return torch.stack([e.train_batch_fused(b) for b in bs])
-
-    def check(label, got, want, got_losses=None, want_losses=None):
-        bad = _state_diff(got, want)
-        if got_losses is not None and not torch.equal(got_losses,
-                                                      want_losses):
-            bad.append(f"losses {got_losses.tolist()} != "
-                       f"{want_losses.tolist()}")
-        log(f"[checkpoint] {label}: bitwise equal {not bad}"
+    def check(label, got, want, extra=()):
+        bad = _state_diff(got, want) + list(extra)
+        log(f"[preemptible] {label}: bitwise equal {not bad}"
             + (f" (differ: {bad})" if bad else ""))
         if bad:
-            raise AssertionError(f"checkpoint {label}: {bad}")
+            raise AssertionError(f"preemptible {label}: {bad}")
 
-    def resumed(label, e):
-        """The loaded engine ``e`` takes the straight run's last steps."""
-        tail = steps(e, batches[CKPT_SAVE_AT:])
-        check(label, _engine_state(e), straight, tail,
-              losses[CKPT_SAVE_AT:])
+    def same(name, got, want):
+        return [] if got == want else [f"{name} {got} != {want}"]
 
+    def telemetry(name):
+        return {"telemetry": {"enabled": True, "metrics": {
+            "path": os.path.join(work, f"metrics_{name}.jsonl")}}}
     kernels.reset_launch_counts()
     t_phase = time.perf_counter()
-    a = engine(seed)
-    losses = steps(a, batches)
-    straight = _engine_state(a)
-    n_elems = a._flat["master"].numel()
-    del a
-    a2 = engine(seed)
-    losses2 = steps(a2, batches)
-    check(f"two straight runs of {CKPT_STEPS} steps", _engine_state(a2),
-          straight, losses2, losses)
-    del a2
-    torch.cuda.empty_cache()
+    marks = {}
 
-    res = {"config": f"GPT-2 350M seq {cfg.max_seq_len} bf16 remat attn_out, "
-                     f"Adam lr 1e-4 wd 0.01, ZeRO 1, micro "
-                     f"{TRAIN_MICRO_BATCH}, gas 1; {CKPT_SAVE_AT} + save + "
-                     f"load + {CKPT_STEPS - CKPT_SAVE_AT} steps",
-           "elements": n_elems, "losses": losses.tolist()}
-    ckpt_dir = tempfile.mkdtemp(prefix="ds_torch_ckpt_")
+    def mark(name):
+        marks[name] = time.perf_counter() - t_phase
+
     lines = _LogLines()
     port_logger.addHandler(lines)
     try:
-        disk = shutil.disk_usage(ckpt_dir)
-        log(f"[checkpoint] tags under {ckpt_dir}: {disk.free / 1e9:.1f} GB "
+        disk = shutil.disk_usage(work)
+        log(f"[preemptible] tags under {work}: {disk.free / 1e9:.1f} GB "
             f"free of {disk.total / 1e9:.1f} GB")
-        # a sync save after CKPT_SAVE_AT steps, its parts timed
-        b = engine(seed)
-        steps(b, batches[:CKPT_SAVE_AT])
-        ACCEL.synchronize()
-        with _CkptTimers() as timers:
-            t0 = time.perf_counter()
-            b.save_checkpoint(ckpt_dir, tag="sync")
-            save_s = time.perf_counter() - t0
-        save_parts = dict(timers.seconds)
-        del b
-        tag_bytes = _dir_bytes(os.path.join(ckpt_dir, "sync"))
+        # two straight runs, no saves; the second under a step watchdog
+        # whose first step hangs past the deadline until on_expire ends it
+        a, loader = engine(seed)
+        straight_res = ElasticTrainRunner(
+            a, os.path.join(work, "straight"), save_interval=1 << 30).run(
+                loader, max_steps=N, resume=False)
+        straight = _engine_state(a)
+        straight_loader = loader.state_dict()
+        straight_losses = straight_res["losses"]
+        del a
+        mark("straight")
+        a2, loader2 = engine(seed)
+        wd_dir = os.path.join(work, "watchdog")
+        runner = ElasticTrainRunner(
+            a2, wd_dir, save_interval=1 << 30,
+            supervision={"step_deadline_s": HANG_DEADLINE_S})
+        hang = fault_injection.HangFor(HANG_MAX_S)
+        expired = []
 
-        # an async save, the saver stepping at once: the newer tag
-        b = engine(seed, async_save=True)
-        steps(b, batches[:CKPT_SAVE_AT])
-        ACCEL.synchronize()
-        t0 = time.perf_counter()
-        b.save_checkpoint(ckpt_dir, tag="async")
-        block_s = time.perf_counter() - t0
-        steps(b, batches[CKPT_SAVE_AT:CKPT_SAVE_AT + 1])
-        ACCEL.synchronize()
-        b._checkpoint_engine.wait()
-        async_total_s = time.perf_counter() - t0
-        del b
-        with open(os.path.join(ckpt_dir, "latest")) as f:
-            latest = f.read().strip()
-        t0 = time.perf_counter()
-        ok, problems = verify_tag(ckpt_dir, "async")
-        verify_s = time.perf_counter() - t0
-        if latest != "async" or not ok:
-            raise AssertionError(f"checkpoint: latest names {latest!r}; "
-                                 f"verify_tag: {problems}")
+        def on_expire(rec):
+            expired.append(time.perf_counter())
+            hang.release()
 
-        # another seed's engine loads latest (the async tag), its parts
-        # timed, and takes the last steps
-        c = engine(other_seed)
-        ACCEL.synchronize()
-        with _CkptTimers() as timers:
-            t0 = time.perf_counter()
-            c.load_checkpoint(ckpt_dir)
-            ACCEL.synchronize()
-            load_s = time.perf_counter() - t0
-        load_parts = dict(timers.seconds)
-        resumed(f"{CKPT_SAVE_AT} steps + async save + a step at once, "
-                f"load + {CKPT_STEPS - CKPT_SAVE_AT} steps vs straight", c)
-        del c
+        runner.watchdog.on_expire = on_expire
+        t0 = time.perf_counter()
+        with fault_injection.inject("train.step_begin", hang):
+            res2 = runner.run(loader2, max_steps=N, resume=False)
+        hang_s = (expired[0] - t0) if expired else None
+        check(f"two straight runner runs of {N} steps (the second under the "
+              f"watchdog)", _engine_state(a2), straight,
+              same("losses", res2["losses"], straight_losses)
+              + same("loader", loader2.state_dict(), straight_loader))
+        del a2
         torch.cuda.empty_cache()
+        wd = _events(wd_dir, "watchdog.expired")
+        threads = sorted(set(re.findall(r"--- Thread (\S+)",
+                                        wd[0]["stacks"]))) if wd else []
+        log(f"[preemptible] watchdog: deadline {HANG_DEADLINE_S} s, hang "
+            f"released by on_expire {hang_s} s after the run began; "
+            f"{len(wd)} watchdog.expired event(s), label "
+            f"{wd[0]['label'] if wd else None}, stacks of threads {threads}; "
+            f"watchdog thread alive after the run "
+            f"{runner.watchdog._thread.is_alive()}")
+        if len(wd) != 1 or wd[0]["label"] != "train.step" or \
+                "MainThread" not in threads or "step-watchdog" not in threads \
+                or hang.fired != 1 or runner.watchdog._thread.is_alive():
+            raise AssertionError("preemptible: the watchdog did not fire "
+                                 "once with every thread's stack, or did not "
+                                 "stop")
+        del runner      # it holds the engine
+        mark("watchdog")
 
-        # corrupt the newer tag (its first npz in the manifest's order:
-        # the walk rejects it after hashing 1.4 of its 7.1 GB); a load of
-        # latest falls back to the sync tag, says so, and resumes from it
-        corrupt_file(os.path.join(ckpt_dir, "async", "model_states.npz"))
-        bad, _ = verify_tag(ckpt_dir, "async")
-        d = engine(other_seed)
+        # preempted: the async engine saves at step 2 (save_interval 2),
+        # SIGTERM at step 3 drains into a tag the runner waits for
+        ck = os.path.join(work, "ck")
+        sup = {"preempt_save_deadline_s": 600.0,
+               "rollback": {"max_rollbacks": 2}}
+        p, ploader = engine(seed, checkpoint={"async_save": True},
+                            **telemetry("preempted"))
+        with fault_injection.inject("train.step",
+                                    fault_injection.SignalAtStep(PREEMPT_AT)):
+            pres = ElasticTrainRunner(p, ck, save_interval=2,
+                                      supervision=sup).run(
+                ploader, max_steps=N, resume=False)
+        save_spans = _span_seconds(p.tracer, "ckpt.save")
+        commit_spans = _span_seconds(p.tracer, "ckpt.commit")
+        p_spans = set(p.tracer.span_inventory())
+        del p
+        torch.cuda.empty_cache()
+        signals = _events(ck, "preempt.signal")
+        drains = _events(ck, "ckpt.preempt_save")
+        drain_tag = f"elastic_step{PREEMPT_AT}"
+        tag_bytes = _dir_bytes(os.path.join(ck, drain_tag))
+        # committed and published (the resume below verifies the hashes)
+        with open(os.path.join(ck, "latest")) as f:
+            ok_drain = f.read().strip() == drain_tag and all(
+                os.path.exists(os.path.join(ck, drain_tag, name))
+                for name in ("commit.json", "manifest.json"))
+        log(f"[preemptible] SIGTERM at step {PREEMPT_AT}: preempted "
+            f"{pres['preempted']} after {pres['steps']} steps; journal "
+            f"preempt.signal {[(e['signum'], e['step']) for e in signals]}, "
+            f"ckpt.preempt_save {[(e['step'], e['tag'], e['elapsed_s']) for e in drains]}; "
+            f"the drain's tag committed and latest {ok_drain}")
+        if not (pres["preempted"] and pres["steps"] == PREEMPT_AT
+                and len(signals) == 1 and len(drains) == 1
+                and drains[0]["tag"] == drain_tag and ok_drain):
+            raise AssertionError("preemptible: no drain into a committed tag "
+                                 "on SIGTERM")
+        mark("preempted")
+
+        # corrupt the drain's tag; another seed's engine resumes: the
+        # fallback lands on the step-2 tag and the loader on batch 2
+        corrupt = fault_injection.CorruptRandomBytes(match="model_states.npz")
+        corrupt.fire("ckpt.post_write",
+                     path=os.path.join(ck, drain_tag, "model_states.npz"))
+        bad_ok, _ = verify_tag(ck, drain_tag)
+        r, rloader = engine(other_seed, wall_clock_breakdown=True,
+                            steps_per_print=4, **telemetry("resumed"))
         del lines.lines[:]
-        t0 = time.perf_counter()
-        _, client = d.load_checkpoint(ckpt_dir)
-        ACCEL.synchronize()
-        fallback_s = time.perf_counter() - t0
-        said = [m for m in lines.lines if "FELL BACK to tag sync" in m]
-        log(f"[checkpoint] after corrupt_file on the newer tag 'async': "
-            f"verify_tag async {bad}, load(tag=None) fell back to 'sync' "
-            f"in {fallback_s:.2f} s, the log says {said}")
-        if bad or not said or client.get("global_steps") != CKPT_SAVE_AT:
-            raise AssertionError("checkpoint: no fallback past the corrupt "
-                                 "tag")
-        resumed(f"{CKPT_SAVE_AT} steps + sync save, fallback load + "
-                f"{CKPT_STEPS - CKPT_SAVE_AT} steps vs straight", d)
-        del d
+        load_s = []
+        r.load_checkpoint = _synced_timer(r.load_checkpoint, load_s)
+        with _CkptTimers() as timers:
+            rres = ElasticTrainRunner(r, ck, save_interval=1 << 30,
+                                      supervision=sup).run(
+                rloader, max_steps=N - 2)
+        load_parts = dict(timers.seconds)
+        said = [m for m in lines.lines if "FELL BACK to tag elastic_step2" in m]
+        breakdown = [m.split("time (ms) | ", 1)[1] for m in lines.lines
+                     if "time (ms) | " in m]
+        restores = _events(ck, "data.iterator_restore")
+        resume_s = _span_seconds(r.tracer, "elastic.resume")
+        log(f"[preemptible] after CorruptRandomBytes on {drain_tag} "
+            f"(verify_tag {bad_ok}): resume fell back to elastic_step2 "
+            f"{bool(said)}; the loader restored to "
+            f"{[(e['step'], e['epoch'], e['batch_index']) for e in restores]}")
+        check(f"{PREEMPT_AT - 1} steps + async save + a step + SIGTERM drain, "
+              f"corrupt drain tag, fallback resume from another seed + "
+              f"{N - 2} steps vs straight", _engine_state(r), straight,
+              same("losses", pres["losses"][:2] + rres["losses"],
+                   straight_losses)
+              + same("loader", rloader.state_dict(), straight_loader)
+              + ([] if said and not bad_ok else ["no fallback"])
+              + ([] if [e["step"] for e in restores] == [2] else
+                 ["loader not on batch 2"]))
+        # one step's spans: those inside the last train.step
+        recs = r.tracer.spans()
+        last = max((x for x in recs if x.name == "train.step"),
+                   key=lambda x: x.t0)
+        step_spans = {x.name for x in recs
+                      if x.tid == last.tid and last.t0 <= x.t0
+                      and x.t0 + x.dur <= last.t0 + last.dur}
+        trace_problems = validate_trace(trace_events(r.tracer))
+        # every row after the run's first step has a window to rate
+        rows_m = read_metrics(r.metrics_sampler.path)
+        sampled = [x["m"] for x in rows_m if x.get("step")]
+        log(f"[preemptible] a step's spans {sorted(step_spans)}; "
+            f"wall_clock_breakdown lines {breakdown}; trace problems "
+            f"{trace_problems}; last metrics row tokens_per_s "
+            f"{sampled[-1].get('train.tokens_per_s') if sampled else None}, "
+            f"mfu {sampled[-1].get('train.mfu') if sampled else None}")
+        if step_spans != STEP_SPANS or not breakdown or trace_problems or \
+                not sampled or not all(
+                    x.get("train.tokens_per_s", 0) > 0
+                    and x.get("train.mfu", 0) > 0 for x in sampled[1:]):
+            raise AssertionError("preemptible: spans, breakdown, trace or "
+                                 "metrics rows wrong")
+        # step ms with telemetry (spans, the metrics stream) off and on,
+        # in turns; reported, held to nothing
+        path = r.metrics_sampler.path
+        turns = {"off": [], "on": []}
+        for on in (False, True, True, False):
+            r.tracer.enabled = on
+            r.metrics_sampler.path = path if on else None
+            for _ in range(2):
+                batch = next(rloader)
+                ACCEL.synchronize()
+                t0 = time.perf_counter()
+                r.train_batch_fused(batch)
+                ACCEL.synchronize()
+                turns["on" if on else "off"].append(time.perf_counter() - t0)
+        step_ms = {k: 1e3 * sum(v) / len(v) for k, v in turns.items()}
+        log(f"[preemptible] step ms with telemetry off {step_ms['off']:.2f}, "
+            f"on (unsynced spans + metrics stream) {step_ms['on']:.2f}, "
+            f"4 steps each in turns off, on, on, off; each step: "
+            + ", ".join(f"{k} {[round(1e3 * x, 2) for x in v]}"
+                        for k, v in turns.items()))
+        r_spans = set(r.tracer.span_inventory())
+        del r
+        torch.cuda.empty_cache()
+        mark("resumed")
+
+        # the NaN window: one step past the verified step-2 tag; the
+        # rollback reloads it (past the corrupt step-3 tag), quarantines
+        # [restored, divergence + skip_batches) and the run goes on to N,
+        # where a save proves the recovery
+        q, qloader = engine(seed, **telemetry("rollback"))
+        q_load_s = []
+        q.load_checkpoint = _synced_timer(q.load_checkpoint, q_load_s)
+        nan = fault_injection.NaNLossWindow(NAN_AT, NAN_AT + 1)
+        with _CkptTimers() as timers, \
+                fault_injection.inject("train.loss", nan):
+            qres = ElasticTrainRunner(q, ck, save_interval=N,
+                                      nan_abort_threshold=1,
+                                      supervision=sup).run(
+                qloader, max_steps=N, resume=False)
+        q_parts = dict(timers.seconds)
+        rollback_s = _span_seconds(q.tracer, "elastic.rollback")
+        q_save_s = _span_seconds(q.tracer, "ckpt.save")
+        q_spans = set(q.tracer.span_inventory())
+        q_state = _engine_state(q)
+        q_loader_state = qloader.state_dict()
+        del q
+        torch.cuda.empty_cache()
+        jr = _events(ck)
+        rb = [e for e in jr if e["kind"] == "rollback"]
+        dq = [e for e in jr if e["kind"] == "data.quarantine"]
+        rec = [e for e in jr if e["kind"] == "rollback.recovered"]
+        window = [dq[0]["from_step"], dq[0]["to_step"]] if dq else None
+        log(f"[preemptible] NaN at step {NAN_AT}: rollbacks "
+            f"{qres['rollbacks']}; journal rollback "
+            f"{[(e['from_step'], e['to_step'], e['quarantine']) for e in rb]}, "
+            f"data.quarantine {window} (divergence step "
+            f"{dq[0]['divergence_step'] if dq else None}), rollback.recovered "
+            f"{[(e['step'], e['rollbacks']) for e in rec]}; rollback "
+            f"{rollback_s} s, the recovery save {q_save_s} s")
+        if not (qres["rollbacks"] == 1 and len(rb) == 1 and len(rec) == 1
+                and window == [NAN_AT - 1, NAN_AT] and nan.fired == 1
+                and rb[0]["to_step"] == NAN_AT - 1):
+            raise AssertionError("preemptible: no rollback with the exact "
+                                 "quarantine window and recovery")
+        qr, qrloader = engine(seed)
+        qrloader.quarantine(NAN_AT - 1, NAN_AT)
+        qrres = ElasticTrainRunner(qr, os.path.join(work, "quarantined"),
+                                   save_interval=1 << 30).run(
+            qrloader, max_steps=N, resume=False)
+        replay = qres["losses"][:NAN_AT - 1] + qres["losses"][NAN_AT:]
+        # the rollback's reset_loss_scale restarts the scaler's good-step
+        # count at the reload: it counts the steps since, not all of them
+        qr_state = _engine_state(qr)
+        good = int(q_state[0]["scale/good_steps"])
+        qr_state[0]["scale/good_steps"] = q_state[0]["scale/good_steps"]
+        check(f"the rollback's replay vs a straight run with the window "
+              f"[{NAN_AT - 1}, {NAN_AT}) installed from the start",
+              q_state, qr_state,
+              same("losses", replay, qrres["losses"])
+              + same("loader", q_loader_state, qrloader.state_dict())
+              + same("good steps since the loss-scale reset", good,
+                     N - (NAN_AT - 1)))
+        del qr, qr_state
+        torch.cuda.empty_cache()
+        mark("rollback")
+
+        # the rollback run's recovery save, a sync tag, verifies and loads
+        # back bitwise into an engine from another seed, its loader on the
+        # rollback run's position
+        rec_tag = f"elastic_step{N}"
+        rec_ok, rec_problems = verify_tag(ck, rec_tag)
+        f, floader = engine(other_seed)
+        rec_load_s = []
+        f.load_checkpoint = _synced_timer(f.load_checkpoint, rec_load_s)
+        got_dir, _ = f.load_checkpoint(ck, tag=rec_tag)
+        check(f"the recovery save's tag {rec_tag} (sync) loaded into an "
+              f"engine from another seed vs the rollback run's end",
+              _engine_state(f), q_state,
+              same("loader", floader.state_dict(), q_loader_state)
+              + ([] if rec_ok else [f"verify_tag {rec_problems}"])
+              + ([] if got_dir == ck else ["nothing loaded"]))
+        log(f"[preemptible] the recovery tag {rec_tag}: verify_tag {rec_ok}, "
+            f"load {rec_load_s[0]:.2f} s")
+        del f, q_state
+        torch.cuda.empty_cache()
+        mark("recovery load")
+        spans = p_spans | r_spans | q_spans
+        log(f"[preemptible] span inventory over the telemetry runs "
+            f"{sorted(spans)}")
+        if spans != RUN_SPANS:
+            raise AssertionError(f"preemptible: span inventory {sorted(spans)}"
+                                 f" != {sorted(RUN_SPANS)}")
     finally:
         port_logger.removeHandler(lines)
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        fault_injection.clear()
+        shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
 
     counts = kernels.launch_counts()
-    n_steps = 2 * CKPT_STEPS + 2 * (CKPT_STEPS - CKPT_SAVE_AT) + \
-        2 * CKPT_SAVE_AT + 1
+    n_steps = 2 * N + PREEMPT_AT + (N - 2) + 8 + (N + 1) + N
     want = {"flash_fwd": cfg.n_layer, "flash_bwd_fused": cfg.n_layer,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "fused_adam": 1}
     wrong = {k: counts[k] for k, n in want.items()
              if counts[k] != n * n_steps}
     gb = tag_bytes / 1e9
-    res.update(
-        tag_bytes=tag_bytes, save_s=save_s, save_parts_s=save_parts,
-        load_s=load_s, load_parts_s=load_parts, save_gb_per_s=gb / save_s,
-        load_gb_per_s=gb / load_s, async_block_s=block_s,
-        async_save_then_step_s=async_total_s, verify_s=verify_s,
-        verify_gb_per_s=gb / verify_s, fallback_load_s=fallback_s,
-        steps=n_steps, launches=counts, phase_s=time.perf_counter() - t_phase)
-    log(f"[checkpoint] on {smi}: {res['config']}: one tag {tag_bytes} "
-        f"bytes ({n_elems} elements x 5 fp32-sized trees)")
-    log(f"[checkpoint] sync save {save_s:.2f} s ({gb / save_s:.2f} GB/s): "
-        + ", ".join(f"{k} {v:.2f} s" for k, v in save_parts.items()))
-    log(f"[checkpoint] load {load_s:.2f} s ({gb / load_s:.2f} GB/s): "
+    drain_s = drains[0]["elapsed_s"]
+    res = {"config": f"GPT-2 350M seq {cfg.max_seq_len} bf16 remat attn_out, "
+                     f"Adam lr 1e-4 wd 0.01, ZeRO 1, micro "
+                     f"{TRAIN_MICRO_BATCH}, gas 1; ResumableDataLoader over "
+                     f"{PREEMPT_ROWS} seeded rows, shuffled",
+           "tag_bytes": tag_bytes, "async_save_block_s": save_spans[0],
+           "drain_save_s": save_spans[1], "drain_s": drain_s,
+           "commit_s": commit_spans, "resume_load_s": load_s[0],
+           "resume_s": resume_s[0], "resume_load_parts_s": load_parts,
+           "rollback_s": rollback_s[0], "rollback_load_s": q_load_s[0],
+           "recovery_save_s": q_save_s[0],
+           "recovery_load_s": rec_load_s[0],
+           "rollback_run_parts_s": q_parts, "watchdog_hang_s": hang_s,
+           "step_ms_telemetry": step_ms,
+           "step_ms_telemetry_each": {k: [1e3 * x for x in v]
+                                      for k, v in turns.items()},
+           "losses": straight_losses,
+           "breakdown": breakdown, "steps": n_steps, "launches": counts,
+           "marks_s": marks, "phase_s": time.perf_counter() - t_phase}
+    log(f"[preemptible] on {smi}: {res['config']}: one tag {tag_bytes} bytes")
+    log(f"[preemptible] async save at step 2: caller blocked "
+        f"{save_spans[0]:.2f} s; the drain's save {save_spans[1]:.2f} s, "
+        f"signal to the tag landed (the step-2 writers' end included) "
+        f"{drain_s:.2f} s; "
+        f"commit spans {[round(x, 2) for x in commit_spans]} s")
+    log(f"[preemptible] resume (fallback past the corrupt tag) load "
+        f"{load_s[0]:.2f} s ({gb / load_s[0]:.2f} GB/s), elastic.resume "
+        f"{resume_s[0]:.2f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in load_parts.items()))
-    log(f"[checkpoint] async save: caller blocked {block_s:.2f} s against "
-        f"the sync save's {save_s:.2f} s; save + one step + the writers' "
-        f"end {async_total_s:.2f} s; verify_tag {verify_s:.2f} s "
-        f"({gb / verify_s:.2f} GB/s)")
-    log(f"[checkpoint] {n_steps} steps, launches {counts}; phase "
-        f"{res['phase_s']:.1f} s")
+    log(f"[preemptible] rollback (reload past the corrupt tag + quarantine) "
+        f"{rollback_s[0]:.2f} s, its load {q_load_s[0]:.2f} s; the recovery "
+        f"save {q_save_s[0]:.2f} s, its load {rec_load_s[0]:.2f} s; "
+        f"that run's checkpoint parts: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in q_parts.items()))
+    log(f"[preemptible] {n_steps} steps, launches {counts}; phase "
+        f"{res['phase_s']:.1f} s, cumulative at each part's end "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items()))
     if wrong:
-        raise AssertionError(f"checkpoint: launches per step off {want}: "
+        raise AssertionError(f"preemptible: launches per step off {want}: "
                              f"{wrong} over {n_steps} steps")
     return res, counts
 
@@ -4726,10 +4995,10 @@ def main() -> int:
         "train", result["training"], result["training_profile"])
     del trainer
     torch.cuda.empty_cache()
-    result["checkpoint_resume"], ckpt_counts = run_checkpoint_resume(smi)
-    result["launches"]["checkpoint_resume"] = ckpt_counts
-    counts = _add(counts, ckpt_counts)
-    log(f"[time] checkpoint resume done at {time.perf_counter() - T0:.1f} s")
+    result["preemptible_run"], preempt_counts = run_preemptible(smi)
+    result["launches"]["preemptible_run"] = preempt_counts
+    counts = _add(counts, preempt_counts)
+    log(f"[time] preemptible run done at {time.perf_counter() - T0:.1f} s")
 
     result["neo_training"], neo_counts, trainer, batch = run_neo_training()
     result["launches"]["neo_training"] = neo_counts
@@ -4840,7 +5109,7 @@ def main() -> int:
         f"{result['launches']['gpt2_2_7b_training']}, GPT-2 2.7B training at "
         f"seq {LONG_SEQ} {long_counts}, GPT-2 760M sparse training "
         f"{result['launches']['gpt2_760m_sparse_training']}, training "
-        f"{train_counts}, checkpoint resume {ckpt_counts}, "
+        f"{train_counts}, preemptible run {preempt_counts}, "
         f"GPT-Neo training {neo_counts}, sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
         f"{ROUTE_SEQ} {route_counts}, diffusion "

@@ -17,7 +17,14 @@ decode); and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
 (``runtime``), for GPT-2 (dense or block-sparse attention, Adam) and for
 BERT masked-LM pre-training (right-padded batches through the flash
-kernels' per-row key lengths, Adam or LAMB).
+kernels' per-row key lengths, Adam or LAMB); checkpoints in the JAX
+package's layout; and the preemptible run around the step:
+``initialize(training_data=...)`` → ``engine.training_dataloader`` (a
+``ResumableDataLoader`` under ``data.resumable``) →
+``elasticity.ElasticTrainRunner(engine, save_dir, ...).run(loader,
+max_steps)``, with run supervision (``runtime/supervision``: watchdog,
+heartbeats, rollback) and telemetry (``telemetry``: spans, the metrics
+stream, trace export).
 """
 
 from __future__ import annotations
@@ -94,10 +101,10 @@ def init_inference(model=None, config=None, device=None, **kwargs):
 def initialize(args=None, model: ModelSpec = None, optimizer=None,
                model_parameters=None, training_data=None, lr_scheduler=None,
                config=None, config_params=None, device=None,
-               generator=None):
+               generator=None, collate_fn=None):
     """Build a :class:`DeepSpeedEngine` (reference
     ``deepspeed/__init__.py`` ``initialize``); returns ``(engine,
-    optimizer, None, lr_scheduler)``.
+    optimizer, training_dataloader, lr_scheduler)``.
 
     ``model`` is a ``ModelSpec`` (``runtime.model.from_gpt`` or
     ``from_bert``); ``config`` a DeepSpeed config dict or path, whose
@@ -105,8 +112,13 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
     ``model.params`` or ``model.init_fn(generator)`` (default: a
     generator on the device seeded with 0).  ``device=None`` runs on CUDA
     and raises when there is none; pass ``device="cpu"`` for the plain
-    PyTorch path.  The autotuner, the pipeline engine and the data loader
-    are not ported and raise ``NotImplementedError``."""
+    PyTorch path.  ``training_data`` (an indexable dataset) gives
+    ``engine.training_dataloader`` through ``engine.deepspeed_io`` (with
+    ``collate_fn``, default: numpy stacking): a ``ResumableDataLoader``
+    registered as the engine's data iterator under ``data.resumable``,
+    else a per-epoch ``DeepSpeedDataLoader``; it yields numpy batches.
+    The autotuner, the pipeline engine and ``model_parameters`` are not
+    ported and raise ``NotImplementedError``."""
     if config is None and args is not None and \
             getattr(args, "deepspeed_config", None) is not None:
         config = args.deepspeed_config
@@ -123,15 +135,15 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
     if model.meta.get("pipeline"):
         raise NotImplementedError("the pipeline engine is not ported yet "
                                   "(ROADMAP.md Queue 1)")
-    if training_data is not None or model_parameters is not None:
-        raise NotImplementedError("training_data and model_parameters are "
-                                  "not ported yet: pass batches to "
-                                  "forward/train_batch_fused and the "
-                                  "params through the ModelSpec")
+    if model_parameters is not None:
+        raise NotImplementedError("model_parameters is not ported: the "
+                                  "params come through the ModelSpec")
     engine = DeepSpeedEngine(model=model, config=config, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, device=device,
-                             generator=generator)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             generator=generator, training_data=training_data,
+                             collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, \
+        engine.lr_scheduler
 
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedInferenceConfig", "InferenceEngine",

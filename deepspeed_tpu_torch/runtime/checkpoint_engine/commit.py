@@ -131,6 +131,9 @@ class CommitContext:
     journal: Any = None          # EventJournal, duck-typed (.emit)
     heartbeat: Any = None        # HeartbeatMonitor, duck-typed (.check)
     channel: Any = None          # consensus channel, duck-typed (.agree_min)
+    tracer: Any = None           # telemetry Tracer, duck-typed (.span) —
+    #                              the commit barrier lands as a
+    #                              ``ckpt.commit`` span in the owner's trace
 
     @property
     def is_coordinator(self) -> bool:

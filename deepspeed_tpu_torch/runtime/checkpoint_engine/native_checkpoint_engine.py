@@ -192,6 +192,17 @@ def save_engine_checkpoint(save_dir: str, tag: str, state: Dict[str, Any],
                       json.dumps(client_state, default=str), config.retry)
 
     def publish():
+        # the commit protocol (barrier → manifest → marker → retention) is
+        # one ckpt.commit span in the owner's trace when a tracer rides
+        # the context
+        tracer = getattr(cctx, "tracer", None) if cctx is not None else None
+        if tracer is not None:
+            from ...telemetry.spans import SpanName
+            with tracer.span(SpanName.CKPT_COMMIT, tag=tag):
+                return _publish()
+        return _publish()
+
+    def _publish():
         # commit barrier first (every rank's shards must be voted whole),
         # then the manifest (it hashes every file of the tag, ready votes
         # included), then the commit marker, then the latest marker, then

@@ -6,9 +6,14 @@ the batch algebra ``_set_batch_related_parameters`` :954).  It reads the
 sections the training path runs: the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
 ``steps_per_print``, ``zero_optimization`` (stage 0 or 1),
-``sparse_attention`` (kept raw, as the JAX package keeps it) and
+``sparse_attention`` (kept raw, as the JAX package keeps it),
 ``checkpoint`` (the typed durability section,
-``checkpoint_engine/config.py``).  Any other top-level section raises
+``checkpoint_engine/config.py``), ``data`` (the resumable loader,
+``data_pipeline/config.py``), ``supervision`` (watchdog, heartbeats,
+rollback, ``supervision/config.py``), ``telemetry`` (spans and the metrics
+stream, ``telemetry/config.py``), ``elasticity`` (kept raw, read by the
+elastic runner's admission check) and ``wall_clock_breakdown``.  Any
+other top-level section raises
 :class:`DeepSpeedConfigError`: a config that asks for telemetry or another
 unported feature must not train silently without it.  HF-style ``"auto"``
 values resolve as in the JAX package, except that a fully automatic batch
@@ -26,7 +31,10 @@ import os
 from typing import Any, Dict, Union
 
 from . import constants as C
+from ..telemetry.config import DeepSpeedTelemetryConfig
 from .checkpoint_engine.config import DeepSpeedCheckpointConfig
+from .data_pipeline.config import DeepSpeedDataConfig
+from .supervision.config import DeepSpeedSupervisionConfig
 from .zero.config import ZERO_OPTIMIZATION, DeepSpeedZeroConfig
 
 
@@ -42,7 +50,8 @@ PORTED_SECTIONS = frozenset({
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
     C.GRADIENT_ACCUMULATION_STEPS, C.STEPS_PER_PRINT, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.OPTIMIZER, C.SCHEDULER,
-    C.SPARSE_ATTENTION, C.CHECKPOINT, ZERO_OPTIMIZATION})
+    C.SPARSE_ATTENTION, C.CHECKPOINT, ZERO_OPTIMIZATION, C.DATA,
+    C.SUPERVISION, C.TELEMETRY, C.ELASTICITY, C.WALL_CLOCK_BREAKDOWN})
 _FP16_KEYS = frozenset({C.FP16_ENABLED, C.FP16_AUTO_CAST, C.FP16_LOSS_SCALE,
                         C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
                         C.FP16_HYSTERESIS, C.FP16_MIN_LOSS_SCALE,
@@ -173,6 +182,31 @@ class DeepSpeedConfig:
         self.zero_enabled = self.zero_optimization_stage > 0
 
         self._initialize_checkpoint(pd.get(C.CHECKPOINT, {}))
+
+        # the run-loop sections (JAX runtime/config.py:258-286): typed, a
+        # bad value raises here, not in the middle of a run
+        self.wall_clock_breakdown = bool(pd.get(
+            C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT))
+        for attr, key, model in (
+                ("supervision_config", C.SUPERVISION,
+                 DeepSpeedSupervisionConfig),
+                ("data_config", C.DATA, DeepSpeedDataConfig),
+                ("telemetry_config", C.TELEMETRY, DeepSpeedTelemetryConfig)):
+            section = pd.get(key, {})
+            if not isinstance(section, dict):
+                raise DeepSpeedConfigError(f"'{key}' must be a dict")
+            try:
+                setattr(self, attr, model.from_dict(section))
+            except (TypeError, ValueError) as e:
+                raise DeepSpeedConfigError(
+                    f"invalid '{key}' section: {e}") from e
+        if self.telemetry_config.trace.enabled:
+            raise NotImplementedError(
+                "telemetry.trace: the JAX package's device profiler window "
+                "is not ported (use torch.profiler around the steps)")
+        self.elasticity_config_dict = pd.get(C.ELASTICITY, {})
+        if not isinstance(self.elasticity_config_dict, dict):
+            raise DeepSpeedConfigError(f"'{C.ELASTICITY}' must be a dict")
 
     def _initialize_checkpoint(self, ckpt_dict: Dict[str, Any]) -> None:
         """The ``checkpoint`` section (JAX ``runtime/config.py:243-256``):

@@ -43,15 +43,30 @@ with an int32 ``step``, and a load copies into the flat buffers in place,
 so the autograd leaves and the accumulator views keep training the loaded
 state.
 
-Left out (ROADMAP.md Queue 1): the data loader, PLD, curriculum,
-compression, telemetry, the monitor, the gradient-collapse modes, offload
-and ZeRO ≥ 2, and with them their checkpoint branches.
+The data loader (``deepspeed_io``, JAX ``engine.py:1347-1373``) yields
+numpy batches; a registered iterator (``set_data_iterator``) rides in
+every checkpoint's ``client_state["data_iterator"]`` and is restored by
+every load before it returns.  Telemetry (JAX ``engine.py:338-466``):
+``engine.tracer`` records ``train.step`` around a fused step, and inside
+it ``train.fwd`` (a micro-batch's loss), ``train.bwd`` (its backward and
+accumulation), ``train.optimizer`` (the boundary update) and
+``train.host_sync`` (the overflow read), plus ``ckpt.save``/``ckpt.load``
+and, through the commit context, ``ckpt.commit``; ``engine.metrics`` and
+its sampler stream ``metrics.jsonl``, and ``wall_clock_breakdown`` prints
+the ``time (ms) | ...`` line from the span aggregates.  Spans are off
+unless the config asks: then the step adds no device call.
+
+Left out (ROADMAP.md Queue 1): PLD, curriculum, compression, the
+monitor, the gradient-collapse modes (and their ``train.grad_sync`` and
+``comm.reduce`` spans), offload and ZeRO ≥ 2, and with them their
+checkpoint branches.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -61,7 +76,11 @@ from ..accelerator import get_accelerator
 from ..ops import adam as _adam  # noqa: F401 — registers adam/adamw/sgd
 from ..ops import lamb as _lamb  # noqa: F401 — registers lamb/fusedlamb
 from ..ops.optimizer import TpuOptimizer, get_optimizer_class
-from ..utils.logging import log_dist
+from ..telemetry.metrics import (MetricName, MetricsRegistry, MetricsSampler,
+                                 analytic_mfu, host_rss_bytes,
+                                 live_buffer_bytes, peak_flops_per_chip)
+from ..telemetry.spans import SpanName, Tracer
+from ..utils.logging import log_dist, logger
 from ..utils.timer import ThroughputTimer
 from . import loss_scaler as ls
 from .checkpoint_engine.async_checkpoint_engine import AsyncCheckpointEngine
@@ -70,6 +89,7 @@ from .checkpoint_engine.commit import (CollectiveConsensusChannel,
 from .checkpoint_engine.native_checkpoint_engine import (
     load_engine_checkpoint, save_engine_checkpoint)
 from .config import DeepSpeedConfig
+from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_lr_schedule_class
 from .model import ModelSpec
 from .utils import clip_coefficient, global_grad_norm
@@ -98,6 +118,16 @@ def _set(tree: dict, path: Path, value) -> None:
     tree[path[-1]] = value
 
 
+class HostSyncs(dict):
+    """Sanctioned device→host syncs by label (the JAX engine's
+    ``CompiledProgramRegistry.note_host_sync`` count); the tracer reports
+    its synced spans' barriers here, not to the engine, so the engine and
+    its buffers are freed when the last reference goes."""
+
+    def note_host_sync(self, label: str) -> None:
+        self[label] = self.get(label, 0) + 1
+
+
 class DeepSpeedEngine:
     """DeepSpeed-style training engine over flat parameter buffers."""
 
@@ -105,11 +135,16 @@ class DeepSpeedEngine:
                  config: Union[str, Dict, None] = None,
                  optimizer: Optional[TpuOptimizer] = None,
                  lr_scheduler=None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 training_data=None, collate_fn=None):
         assert model is not None, "deepspeed_tpu_torch.initialize requires a ModelSpec"
         self.device = get_accelerator().resolve_device(device)
         self._config = DeepSpeedConfig(config)
         self.module = model
+        self.collate_fn = collate_fn
+        #: the stateful iterator whose position rides in checkpoints
+        self.data_iterator = None
+        self.host_syncs = HostSyncs()
 
         # counters (reference engine.py attribute names)
         self.micro_steps = 0
@@ -138,6 +173,9 @@ class DeepSpeedEngine:
         # commit/consensus context: attached by the caller, else built at
         # the first save or load (_commit_context)
         self._commit_ctx: Optional[CommitContext] = None
+        self._configure_telemetry()
+        self.training_dataloader = self.deepspeed_io(training_data) \
+            if training_data is not None else None
         log_dist(f"DeepSpeedEngine configured: ZeRO stage "
                  f"{self.zero_optimization_stage()} on {self.device}; "
                  f"dtype={self.compute_dtype}, "
@@ -173,6 +211,9 @@ class DeepSpeedEngine:
     def steps_per_print(self) -> int:
         return self._config.steps_per_print
 
+    def wall_clock_breakdown(self) -> bool:
+        return self._config.wall_clock_breakdown
+
     @property
     def dp_world_size(self) -> int:
         return 1
@@ -197,6 +238,141 @@ class DeepSpeedEngine:
         (before clipping); read from the device when asked."""
         norm = self._last_global_norm
         return None if norm is None else float(norm)
+
+    def reset_loss_scale(self) -> None:
+        """Reinitialize the dynamic loss-scale state on the device (scale,
+        good-step counter, hysteresis; JAX ``engine.py:330-335``).  Used
+        by the supervision rollback policy: the carried scaler trajectory
+        belongs to the diverged run."""
+        self.state["scale"] = ls.init_state(self.scaler_config, self.device)
+
+    def note_host_sync(self, label: str) -> None:
+        """Count one sanctioned device→host sync (the step's overflow
+        read, a synced span's barrier)."""
+        self.host_syncs.note_host_sync(label)
+
+    # ------------------------------------------------------------------ telemetry
+    def _configure_telemetry(self) -> None:
+        """The tracer and the metrics stream from the ``telemetry``
+        section (JAX ``engine.py:338-392``).  ``wall_clock_breakdown``
+        alone also turns spans on: its log line is made from their
+        aggregates."""
+        tcfg = self._config.telemetry_config
+        spans_on = (tcfg.enabled and tcfg.spans.enabled) or \
+            self.wall_clock_breakdown()
+        self.tracer = Tracer(enabled=spans_on, capacity=tcfg.spans.capacity,
+                             synced=tcfg.spans.synced,
+                             sync_registry=self.host_syncs,
+                             name="engine", device=self.device)
+        self.metrics = MetricsRegistry("engine")
+        self._mem_interval_s = float(tcfg.metrics.memory_interval_s)
+        self._mem_cache = (0.0, 0, 0)  # (refreshed_at, rss, device bytes)
+        path = tcfg.metrics.path if (tcfg.enabled and tcfg.metrics.enabled) \
+            else None
+        self.metrics_sampler = MetricsSampler(
+            self.metrics, path, rank=self.global_rank,
+            interval_steps=tcfg.metrics.interval_steps)
+        if self.metrics_sampler.enabled:
+            self.metrics_sampler.attach_source(self._metrics_source)
+            self.metrics_sampler.start()
+        # online MFU: analytic FLOPs/token of a GPT, the card's peak from
+        # the config or the card table
+        self._flops_per_token = None
+        cfg = self.module.meta.get("config")
+        if "flops_per_token" in self.module.meta:
+            self._flops_per_token = float(self.module.meta["flops_per_token"])
+        elif cfg is not None and hasattr(cfg, "d_model"):
+            from ..models import gpt as _gpt
+            try:
+                self._flops_per_token = float(_gpt.flops_per_token(cfg))
+            except AttributeError:      # no GPT-shaped config: MFU 0
+                self._flops_per_token = None
+        if tcfg.metrics.peak_tflops is not None:
+            self._peak_flops = float(tcfg.metrics.peak_tflops) * 1e12
+        elif self.device.type == "cuda":
+            self._peak_flops = peak_flops_per_chip(
+                torch.cuda.get_device_name(self.device))
+        else:
+            self._peak_flops = None
+        self._step_t_last: Optional[float] = None
+        self._tokens_since_sample = 0
+        self._wall_since_sample = 0.0
+        self._breakdown_base: Dict[str, Any] = {}
+
+    def _metrics_source(self) -> Dict[str, Any]:
+        """Engine-owned gauges pulled at every sample; the memory census
+        refreshes at most once per ``metrics.memory_interval_s``."""
+        t_mem, rss, dev = self._mem_cache
+        now = time.monotonic()
+        if t_mem == 0.0 or now - t_mem >= self._mem_interval_s:
+            rss, dev = host_rss_bytes(), live_buffer_bytes(self.device)
+            self._mem_cache = (now, rss, dev)
+        return {
+            MetricName.STEPS: self.global_steps,
+            MetricName.SKIPPED_STEPS: self.skipped_steps,
+            MetricName.HOST_RSS_BYTES: rss,
+            MetricName.HBM_LIVE_BYTES: dev,
+            MetricName.HOST_SYNCS: sum(self.host_syncs.values()),
+        }
+
+    def _count_batch_tokens(self, batch) -> None:
+        """Trained tokens for the throughput gauges (GPT-style batches:
+        rows × (seq − 1) next-token targets; other batches count rows)."""
+        if not self.metrics_sampler.enabled:
+            return
+        toks = batch.get("tokens") if isinstance(batch, dict) else None
+        shape = tuple(toks.shape) if toks is not None else None
+        if shape and len(shape) >= 2:
+            self._tokens_since_sample += int(np.prod(shape[:-1])) \
+                * max(1, shape[-1] - 1)
+        elif shape:
+            self._tokens_since_sample += int(shape[0])
+
+    def _note_step_telemetry(self) -> None:
+        """Boundary-step bookkeeping (JAX ``engine.py:420-450``): the
+        step-time histogram, and at the sample cadence tokens/s, online
+        MFU and memory streamed to metrics.jsonl; the
+        ``wall_clock_breakdown`` line every ``steps_per_print`` steps."""
+        now = time.monotonic()
+        if self._step_t_last is not None:
+            dt = now - self._step_t_last
+            self._wall_since_sample += dt
+            if self.metrics_sampler.enabled:
+                self.metrics.histogram(MetricName.STEP_TIME_S).observe(dt)
+        self._step_t_last = now
+        if self.metrics_sampler.should_sample(self.global_steps):
+            if self._wall_since_sample > 0:
+                tok_s = self._tokens_since_sample / self._wall_since_sample
+                self.metrics.gauge(MetricName.TOKENS_PER_S).set(tok_s)
+                if self._flops_per_token:
+                    m = analytic_mfu(tok_s, self._flops_per_token,
+                                     self._peak_flops,
+                                     n_chips=self.dp_world_size)
+                    self.metrics.gauge(MetricName.MFU).set(m["mfu"])
+                    self.metrics.gauge(MetricName.TFLOPS).set(m["tflops"])
+            self.metrics_sampler.sample(step=self.global_steps)
+            self._tokens_since_sample = 0
+            self._wall_since_sample = 0.0
+        if self.wall_clock_breakdown() and \
+                self.global_steps % self.steps_per_print() == 0:
+            self._log_breakdown()
+
+    def _log_breakdown(self) -> None:
+        """The ``wall_clock_breakdown`` line, from span aggregates: mean ms
+        per span name since the previous line."""
+        agg = self.tracer.aggregates()
+        parts = []
+        for name, cur in agg.items():
+            base = self._breakdown_base.get(name, {"count": 0,
+                                                   "total_s": 0.0})
+            dc = cur["count"] - base["count"]
+            if dc <= 0:
+                continue
+            dt_ms = (cur["total_s"] - base["total_s"]) * 1e3 / dc
+            parts.append(f"{name}: {dt_ms:.2f}")
+        self._breakdown_base = agg
+        if parts:
+            log_dist("time (ms) | " + " | ".join(parts), ranks=[0])
 
     # ------------------------------------------------------------------ setup
     def _configure_optimizer(self, client_optimizer) -> None:
@@ -287,6 +463,36 @@ class DeepSpeedEngine:
         return tree, views
 
     # ------------------------------------------------------------------ data
+    def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
+        """A loader over ``dataset`` at the global batch (JAX
+        ``engine.py:1347-1366``): with ``data.resumable`` a
+        :class:`ResumableDataLoader`, registered as the engine's data
+        iterator under ``data.checkpoint_iterator``; else the per-epoch
+        :class:`DeepSpeedDataLoader`.  Both yield numpy batches."""
+        bs = batch_size or \
+            self.train_micro_batch_size_per_gpu() * self.dp_world_size
+        cf = collate_fn or self.collate_fn
+        dc = self._config.data_config
+        if dc.resumable:
+            from .data_pipeline.resumable import ResumableDataLoader
+            loader = ResumableDataLoader(
+                dataset, batch_size=bs, collate_fn=cf, shuffle=dc.shuffle,
+                seed=dc.seed, drop_last=dc.drop_last,
+                max_epochs=dc.max_epochs,
+                max_bad_records=dc.max_bad_records,
+                journal_batches=dc.journal_batches)
+            if dc.checkpoint_iterator:
+                self.set_data_iterator(loader)
+            return loader
+        return DeepSpeedDataLoader(dataset, batch_size=bs, collate_fn=cf)
+
+    def set_data_iterator(self, iterator) -> None:
+        """Register a stateful data iterator (``state_dict``/
+        ``load_state_dict``): its position is saved in every checkpoint
+        and restored by every load, so a resume lands on the exact next
+        batch."""
+        self.data_iterator = iterator
+
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         def put(x):
             t = torch.as_tensor(np.asarray(x)) if not torch.is_tensor(x) else x
@@ -300,13 +506,16 @@ class DeepSpeedEngine:
         """One micro-batch: the loss, its backward, and the accumulation of
         the gradient of loss·scale/gas into the fp32 buffer."""
         scale = self.state["scale"]["loss_scale"]
-        loss = self.module.loss_fn(self._train_params, batch)
-        scaled = loss * scale / self.gradient_accumulation_steps()
-        grads = torch.autograd.grad(scaled, self._leaves, allow_unused=True)
-        with torch.no_grad():
-            for acc, g in zip(self._acc_views, grads):
-                if g is not None:
-                    acc.add_(g)
+        with self.tracer.span(SpanName.TRAIN_FWD):
+            loss = self.module.loss_fn(self._train_params, batch)
+            scaled = loss * scale / self.gradient_accumulation_steps()
+        with self.tracer.span(SpanName.TRAIN_BWD):
+            grads = torch.autograd.grad(scaled, self._leaves,
+                                        allow_unused=True)
+            with torch.no_grad():
+                for acc, g in zip(self._acc_views, grads):
+                    if g is not None:
+                        acc.add_(g)
         return loss.detach()
 
     def forward(self, batch, **kwargs):
@@ -317,6 +526,7 @@ class DeepSpeedEngine:
             self._pending = loss
             return loss
         self.tput_timer.start()
+        self._count_batch_tokens(batch)
         loss = self._micro(self._to_device(batch))
         self._pending = loss
         return loss
@@ -337,16 +547,30 @@ class DeepSpeedEngine:
     def step(self, lr_kwargs=None) -> None:
         """Apply the optimizer at the gas boundary; otherwise just count."""
         boundary = self.is_gradient_accumulation_boundary()
-        overflow = self._apply_step() if boundary else False
+        overflow = self._boundary_update() if boundary else False
         self.tput_timer.stop(global_step=boundary)
         self.micro_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu() * self.dp_world_size
         if boundary:
             self._finish_model_step(overflow, lr_kwargs)
 
-    def _apply_step(self) -> bool:
+    def _boundary_update(self) -> bool:
+        """The boundary update (``train.optimizer``), then the one read of
+        its overflow flag (``train.host_sync``); returns the flag."""
+        with self.tracer.span(SpanName.TRAIN_OPTIMIZER):
+            overflow = self._apply_step()
+        self.note_host_sync("step.overflow")
+        with self.tracer.span(SpanName.TRAIN_HOST_SYNC,
+                              label="step.overflow"):
+            # the step/skip decision is host control flow: one scalar read
+            overflow_host = bool(overflow)
+        if not overflow_host:
+            self.state["opt_state"]["step"] += 1
+        return overflow_host
+
+    def _apply_step(self) -> torch.Tensor:
         """The boundary update on the device (module docstring); returns
-        the overflow flag, read from the device once."""
+        the overflow flag on the device."""
         acc = self._flat["grad_acc"]
         scale = self.state["scale"]["loss_scale"]
         norm = global_grad_norm(acc) / scale
@@ -368,11 +592,7 @@ class DeepSpeedEngine:
         self.state["scale"] = ls.update_state(self.state["scale"], overflow,
                                               self.scaler_config)
         self._last_global_norm = norm
-        # the step/skip decision is host control flow: one scalar read
-        overflow_host = bool(overflow)
-        if not overflow_host:
-            self.state["opt_state"]["step"] += 1
-        return overflow_host
+        return overflow
 
     def _finish_model_step(self, overflow: bool, lr_kwargs=None) -> None:
         """Post-step bookkeeping: counters, scheduler, periodic log."""
@@ -386,18 +606,25 @@ class DeepSpeedEngine:
         if self.global_steps % self.steps_per_print() == 0:
             log_dist(f"step={self.global_steps}, skipped={self.skipped_steps}, "
                      f"lr={self.get_lr()}, loss_scale={self.cur_scale}", ranks=[0])
+        self._note_step_telemetry()
 
     def train_batch_fused(self, batches):
         """A whole train batch ([gas × micro, ...] on dim 0): the gas
         micro-steps and the boundary step, eagerly; the same result as
         forward/backward/step.  Returns the mean micro-batch loss."""
+        with self.tracer.span(SpanName.TRAIN_STEP,
+                              step=self.global_steps + 1):
+            return self._train_batch_fused_inner(batches)
+
+    def _train_batch_fused_inner(self, batches):
         gas = self.gradient_accumulation_steps()
+        self._count_batch_tokens(batches)
         batches = {k: v.reshape((gas, -1) + tuple(v.shape[1:]))
                    for k, v in self._to_device(batches).items()}
         self.tput_timer.start()
         losses = [self._micro({k: v[i] for k, v in batches.items()})
                   for i in range(gas)]
-        overflow = self._apply_step()
+        overflow = self._boundary_update()
         self.tput_timer.stop(global_step=True)
         self.micro_steps += gas
         self.global_samples += self.train_batch_size()
@@ -422,7 +649,10 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ checkpoint
     def set_commit_context(self, ctx: Optional[CommitContext]) -> None:
         """Attach a :class:`~.checkpoint_engine.commit.CommitContext`
-        (journal, heartbeat monitor) for the saves' two-phase commit."""
+        (journal, heartbeat monitor) for the saves' two-phase commit; its
+        ``ckpt.commit`` spans land in this engine's tracer."""
+        if ctx is not None and getattr(ctx, "tracer", None) is None:
+            ctx.tracer = self.tracer
         self._commit_ctx = ctx
 
     def _commit_context(self) -> Optional[CommitContext]:
@@ -438,7 +668,7 @@ class DeepSpeedEngine:
             self._commit_ctx = CommitContext(
                 world_size=world, rank=self.global_rank, config=cfg,
                 channel=CollectiveConsensusChannel(world_size=world)
-                if world > 1 else None)
+                if world > 1 else None, tracer=self.tracer)
         return self._commit_ctx
 
     def _checkpoint_state(self) -> Dict[str, Any]:
@@ -465,6 +695,12 @@ class DeepSpeedEngine:
         with ``async_save`` the files are written in the background from a
         host copy taken before this returns."""
         tag = tag or f"global_step{self.global_steps}"
+        with self.tracer.span(SpanName.CKPT_SAVE, tag=tag):
+            return self._save_checkpoint_inner(save_dir, tag, client_state,
+                                               save_latest)
+
+    def _save_checkpoint_inner(self, save_dir, tag, client_state,
+                               save_latest) -> bool:
         client_state = dict(client_state or {})
         client_state.update({
             "micro_steps": self.micro_steps,
@@ -475,6 +711,9 @@ class DeepSpeedEngine:
         if self._lr_scheduler is not None:
             client_state["lr_scheduler"] = self._lr_scheduler.state_dict()
         client_state["optimizer_param_groups"] = self.optimizer.param_groups
+        if self.data_iterator is not None and \
+                hasattr(self.data_iterator, "state_dict"):
+            client_state["data_iterator"] = self.data_iterator.state_dict()
         save_engine_checkpoint(save_dir, tag, self._checkpoint_state(),
                                client_state,
                                separate_master=self._separate_master,
@@ -515,7 +754,22 @@ class DeepSpeedEngine:
         """Load ``tag`` (default: ``latest``, falling back past corrupt
         tags to the newest that verifies) into the engine's buffers in
         place; returns ``(load_dir, client_state)``, or ``(None, {})``
-        when nothing was loaded."""
+        when nothing was loaded.  A registered data iterator is restored
+        before this returns."""
+        with self.tracer.span(SpanName.CKPT_LOAD, tag=tag or ""):
+            return self._load_checkpoint_inner(
+                load_dir, tag, load_optimizer_states,
+                load_lr_scheduler_states, load_module_only)
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until every async save's bytes have landed and its tag is
+        published (re-raises a background write failure); a no-op for
+        sync saves."""
+        if self._checkpoint_engine is not None:
+            self._checkpoint_engine.wait()
+
+    def _load_checkpoint_inner(self, load_dir, tag, load_optimizer_states,
+                               load_lr_scheduler_states, load_module_only):
         if self._checkpoint_engine is not None:
             # never read our own in-flight async writes (also re-raises a
             # background write failure here instead of losing it)
@@ -552,4 +806,16 @@ class DeepSpeedEngine:
                     f"{len(self.optimizer.param_groups)}; keeping the "
                     "constructed groups (hyperparams from the checkpoint "
                     "are NOT restored)", ranks=[0], level=logging.WARNING)
+        if self.data_iterator is not None and \
+                hasattr(self.data_iterator, "load_state_dict") and \
+                "data_iterator" in client_state:
+            try:
+                self.data_iterator.load_state_dict(
+                    client_state["data_iterator"])
+            except ValueError as e:
+                # geometry changed between save and load: the saved position
+                # no longer names the same batches — keep the live position
+                # and say so
+                logger.warning(
+                    f"data iterator state in checkpoint NOT restored: {e}")
         return load_dir, client_state

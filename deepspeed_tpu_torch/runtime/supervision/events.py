@@ -1,13 +1,14 @@
 """The run's event journal: one JSON object per line, append-only.
 
 The port of the JAX package's ``runtime/supervision/events.py`` (its
-``EventKind``, ``EventJournal`` and ``read_events``): the schema the
-checkpoint commit protocol journals in — commits, barrier timeouts, torn
-tags swept, resume consensus.  JSONL because partial final lines from a
-killed process must not poison the rest of the file: :func:`read_events`
-skips torn trailing records instead of raising.  The rest of the JAX
-package's supervision layer (watchdog, heartbeats, rollback) is not
-ported yet (ROADMAP.md Queue 1).
+``EventKind``, ``EventJournal`` and ``read_events``), with the JAX
+package's kind strings and fields: everything the run supervision decides
+or observes lands here — rollbacks, watchdog expiries, preemption
+signals, heartbeat gaps, data quarantines, checkpoint commits — so a
+post-mortem can reconstruct why a run restarted, and a journal written
+by either package reads the same.  JSONL because partial final lines from
+a killed process must not poison the rest of the file:
+:func:`read_events` skips torn trailing records instead of raising.
 
 Schema (every record):
 
@@ -32,14 +33,31 @@ from ...utils.logging import logger
 
 class EventKind:
     """The journal event kinds the port emits, with the JAX package's
-    strings: the checkpoint protocol's, and the two the lock watchdog
-    emits as literals."""
+    strings: the run supervision's, the data loader's, the checkpoint
+    protocol's, the telemetry's and the lock watchdog's."""
 
+    ROLLBACK = "rollback"
+    ROLLBACK_RECOVERED = "rollback.recovered"
+    DIVERGENCE_ABORT = "divergence.abort"
+    WATCHDOG_EXPIRED = "watchdog.expired"
+    PREEMPT_SIGNAL = "preempt.signal"
+    HEARTBEAT_GAP = "heartbeat.gap"
+    HEARTBEAT_RECOVERED = "heartbeat.recovered"
+    HEARTBEAT_SLOW = "heartbeat.slow"
+    DATA_QUARANTINE = "data.quarantine"
+    DATA_QUARANTINE_SKIP = "data.quarantine.skip"
+    DATA_BAD_RECORD = "data.bad_record"
+    DATA_BAD_RECORD_ABORT = "data.bad_record.abort"
+    DATA_ITERATOR_RESTORE = "data.iterator_restore"
+    DATA_BATCH = "data.batch"
     CKPT_COMMITTED = "ckpt.committed"
     CKPT_COMMIT_TIMEOUT = "ckpt.commit_timeout"
     CKPT_RESUME_CONSENSUS = "ckpt.resume_consensus"
     CKPT_CONSENSUS_FAILURE = "ckpt.consensus_failure"
     CKPT_TORN_TAG = "ckpt.torn_tag"
+    CKPT_PREEMPT_SAVE = "ckpt.preempt_save"
+    CKPT_PREEMPT_SAVE_TIMEOUT = "ckpt.preempt_save_timeout"
+    TRACE_EXPORT = "trace.export"
     CONCURRENCY_LOCK_CYCLE = "concurrency.lock_cycle"
     CONCURRENCY_CONTENTION = "concurrency.contention"
 

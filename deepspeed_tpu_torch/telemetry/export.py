@@ -1,0 +1,140 @@
+"""Trace export: collected spans → Chrome/Perfetto ``trace_event`` JSON —
+the port of the JAX package's ``telemetry/export.py`` (its
+``trace_events``, ``write_trace`` and ``validate_trace``).
+
+The exported object follows the Trace Event Format's JSON-object form
+(``{"traceEvents": [...], "displayTimeUnit": "ms"}``) using complete
+(``"ph": "X"``) events — one per finished span, microsecond ``ts``/``dur``
+on the span's thread track, nesting reconstructed by the viewer from
+ts/dur alone.  Load it at ``ui.perfetto.dev`` or ``chrome://tracing``.
+:func:`validate_trace` is the schema check (required keys, integer
+microsecond ts/dur, registered span names).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+from ..runtime.supervision.events import EventKind
+from .spans import SPAN_NAMES, Tracer
+
+__all__ = ["trace_events", "write_trace", "validate_trace"]
+
+
+def trace_events(tracers: Union[Tracer, Sequence[Tracer]],
+                 pid: int = 0) -> Dict[str, Any]:
+    """Render one or more tracers' spans as a trace-event JSON object.
+
+    Each tracer becomes one ``pid`` (``pid`` + its index) labelled with
+    the tracer's name, so several owners land as process tracks in one
+    timeline; threads map to ``tid`` with a ``thread_name`` metadata event
+    per distinct thread.
+    """
+    if isinstance(tracers, Tracer):
+        tracers = [tracers]
+    events: List[Dict[str, Any]] = []
+    for i, tracer in enumerate(tracers):
+        p = pid + i
+        events.append({
+            "name": "process_name", "ph": "M", "pid": p, "tid": 0,
+            "args": {"name": tracer.name},
+        })
+        seen_threads = {}
+        for rec in tracer.spans():
+            if rec.tid not in seen_threads:
+                seen_threads[rec.tid] = rec.thread
+                events.append({
+                    "name": "thread_name", "ph": "M", "pid": p,
+                    "tid": rec.tid, "args": {"name": rec.thread},
+                })
+            ev: Dict[str, Any] = {
+                "name": rec.name,
+                "cat": rec.name.split(".", 1)[0],
+                "ph": "X",
+                "ts": int(rec.t0 * 1e6),
+                "dur": max(1, int(rec.dur * 1e6)),
+                "pid": p,
+                "tid": rec.tid,
+            }
+            if rec.args:
+                ev["args"] = dict(rec.args)
+            events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def write_trace(path: str, tracers: Union[Tracer, Sequence[Tracer]],
+                journal=None,
+                extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Export ``tracers`` to ``path`` (atomic tmp+replace) and return the
+    object written; journals a ``trace.export`` event when given a
+    journal.
+
+    ``extra`` merges additional top-level keys into the object (legal in
+    the Trace Event Format's JSON-object form and ignored by
+    :func:`validate_trace`).
+    """
+    obj = trace_events(tracers)
+    if extra:
+        obj.update(extra)
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+        f.write("\n")
+    os.replace(tmp, path)
+    if journal is not None:
+        spans = [e for e in obj["traceEvents"] if e.get("ph") == "X"]
+        journal.emit(EventKind.TRACE_EXPORT, path=path, spans=len(spans))
+    return obj
+
+
+def validate_trace(obj: Any,
+                   require_registered_names: bool = True) -> List[str]:
+    """Schema problems with a trace-event object (empty list = valid).
+
+    Checks the JSON-object form: a ``traceEvents`` list whose ``"X"``
+    events carry string names, integer microsecond ``ts``/``dur >= 1``,
+    and integer pid/tid; with ``require_registered_names`` every complete
+    event's name must be a registered :data:`SPAN_NAMES` member (metadata
+    events are exempt)."""
+    problems: List[str] = []
+    if not isinstance(obj, dict):
+        return [f"trace must be a JSON object, got {type(obj).__name__}"]
+    events = obj.get("traceEvents")
+    if not isinstance(events, list):
+        return ["trace object has no 'traceEvents' list"]
+    n_complete = 0
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            problems.append(f"traceEvents[{i}] is not an object")
+            continue
+        ph = ev.get("ph")
+        if ph == "M":
+            continue
+        if ph != "X":
+            problems.append(f"traceEvents[{i}]: unsupported ph {ph!r} "
+                            "(complete 'X' and metadata 'M' only)")
+            continue
+        n_complete += 1
+        name = ev.get("name")
+        if not isinstance(name, str) or not name:
+            problems.append(f"traceEvents[{i}]: missing span name")
+        elif require_registered_names and name not in SPAN_NAMES:
+            problems.append(
+                f"traceEvents[{i}]: span name '{name}' is not registered "
+                "in SpanName")
+        for key in ("ts", "dur", "pid", "tid"):
+            v = ev.get(key)
+            if not isinstance(v, int):
+                problems.append(
+                    f"traceEvents[{i}]: '{key}' must be an integer "
+                    f"(microseconds for ts/dur), got {v!r}")
+        if isinstance(ev.get("dur"), int) and ev["dur"] < 1:
+            problems.append(f"traceEvents[{i}]: dur must be >= 1 us")
+    if n_complete == 0:
+        problems.append("trace holds no complete ('X') span events")
+    return problems

@@ -27,13 +27,23 @@ Points wired in the port (the JAX package's names and contexts):
                           barrier; raising models a coordinator fault)
 ``ckpt.publish_commit``   just before ``commit.json`` is written — after
                           every rank voted ready; ctx: ``tag``
+``train.step_begin``      the elastic runner, before each step's train call,
+                          inside the step watchdog's guard; ctx: ``step``
+                          (``HangFor`` models a hung step)
+``train.loss``            after each step, with the loss in a mutable
+                          ``box``; ctx: ``step``, ``box``
+                          (``NaNLossWindow`` poisons a window)
+``train.step``            after each step's divergence check, before the
+                          periodic save; ctx: ``step`` (``SignalAtStep``
+                          models the preemption notice)
+``supervision.heartbeat`` each heartbeat write; ctx: ``path``, ``rank``
+``data.next``             the resumable loader, before a batch's samples
+                          are read; ctx: ``step``, ``epoch``
+``data.collate``          before a batch is collated; ctx: ``step``,
+                          ``indices`` (``BadRecord`` models a bad sample)
 ========================  =====================================================
 
-The step-driven faults (``SignalAtStep``, ``KillAtStep``, ``ExitAtStep``,
-``NaNLossWindow``, ``BadRecord``) are kept for the train-loop and data
-points the JAX package also wires; those points wait for the port's
-supervision layer and data loader (ROADMAP.md Queue 1).  The subprocess
-fault plans (``DS_FAULT_PLAN``) are not ported.
+The subprocess fault plans (``DS_FAULT_PLAN``) are not ported.
 """
 
 from __future__ import annotations
@@ -56,6 +66,12 @@ FAULT_POINTS = frozenset({
     "ckpt.rank_write",
     "ckpt.commit_barrier",
     "ckpt.publish_commit",
+    "train.step",
+    "train.step_begin",
+    "train.loss",
+    "supervision.heartbeat",
+    "data.next",
+    "data.collate",
 })
 
 # points with faults installed; guarded by _lock for install/clear, read

@@ -45,6 +45,18 @@ class LockName:
     """Single source of truth for every tracked lock name: register a new
     name here and give it its rank in :data:`LOCK_ORDER`."""
 
+    #: MetricsSampler emit path (holds registry + journal below it)
+    TELEMETRY_SAMPLER = "telemetry.sampler"
+    #: MetricsRegistry name → instrument table
+    TELEMETRY_REGISTRY = "telemetry.registry"
+    #: one Counter/Gauge/Histogram instance (all instances share the rank)
+    TELEMETRY_METRIC = "telemetry.metric"
+    #: Tracer record/aggregate state
+    TELEMETRY_SPANS = "telemetry.spans"
+    #: StepWatchdog arm/disarm condition
+    SUPERVISION_WATCHDOG = "supervision.watchdog"
+    #: HeartbeatWriter step/beat counters
+    SUPERVISION_HEARTBEAT = "supervision.heartbeat"
     #: AsyncCheckpointEngine pending-future chain
     CKPT_ASYNC_PENDING = "ckpt.async_pending"
     #: fault_injection install/clear table
@@ -63,6 +75,12 @@ LOCK_NAMES = frozenset(
 #: may only acquire locks strictly later in this tuple (same-name
 #: instances share a rank and are never acquired nested).
 LOCK_ORDER: Tuple[str, ...] = (
+    LockName.TELEMETRY_SAMPLER,
+    LockName.TELEMETRY_REGISTRY,
+    LockName.TELEMETRY_METRIC,
+    LockName.TELEMETRY_SPANS,
+    LockName.SUPERVISION_WATCHDOG,
+    LockName.SUPERVISION_HEARTBEAT,
     LockName.CKPT_ASYNC_PENDING,
     LockName.FAULTS_INSTALL,
     LockName.JOURNAL_EMIT,

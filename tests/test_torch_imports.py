@@ -42,8 +42,11 @@ def test_every_module_imports_without_jax():
     # and its diffusers unet/vae, module_inject and its policies), 14 of
     # checkpointing (runtime/checkpoint_engine and its seven modules,
     # runtime/supervision and its events, utils/{jsonl, lock_watch,
-    # fault_injection, zero_to_fp32})
-    assert int(res.stdout.strip().splitlines()[-1]) >= 72
+    # fault_injection, zero_to_fp32}), 18 of the preemptible run
+    # (runtime/dataloader, runtime/data_pipeline and its two modules,
+    # runtime/supervision/{config, heartbeat, supervisor, watchdog},
+    # telemetry and its four modules, elasticity and its four modules)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 90
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -80,6 +83,30 @@ def test_checkpoint_modules_are_importable():
     assert EventKind.CKPT_COMMITTED == "ckpt.committed"
     assert "ckpt.publish_commit" in fault_injection.FAULT_POINTS
     assert callable(zero_to_fp32.main)
+
+
+def test_run_loop_modules_are_importable():
+    from deepspeed_tpu_torch.elasticity import (ElasticTrainRunner,
+                                                compute_elastic_config)
+    from deepspeed_tpu_torch.runtime.data_pipeline import (
+        STATE_VERSION, DeepSpeedDataConfig, ResumableDataLoader)
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+    from deepspeed_tpu_torch.runtime.supervision import (
+        HeartbeatWriter, RunSupervisor, StepWatchdog, comm_guard)
+    from deepspeed_tpu_torch.telemetry import (SPAN_NAMES, MetricsSampler,
+                                               Tracer, validate_trace)
+    from deepspeed_tpu_torch.utils import fault_injection
+    assert STATE_VERSION == 1 and callable(compute_elastic_config)
+    assert {"train.step", "train.fwd", "train.bwd", "train.optimizer",
+            "train.host_sync", "ckpt.save", "ckpt.load",
+            "ckpt.commit"} <= SPAN_NAMES
+    assert {"train.step_begin", "train.loss", "train.step", "data.next",
+            "data.collate"} <= fault_injection.FAULT_POINTS
+    for cls in (ElasticTrainRunner, DeepSpeedDataConfig, ResumableDataLoader,
+                DeepSpeedDataLoader, HeartbeatWriter, RunSupervisor,
+                StepWatchdog, MetricsSampler, Tracer):
+        assert cls.__module__.startswith("deepspeed_tpu_torch.")
+    assert callable(comm_guard) and callable(validate_trace)
 
 
 def test_diffusion_modules_are_importable():
@@ -160,6 +187,9 @@ def test_initialize_without_cuda_raises(monkeypatch):
         deepspeed_tpu_torch.initialize(model=from_bert(bcfg), config=config)
     with pytest.raises(TypeError, match="from_bert"):
         deepspeed_tpu_torch.initialize(model=bcfg, config=config)
+    with pytest.raises(NotImplementedError, match="model_parameters"):
+        deepspeed_tpu_torch.initialize(model=from_gpt(cfg), device="cpu",
+                                       config=config, model_parameters=[])
     with pytest.raises(NotImplementedError, match="autotuner"):
         deepspeed_tpu_torch.initialize(
             model=from_gpt(cfg), device="cpu",

@@ -110,8 +110,8 @@ def test_sparse_attention_section_kept_raw_like_jax(section):
 
 
 @pytest.mark.parametrize("d,exc,match", [
-    ({"train_batch_size": 8, "supervision": {}}, DeepSpeedConfigError,
-     "not ported"),
+    ({"train_batch_size": 8, "progressive_layer_drop": {}},
+     DeepSpeedConfigError, "not ported"),
     ({"train_batch_size": 8, "fp16": {"enabled": True, "loss_scal": 1}},
      DeepSpeedConfigError, "unknown keys"),
     ({"train_batch_size": 8, "zero_optimization": {"stage": 2}},
@@ -168,7 +168,66 @@ def test_universal_checkpoint_raises(key):
 def test_unknown_section_still_raises_beside_checkpoint():
     with pytest.raises(DeepSpeedConfigError, match="not ported"):
         DeepSpeedConfig({"train_batch_size": 8, "checkpoint": {},
-                         "telemetry": {}})
+                         "telemetry": {}, "flops_profiler": {}})
+
+
+RUN_LOOP_SECTIONS = [
+    {},
+    {"data": {"resumable": True, "shuffle": True, "seed": 1234,
+              "max_bad_records": 2, "journal_batches": True},
+     "supervision": {"step_deadline_s": 30.0, "preempt_save_deadline_s": 60,
+                     "heartbeat": {"enabled": True, "interval_s": 1.0,
+                                   "gap_s": 5.0},
+                     "rollback": {"max_rollbacks": 3, "lr_factor": 0.5,
+                                  "skip_batches": 1}},
+     "telemetry": {"enabled": True,
+                   "spans": {"capacity": 128, "synced": True},
+                   "metrics": {"path": "m.jsonl", "interval_steps": 2,
+                               "peak_tflops": 100.0}},
+     "elasticity": {"enabled": True, "micro_batch_sizes": [2, 4]},
+     "wall_clock_breakdown": True},
+]
+
+
+@pytest.mark.parametrize("extra", RUN_LOOP_SECTIONS,
+                         ids=["defaults", "every_section"])
+def test_run_loop_sections_parse_like_jax(extra):
+    """The ``data``, ``supervision``, ``telemetry``, ``elasticity`` and
+    ``wall_clock_breakdown`` sections are ported (JAX ``runtime/config.py:
+    177, 258-286, 336``): the typed configs as the JAX package reads
+    them, the elasticity section kept raw."""
+    d = {"train_batch_size": 8, **extra}
+    want = JConfig(d, mesh_manager=make_mesh(dp=8))
+    got = DeepSpeedConfig(d, world_size=8)
+
+    def fields(d):     # the JAX models carry a `_deprecated_fields` field
+        return {k: fields(v) if isinstance(v, dict) else v
+                for k, v in d.items() if k != "_deprecated_fields"}
+
+    for name in ("data_config", "supervision_config", "telemetry_config"):
+        assert getattr(got, name).to_dict() == \
+            fields(getattr(want, name).to_dict()), name
+    assert got.elasticity_config_dict == want.elasticity_config_dict
+    assert got.wall_clock_breakdown == want.wall_clock_breakdown
+
+
+@pytest.mark.parametrize("d,exc,match", [
+    ({"data": {"max_bad_records": -1}}, DeepSpeedConfigError,
+     "invalid 'data' section"),
+    ({"supervision": {"rollback": {"lr_factor": 0.0}}},
+     DeepSpeedConfigError, "invalid 'supervision' section"),
+    ({"telemetry": {"metrics": {"interval_steps": 0}}},
+     DeepSpeedConfigError, "invalid 'telemetry' section"),
+    ({"telemetry": {"spans": {"capacty": 1}}}, DeepSpeedConfigError,
+     "unknown config keys"),
+    ({"telemetry": {"trace": {"enabled": True}}}, NotImplementedError,
+     "torch.profiler"),
+    ({"elasticity": [1]}, DeepSpeedConfigError, "must be a dict"),
+], ids=["data", "supervision", "telemetry", "telemetry_typo", "trace",
+        "elasticity"])
+def test_run_loop_section_errors(d, exc, match):
+    with pytest.raises(exc, match=match):
+        DeepSpeedConfig({"train_batch_size": 8, **d})
 
 
 SCHEDULES = {
