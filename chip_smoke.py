@@ -116,6 +116,27 @@ imports JAX.  In order it
    fp32 host forward and each greedy request against a rerun alone;
    profiles a short ``generate`` (kernel time on the card against the
    host's wall time);
+4b. with every launch count at 0, drives the serving front end with
+   the same engine: ``engine.serve`` (8 slots, chunk 64, eos 50256, a
+   pool of 4 shared prefixes, a journal) takes 32 requests at once from
+   one thread (prompts of 16-512 tokens, budgets of 16-64; 8 over one
+   128-token system prompt; 4 sampled, two with one seed and one prompt,
+   whose replies must be equal; 1 cancelled mid-decode; 1 whose deadline
+   passes while it is queued); reports TTFT p50/p99, tokens/s, slot
+   occupancy and queue depth from ``ServingMetrics``; holds 6 greedy
+   replies (2 over the system prompt) bitwise against the same request
+   alone through the gateway and against the request alone through
+   ``start_session`` + ``append`` (+ ``fork`` of a system-prompt session)
+   + ``generate``, where bf16 sums in other orders at other shapes, so a
+   reply may part from its session only where the session's top-2 margin
+   is below ``TIE_TOL``; checks the journal (32 ``serve.request``,
+   ``serve.done`` + ``serve.cancel`` + ``serve.timeout`` = 32), that no
+   handle is pending, that forks leave their parent's reply unchanged and
+   that ``decode_attn``, ``chunk_attn`` and ``flash_fwd`` ran under
+   ``torch.profiler`` (a pooled-prefix request alone through the gateway
+   and a session's prefill, two tokens each); then 8 requests through an engine with an int8 KV
+   cache on the same weights, held the same way against int8 sessions
+   (which append in the gateway's chunks);
 5. the same for int8 serving (``dtype="int8"``, ``kv_cache_dtype="int8"``:
    int8 weights and KV cache, bf16 compute), counts at 0 before the
    engine is built: parameter and KV bytes per token against the bf16
@@ -312,12 +333,13 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     async_checkpoint_engine, native_checkpoint_engine, verify_tag)
 from deepspeed_tpu_torch.runtime.data_pipeline import ResumableDataLoader
 from deepspeed_tpu_torch.runtime.model import from_bert, from_gpt
-from deepspeed_tpu_torch.runtime.supervision import read_events
+from deepspeed_tpu_torch.runtime.supervision import EventJournal, read_events
 from deepspeed_tpu_torch.telemetry import (read_metrics, trace_events,
                                            validate_trace)
 from deepspeed_tpu_torch.utils import fault_injection
 from deepspeed_tpu_torch.utils.logging import logger as port_logger
-from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
+from deepspeed_tpu_torch.serving import (RequestCancelled, RequestTimedOut,
+                                         ServingConfig, SlotBatcher)
 from tests.torch_diffusers_export import export_unet_sd, export_vae_sd
 
 #: H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor FLOP/s and
@@ -2855,6 +2877,254 @@ def run_serving(engine, cfg, n_req=16, budget=(32, 129), model="GPT-2 350M"):
     return res, counts
 
 
+#: phase 4b, the serving front end: the gateway's config (GPT-2's
+#: end-of-text token as eos), the storm's sizes and the shared prefix
+GATEWAY_CONFIG = {"slots": 8, "max_len": 1024, "prefill_chunk": 64,
+                  "queue_capacity": 64, "eos_token_id": 50256,
+                  "max_cached_prefixes": 4}
+GATEWAY_SYSTEM_LEN = 128
+GATEWAY_KERNELS = ("decode_attn", "chunk_attn", "flash_fwd")
+
+
+def storm_requests(cfg, n, n_shared, seed=21):
+    """``n`` requests: prompts of 16-512 tokens and budgets of 16-64 from
+    ``seed``; the first ``n_shared`` open with one 128-token system
+    prompt (``prefix_len`` 128)."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab_size, (GATEWAY_SYSTEM_LEN,))
+    reqs = []
+    for i in range(n):
+        size, budget = int(rng.integers(16, 513)), int(rng.integers(16, 65))
+        if i < n_shared:
+            tail = rng.integers(0, cfg.vocab_size,
+                                (max(size - GATEWAY_SYSTEM_LEN, 16),))
+            reqs.append({"tokens": np.concatenate([system, tail]),
+                         "max_new_tokens": budget,
+                         "prefix_len": GATEWAY_SYSTEM_LEN})
+        else:
+            reqs.append({"tokens": rng.integers(0, cfg.vocab_size, (size,)),
+                         "max_new_tokens": budget})
+    return system, reqs
+
+
+def _session_pieces(tokens, start, chunk, int8):
+    """How a reference session appends ``tokens[start:]``: in one piece,
+    or over an int8 cache in the gateway's prefill chunks (a chunk past
+    the first attends over the quantized cache, one whole append is a
+    prefill over the fresh K/V: another function of the prompt)."""
+    if not int8:
+        return [tokens[start:]]
+    return [tokens[i:i + chunk] for i in range(start, len(tokens), chunk)]
+
+
+def _margin(session_fn, steps):
+    """Top-2 logit margin of a fresh reference session ``session_fn()``
+    after ``steps`` greedy tokens: the step at which it and a reply part."""
+    s = session_fn()
+    if steps:
+        s.generate(max_new_tokens=steps)
+    vocab = s._engine.model_config.vocab_size
+    top2 = torch.topk(s._last_logits[0, :vocab].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def check_against_references(engine, gw, system, reqs, replies, checked,
+                             int8, label):
+    """Each ``checked`` greedy reply against (a) the same request alone
+    through the same gateway, bitwise, and (b) the request alone through
+    ``start_session`` + ``append`` (+ ``fork`` of a system-prompt session
+    for the shared prefix) + ``generate``, equal up to the reply's eos, or
+    parting only where the session's top-2 margin is below ``TIE_TOL``;
+    the parent of the forks replies the same before and after them."""
+    chunk, eos = GATEWAY_CONFIG["prefill_chunk"], GATEWAY_CONFIG["eos_token_id"]
+    parent = engine.start_session(batch=1, max_len=GATEWAY_CONFIG["max_len"])
+    for piece in _session_pieces(system, 0, chunk, int8):
+        parent.append(piece[None])
+    before = parent.fork().generate(max_new_tokens=8).cpu()
+    n = parent.length
+    fork_bytes = sum(b[:, :, :n].numel() * b.element_size()
+                     for b in parent.cache.buffers())
+    log(f"[gateway] {label}: a fork copies its parent's {n}-token prefix, "
+        f"{fork_bytes} bytes ({fork_bytes // n} a token)")
+    alone_equal, equal, parted = 0, 0, []
+    for i in checked:
+        req, reply = reqs[i], replies[i]
+        again = gw.submit(**req).result(timeout=120)
+        alone_equal += np.array_equal(again, reply)
+        if not np.array_equal(again, reply):
+            raise AssertionError(f"{label} request {i}: the reply in the "
+                                 "storm and alone through the gateway "
+                                 f"differ: {reply.tolist()} vs "
+                                 f"{again.tolist()}")
+        shared = req.get("prefix_len", 0)
+
+        def session():
+            s = parent.fork() if shared else engine.start_session(
+                batch=1, max_len=GATEWAY_CONFIG["max_len"])
+            for piece in _session_pieces(req["tokens"], shared, chunk, int8):
+                s.append(piece[None])
+            return s
+
+        ref = session().generate(
+            max_new_tokens=req["max_new_tokens"])[0].cpu().numpy()
+        stop = np.flatnonzero(ref == eos)
+        if len(stop):
+            ref = ref[:stop[0] + 1]
+        if np.array_equal(reply, ref):
+            equal += 1
+            continue
+        t = next(t for t, (a, b) in enumerate(zip(reply, ref)) if a != b)
+        m = _margin(session, t)
+        parted.append((i, t, m))
+        log(f"[gateway] {label} request {i}: parts from its session at step "
+            f"{t}, session top-2 margin {m:.5f} (tie tol {TIE_TOL})")
+        if not m < TIE_TOL:
+            raise AssertionError(f"{label} request {i}: reply and session "
+                                 f"part at step {t} with margin {m}")
+    after = parent.generate(max_new_tokens=8).cpu()
+    if not torch.equal(before, after):
+        raise AssertionError(f"{label}: a fork reached its parent session")
+    return {"alone_bitwise": alone_equal, "session_equal": equal,
+            "session_parted": parted, "checked": list(checked),
+            "fork_bytes_per_token": fork_bytes // n}
+
+
+def run_gateway(engine, cfg, label="bf16", n=32):
+    """Phase 4b: the serving front end at full width.  ``engine.serve``
+    with ``GATEWAY_CONFIG`` and a journal; ``n`` requests submitted at
+    once from this thread (the bf16 storm: 8 over one system prompt, 4
+    sampled, two of them with one seed and one prompt, 1 cancelled
+    mid-decode, 1 with a deadline that passes while it is queued), then
+    the references; counts at 0 before, read after."""
+    t_phase = time.perf_counter()
+    storm = n == 32
+    system, reqs = storm_requests(cfg, n, n_shared=8 if storm else 2)
+    sampled, cancel, late = {}, None, None
+    if storm:
+        reqs[9] = dict(reqs[8])
+        for i, seed in ((8, 77), (9, 77), (10, 78), (11, 79)):
+            reqs[i].update(do_sample=True, seed=seed)
+            sampled[i] = seed
+        cancel, late = 12, n - 1
+        reqs[cancel].update(max_new_tokens=64, priority=1)
+        reqs[late].update(priority=-1, deadline_s=0.02)
+    journal_dir = tempfile.mkdtemp(prefix="ds_torch_gateway_")
+    try:
+        journal = EventJournal(os.path.join(journal_dir, "events.jsonl"))
+        gw = engine.serve(dict(GATEWAY_CONFIG), journal=journal)
+        kernels.reset_launch_counts()
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        handles = [gw.submit(**r) for r in reqs]
+        depths = []
+        while not all(h.done() for i, h in enumerate(handles)
+                      if i != cancel):
+            depths.append(gw.snapshot()["queue_depth"])
+            if cancel is not None and handles[cancel].tokens_out >= 2:
+                gw.cancel(handles[cancel])
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        snap = gw.snapshot()
+        replies = {}
+        for i, h in enumerate(handles):
+            try:
+                replies[i] = h.result(timeout=120)
+            except RequestCancelled as e:
+                if i != cancel or len(e.partial) < 2:
+                    raise
+            except RequestTimedOut:
+                if i != late:
+                    raise
+        # the storm's own records: every handle is terminal, and the
+        # gateway journals a request's end before it finishes the handle
+        events = read_events(journal.path)
+        for i, seed in sampled.items():
+            got = replies[i]
+            if len(got) < 1 or got.max() >= cfg.vocab_size:
+                raise AssertionError(f"sampled request {i}: {got}")
+        if storm and not np.array_equal(replies[8], replies[9]):
+            raise AssertionError("two sampled requests with one seed and "
+                                 f"one prompt differ: {replies[8]} vs "
+                                 f"{replies[9]}")
+        shared = [i for i in range(n) if reqs[i].get("prefix_len")][:2]
+        plain = [i for i in range(n) if not reqs[i].get("prefix_len")
+                 and i not in sampled and i not in (cancel, late)]
+        checked = shared + plain[:4]
+        res = {"requests": n, "wall_s": wall, "ticks": snap["ticks"],
+               "tokens_out": snap["tokens_out"],
+               "tokens_per_s": snap["tokens_out"] / wall,
+               "slot_occupancy": snap["slot_occupancy"],
+               "ttft_ms_p50": 1e3 * pct(snap["ttft_s"], 50),
+               "ttft_ms_p99": 1e3 * pct(snap["ttft_s"], 99),
+               "queue_depth_max": max(depths, default=0),
+               "queue_depth_mean": sum(depths) / max(1, len(depths)),
+               "prefix_builds": snap["prefix_builds"],
+               "prefix_hits": snap["prefix_hits"],
+               "completed": snap["completed"],
+               "cancelled": snap["cancelled"],
+               "timeouts": snap["timeouts"]}
+        log(f"[gateway] {label} storm: {n} requests at once through 8 slots "
+            f"in {wall:.2f} s: TTFT p50 {res['ttft_ms_p50']:.1f} ms p99 "
+            f"{res['ttft_ms_p99']:.1f} ms, {res['tokens_out']} tokens "
+            f"({res['tokens_per_s']:.1f} tokens/s), slot occupancy "
+            f"{res['slot_occupancy']:.3f}, queue depth max "
+            f"{res['queue_depth_max']} mean {res['queue_depth_mean']:.1f}, "
+            f"{snap['completed']} done, {snap['cancelled']} cancelled, "
+            f"{snap['timeouts']} timed out, prefix builds "
+            f"{snap['prefix_builds']} hits {snap['prefix_hits']}")
+
+        res.update(check_against_references(
+            engine, gw, system, reqs, replies, checked,
+            int8=engine._kv_dtype is not None, label=label))
+
+        def window():
+            # a pooled-prefix request (its tail's chunks) alone through
+            # the gateway, and a session's prefill, two tokens each
+            gw.submit(**dict(reqs[shared[0]], max_new_tokens=2)).result(
+                timeout=120)
+            s = engine.start_session(batch=1,
+                                     max_len=GATEWAY_CONFIG["max_len"])
+            s.append(reqs[plain[0]]["tokens"][None])
+            s.generate(max_new_tokens=2)
+            ACCEL.synchronize()
+
+        if storm:
+            res["profile"] = device_profile(f"gateway {label} kernels",
+                                            window, GATEWAY_KERNELS)
+            idle = [k for k in GATEWAY_KERNELS
+                    if not res["profile"][f"ms_{k}"] > 0]
+            if idle:
+                raise AssertionError(f"gateway: no {idle} kernel under the "
+                                     "profiler")
+        gw.shutdown(timeout=120)
+        counts = kernels.launch_counts()
+    finally:
+        shutil.rmtree(journal_dir, ignore_errors=True)
+    kinds = [e["kind"] for e in events]
+    ends = sum(kinds.count(k) for k in ("serve.done", "serve.cancel",
+                                        "serve.timeout"))
+    pending = [i for i, h in enumerate(handles) if not h.done()]
+    want = (n, n, 1 if storm else 0, 1 if storm else 0)
+    got = (kinds.count("serve.request"), ends, kinds.count("serve.cancel"),
+           kinds.count("serve.timeout"))
+    if got != want or pending:
+        raise AssertionError(f"gateway {label} journal (requests, ends, "
+                             f"cancels, timeouts) {got}, want {want}; "
+                             f"pending handles {pending}")
+    if storm and not [e for e in events if e["kind"] == "serve.timeout"][0][
+            "queued"]:
+        raise AssertionError("the late request did not expire while queued")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[gateway] {label} references: {res['alone_bitwise']}/"
+        f"{len(checked)} replies bitwise equal alone through the gateway, "
+        f"{res['session_equal']}/{len(checked)} equal to their session "
+        f"(parted at near-ties: {res['session_parted']}); journal "
+        f"{got[0]} serve.request, {got[1]} done + cancel + timeout, none "
+        f"pending; phase {res['seconds']:.1f} s; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return res, counts
+
+
 def check_full_width_logits(engine, cfg, params_fp32, label="bf16"):
     """The card's logits vs an fp32 forward on the host of
     ``params_fp32``, one short prompt; returns (result, card logits)."""
@@ -4956,8 +5226,19 @@ def main() -> int:
     log(f"[serving] bf16 generate and serving peak memory above the "
         f"resident {result['serving']['peak_above_resident_gib']:.3f} GiB "
         f"(KV caches, activations)")
-    counts = {k: gen_counts[k] + serve_counts[k] for k in gen_counts}
-    result["launches"] = {"generate": gen_counts, "serving": serve_counts}
+    result["gateway"], gateway_counts = run_gateway(engine, cfg)
+    # the int8-cache engine shares the bf16 engine's weights (no copy)
+    kv8 = deepspeed_tpu_torch.init_inference(
+        (cfg, engine.params), {"dtype": "bfloat16", "kv_cache_dtype": "int8"})
+    result["gateway_int8"], gateway_int8_counts = run_gateway(
+        kv8, cfg, label="int8 cache", n=8)
+    del kv8
+    log(f"[time] gateway phase done at {time.perf_counter() - T0:.1f} s")
+    counts = {k: gen_counts[k] + serve_counts[k] + gateway_counts[k]
+              + gateway_int8_counts[k] for k in gen_counts}
+    result["launches"] = {"generate": gen_counts, "serving": serve_counts,
+                          "gateway": gateway_counts,
+                          "gateway_int8": gateway_int8_counts}
     result["full_width_logits"], bf16_logits = check_full_width_logits(
         engine, cfg, params_host)
     result["profile"] = profile_generate(engine, cfg)
@@ -5100,7 +5381,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     log(smi)
-    log(f"[launches] generate {gen_counts}, serving {serve_counts}, int8 "
+    log(f"[launches] generate {gen_counts}, serving {serve_counts}, gateway "
+        f"{gateway_counts}, gateway int8 cache {gateway_int8_counts}, int8 "
         f"serving {int8_counts}, GPT-Neo {result['launches']['gpt_neo']}, "
         f"BLOOM {result['launches']['bloom']}, GPT-2 760M "
         f"{result['launches']['gpt2_760m']}, GPT-2 2.7B "

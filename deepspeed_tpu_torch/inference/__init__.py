@@ -1,6 +1,6 @@
 from .config import DeepSpeedInferenceConfig
 from .diffusion_pipeline import DiffusionPipeline, ddim_alphas
-from .engine import InferenceEngine
+from .engine import InferenceEngine, InferenceSession
 
 __all__ = ["DeepSpeedInferenceConfig", "DiffusionPipeline",
-           "InferenceEngine", "ddim_alphas"]
+           "InferenceEngine", "InferenceSession", "ddim_alphas"]

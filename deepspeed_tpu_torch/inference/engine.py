@@ -12,6 +12,10 @@ into one ``lax.while_loop``, the port runs it as a Python loop that
 launches the model's kernels eagerly.  The all-rows-finished early exit
 under ``eos_token_id`` reads one flag from the device per token; without
 an eos the loop never waits on the device until the tokens are returned.
+
+``start_session`` gives a multi-turn :class:`InferenceSession` over one
+persistent KV cache, and ``serve`` a continuous-batching
+``serving.ServingGateway`` over the engine.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 from ..accelerator import get_accelerator
 from ..models import gpt, gpt_inference
 from ..utils.logging import logger
-from .bucketing import bucket_max_new_tokens, tile_cache_len
+from .bucketing import (bucket_cache_len, bucket_max_new_tokens,
+                        tile_cache_len)
 from .config import DeepSpeedInferenceConfig
 from .quantization import quantize_params_int8
 from .sampling import filter_logits, sample
@@ -162,6 +167,151 @@ class InferenceEngine:
                 lengths=lengths if ragged else None)
             lengths += 1
         return out
+
+
+    # -------------------------------------------------------------- session
+
+    def start_session(self, batch: int = 1,
+                      max_len: Optional[int] = None) -> "InferenceSession":
+        """A stateful multi-turn session over one persistent KV cache:
+        ``append`` prefills/extends with each turn's tokens (the
+        conversation is never re-prefilled), ``generate`` decodes a reply
+        that stays in the cache.
+
+        ``max_len`` is bucketed to a power of two (clamped to the model
+        context), as in the JAX package, so sessions with nearby budgets
+        share one cache geometry."""
+        cap = self.model_config.max_seq_len
+        return InferenceSession(self, batch,
+                                bucket_cache_len(max_len or cap, cap))
+
+    # -------------------------------------------------------------- serving
+
+    def serve(self, config=None, journal=None, autostart: bool = True,
+              tracer=None, draft=None):
+        """A continuous-batching serving gateway over this engine: an
+        async request scheduler packing heterogeneous prompts into one
+        fixed-geometry ragged-decode slot batch (``serving/``).
+        ``config`` is a :class:`~deepspeed_tpu_torch.serving.ServingConfig`
+        or its dict; ``journal`` an optional supervision ``EventJournal``;
+        ``tracer`` an optional telemetry ``Tracer`` recording the serve.*
+        spans.  ``draft`` (speculative decoding) is not ported yet."""
+        if draft is not None:
+            raise NotImplementedError(
+                "serve(draft=...) is speculative decoding, which is not "
+                "ported yet (ROADMAP.md Queue 1 #4.4)")
+        from ..serving import ServingGateway
+        return ServingGateway(self, config=config, journal=journal,
+                              autostart=autostart, tracer=tracer)
+
+
+class InferenceSession:
+    """One conversation's cache, advanced turn by turn.
+
+    The KV cache persists across turns, so each turn costs only its own
+    tokens (with ``kv_cache_dtype: "int8"`` at about half the cache
+    bytes).  The first ``append`` prefills (the flash kernel), later ones
+    extend the cache (the chunk kernel), and ``generate`` decodes one
+    token a step (the decode kernel)."""
+
+    def __init__(self, engine: InferenceEngine, batch: int, max_len: int):
+        cfg = engine.model_config
+        self._engine = engine
+        max_len = tile_cache_len(max_len, cfg.max_seq_len)
+        self.cache = gpt_inference.init_cache(cfg, batch, max_len,
+                                              device=engine.device,
+                                              kv_dtype=engine._kv_dtype)
+        self._last_logits: Optional[torch.Tensor] = None
+        self._key_seq = 0
+
+    @property
+    def length(self) -> int:
+        return self.cache.length
+
+    def _check_room(self, n: int) -> None:
+        if self.length + n > self.cache.max_len:
+            raise ValueError(
+                f"session cache full: {self.length} + {n} tokens exceeds "
+                f"max_len {self.cache.max_len}")
+
+    def fork(self) -> "InferenceSession":
+        """A new session continuing from this one's exact state (prefix
+        caching): process a shared system prompt ONCE, then fork one
+        session per conversation.  The JAX fork shares its immutable
+        arrays; the port's cache is written in place, so a fork copies
+        the parent's live prefix (K/V and, int8, their scales) into a
+        cache of its own, and later turns of either never reach the
+        other."""
+        new = object.__new__(InferenceSession)
+        new._engine = self._engine
+        src = self.cache
+        new.cache = gpt_inference.init_cache(
+            self._engine.model_config, src.batch, src.max_len,
+            device=self._engine.device, kv_dtype=self._engine._kv_dtype)
+        n = src.length
+        for dst, buf in zip(new.cache.buffers(), src.buffers()):
+            dst[:, :, :n] = buf[:, :, :n]
+        new.cache.length = n
+        new._last_logits = None if self._last_logits is None \
+            else self._last_logits.clone()
+        new._key_seq = self._key_seq
+        return new
+
+    @torch.no_grad()
+    def append(self, tokens) -> torch.Tensor:
+        """Feed one turn's tokens [B, S]; returns its logits
+        [B, S, padded_vocab] (fp32)."""
+        tokens = self._engine._tokens(tokens)
+        if tokens.ndim != 2 or tokens.shape[0] != self.cache.batch:
+            raise ValueError(f"append wants tokens [{self.cache.batch}, S], "
+                             f"got {tuple(tokens.shape)}")
+        self._check_room(tokens.shape[1])
+        run = gpt_inference.prefill if self.length == 0 \
+            else gpt_inference.extend
+        logits, self.cache = run(self._engine.params, tokens,
+                                 self._engine.model_config, self.cache)
+        self._last_logits = logits[:, -1].clone()
+        return logits
+
+    @torch.no_grad()
+    def generate(self, max_new_tokens: int = 32, do_sample: bool = False,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """Decode a reply [B, max_new_tokens] int64 (greedy, or sampled
+        through the shared logit filter from ``generator``, on the
+        engine's device; unset, the session's own seed sequence).  The
+        reply's K/V stays in the session cache, so the next ``append``
+        continues the conversation."""
+        if self._last_logits is None:
+            raise ValueError("append() a prompt before generate()")
+        if not do_sample and (top_k > 0 or top_p < 1.0):
+            raise ValueError(
+                "top_k/top_p only apply with do_sample=True (greedy "
+                "would silently ignore the filters)")
+        eng, cfg = self._engine, self._engine.model_config
+        B = self.cache.batch
+        if max_new_tokens <= 0:
+            return torch.zeros((B, 0), dtype=torch.long, device=eng.device)
+        self._check_room(max_new_tokens)
+        if do_sample and generator is None:
+            generator = torch.Generator(device=eng.device).manual_seed(
+                self._key_seq)
+            self._key_seq += 1
+        last, out = self._last_logits, []
+        for _ in range(max_new_tokens):
+            lg = last[:, :cfg.vocab_size]
+            if do_sample:
+                nxt = sample(filter_logits(lg, temperature, top_k=top_k,
+                                           top_p=top_p), generator)
+            else:
+                nxt = torch.argmax(lg, dim=-1)
+            last, self.cache = gpt_inference.decode_step(eng.params, nxt, cfg,
+                                                         self.cache)
+            out.append(nxt)
+        self._last_logits = last
+        return torch.stack(out, dim=1)
 
 
 def _to_device(tree: dict, device: torch.device, dtype: torch.dtype) -> dict:

@@ -34,7 +34,8 @@ from ...utils.logging import logger
 class EventKind:
     """The journal event kinds the port emits, with the JAX package's
     strings: the run supervision's, the data loader's, the checkpoint
-    protocol's, the telemetry's and the lock watchdog's."""
+    protocol's, the serving gateway's, the telemetry's and the lock
+    watchdog's."""
 
     ROLLBACK = "rollback"
     ROLLBACK_RECOVERED = "rollback.recovered"
@@ -57,6 +58,14 @@ class EventKind:
     CKPT_TORN_TAG = "ckpt.torn_tag"
     CKPT_PREEMPT_SAVE = "ckpt.preempt_save"
     CKPT_PREEMPT_SAVE_TIMEOUT = "ckpt.preempt_save_timeout"
+    SERVE_REQUEST = "serve.request"
+    SERVE_ADMIT = "serve.admit"
+    SERVE_REJECT = "serve.reject"
+    SERVE_CANCEL = "serve.cancel"
+    SERVE_TIMEOUT = "serve.timeout"
+    SERVE_DONE = "serve.done"
+    SERVE_EVICT = "serve.evict"
+    SERVE_TICK = "serve.tick"
     TRACE_EXPORT = "trace.export"
     CONCURRENCY_LOCK_CYCLE = "concurrency.lock_cycle"
     CONCURRENCY_CONTENTION = "concurrency.contention"

@@ -10,7 +10,9 @@ cache, then copies it into a free slot with ``write_slot``.  Each decode
 (per-slot frontiers, greedy or sampled per slot).  PyTorch runs eagerly,
 so there are no compiled programs to register or pre-compile;
 ``prewarm`` still runs one throwaway admission so the first request does
-not pay the kernels' build and the library handles' set-up.
+not pay the kernels' build and the library handles' set-up.  A telemetry
+``Tracer`` (shared with the owning gateway) records ``serve.prefill`` and
+``serve.tick`` spans.
 
 Per-slot state (frontiers, greedy/temperature flags, liveness) lives on
 the host; sampled slots draw from their own ``torch.Generator``.  The
@@ -31,6 +33,7 @@ from ..inference.bucketing import bucket_cache_len
 from ..inference.sampling import filter_logits, sample
 from ..models import gpt_inference
 from ..models.gpt_inference import KVCache
+from ..telemetry.spans import SpanName, Tracer
 from .config import ServingConfig
 
 
@@ -46,7 +49,12 @@ class PrefixEntry:
 class SlotBatcher:
     """Continuous batching over ``config.slots`` decode slots."""
 
-    def __init__(self, engine, config: ServingConfig):
+    def __init__(self, engine, config: ServingConfig,
+                 tracer: Optional[Tracer] = None):
+        #: telemetry tracer shared with the owning gateway (a disabled
+        #: no-op when serving runs without telemetry)
+        self.tracer = tracer if tracer is not None else Tracer(
+            enabled=False, name="serving")
         self._engine = engine
         cfg = engine.model_config
         self._cfg = cfg
@@ -112,21 +120,23 @@ class SlotBatcher:
             gpt_inference.write_slot(cache, 0, prefix.cache)
             start = cache.length = prefix.length
         S = int(tokens.shape[0])
-        padded = np.zeros((-(-S // C) * C,), np.int64)
-        padded[:S] = tokens
-        chunks = torch.as_tensor(padded.reshape(-1, C)).to(self.device)
-        idx = S - 1 - (chunks.shape[0] - 1) * C
-        for i in range(chunks.shape[0]):
-            pos = start + i * C
-            at = torch.full((1,), idx if i == chunks.shape[0] - 1 else 0,
-                            dtype=torch.long, device=self.device)
-            if pos == 0:
-                lg, cache = gpt_inference.prefill(params, chunks[i:i + 1], cfg,
-                                                  cache, logits_at=at)
-            else:
-                lg, cache = gpt_inference.extend(params, chunks[i:i + 1], cfg,
-                                                 cache, lengths=[pos],
-                                                 logits_at=at)
+        with self.tracer.span(SpanName.SERVE_PREFILL, tokens=S, start=start,
+                              chunk=C):
+            padded = np.zeros((-(-S // C) * C,), np.int64)
+            padded[:S] = tokens
+            chunks = torch.as_tensor(padded.reshape(-1, C)).to(self.device)
+            idx = S - 1 - (chunks.shape[0] - 1) * C
+            for i in range(chunks.shape[0]):
+                pos = start + i * C
+                at = torch.full((1,), idx if i == chunks.shape[0] - 1 else 0,
+                                dtype=torch.long, device=self.device)
+                if pos == 0:
+                    lg, cache = gpt_inference.prefill(
+                        params, chunks[i:i + 1], cfg, cache, logits_at=at)
+                else:
+                    lg, cache = gpt_inference.extend(
+                        params, chunks[i:i + 1], cfg, cache, lengths=[pos],
+                        logits_at=at)
         return cache, lg[0], start + S
 
     @torch.no_grad()
@@ -190,19 +200,22 @@ class SlotBatcher:
         emitted (junk in freed slots)."""
         if self._last is None:
             raise RuntimeError("tick() before any admission")
-        lg = self._last[:, :self._cfg.vocab_size]
-        nxt = torch.argmax(lg, dim=-1)
-        rows = [r for r in range(self.slots)
-                if self.active[r] and not self.greedy[r]]
-        if rows:
-            temp = torch.as_tensor(self.temp[rows]).to(self.device)[:, None]
-            filt = filter_logits(lg[rows], temp, top_k=self.top_k,
-                                 top_p=self.top_p)
-            for j, r in enumerate(rows):
-                nxt[r] = sample(filt[j:j + 1], self.generators[r])[0]
-        self._last, self.cache = gpt_inference.decode_step(
-            self._engine.params, nxt, self._cfg, self.cache,
-            lengths=self.lengths)
-        # only live slots advance; a freed slot re-writes its own cell
-        self.lengths = np.where(self.active, self.lengths + 1, self.lengths)
-        return nxt.cpu().numpy()
+        with self.tracer.span(SpanName.SERVE_TICK):
+            lg = self._last[:, :self._cfg.vocab_size]
+            nxt = torch.argmax(lg, dim=-1)
+            rows = [r for r in range(self.slots)
+                    if self.active[r] and not self.greedy[r]]
+            if rows:
+                temp = torch.as_tensor(self.temp[rows]).to(
+                    self.device)[:, None]
+                filt = filter_logits(lg[rows], temp, top_k=self.top_k,
+                                     top_p=self.top_p)
+                for j, r in enumerate(rows):
+                    nxt[r] = sample(filt[j:j + 1], self.generators[r])[0]
+            self._last, self.cache = gpt_inference.decode_step(
+                self._engine.params, nxt, self._cfg, self.cache,
+                lengths=self.lengths)
+            # only live slots advance; a freed slot re-writes its own cell
+            self.lengths = np.where(self.active, self.lengths + 1,
+                                    self.lengths)
+            return nxt.cpu().numpy()

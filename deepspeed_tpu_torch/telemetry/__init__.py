@@ -1,6 +1,6 @@
 """Telemetry of the port: span tracing, the metrics stream and trace
-export (the JAX package's ``telemetry/``; its fleet critical-path and
-trace-propagation modules wait for a fleet, ROADMAP.md Queue 1 #5).
+export (the JAX package's ``telemetry/``; its fleet critical-path module and
+most of its trace propagation wait for a fleet, ROADMAP.md Queue 1 #5).
 
 - :mod:`.spans` — nestable thread-aware :class:`Tracer` spans over the
   train step phases, checkpoints and the elastic runner; names
@@ -11,6 +11,8 @@ trace-propagation modules wait for a fleet, ROADMAP.md Queue 1 #5).
   :func:`analytic_mfu`;
 - :mod:`.export` — Chrome/Perfetto ``trace_event`` JSON export of the
   collected spans and its schema check;
+- :mod:`.propagate` — :func:`mint_context`, the trace root the serving
+  gateway stamps on each request;
 - :mod:`.config` — the validated ``"telemetry"`` config section.
 """
 
@@ -19,5 +21,7 @@ from .export import trace_events, validate_trace, write_trace  # noqa: F401
 from .metrics import (METRIC_NAMES, Counter, Gauge, Histogram,  # noqa: F401
                       MetricName, MetricsRegistry, MetricsSampler,
                       analytic_mfu, host_rss_bytes, live_buffer_bytes,
-                      peak_flops_per_chip, read_metrics)
+                      lock_watch_metrics, peak_flops_per_chip,
+                      read_metrics)
+from .propagate import TraceContext, mint_context  # noqa: F401
 from .spans import SPAN_NAMES, SpanName, SpanRecord, Tracer  # noqa: F401

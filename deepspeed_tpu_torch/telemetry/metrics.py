@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..utils.jsonl import read_jsonl
+from ..utils import lock_watch
 from ..utils.lock_watch import LockName, TrackedLock
 from ..utils.logging import logger
 
@@ -40,13 +41,14 @@ __all__ = [
     "MetricName", "METRIC_NAMES", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "MetricsSampler", "read_metrics", "analytic_mfu",
     "peak_flops_per_chip", "host_rss_bytes", "live_buffer_bytes",
+    "lock_watch_metrics",
 ]
 
 
 class MetricName:
     """Single source of truth for every metric name the port streams (the
-    JAX package's strings; its serving, transport, comm and compile
-    metrics wait for those layers of the port)."""
+    JAX package's strings; its paging, speculative, overload, transport,
+    comm and compile metrics wait for those layers of the port)."""
 
     #: histogram of optimizer-step wall seconds (boundary to boundary)
     STEP_TIME_S = "train.step_time_s"
@@ -66,8 +68,24 @@ class MetricName:
     HBM_LIVE_BYTES = "mem.hbm_live_bytes"
     #: cumulative sanctioned host syncs the engine noted
     HOST_SYNCS = "compile.host_syncs"
+    #: admission queue depth at sample time
+    SERVE_QUEUE_DEPTH = "serve.queue_depth"
+    #: lifetime mean slot occupancy (active slot-ticks / slot-ticks)
+    SERVE_OCCUPANCY = "serve.occupancy"
+    #: histogram of time-to-first-token seconds
+    SERVE_TTFT_S = "serve.ttft_s"
+    #: decode tokens emitted per second over the gateway lifetime
+    SERVE_TOKENS_PER_S = "serve.tokens_per_s"
     #: divergence rollbacks performed by the run supervisor
     ROLLBACKS = "elastic.rollbacks"
+    #: tracked-lock contended acquisitions, process total
+    CONCURRENCY_LOCK_CONTENTION = "concurrency.lock_contention"
+    #: seconds spent waiting on contended tracked locks, process total
+    CONCURRENCY_LOCK_WAIT_S = "concurrency.lock_wait_s"
+    #: histogram block of tracked-lock hold seconds (count/mean/p50/p99)
+    CONCURRENCY_LOCK_HOLD_S = "concurrency.lock_hold_s"
+    #: per-lock table: acquisitions, contentions, wait_s, hold_p99_s
+    CONCURRENCY_LOCKS = "concurrency.locks"
 
 
 #: every registered metric name, as a frozenset of strings
@@ -234,6 +252,53 @@ class MetricsRegistry:
         for name, h in histograms.items():
             out[name] = h.snapshot()
         return out
+
+
+def lock_watch_metrics() -> Dict[str, Any]:
+    """Sampler source feeding tracked-lock telemetry into ``metrics.sample``
+    rows: total contended acquisitions, total wait seconds, a hold-time
+    histogram block, and the per-lock table.  Returns ``{}`` before any
+    tracked lock has been acquired, so runs that never touch one emit no
+    extra keys.
+
+    Attach with ``sampler.attach_source(lock_watch_metrics)`` (the serving
+    gateway does).
+    """
+    stats = lock_watch.lock_stats()
+    if not stats:
+        return {}
+    holds: List[float] = []
+    table: Dict[str, Any] = {}
+    contentions = 0
+    wait_s = 0.0
+    for name, s in stats.items():
+        holds.extend(s["holds"])
+        contentions += s["contentions"]
+        wait_s += s["wait_s"]
+        hs = sorted(s["holds"])
+        table[name] = {
+            "acquisitions": s["acquisitions"],
+            "contentions": s["contentions"],
+            "wait_s": round(s["wait_s"], 6),
+            "hold_p99_s": round(
+                hs[min(len(hs) - 1, math.ceil(0.99 * len(hs)) - 1)], 6)
+            if hs else None,
+        }
+    holds.sort()
+    n = len(holds)
+    return {
+        MetricName.CONCURRENCY_LOCK_CONTENTION: contentions,
+        MetricName.CONCURRENCY_LOCK_WAIT_S: round(wait_s, 6),
+        MetricName.CONCURRENCY_LOCK_HOLD_S: {
+            "count": n,
+            "mean": round(sum(holds) / n, 6) if n else None,
+            "p50": round(holds[min(n - 1, math.ceil(0.50 * n) - 1)], 6)
+            if n else None,
+            "p99": round(holds[min(n - 1, math.ceil(0.99 * n) - 1)], 6)
+            if n else None,
+        },
+        MetricName.CONCURRENCY_LOCKS: table,
+    }
 
 
 # ---------------------------------------------------------------- sampler

@@ -42,8 +42,9 @@ __all__ = ["SpanName", "SPAN_NAMES", "SpanRecord", "Tracer"]
 
 class SpanName:
     """Single source of truth for every span name the port records (the
-    JAX package's strings; its serving, pipeline, gradient-collapse and
-    comm spans wait for those layers of the port)."""
+    JAX package's strings; its speculative, paging, fleet, pipeline,
+    gradient-collapse and comm spans wait for those layers of the
+    port)."""
 
     #: one optimizer step end-to-end (the fused whole-batch path)
     TRAIN_STEP = "train.step"
@@ -68,6 +69,12 @@ class SpanName:
     ELASTIC_RESUME = "elastic.resume"
     #: divergence rollback: reload verified tag + quarantine install
     ELASTIC_ROLLBACK = "elastic.rollback"
+    #: one continuous-batching decode tick (all live slots, one token)
+    SERVE_TICK = "serve.tick"
+    #: admission of one request into a free slot (incl. prefill)
+    SERVE_ADMIT = "serve.admit"
+    #: chunked prefill of a prompt/prefix through fixed-width chunks
+    SERVE_PREFILL = "serve.prefill"
 
 
 #: every registered span name, as a frozenset of strings

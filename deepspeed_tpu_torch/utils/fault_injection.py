@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``utils/fault_injection.py`` (its fault
 classes, registry and ``corrupt_file``).  Named failure points are
-compiled into the checkpoint storage and commit paths; with no fault
+compiled into the checkpoint storage and commit paths, the run's step
+loop, the data loader and the serving gateway; with no fault
 installed, ``fire()`` is a dict lookup that finds nothing, so production
 pays one branch per point.  Tests install faults (directly or via the
 :func:`inject` context manager) and drive the real code paths.
@@ -41,6 +42,18 @@ Points wired in the port (the JAX package's names and contexts):
                           are read; ctx: ``step``, ``epoch``
 ``data.collate``          before a batch is collated; ctx: ``step``,
                           ``indices`` (``BadRecord`` models a bad sample)
+``serve.request``         start of every serving-gateway ``submit`` call;
+                          ctx: ``request_id`` (``DelaySeconds`` models a
+                          slow client trickling requests in; raising
+                          models a broken front end)
+``serve.admit``           inside the scheduler, before a queued request's
+                          prompt prefills into its slot; ctx:
+                          ``request_id``, ``slot`` (raising fails the one
+                          admission — the gateway fails that request and
+                          keeps serving)
+``serve.decode_tick``     top of every continuous-batching decode tick;
+                          ctx: ``tick``, ``active`` (``HangFor`` models a
+                          wedged tick, ``DelaySeconds`` a slow one)
 ========================  =====================================================
 
 The subprocess fault plans (``DS_FAULT_PLAN``) are not ported.
@@ -72,6 +85,9 @@ FAULT_POINTS = frozenset({
     "supervision.heartbeat",
     "data.next",
     "data.collate",
+    "serve.request",
+    "serve.admit",
+    "serve.decode_tick",
 })
 
 # points with faults installed; guarded by _lock for install/clear, read

@@ -3,7 +3,9 @@
 The port of the JAX package's ``utils/lock_watch.py``.  The checkpoint
 path is concurrent: the async writer pool's chain thread and the train
 loop share the pending-write list, fault injection has its install table,
-and the event journal its emit lock.  A lock-order inversion between any
+and the event journal its emit lock; the serving gateway's scheduler
+thread and its submitters share the admission queue, the request handles
+and the serving metrics.  A lock-order inversion between any
 two threads is a deadlock that only fires under load, so ordering is
 observable here instead of folklore:
 
@@ -45,6 +47,12 @@ class LockName:
     """Single source of truth for every tracked lock name: register a new
     name here and give it its rank in :data:`LOCK_ORDER`."""
 
+    #: the serving gateway's scheduler condition (submit/admission/shutdown)
+    SERVE_GATEWAY = "serve.gateway"
+    #: one RequestHandle's terminal-state latch
+    SERVE_REQUEST = "serve.request"
+    #: ServingMetrics counters/reservoirs
+    SERVE_METRICS = "serve.metrics"
     #: MetricsSampler emit path (holds registry + journal below it)
     TELEMETRY_SAMPLER = "telemetry.sampler"
     #: MetricsRegistry name → instrument table
@@ -75,6 +83,9 @@ LOCK_NAMES = frozenset(
 #: may only acquire locks strictly later in this tuple (same-name
 #: instances share a rank and are never acquired nested).
 LOCK_ORDER: Tuple[str, ...] = (
+    LockName.SERVE_GATEWAY,
+    LockName.SERVE_REQUEST,
+    LockName.SERVE_METRICS,
     LockName.TELEMETRY_SAMPLER,
     LockName.TELEMETRY_REGISTRY,
     LockName.TELEMETRY_METRIC,

@@ -45,8 +45,10 @@ def test_every_module_imports_without_jax():
     # fault_injection, zero_to_fp32}), 18 of the preemptible run
     # (runtime/dataloader, runtime/data_pipeline and its two modules,
     # runtime/supervision/{config, heartbeat, supervisor, watchdog},
-    # telemetry and its four modules, elasticity and its four modules)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 90
+    # telemetry and its four modules, elasticity and its four modules), 4
+    # of the serving front end (serving/{request, metrics, gateway},
+    # telemetry/propagate)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 94
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -107,6 +109,28 @@ def test_run_loop_modules_are_importable():
                 StepWatchdog, MetricsSampler, Tracer):
         assert cls.__module__.startswith("deepspeed_tpu_torch.")
     assert callable(comm_guard) and callable(validate_trace)
+
+
+def test_serving_front_end_modules_are_importable():
+    from deepspeed_tpu_torch.inference import InferenceEngine, InferenceSession
+    from deepspeed_tpu_torch.runtime.supervision.events import EventKind
+    from deepspeed_tpu_torch.serving import (RequestHandle, ServingGateway,
+                                             ServingMetrics)
+    from deepspeed_tpu_torch.telemetry import SPAN_NAMES, mint_context
+    from deepspeed_tpu_torch.utils import fault_injection
+    from deepspeed_tpu_torch.utils.lock_watch import LOCK_ORDER
+    assert callable(InferenceEngine.serve) and callable(
+        InferenceEngine.start_session)
+    assert {"append", "generate", "fork"} <= set(dir(InferenceSession))
+    assert EventKind.SERVE_DONE == "serve.done"
+    assert {"serve.tick", "serve.admit", "serve.prefill"} <= SPAN_NAMES
+    assert {"serve.request", "serve.admit", "serve.decode_tick"} <= \
+        fault_injection.FAULT_POINTS
+    assert LOCK_ORDER[:3] == ("serve.gateway", "serve.request",
+                              "serve.metrics")
+    assert len(mint_context().fields()["trace_id"]) == 16
+    for cls in (RequestHandle, ServingGateway, ServingMetrics):
+        assert cls.__module__.startswith("deepspeed_tpu_torch.serving.")
 
 
 def test_diffusion_modules_are_importable():
