@@ -224,6 +224,27 @@ imports JAX.  In order it
    micro-batch 1, past four key blocks of 1024: ``flash_fwd``,
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` a layer per step at D 80,
    ``flash_bwd_fused`` 0, the row check at 256 tokens;
+6e. ZeRO-Offload: after ``[offload host]`` (CPU model, cores, MemTotal,
+   ``ds_adam_simd_width()``, the host's copy and read rates), with every
+   launch count at 0, GPT-2 2.7B at 6d's row (seq 1024, micro-batch 8,
+   the same init seed and batch) with ``offload_optimizer: {device:
+   cpu}`` and ``data_types.grad_accum_dtype: bf16``, through forward /
+   backward / step, 1 warm-up and 3 timed steps
+   (``run_offload_training``): finite losses within ``OFFLOAD_LOSS_RTOL``
+   (2e-3) of the row's same steps, ``fused_adam`` 0 and ``flash_fwd`` and
+   ``flash_bwd_fused`` 32 a step, the device peak below the row's (and
+   reported against the memory model); the step's parts (fwd+bwd, grad
+   stats, waits on copies, unscale, host Adam seconds and elements/s
+   against ``HOST_ADAM_BYTES`` per element over the host's rate, D2H and
+   H2D GB/s by CUDA events) and a profiled step's busy share; it fails
+   if the host lacks the memory;
+6f. with every launch count at 0, GPT-2 350M at phase 6's configuration
+   under offload (``run_offload_nvme``): one step with
+   ``pipeline_transfers: false`` bitwise equal to one with it on, 2 steps
+   under ``nvme`` (swap files in a temporary directory on local disk)
+   bitwise equal to ``cpu`` (losses, params, master and moments), and
+   save -> step -> load -> the same step bitwise equal; the save and
+   load seconds, the swap bytes and the swap files' read and write GB/s;
 7. the same for the sparse training path: the same model at seq 4096
    under the Fixed block-sparse layout (block 64), micro-batch 4, with the
    live-pair attention FLOPs beside MFU; 7b. GPT-2 760M the same way
@@ -332,6 +353,7 @@ from deepspeed_tpu_torch.elasticity import ElasticTrainRunner
 from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     async_checkpoint_engine, native_checkpoint_engine, verify_tag)
 from deepspeed_tpu_torch.runtime.data_pipeline import ResumableDataLoader
+from deepspeed_tpu_torch.runtime import memory_model
 from deepspeed_tpu_torch.runtime.model import from_bert, from_gpt
 from deepspeed_tpu_torch.runtime.supervision import EventJournal, read_events
 from deepspeed_tpu_torch.telemetry import (read_metrics, trace_events,
@@ -4660,6 +4682,377 @@ def _train_full_width(label, model, cfg, micro, want, warmup, steps, row_seq):
     return res, counts, engine, batch
 
 
+# ------------------------------------------------------------ ZeRO-Offload
+
+#: phase 6e: warm-up and timed steps of GPT-2 2.7B with its optimizer
+#: state on the host, and its losses' tolerance against the same steps of
+#: the device-Adam row (6d): at gas 1 the bf16 accumulator holds exactly
+#: the bf16 backward's gradients, so only the Adam arithmetic differs
+OFFLOAD_WARMUP, OFFLOAD_STEPS = 1, 3
+OFFLOAD_LOSS_RTOL = 2e-3
+#: bytes the host Adam moves per element: reads p, g, m, v (16), writes
+#: p, m, v (12) and the bf16 copy-out (2); its bound is these bytes over
+#: the host's streaming rate (``host_facts``)
+HOST_ADAM_BYTES = 30
+#: phase 6f: GPT-2 350M's steps under nvme offload
+NVME_STEPS = 2
+
+
+def _meminfo_kib(key):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    raise KeyError(key)
+
+
+def _peak_rss_gib():
+    """The process's peak resident set (``ru_maxrss``, KiB on Linux)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _cpu_model():
+    import platform
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key = line.split(":", 1)[0].strip().lower()
+            if key in ("model name", "cpu model", "hardware"):
+                return line.split(":", 1)[1].strip()
+    return platform.processor() or "not reported by /proc/cpuinfo"
+
+
+def _best_s(fn, n=5):
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def host_facts():
+    """The host's CPU model, cores, memory, the host Adam's SIMD width and
+    its memory rates over 1 GiB of fp32 with torch's intra-op threads,
+    best of 5: a ``copy_`` (read + write bytes a second; the write's
+    line fill is not counted) and a ``sum`` (read bytes a second), the
+    larger of which sets the host Adam's bound."""
+    from deepspeed_tpu_torch.ops.op_builder import CPUAdamBuilder
+    a = torch.empty(1 << 28, dtype=torch.float32).fill_(1.0)
+    b = torch.empty_like(a)
+    nbytes = a.numel() * 4
+    facts = {"cpu_model": _cpu_model(), "cores": os.cpu_count(),
+             "torch_threads": torch.get_num_threads(),
+             "mem_total_gib": _meminfo_kib("MemTotal") / 2 ** 20,
+             "mem_available_gib": _meminfo_kib("MemAvailable") / 2 ** 20,
+             "ds_adam_simd_width": int(
+                 CPUAdamBuilder().load().ds_adam_simd_width()),
+             "copy_gbps": 2 * nbytes / _best_s(lambda: b.copy_(a)) / 1e9,
+             "read_gbps": nbytes / _best_s(a.sum) / 1e9}
+    facts["stream_gbps"] = max(facts["copy_gbps"], facts["read_gbps"])
+    del a, b
+    log(f"[offload host] CPU {facts['cpu_model']}, {facts['cores']} cores "
+        f"({facts['torch_threads']} torch threads), MemTotal "
+        f"{facts['mem_total_gib']:.1f} GiB (available "
+        f"{facts['mem_available_gib']:.1f}), ds_adam_simd_width() "
+        f"{facts['ds_adam_simd_width']}, host copy {facts['copy_gbps']:.1f} "
+        f"GB/s (read + write), read {facts['read_gbps']:.1f} GB/s")
+    return facts
+
+
+def _offload_steps(engine, batch, n):
+    """``n`` steps through forward/backward/step, each timed in two
+    parts (fwd+bwd to a device barrier, then the offloaded step) with the
+    step's own parts (``offload_step_stats``)."""
+    rows = []
+    for _ in range(n):
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        loss = engine.forward(batch)
+        engine.backward(loss)
+        ACCEL.synchronize()
+        t1 = time.perf_counter()
+        engine.step()
+        ACCEL.synchronize()
+        t2 = time.perf_counter()
+        st = engine.offload_step_stats()
+        rows.append({**st, "loss": float(loss), "step_s": t2 - t0,
+                     "fwd_bwd_s": t1 - t0, "optimizer_s": t2 - t1})
+    return rows
+
+
+def _step_parts(rows):
+    """Means over timed steps of the parts, and the rates."""
+    def mean(k):
+        return sum(r[k] for r in rows) / len(rows)
+    out = {k: mean(k) for k in ("step_s", "fwd_bwd_s", "optimizer_s",
+                                "stats_s", "wait_s", "unscale_s", "adam_s")}
+    out["d2h_gbps"] = sum(r["d2h_bytes"] for r in rows) / \
+        (sum(r["d2h_ms"] for r in rows) * 1e6)
+    out["h2d_gbps"] = sum(r["h2d_bytes"] for r in rows) / \
+        (sum(r["h2d_ms"] for r in rows) * 1e6)
+    out["adam_elements_per_s"] = rows[0]["elements"] / out["adam_s"]
+    return out
+
+
+def run_offload_training(base, facts):
+    """Phase 6e: GPT-2 2.7B at 6d's row (seq 1024, bf16, remat
+    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 8, the same
+    init seed and batch) with ``offload_optimizer: {device: cpu}`` and a
+    bf16 accumulator: the fp32 master and moments in host memory, the
+    host SIMD Adam stepping them.  ``OFFLOAD_WARMUP`` + ``OFFLOAD_STEPS``
+    steps with every launch count at 0 before: finite losses within
+    ``OFFLOAD_LOSS_RTOL`` of the device-Adam row's same steps,
+    ``fused_adam`` 0 and the flash pair 32 a step; the device peak
+    against the row's and against the memory model; the step's parts;
+    a profile of one step.  Returns (results, counts)."""
+    cfg = dataclasses.replace(gpt.GPT2_2_7B, max_seq_len=1024,
+                              dtype=torch.bfloat16, remat=True,
+                              remat_policy="attn_out")
+    micro = [m for k, _, _, _, _, m, _ in WIDE_MODELS if k == "gpt2_2_7b"][0]
+    spec = from_gpt(cfg)
+    n = spec.num_params()
+    need_gib = 12 * n / 2 ** 30
+    if facts["mem_available_gib"] < 1.25 * need_gib:
+        raise AssertionError(
+            f"offload: the host has {facts['mem_available_gib']:.1f} GiB "
+            f"available, the fp32 master and moments of GPT-2 2.7B need "
+            f"{need_gib:.1f} GiB")
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": micro,
+              "zero_optimization": {"stage": 1, "offload_optimizer": {
+                  "device": "cpu"}},
+              "data_types": {"grad_accum_dtype": "bf16"}}
+    ACCEL.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=spec, config=config,
+        generator=torch.Generator(device="cuda").manual_seed(2024))
+    ACCEL.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sizes = [shape.numel() for _, shape, _ in engine._layout]
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (micro, cfg.max_seq_len + 1))}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    rows = _offload_steps(engine, batch, OFFLOAD_WARMUP + OFFLOAD_STEPS)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(rows)
+    losses = [r["loss"] for r in rows]
+    ref = base["losses"][:n_steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    parts = _step_parts(rows[OFFLOAD_WARMUP:])
+    model_peak = memory_model.offload_peak_bytes(
+        n, max(sizes), mixed_precision=True, grad_accum_bytes=2,
+        pipeline_transfers=engine._offload_pipeline)
+    act = 4 * cfg.max_seq_len * cfg.d_model * cfg.n_layer * micro
+    bound_eps = facts["stream_gbps"] * 1e9 / HOST_ADAM_BYTES
+    res = {"config": f"GPT-2 2.7B seq {cfg.max_seq_len} bf16 remat attn_out, "
+                     f"Adam lr 1e-4 wd 0.01, ZeRO 1 + offload_optimizer cpu, "
+                     f"grad_accum_dtype bf16, micro {micro}, gas 1",
+           "params": n, "largest_leaf": max(sizes), "leaves": len(sizes),
+           "pipeline_transfers": engine._offload_pipeline,
+           "losses": losses, "device_adam_losses": ref, "loss_rel_diff": rel,
+           "init_s": init_s, "init_peak_gib": init_peak,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "device_adam_peak_gib": base["max_memory_allocated_gib"],
+           "offload_peak_model_gib": model_peak / 2 ** 30,
+           "activation_estimate_gib": act / 2 ** 30,
+           "steps": rows, "parts": parts,
+           "host_adam_bound_elements_per_s": bound_eps,
+           "host_adam_share_of_bound": parts["adam_elements_per_s"]
+           / bound_eps,
+           "tokens_per_s": micro * cfg.max_seq_len / parts["step_s"],
+           "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+           "host_peak_rss_gib": _peak_rss_gib(), "host": facts}
+    log(f"[offload] GPT-2 2.7B, offload_optimizer cpu, bf16 accumulator, "
+        f"micro-batch {micro}: init {init_s:.1f} s (device peak "
+        f"{init_peak:.2f} GiB), {len(sizes)} leaves, largest "
+        f"{max(sizes)}, pipeline_transfers {engine._offload_pipeline}")
+    log(f"[offload] losses {[round(x, 5) for x in losses]}, device-Adam row "
+        f"{[round(x, 5) for x in ref]}, relative gap "
+        f"{[f'{x:.2e}' for x in rel]} (tol {OFFLOAD_LOSS_RTOL})")
+    log(f"[offload] device peak {res['max_memory_allocated_gib']:.2f} GiB "
+        f"(device-Adam row {base['max_memory_allocated_gib']:.2f} GiB; "
+        f"memory model: params + accumulator + in-flight leaves "
+        f"{res['offload_peak_model_gib']:.2f} GiB + activation estimate "
+        f"{res['activation_estimate_gib']:.2f} GiB); host peak RSS "
+        f"{res['host_peak_rss_gib']:.1f} GiB")
+    log(f"[offload] step {parts['step_s']:.3f} s ({res['tokens_per_s']:.0f} "
+        f"tokens/s): fwd+bwd {parts['fwd_bwd_s']:.3f} s, offloaded step "
+        f"{parts['optimizer_s']:.3f} s = grad stats {parts['stats_s']:.3f} s "
+        f"+ waits on copies {parts['wait_s']:.3f} s + unscale "
+        f"{parts['unscale_s']:.3f} s + host Adam {parts['adam_s']:.3f} s "
+        f"({parts['adam_elements_per_s'] / 1e9:.3f} G elements/s, bound "
+        f"{bound_eps / 1e9:.3f} G/s at {HOST_ADAM_BYTES} B/element over the "
+        f"host's {facts['stream_gbps']:.1f} GB/s: "
+        f"{res['host_adam_share_of_bound']:.3f}) + the rest; "
+        f"D2H {parts['d2h_gbps']:.2f} GB/s, H2D {parts['h2d_gbps']:.2f} GB/s")
+    log(f"[offload] launches per step {res['launches_per_step']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"offload: losses not finite: {losses}")
+    if not max(rel) <= OFFLOAD_LOSS_RTOL:
+        raise AssertionError(f"offload: losses off the device-Adam row: "
+                             f"{rel} > {OFFLOAD_LOSS_RTOL}")
+    want = {"fused_adam": 0, "flash_fwd": cfg.n_layer,
+            "flash_bwd_fused": cfg.n_layer, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    wrong = {k: counts[k] for k, v in want.items() if counts[k] != v * n_steps}
+    if wrong:
+        raise AssertionError(f"offload: launches per step off {want}: "
+                             f"{wrong} over {n_steps} steps")
+    if not peak < base["max_memory_allocated_gib"] * 2 ** 30:
+        raise AssertionError(f"offload: device peak {peak / 2 ** 30:.2f} GiB "
+                             "not below the device-Adam row's")
+    res["profile"] = device_profile(
+        "offload train 1 step", lambda: engine.train_batch_fused(batch),
+        FLASH_KERNELS)
+    engine.close()
+    del engine, batch
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def _host_equal(a, b):
+    """Bitwise equality of two engines' host optimizer state, leaf by
+    leaf (the step, each master and moment)."""
+    oa, ob = a._offload_opt, b._offload_opt
+    if oa.step_count != ob.step_count:
+        return False
+    for ga, gb in zip(oa._groups(), ob._groups()):
+        if not all(torch.equal(x, y) for x, y in zip(ga, gb)):
+            return False
+    return True
+
+
+def run_offload_nvme():
+    """Phase 6f: GPT-2 350M at phase 6's configuration under
+    ``offload_optimizer``, counts at 0 before: ``cpu`` (pipelined) and
+    ``cpu`` with ``pipeline_transfers: false`` one step each, bitwise
+    equal (losses, params, host state); ``nvme`` (swap files in a
+    temporary directory on local disk, read prefetch and write pipeline
+    on) ``NVME_STEPS`` steps bitwise equal to ``cpu``; then save -> one
+    step -> load -> the same step, bitwise equal (loss, params, master
+    and moments).  Reports the save and load seconds, the swap bytes and
+    the swap files' read and write GB/s (a whole pass each, the page
+    cache warm).  Returns (results, counts)."""
+    cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
+                              dtype=torch.bfloat16, remat=True,
+                              remat_policy="attn_out")
+    tmp = tempfile.mkdtemp(prefix="offload_nvme_")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (TRAIN_MICRO_BATCH, cfg.max_seq_len + 1))}
+
+    def make(offload):
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=from_gpt(cfg),
+            config={**TRAIN_CONFIG, "zero_optimization": {
+                "stage": 1, "offload_optimizer": offload}},
+            generator=torch.Generator(device="cuda").manual_seed(2024))
+        return engine
+
+    def step(engine):
+        loss = engine.forward(batch)
+        engine.backward(loss)
+        engine.step()
+        ACCEL.synchronize()
+        return float(loss)
+
+    def check(label, ok):
+        log(f"[offload nvme] {label}: bitwise equal {ok}")
+        if not ok:
+            raise AssertionError(f"offload nvme: {label} not bitwise equal")
+
+    res = {"config": "GPT-2 350M seq 1024 bf16 remat attn_out, Adam lr 1e-4 "
+                     f"wd 0.01, ZeRO 1, micro {TRAIN_MICRO_BATCH}"}
+    kernels.reset_launch_counts()
+    n_steps = 0
+    try:
+        cpu = make({"device": "cpu"})
+        lc = [step(cpu)]
+        serial = make({"device": "cpu", "pipeline_transfers": False})
+        ls = step(serial)
+        n_steps += 2
+        check("one step, pipeline_transfers false vs true",
+              ls == lc[0] and _host_equal(serial, cpu)
+              and torch.equal(serial._flat["params"], cpu._flat["params"]))
+        serial.close()
+        del serial
+        lc.append(step(cpu))
+        nvme = make({"device": "nvme", "nvme_path": os.path.join(tmp, "swap"),
+                     "pipeline_read": True, "pipeline_write": True})
+        t0 = time.perf_counter()
+        ln = [step(nvme) for _ in range(NVME_STEPS)]
+        nvme_step_s = (time.perf_counter() - t0) / NVME_STEPS
+        n_steps += 1 + NVME_STEPS
+        res["losses"] = {"cpu": lc, "nvme": ln}
+        check(f"{NVME_STEPS} steps, nvme vs cpu",
+              ln == lc and _host_equal(nvme, cpu)
+              and torch.equal(nvme._flat["params"], cpu._flat["params"]))
+        cpu.close()
+        del cpu
+        sw = nvme._offload_opt.swapper
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        nvme.save_checkpoint(ckpt)
+        save_s = time.perf_counter() - t0
+        tag_bytes = _dir_bytes(ckpt)
+        l3 = step(nvme)
+        params3 = nvme._flat["params"].clone()
+        state3 = [tuple(t.clone() for t in g) for g in nvme._offload_opt._groups()]
+        t0 = time.perf_counter()
+        nvme.load_checkpoint(ckpt)
+        ACCEL.synchronize()
+        load_s = time.perf_counter() - t0
+        l3b = step(nvme)
+        n_steps += 2
+        check("save -> step -> load -> the same step",
+              l3b == l3 and torch.equal(nvme._flat["params"], params3)
+              and all(torch.equal(x, y) for ga, gb in
+                      zip(nvme._offload_opt._groups(), state3)
+                      for x, y in zip(ga, gb)))
+        del params3, state3
+        swap_bytes = sw.swapped_bytes()
+        t0 = time.perf_counter()
+        sd = nvme._offload_opt.state_dict()
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nvme._offload_opt.load_state_dict(sd)
+        write_s = time.perf_counter() - t0
+        del sd
+        res.update(save_s=save_s, load_s=load_s, tag_bytes=tag_bytes,
+                   swap_bytes=swap_bytes, swap_read_gbps=swap_bytes / read_s
+                   / 1e9, swap_write_gbps=swap_bytes / write_s / 1e9,
+                   nvme_step_s=nvme_step_s,
+                   swapper_bytes_read=sw.bytes_read,
+                   swapper_bytes_written=sw.bytes_written)
+        nvme.close()
+        del nvme
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = kernels.launch_counts()
+    res["launches_per_step"] = {k: v / n_steps for k, v in counts.items()}
+    log(f"[offload nvme] GPT-2 350M: save {res['save_s']:.2f} s "
+        f"({res['tag_bytes'] / 1e9:.2f} GB tag), load {res['load_s']:.2f} s, "
+        f"swap files {res['swap_bytes'] / 1e9:.2f} GB, a whole read "
+        f"{res['swap_read_gbps']:.2f} GB/s and write "
+        f"{res['swap_write_gbps']:.2f} GB/s (page cache warm), nvme step "
+        f"{res['nvme_step_s']:.3f} s; launches per step "
+        f"{res['launches_per_step']}")
+    want = {"fused_adam": 0, "flash_fwd": cfg.n_layer,
+            "flash_bwd_fused": cfg.n_layer}
+    wrong = {k: counts[k] for k, v in want.items() if counts[k] != v * n_steps}
+    if wrong:
+        raise AssertionError(f"offload nvme: launches per step off {want}: "
+                             f"{wrong} over {n_steps} steps")
+    torch.cuda.empty_cache()
+    return res, counts
+
+
 # ------------------------------------------------------------ diffusion
 
 #: the spatial kernel's shapes on the diffusion path: 320 channels at
@@ -5304,6 +5697,16 @@ def main() -> int:
     counts = _add(counts, long_counts)
     log(f"[time] wide training paths done at {time.perf_counter() - T0:.1f} s")
 
+    result["offload_host"] = host_facts()
+    result["offload_training"], offload_counts = run_offload_training(
+        result["gpt2_2_7b_training"], result["offload_host"])
+    result["launches"]["offload_training"] = offload_counts
+    counts = _add(counts, offload_counts)
+    result["offload_nvme"], nvme_counts = run_offload_nvme()
+    result["launches"]["offload_nvme"] = nvme_counts
+    counts = _add(counts, nvme_counts)
+    log(f"[time] offload paths done at {time.perf_counter() - T0:.1f} s")
+
     result["sparse_training"], sparse_counts, trainer, batch = \
         run_sparse_training()
     result["launches"]["sparse_training"] = sparse_counts
@@ -5389,7 +5792,9 @@ def main() -> int:
         f"{result['launches']['gpt2_2_7b']}, GPT-2 760M training "
         f"{result['launches']['gpt2_760m_training']}, GPT-2 2.7B training "
         f"{result['launches']['gpt2_2_7b_training']}, GPT-2 2.7B training at "
-        f"seq {LONG_SEQ} {long_counts}, GPT-2 760M sparse training "
+        f"seq {LONG_SEQ} {long_counts}, GPT-2 2.7B offloaded training "
+        f"{offload_counts}, GPT-2 350M nvme offload {nvme_counts}, "
+        f"GPT-2 760M sparse training "
         f"{result['launches']['gpt2_760m_sparse_training']}, training "
         f"{train_counts}, preemptible run {preempt_counts}, "
         f"GPT-Neo training {neo_counts}, sparse training "

@@ -5,7 +5,9 @@ the reference's ``deepspeed/runtime/config.py``: ``DeepSpeedConfig`` :717,
 the batch algebra ``_set_batch_related_parameters`` :954).  It reads the
 sections the training path runs: the batch triple, ``optimizer``,
 ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``steps_per_print``, ``zero_optimization`` (stage 0 or 1),
+``steps_per_print``, ``zero_optimization`` (stage 0 or 1, and the
+optimizer-state offload), ``data_types`` (``grad_accum_dtype``), ``aio``
+(the NVMe offload's file I/O engine),
 ``sparse_attention`` (kept raw, as the JAX package keeps it),
 ``checkpoint`` (the typed durability section,
 ``checkpoint_engine/config.py``), ``data`` (the resumable loader,
@@ -16,8 +18,9 @@ elastic runner's admission check) and ``wall_clock_breakdown``.  Any
 other top-level section raises
 :class:`DeepSpeedConfigError`: a config that asks for telemetry or another
 unported feature must not train silently without it.  HF-style ``"auto"``
-values resolve as in the JAX package, except that a fully automatic batch
-triple takes micro-batch 1 (the memory-model sizing is not ported).
+values resolve as in the JAX package: a fully automatic batch triple takes
+the largest power-of-two micro-batch whose ZeRO state and activations fit
+the device's budget (``memory_model.py``), 1 without a model or a card.
 
 The data-parallel world size of the batch algebra is ``world_size`` (1 on
 the one device the port trains on).
@@ -34,7 +37,9 @@ from . import constants as C
 from ..telemetry.config import DeepSpeedTelemetryConfig
 from .checkpoint_engine.config import DeepSpeedCheckpointConfig
 from .data_pipeline.config import DeepSpeedDataConfig
+from ..utils.logging import logger
 from .supervision.config import DeepSpeedSupervisionConfig
+from .swap_tensor.aio_config import AIO, AioConfig
 from .zero.config import ZERO_OPTIMIZATION, DeepSpeedZeroConfig
 
 
@@ -51,7 +56,8 @@ PORTED_SECTIONS = frozenset({
     C.GRADIENT_ACCUMULATION_STEPS, C.STEPS_PER_PRINT, C.GRADIENT_CLIPPING,
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.OPTIMIZER, C.SCHEDULER,
     C.SPARSE_ATTENTION, C.CHECKPOINT, ZERO_OPTIMIZATION, C.DATA,
-    C.SUPERVISION, C.TELEMETRY, C.ELASTICITY, C.WALL_CLOCK_BREAKDOWN})
+    C.SUPERVISION, C.TELEMETRY, C.ELASTICITY, C.WALL_CLOCK_BREAKDOWN,
+    C.DATA_TYPES, AIO})
 _FP16_KEYS = frozenset({C.FP16_ENABLED, C.FP16_AUTO_CAST, C.FP16_LOSS_SCALE,
                         C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
                         C.FP16_HYSTERESIS, C.FP16_MIN_LOSS_SCALE,
@@ -61,14 +67,21 @@ _SECTION_KEYS = {C.FP16: _FP16_KEYS,
                  C.BFLOAT16_OLD: frozenset({C.BFLOAT16_ENABLED}),
                  C.OPTIMIZER: frozenset({C.TYPE, C.OPTIMIZER_PARAMS,
                                          C.LEGACY_FUSION}),
-                 C.SCHEDULER: frozenset({C.TYPE, C.SCHEDULER_PARAMS})}
+                 C.SCHEDULER: frozenset({C.TYPE, C.SCHEDULER_PARAMS}),
+                 C.DATA_TYPES: frozenset({C.GRAD_ACCUM_DTYPE})}
+
+#: ``data_types.grad_accum_dtype`` names (JAX ``engine.py:780-784``)
+GRAD_ACCUM_DTYPES = {"fp32": "float32", "float32": "float32",
+                     "float": "float32", "fp16": "float16",
+                     "float16": "float16", "half": "float16",
+                     "bf16": "bfloat16", "bfloat16": "bfloat16"}
 
 
 class DeepSpeedConfig:
     """Parse and validate a DeepSpeed JSON config (path or dict)."""
 
     def __init__(self, config: Union[str, os.PathLike, Dict],
-                 world_size: int = 1):
+                 world_size: int = 1, model=None):
         if isinstance(config, (str, os.PathLike)):
             if not os.path.exists(config):
                 raise DeepSpeedConfigError(
@@ -83,7 +96,7 @@ class DeepSpeedConfig:
                 f"Expected a string path or dict, got {type(config)}")
         self.world_size = world_size
         self._check_sections(self._param_dict)
-        self._resolve_auto(self._param_dict)
+        self._resolve_auto(self._param_dict, model)
         self._initialize_params(self._param_dict)
         self._configure_train_batch_size()
         self._do_sanity_check()
@@ -108,12 +121,12 @@ class DeepSpeedConfig:
                     f"{sorted(known)})")
 
     # ------------------------------------------------------------------ "auto"
-    @staticmethod
-    def _resolve_auto(pd: Dict[str, Any]) -> None:
+    def _resolve_auto(self, pd: Dict[str, Any], model=None) -> None:
         """HF-style ``"auto"``: the batch triple resolves through the batch
-        algebra (a fully-auto triple takes micro-batch 1), gradient
-        clipping takes HF's max_grad_norm default (1.0), and every other
-        ``"auto"`` falls back to the field's default."""
+        algebra (a fully-auto triple sizes the micro-batch with the memory
+        model: ``_auto_micro_batch``), gradient clipping takes HF's
+        max_grad_norm default (1.0), and every other ``"auto"`` falls back
+        to the field's default."""
         triple = (C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
                   C.GRADIENT_ACCUMULATION_STEPS)
         had_auto_triple = any(pd.get(k) == AUTO for k in triple)
@@ -135,9 +148,48 @@ class DeepSpeedConfig:
                 strip(pd[k])
             elif pd[k] == AUTO:
                 del pd[k]
+        # sizing runs after the strip, so the estimate reads the resolved
+        # precision and offload values
         if had_auto_triple and pd.get(C.TRAIN_BATCH_SIZE) is None and \
                 pd.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU) is None:
-            pd[C.TRAIN_MICRO_BATCH_SIZE_PER_GPU] = 1
+            pd[C.TRAIN_MICRO_BATCH_SIZE_PER_GPU] = \
+                self._auto_micro_batch(pd, model)
+
+    def _auto_micro_batch(self, pd: Dict[str, Any], model) -> int:
+        """The largest power-of-two micro-batch whose ZeRO state and
+        activation bytes fit the device's budget (JAX ``runtime/
+        config.py:126-165``); 1 without a model, a budget (the CPU) or a
+        parameter count."""
+        if model is None:
+            return 1
+        from . import memory_model
+        budget = memory_model.device_budget()
+        if budget is None:
+            return 1
+        n = model.num_params()
+        if n is None:
+            logger.warning("auto micro-batch: the model's parameters "
+                           "cannot be counted; using 1")
+            return 1
+        zero = pd.get(ZERO_OPTIMIZATION, {})
+        stage = int(zero.get("stage", 0))
+        mixed = any(bool(pd.get(k, {}).get(C.FP16_ENABLED if k == C.FP16
+                                           else C.BFLOAT16_ENABLED))
+                    for k in (C.FP16, C.BFLOAT16, C.BFLOAT16_OLD))
+        off = zero.get("offload_optimizer", zero.get("cpu_offload"))
+        offload = bool(off) and (not isinstance(off, dict)
+                                 or off.get("device", "cpu") != "none")
+        free = budget - memory_model.zero_state_bytes(
+            n, self.world_size, stage, mixed, offload)
+        cfg = model.meta.get("config")
+        dims = [getattr(cfg, k, None) for k in ("max_seq_len", "d_model",
+                                                "n_layer")]
+        if free <= 0 or None in dims:
+            return 1
+        # remat-era activation estimate: ~4 bytes x S x d per layer
+        act_per_sample = 4 * dims[0] * dims[1] * dims[2]
+        micro = max(1, free // max(1, act_per_sample))
+        return 1 << (int(micro).bit_length() - 1)
 
     # ------------------------------------------------------------------ params
     def _initialize_params(self, pd: Dict[str, Any]) -> None:
@@ -180,6 +232,25 @@ class DeepSpeedConfig:
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get(ZERO_OPTIMIZATION, {}))
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
+
+        data_types = pd.get(C.DATA_TYPES, {})
+        if not isinstance(data_types, dict):
+            raise DeepSpeedConfigError(f"'{C.DATA_TYPES}' must be a dict")
+        self.grad_accum_dtype = data_types.get(C.GRAD_ACCUM_DTYPE,
+                                               C.GRAD_ACCUM_DTYPE_DEFAULT)
+        if self.grad_accum_dtype is not None and str(
+                self.grad_accum_dtype).lower().replace("torch.", "") \
+                not in GRAD_ACCUM_DTYPES:
+            raise DeepSpeedConfigError(
+                f"data_types.grad_accum_dtype={self.grad_accum_dtype!r} "
+                f"(want one of {sorted(GRAD_ACCUM_DTYPES)})")
+        aio = pd.get(AIO, {})
+        if not isinstance(aio, dict):
+            raise DeepSpeedConfigError(f"'{AIO}' must be a dict")
+        try:
+            self.aio_config = AioConfig.from_dict(aio)
+        except (TypeError, ValueError) as e:
+            raise DeepSpeedConfigError(f"invalid '{AIO}' section: {e}") from e
 
         self._initialize_checkpoint(pd.get(C.CHECKPOINT, {}))
 

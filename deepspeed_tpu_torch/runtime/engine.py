@@ -56,10 +56,29 @@ its sampler stream ``metrics.jsonl``, and ``wall_clock_breakdown`` prints
 the ``time (ms) | ...`` line from the span aggregates.  Spans are off
 unless the config asks: then the step adds no device call.
 
+ZeRO-Offload (``zero_optimization.offload_optimizer.device`` ``"cpu"`` or
+``"nvme"``, JAX ``engine.py:792-1040``, ``:1616-1806``): the device keeps
+only the compute-dtype params and the accumulator (in
+``data_types.grad_accum_dtype``); the fp32 master and the Adam moments
+live on the host (``zero/offload_engine.py``), one flat CPU tensor per
+leaf, or in swap files.  At the boundary (``_apply_offload_step``) one
+scalar pass over the accumulator gives the norm, the clip coefficient
+and the overflow flag, read by the host once; an overflowed step moves
+no bytes.  Otherwise the leaves stream, in the JAX package's leaf order:
+each is multiplied by the clip coefficient into the compute dtype (still
+loss-scaled), its accumulator slice zeroed, and copied to a pinned
+staging buffer; when its copy has landed, the host unscales it in fp32,
+the host SIMD Adam steps it and writes the bf16 params into the same
+staging buffer, which goes back to the device's params.  With
+``pipeline_transfers`` two leaves are in flight, so the host Adam of one
+overlaps the copy of the next.  The device's transient is one leaf.
+Checkpoints add the host state as ``offload_optimizer_rank0.npz`` in the
+tag (the JAX package's file), written before the tag commits.
+
 Left out (ROADMAP.md Queue 1): PLD, curriculum, compression, the
 monitor, the gradient-collapse modes (and their ``train.grad_sync`` and
-``comm.reduce`` spans), offload and ZeRO ≥ 2, and with them their
-checkpoint branches.
+``comm.reduce`` spans), ZeRO ≥ 2, the offload's ``grad_compression`` and
+its multi-host branch, and with them their checkpoint branches.
 """
 
 from __future__ import annotations
@@ -75,6 +94,7 @@ import torch
 from ..accelerator import get_accelerator
 from ..ops import adam as _adam  # noqa: F401 — registers adam/adamw/sgd
 from ..ops import lamb as _lamb  # noqa: F401 — registers lamb/fusedlamb
+from ..ops.adam.fused_adam import FusedAdam
 from ..ops.optimizer import TpuOptimizer, get_optimizer_class
 from ..telemetry.metrics import (MetricName, MetricsRegistry, MetricsSampler,
                                  analytic_mfu, host_rss_bytes,
@@ -88,11 +108,13 @@ from .checkpoint_engine.commit import (CollectiveConsensusChannel,
                                        CommitContext, process_world_size)
 from .checkpoint_engine.native_checkpoint_engine import (
     load_engine_checkpoint, save_engine_checkpoint)
-from .config import DeepSpeedConfig
+from . import memory_model
+from .config import GRAD_ACCUM_DTYPES, DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_lr_schedule_class
 from .model import ModelSpec
 from .utils import clip_coefficient, global_grad_norm
+from .zero.offload_engine import HostOffloadOptimizer
 
 Path = Tuple[str, ...]
 
@@ -139,7 +161,7 @@ class DeepSpeedEngine:
                  training_data=None, collate_fn=None):
         assert model is not None, "deepspeed_tpu_torch.initialize requires a ModelSpec"
         self.device = get_accelerator().resolve_device(device)
-        self._config = DeepSpeedConfig(config)
+        self._config = DeepSpeedConfig(config, model=model)
         self.module = model
         self.collate_fn = collate_fn
         #: the stateful iterator whose position rides in checkpoints
@@ -157,10 +179,21 @@ class DeepSpeedEngine:
             steps_per_output=self.steps_per_print())
 
         self.compute_dtype = _dtype_of(self._config)
+        self.grad_accum_dtype = self._resolve_grad_accum_dtype()
         self.scaler_config = ls.LossScalerConfig.from_ds_config(self._config)
+        ocfg = self._config.zero_config.offload_optimizer_config
+        self._offload_cfg = ocfg
+        self._offload_device = None if ocfg.device == "none" else ocfg.device
+        #: the host optimizer under offload, else None
+        self._offload_opt: Optional[HostOffloadOptimizer] = None
+        #: the last offloaded step's parts (``offload_step_stats``)
+        self._offload_last: Dict[str, Any] = {}
         self._configure_optimizer(optimizer)
         self._configure_lr_scheduler(lr_scheduler)
-        self._init_state(generator)
+        if self._offload_device is not None:
+            self._init_state_offload(generator)
+        else:
+            self._init_state(generator)
 
         self._pending: Optional[torch.Tensor] = None
         self._training = True
@@ -395,24 +428,39 @@ class DeepSpeedEngine:
         else:
             self._lr_scheduler = None
 
+    def _resolve_grad_accum_dtype(self) -> torch.dtype:
+        """``data_types.grad_accum_dtype`` (JAX ``engine.py:767-790``): the
+        dtype gradients accumulate in, fp32 unless set.  A 16-bit
+        accumulator halves the accumulator, the largest device term of an
+        offloaded step."""
+        v = self._config.grad_accum_dtype
+        if v is None:
+            return torch.float32
+        return getattr(torch, GRAD_ACCUM_DTYPES[
+            str(v).lower().replace("torch.", "")])
+
+    def _param_tree(self, generator: Optional[torch.Generator]):
+        """The model's given params, else its init from ``generator``."""
+        if self.module.params is not None:
+            return self.module.params
+        assert self.module.init_fn is not None, "ModelSpec needs params or init_fn"
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self.module.init_fn(generator)
+
     def _init_state(self, generator: Optional[torch.Generator]) -> None:
         """The flat buffers, the trees of views over them, and the
         per-parameter autograd leaves."""
+        if self.grad_accum_dtype != torch.float32:
+            raise NotImplementedError(
+                f"data_types.grad_accum_dtype={self._config.grad_accum_dtype!r}"
+                " without zero_optimization.offload_optimizer: the device "
+                "optimizers' kernels (fused_adam, fused_lamb) take an fp32 "
+                "gradient (ROADMAP.md Queue 1 #3.9)")
         dev = self.device
-        if self.module.params is not None:
-            tree = self.module.params
-        else:
-            assert self.module.init_fn is not None, "ModelSpec needs params or init_fn"
-            if generator is None:
-                generator = torch.Generator(device=dev).manual_seed(0)
-            tree = self.module.init_fn(generator)
+        tree = self._param_tree(generator)
         leaves = _flatten(tree)
-        self._layout: List[Tuple[Path, torch.Size, int]] = []
-        offset = 0
-        for path, t in leaves:
-            self._layout.append((path, t.shape, offset))
-            offset += t.numel()
-        n = offset
+        n = self._set_layout(leaves)
         master = torch.empty(n, dtype=torch.float32, device=dev)
         for (path, shape, off), (_, t) in zip(self._layout, leaves):
             master[off:off + t.numel()].copy_(t.reshape(-1))
@@ -433,6 +481,93 @@ class DeepSpeedEngine:
         self._train_params, self._leaves = self._autograd_tree(params)
         _, self._acc_views = self._autograd_tree(grad_acc, leaf=False)
         self._last_global_norm: Optional[torch.Tensor] = None
+
+    def _set_layout(self, leaves) -> int:
+        """Each leaf's (path, shape, offset) in the flat buffers; returns
+        the parameter count."""
+        self._layout: List[Tuple[Path, torch.Size, int]] = []
+        offset = 0
+        for path, t in leaves:
+            self._layout.append((path, t.shape, offset))
+            offset += t.numel()
+        return offset
+
+    def _init_state_offload(self, generator: Optional[torch.Generator]
+                            ) -> None:
+        """The offloaded state (JAX ``engine.py:792-1040``): the device
+        holds the compute-dtype params and the accumulator in
+        ``grad_accum_dtype``; the fp32 master and the Adam moments are the
+        host optimizer's, one flat CPU tensor per leaf in the JAX
+        package's leaf order (sorted paths), so its checkpoint file is the
+        JAX package's.  An init on the card moves to the host leaf by
+        leaf, each device leaf freed once copied, before the params and
+        the accumulator are allocated: the device's peak at init stays
+        at the fp32 tree."""
+        if not isinstance(self.optimizer, FusedAdam):
+            raise NotImplementedError(
+                "zero_optimization.offload_optimizer steps Adam on the host "
+                f"(the C++ SIMD Adam); got {type(self.optimizer).__name__}")
+        dev = self.device
+        leaves = _flatten(self._param_tree(generator))
+        n = self._set_layout(leaves)
+        masters: List[torch.Tensor] = []
+        for i, (path, t) in enumerate(leaves):
+            masters.append(t.detach().to("cpu", torch.float32, copy=True))
+            # an init's device leaf is freed here (given params stay
+            # their owner's)
+            leaves[i] = t = None
+        del leaves
+        params = torch.empty(n, dtype=self.compute_dtype, device=dev)
+        for (path, shape, off), m in zip(self._layout, masters):
+            params[off:off + shape.numel()].copy_(m.reshape(-1))
+        grad_acc = torch.zeros(n, dtype=self.grad_accum_dtype, device=dev)
+        self._separate_master = False   # the master is the host's
+        self._flat = {"params": params, "grad_acc": grad_acc}
+        params_tree = self._tree(params)
+        self.state: Dict[str, Any] = {
+            "params": params_tree, "master": params_tree, "opt_state": {},
+            "grad_acc": self._tree(grad_acc),
+            "scale": ls.init_state(self.scaler_config, dev)}
+        self._train_params, self._leaves = self._autograd_tree(params)
+        _, self._acc_views = self._autograd_tree(grad_acc, leaf=False)
+        self._last_global_norm: Optional[torch.Tensor] = None
+        #: host leaf k is layout leaf ``_host_order[k]``
+        self._host_order = sorted(range(len(self._layout)),
+                                  key=lambda i: self._layout[i][0])
+        sizes = [shape.numel() for _, shape, _ in self._layout]
+        self._offload_pipeline = bool(self._offload_cfg.pipeline_transfers)
+        if self._offload_pipeline:
+            # the second in-flight leaf is turned off where it does not
+            # fit the device's budget (JAX engine.py:990-1006)
+            budget = memory_model.device_budget()
+            if budget is not None and memory_model.offload_peak_bytes(
+                    n, max(sizes),
+                    mixed_precision=self.compute_dtype != torch.float32,
+                    grad_accum_bytes=grad_acc.element_size(),
+                    pipeline_transfers=True) > budget:
+                log_dist("[offload] pipeline_transfers auto-disabled: the "
+                         "second in-flight leaf exceeds the device budget",
+                         ranks=[0])
+                self._offload_pipeline = False
+        opt = self.optimizer
+        self._offload_opt = HostOffloadOptimizer(
+            [masters[i] for i in self._host_order],
+            device=self._offload_device,
+            nvme_path=self._offload_cfg.nvme_path,
+            aio_config=self._config.aio_config,
+            pipeline_read=self._offload_cfg.pipeline_read,
+            pipeline_write=self._offload_cfg.pipeline_write,
+            betas=opt.betas, eps=opt.eps,
+            weight_decay=float(opt.param_groups[0].get("weight_decay", 0.0)),
+            adamw_mode=opt.adam_w_mode, bias_correction=opt.bias_correction)
+        #: pinned host buffers of one leaf each (the window's), and the
+        #: host's fp32 gradient of one leaf; made at the first step
+        self._staging: List[torch.Tensor] = []
+        self._host_grad: Optional[torch.Tensor] = None
+        log_dist(f"[offload] optimizer states on {self._offload_device} "
+                 f"({len(sizes)} leaves, {n} params; accumulator "
+                 f"{self.grad_accum_dtype}, pipeline_transfers "
+                 f"{self._offload_pipeline})", ranks=[0])
 
     def _tree(self, flat: torch.Tensor) -> dict:
         """The parameter tree as views of ``flat``."""
@@ -556,7 +691,11 @@ class DeepSpeedEngine:
 
     def _boundary_update(self) -> bool:
         """The boundary update (``train.optimizer``), then the one read of
-        its overflow flag (``train.host_sync``); returns the flag."""
+        its overflow flag (``train.host_sync``); returns the flag.  The
+        offloaded step reads its flag before its transfers."""
+        if self._offload_opt is not None:
+            with self.tracer.span(SpanName.TRAIN_OPTIMIZER):
+                return self._apply_offload_step()
         with self.tracer.span(SpanName.TRAIN_OPTIMIZER):
             overflow = self._apply_step()
         self.note_host_sync("step.overflow")
@@ -593,6 +732,188 @@ class DeepSpeedEngine:
                                               self.scaler_config)
         self._last_global_norm = norm
         return overflow
+
+    def _offload_stats(self, acc: torch.Tensor):
+        """The offloaded step's scalar pass over the accumulator (JAX
+        ``engine.py:1113-1136`` ``grad_stats``): the norm of the unscaled
+        gradient, the clip coefficient, the overflow flag (with the
+        scaler on: a non-finite norm, or a largest |g| beyond the compute
+        dtype's range once clipped) and the next scale state."""
+        scale = self.state["scale"]["loss_scale"]
+        norm = global_grad_norm(acc) / scale
+        clip = self.gradient_clipping()
+        coef = clip_coefficient(norm, clip) if clip > 0 else \
+            torch.ones((), dtype=torch.float32, device=acc.device)
+        if self.scaler_config.enabled:
+            absmax = global_grad_norm(acc, float("inf"))
+            overflow = ~torch.isfinite(norm) | \
+                (absmax * coef > torch.finfo(self.compute_dtype).max)
+        else:
+            overflow = torch.zeros((), dtype=torch.bool, device=acc.device)
+        new_scale = ls.update_state(self.state["scale"], overflow,
+                                    self.scaler_config)
+        return scale, coef, overflow, new_scale, norm
+
+    def _staging_buffers(self, window: int):
+        """``window`` host buffers of the largest leaf in the compute
+        dtype, pinned on a card (each carries a leaf's gradient down and
+        its params back up), and the host's fp32 gradient of one leaf;
+        made once and reused by every step."""
+        if len(self._staging) < window:
+            biggest = max(shape.numel() for _, shape, _ in self._layout)
+            pin = self.device.type == "cuda"
+            self._staging += [
+                torch.empty(biggest, dtype=self.compute_dtype,
+                            pin_memory=pin)
+                for _ in range(window - len(self._staging))]
+            self._host_grad = torch.empty(biggest, dtype=torch.float32)
+        return self._staging[:window], self._host_grad
+
+    @torch.no_grad()
+    def _apply_offload_step(self) -> bool:
+        """The offloaded boundary step (JAX ``engine.py:1616-1806``, its
+        single-controller branch; module docstring); returns whether it
+        overflowed and was skipped."""
+        t0 = time.perf_counter()
+        acc_flat, params_flat = self._flat["grad_acc"], self._flat["params"]
+        scale, coef, overflow, new_scale, norm = self._offload_stats(acc_flat)
+        self.note_host_sync("step.overflow")
+        with self.tracer.span(SpanName.TRAIN_HOST_SYNC,
+                              label="step.overflow"):
+            # the gradients cross still loss-scaled: the old scale unscales
+            old_scale, coef_f, overflow_f = torch.stack(
+                [scale, coef, overflow.float()]).tolist()
+        stats = {"stats_s": time.perf_counter() - t0}
+        self._last_global_norm = norm
+        if overflow_f:
+            # a skipped step moves no bytes
+            acc_flat.zero_()
+            self.state["scale"] = new_scale
+            self._offload_last = stats
+            return True
+        cuda = self.device.type == "cuda"
+        bf16 = self.compute_dtype == torch.bfloat16
+        hyper = self.optimizer.current_hyperparams()
+        window = 2 if self._offload_pipeline else 1
+        staging, host_grad = self._staging_buffers(window)
+        opt = self._offload_opt
+        opt.step_begin(hyper.get("weight_decay"))
+        inflight: List[Tuple[int, Optional[torch.cuda.Event]]] = []
+        stepped, uploaded = set(), set()
+        copies: List[Tuple[str, int, Any, Any]] = []
+        host = {"wait_s": 0.0, "unscale_s": 0.0, "adam_s": 0.0}
+
+        def leaf(k):
+            _, shape, off = self._layout[self._host_order[k]]
+            return off, shape.numel()
+
+        def timed_copy(direction, dst, src, nbytes):
+            start = ev = None
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                ev = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dst.copy_(src, non_blocking=True)
+                ev.record()
+            else:
+                dst.copy_(src)
+            copies.append((direction, nbytes, start, ev))
+            return ev
+
+        def drain_one():
+            k, ev = inflight.pop(0)
+            off, n = leaf(k)
+            stage = staging[k % window][:n]
+            t = time.perf_counter()
+            if ev is not None:
+                ev.synchronize()
+            t1 = time.perf_counter()
+            g = host_grad[:n]
+            g.copy_(stage)
+            if old_scale != 1.0:
+                g.div_(old_scale)
+            t2 = time.perf_counter()
+            p = opt.step_one(k, g, hyper["lr"],
+                             bf16_out=stage if bf16 else None)
+            stepped.add(k)
+            t3 = time.perf_counter()
+            host["wait_s"] += t1 - t
+            host["unscale_s"] += t2 - t1
+            host["adam_s"] += t3 - t2
+            if not bf16 and self.compute_dtype != torch.float32:
+                stage.copy_(p)
+            src = stage if self.compute_dtype != torch.float32 else p
+            timed_copy("h2d", params_flat[off:off + n], src,
+                       n * params_flat.element_size())
+            uploaded.add(k)
+
+        try:
+            for k in range(len(self._host_order)):
+                off, n = leaf(k)
+                acc = acc_flat[off:off + n]
+                stage = staging[k % window][:n]
+                # clip x cast, still loss-scaled; the accumulator slice is
+                # zeroed behind it on the stream
+                dev = torch.empty(n, dtype=self.compute_dtype,
+                                  device=self.device)
+                torch.mul(acc, coef_f, out=dev)
+                acc.zero_()
+                ev = timed_copy("d2h", stage, dev, n * stage.element_size())
+                del dev
+                inflight.append((k, ev))
+                if len(inflight) >= window:
+                    drain_one()
+            while inflight:
+                drain_one()
+            opt.step_end()
+        except Exception:
+            # leave the engine checkpointable: the host master is the
+            # authority; this step's gradients are lost either way
+            self._recover_offload_step(stepped - uploaded)
+            raise
+        self.state["scale"] = new_scale
+        stats.update(host, offload_s=time.perf_counter() - t0,
+                     elements=params_flat.numel(), copies=copies)
+        self._offload_last = stats
+        return False
+
+    def _recover_offload_step(self, lost) -> None:
+        """After a failure mid-stream: the transfers in flight land, the
+        accumulator is zeroed, and the leaves whose master was stepped
+        but not uploaded are rebuilt from the host master (JAX
+        ``engine.py:1758-1800``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._flat["grad_acc"].zero_()
+        params = self._flat["params"]
+        for k in sorted(lost):
+            _, shape, off = self._layout[self._host_order[k]]
+            try:
+                params[off:off + shape.numel()].copy_(
+                    self._offload_opt.master(k))
+            except (OSError, RuntimeError) as e:
+                logger.warning(f"[offload] leaf {k} not rebuilt from the "
+                               f"host master after a failed step: {e!r}")
+
+    def offload_step_stats(self) -> Dict[str, Any]:
+        """The last offloaded step's parts: host seconds of the scalar
+        pass (``stats_s``), of waiting for the device's copies
+        (``wait_s``), of the unscale (``unscale_s``) and of the host Adam
+        (``adam_s``), the whole step (``offload_s``), the elements stepped,
+        and the device-to-host and host-to-device bytes and milliseconds
+        of the copies (CUDA events, None on the CPU; synchronizes)."""
+        out = {k: v for k, v in self._offload_last.items() if k != "copies"}
+        copies = self._offload_last.get("copies", [])
+        timed = [c for c in copies if c[2] is not None]
+        if timed:
+            torch.cuda.synchronize(self.device)
+        for direction in ("d2h", "h2d"):
+            out[f"{direction}_bytes"] = sum(c[1] for c in copies
+                                            if c[0] == direction)
+            out[f"{direction}_ms"] = sum(c[2].elapsed_time(c[3])
+                                         for c in timed if c[0] == direction) \
+                if timed else None
+        return out
 
     def _finish_model_step(self, overflow: bool, lr_kwargs=None) -> None:
         """Post-step bookkeeping: counters, scheduler, periodic log."""
@@ -677,7 +998,7 @@ class DeepSpeedEngine:
         scalar): what a save writes and a load copies into.  Optimizer
         entries that are not a buffer over the master (LAMB's segments)
         follow from the model's layout and are not state."""
-        n = self._flat["master"].numel()
+        n = self._flat["params"].numel()
         opt: Dict[str, Any] = {}
         for key, value in self.state["opt_state"].items():
             if key == "step":
@@ -714,6 +1035,12 @@ class DeepSpeedEngine:
         if self.data_iterator is not None and \
                 hasattr(self.data_iterator, "state_dict"):
             client_state["data_iterator"] = self.data_iterator.state_dict()
+        if self._offload_opt is not None:
+            # the host's master and moments (JAX engine.py:2048-2057):
+            # written before the tag commits, so ``latest`` never names a
+            # tag without them, and synchronously, since the next step
+            # updates them in place
+            self._offload_opt.save(self._offload_path(save_dir, tag))
         save_engine_checkpoint(save_dir, tag, self._checkpoint_state(),
                                client_state,
                                separate_master=self._separate_master,
@@ -727,6 +1054,10 @@ class DeepSpeedEngine:
                                commit_ctx=self._commit_context())
         self._copy_recovery_script(save_dir)
         return True
+
+    def _offload_path(self, ckpt_dir: str, tag: str) -> str:
+        return os.path.join(ckpt_dir, tag,
+                            f"offload_optimizer_rank{self.global_rank}.npz")
 
     def _copy_recovery_script(self, save_dir: str) -> None:
         """Drop a fp32-recovery shim next to the checkpoints (the
@@ -761,6 +1092,92 @@ class DeepSpeedEngine:
                 load_dir, tag, load_optimizer_states,
                 load_lr_scheduler_states, load_module_only)
 
+    def _load_offload_state(self, load_dir: str, tag: str,
+                            load_optimizer_states: bool) -> None:
+        """The host state of the tag just loaded (JAX ``engine.py:2176-
+        2210``): its ``offload_optimizer_rank0.npz``; without it (a tag
+        of a run without offload) or without the optimizer's state, the
+        host master is reseeded from the loaded params with fresh
+        moments, since the first step must start from the loaded
+        weights."""
+        path = self._offload_path(load_dir, tag)
+        if load_optimizer_states and os.path.exists(path):
+            self._offload_opt.load(path)
+            return
+        if load_optimizer_states:
+            logger.warning(f"no offload optimizer state at {path}; "
+                           "reseeding the host master from the loaded "
+                           "params, moments reset")
+        leaves = [self._flat["params"][off:off + shape.numel()].float()
+                  .cpu() for _, shape, off in
+                  (self._layout[i] for i in self._host_order)]
+        self._offload_opt.load_state_dict({
+            "step": 0, "master": leaves,
+            "m": [torch.zeros_like(l) for l in leaves],
+            "v": [torch.zeros_like(l) for l in leaves]})
+
+    def module_state_dict(self) -> Dict[str, Any]:
+        """The parameter tree in the compute dtype (views of the live
+        params; JAX ``engine.py:2332``)."""
+        return self.state["params"]
+
+    def load_module_state_dict(self, state_dict, strict: bool = True
+                               ) -> None:
+        """Replace the parameters from a tree of arrays or tensors (JAX
+        ``engine.py:2337-2411``), matched by path: ``strict`` requires
+        every leaf with its shape and no other; otherwise the leaves that
+        match load and the rest are named in a warning.  The fp32 master
+        (a separate one, or the host's under offload) takes the source
+        values at full precision; the optimizer's moments and step are
+        kept (a weight swap does not restart the trajectory)."""
+        new = dict(_flatten(state_dict))
+        touched: Dict[int, torch.Tensor] = {}
+        skipped = []
+        for i, (path, shape, off) in enumerate(self._layout):
+            leaf = new.pop(path, None)
+            key = "/".join(path)
+            if leaf is None:
+                if strict:
+                    raise ValueError(f"state_dict is missing leaf {key}")
+                skipped.append(f"{key} (absent)")
+                continue
+            src = torch.as_tensor(np.asarray(leaf) if not
+                                  torch.is_tensor(leaf) else leaf)
+            if tuple(src.shape) != tuple(shape):
+                if strict:
+                    raise ValueError(f"leaf {key} shape {tuple(src.shape)} "
+                                     f"!= {tuple(shape)}")
+                skipped.append(f"{key} ({tuple(src.shape)} != "
+                               f"{tuple(shape)})")
+                continue
+            touched[i] = src.detach().to("cpu", torch.float32)
+        if strict and new:
+            raise ValueError(f"state_dict has leaves the model lacks: "
+                             f"{sorted('/'.join(p) for p in new)[:8]}")
+        if skipped or new:
+            logger.warning(
+                f"load_module_state_dict (non-strict): loaded "
+                f"{len(touched)}/{len(self._layout)} leaves; skipped "
+                f"{skipped[:8]}; unmatched source leaves "
+                f"{sorted('/'.join(p) for p in new)[:8]}")
+        with torch.no_grad():
+            for i, src in touched.items():
+                _, shape, off = self._layout[i]
+                flat = src.reshape(-1)
+                self._flat["params"][off:off + shape.numel()].copy_(flat)
+                if self._separate_master:
+                    self._flat["master"][off:off + shape.numel()].copy_(flat)
+        if self._offload_opt is not None:
+            self._offload_opt.set_masters([
+                touched[i] if i in touched else self._offload_opt.master(k)
+                for k, i in enumerate(self._host_order)])
+
+    def close(self) -> None:
+        """Release what the engine holds off the device: under nvme
+        offload the swap files and the file I/O threads."""
+        if self._offload_opt is not None:
+            self._offload_opt.close()
+
     def wait_for_checkpoint(self) -> None:
         """Block until every async save's bytes have landed and its tag is
         published (re-raises a background write failure); a no-op for
@@ -785,7 +1202,10 @@ class DeepSpeedEngine:
             config=self._config.checkpoint_config)
         if state is None:
             return None, {}
-        client_state.pop("_ckpt_tag", None)
+        loaded_tag = client_state.pop("_ckpt_tag", None)
+        if self._offload_opt is not None:
+            self._load_offload_state(load_dir, loaded_tag,
+                                     load_optimizer_states)
         if load_optimizer_states and "step" in view["opt_state"]:
             self.state["opt_state"]["step"] = int(view["opt_state"]["step"])
         self.micro_steps = client_state.get("micro_steps", 0)

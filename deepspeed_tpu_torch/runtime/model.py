@@ -22,7 +22,7 @@ class ModelSpec:
     #: its compute dtype internally
     loss_fn: Callable[[Params, Any], torch.Tensor]
     #: torch.Generator -> params (fp32 master values) on the generator's
-    #: device
+    #: device (``from_gpt``/``from_bert``'s also take ``device=``)
     init_fn: Optional[Callable[[torch.Generator], Params]] = None
     #: pre-materialized params (alternative to init_fn)
     params: Optional[Params] = None
@@ -34,6 +34,28 @@ class ModelSpec:
     #: the loss each layer's slice as its own autograd leaf)
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
+    def num_params(self) -> Optional[int]:
+        """The parameter count without allocating a parameter: the given
+        params', else an init on the meta device (for an ``init_fn`` that
+        takes ``device=``, as ``from_gpt``'s and ``from_bert``'s do);
+        None when neither tells."""
+        if self.params is not None:
+            tree = self.params
+        else:
+            try:
+                tree = self.init_fn(torch.Generator(), device="meta")
+            except TypeError:
+                return None
+        return sum(t.numel() for t in _leaves(tree))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
 
 def from_gpt(config, dtype=None) -> ModelSpec:
     """Adapt ``deepspeed_tpu_torch.models.gpt`` to a ModelSpec."""
@@ -44,8 +66,9 @@ def from_gpt(config, dtype=None) -> ModelSpec:
 
     return ModelSpec(
         loss_fn=lambda params, batch: gpt.loss_fn(params, batch, config),
-        init_fn=lambda generator: gpt.init(config, generator,
-                                           device=generator.device),
+        init_fn=lambda generator, device=None: gpt.init(
+            config, generator,
+            device=generator.device if device is None else device),
         apply_fn=lambda params, tokens: gpt.apply(params, tokens, config),
         name="gpt",
         meta={"config": config, "layer_stacked": ("blocks",)},
@@ -63,8 +86,9 @@ def from_bert(config, dtype=None) -> ModelSpec:
 
     return ModelSpec(
         loss_fn=lambda params, batch: bert.loss_fn(params, batch, config),
-        init_fn=lambda generator: bert.init(config, generator,
-                                            device=generator.device),
+        init_fn=lambda generator, device=None: bert.init(
+            config, generator,
+            device=generator.device if device is None else device),
         apply_fn=lambda params, tokens: bert.apply(params, tokens, config),
         name="bert",
         meta={"config": config, "layer_stacked": ("blocks",)},

@@ -35,6 +35,8 @@ def _map(fn, tree: Tree) -> Tree:
 
 #: the width of the rows a vector is reduced in, one level at a time
 NORM_ROW = 4096
+#: rows of a 16-bit vector widened to fp32 at a time
+NORM_CHUNK_ROWS = 4096
 
 
 def _vector_norm(x: torch.Tensor, norm_type: float) -> torch.Tensor:
@@ -43,8 +45,22 @@ def _vector_norm(x: torch.Tensor, norm_type: float) -> torch.Tensor:
     (the tail a row of its own) in one pass, with no full-size temporary,
     until one row is left.  No fp32 sum runs over more than ``NORM_ROW``
     terms, which keeps the host's lane-by-lane accumulation as exact as a
-    tree (4.6e-5 relative off on 1M elements in one sum, 1e-8 here)."""
-    x = x.reshape(-1).float()
+    tree (4.6e-5 relative off on 1M elements in one sum, 1e-8 here).  A
+    16-bit vector (the offloaded step's accumulator) is widened to fp32
+    ``NORM_CHUNK_ROWS`` rows at a time for the first level: the same row
+    norms without an fp32 copy of the whole vector."""
+    x = x.reshape(-1)
+    if x.dtype != torch.float32 and x.numel() > NORM_ROW:
+        n = x.numel() - x.numel() % NORM_ROW
+        step = NORM_ROW * NORM_CHUNK_ROWS
+        rows = [torch.linalg.vector_norm(
+            x[i:min(i + step, n)].float().view(-1, NORM_ROW), norm_type,
+            dim=1) for i in range(0, n, step)]
+        if n < x.numel():
+            rows.append(torch.linalg.vector_norm(
+                x[n:].float(), norm_type).reshape(1))
+        x = torch.cat(rows)
+    x = x.float()
     while x.numel() > NORM_ROW:
         n = x.numel() - x.numel() % NORM_ROW
         rows = torch.linalg.vector_norm(x[:n].view(-1, NORM_ROW), norm_type,

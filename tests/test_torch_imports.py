@@ -47,8 +47,10 @@ def test_every_module_imports_without_jax():
     # runtime/supervision/{config, heartbeat, supervisor, watchdog},
     # telemetry and its four modules, elasticity and its four modules), 4
     # of the serving front end (serving/{request, metrics, gateway},
-    # telemetry/propagate)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 94
+    # telemetry/propagate), 12 of ZeRO-Offload (ops/op_builder and its
+    # three modules, ops/adam/cpu_adam, runtime/swap_tensor and its four
+    # modules, runtime/zero/offload_engine, runtime/memory_model)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 106
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -85,6 +87,24 @@ def test_checkpoint_modules_are_importable():
     assert EventKind.CKPT_COMMITTED == "ckpt.committed"
     assert "ckpt.publish_commit" in fault_injection.FAULT_POINTS
     assert callable(zero_to_fp32.main)
+
+
+def test_offload_modules_are_importable():
+    from deepspeed_tpu_torch.ops.adam import DeepSpeedCPUAdam, cpu_adam_step
+    from deepspeed_tpu_torch.ops.op_builder import (AsyncIOBuilder,
+                                                    CPUAdamBuilder)
+    from deepspeed_tpu_torch.runtime import memory_model
+    from deepspeed_tpu_torch.runtime.swap_tensor import (
+        AioConfig, AsyncIOHandle, AsyncTensorSwapper, OptimizerStateSwapper)
+    from deepspeed_tpu_torch.runtime.zero.offload_engine import \
+        HostOffloadOptimizer
+    assert CPUAdamBuilder().sources() == ["adam/cpu_adam.cpp"]
+    assert AsyncIOBuilder().sources() == ["aio/ds_aio.cpp"]
+    assert memory_model.offload_peak_bytes(10, 4) == 10 * 6 + 2 * 4 * 2
+    assert callable(cpu_adam_step) and AioConfig().thread_count == 4
+    for cls in (DeepSpeedCPUAdam, AsyncIOHandle, AsyncTensorSwapper,
+                OptimizerStateSwapper, HostOffloadOptimizer):
+        assert cls.__module__.startswith("deepspeed_tpu_torch.")
 
 
 def test_run_loop_modules_are_importable():

@@ -119,19 +119,48 @@ def test_sparse_attention_section_kept_raw_like_jax(section):
     ({"train_batch_size": 8, "zero_optimization": {"stage": 3}},
      NotImplementedError, "Multi-GPU"),
     ({"train_batch_size": 8,
-      "zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
-     NotImplementedError, "offload_optimizer"),
+      "zero_optimization": {"stage": 1, "offload_optimizer": {
+          "device": "cpu", "grad_compression": "onebit"}}},
+     NotImplementedError, "grad_compression"),
     ({"train_batch_size": 8, "zero_optimization": {"stage": 1,
-                                                   "cpu_offload": True}},
-     NotImplementedError, "offload_optimizer"),
+                                                   "cpu_offload_params": True}},
+     NotImplementedError, "offload_param"),
     ({"train_batch_size": 8,
       "zero_optimization": {"offload_param": {"device": "nvme"}}},
      NotImplementedError, "offload_param"),
+    ({"train_batch_size": 8,
+      "zero_optimization": {"stage": 1, "offload_optimizer": {
+          "device": "cpu", "grad_compression": "int8"}}},
+     NotImplementedError, "grad_compression"),
+    ({"train_batch_size": 8,
+      "zero_optimization": {"stage": 1, "offload_param": {"device": "cpu"}}},
+     NotImplementedError, "offload_param"),
 ], ids=["unported_section", "unknown_fp16_key", "zero2", "zero3",
-        "offload_optimizer", "cpu_offload_alias", "offload_param"])
+        "offload_optimizer", "cpu_offload_alias", "offload_param",
+        "grad_compression_int8", "offload_param_cpu"])
 def test_unported_features_raise(d, exc, match):
+    """Still refused: ZeRO 2/3, parameter offload (also under its
+    deprecated ``cpu_offload_params`` alias) and the offload's gradient
+    compression."""
     with pytest.raises(exc, match=match):
         DeepSpeedConfig(d)
+
+
+@pytest.mark.parametrize("zero,device", [
+    ({"stage": 1, "offload_optimizer": {"device": "cpu"}}, "cpu"),
+    ({"stage": 1, "cpu_offload": True}, "cpu"),
+    ({"stage": 0, "offload_optimizer": {"device": "nvme",
+                                        "nvme_path": "/tmp/swap"}}, "nvme"),
+    ({"stage": 1, "offload_optimizer": {"device": "none"}}, "none"),
+], ids=["offload_optimizer", "cpu_offload_alias", "nvme", "none"])
+def test_offload_optimizer_accepted_like_jax(zero, device):
+    """Optimizer-state offload is ported: the section (and the deprecated
+    ``cpu_offload`` alias) parses to the JAX package's device."""
+    d = {"train_batch_size": 8, "zero_optimization": zero}
+    want = JConfig(d, mesh_manager=make_mesh(dp=8))
+    got = DeepSpeedConfig(d, world_size=8)
+    assert got.zero_config.offload_optimizer_device == device == \
+        want.zero_config.offload_optimizer_device
 
 
 @pytest.mark.parametrize("section", [
