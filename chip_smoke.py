@@ -100,10 +100,15 @@ imports JAX.  In order it
    dim;
 3. checks a tiny fp32 model end to end on the card against the same model
    on the host (plain kernels): equal greedy tokens, logits within 1e-3,
-   and again with int8 weights and an int8 cache;
+   in GPT-2's layout and in OPT's (relu, offset 2), GPT-NeoX's (rotary
+   over a quarter of each head, parallel residual, untied head) and
+   GPT-J's (interleaved rotary over 16 of 64 dims, parallel residual,
+   untied head with a nonzero bias; ``TINY_LAYOUTS``), and again with
+   int8 weights and an int8 cache;
    and trains it 5 steps through ``initialize`` on both, dense GPT, GPT
-   under a block-sparse layout, BERT MLM under LAMB and GPT-Neo's
-   attention with a window of 40 at seq 97: losses within 1e-5
+   under a block-sparse layout, BERT MLM under LAMB, GPT-Neo's
+   attention with a window of 40 at seq 97, and the NeoX and GPT-J
+   layouts at seq 97: losses within 1e-5
    relative, master params within 1e-4, and two card runs bitwise equal
    (the backward on the fused kernel, the pair never launched);
    and serves an SD-1.5-shaped tiny UNet and VAE in fp32 from diffusers
@@ -166,6 +171,19 @@ imports JAX.  In order it
    ``decode_attn`` a layer per token), logits of a 32-token prompt
    against an fp32 host forward, batched = alone, a profile
    (``run_wide_serving``);
+5d. with every launch count at 0 before each run, drives OPT-1.3B (32
+   heads of 64, relu, positions at offset 2) and Pythia-1.4B (GPT-NeoX:
+   16 heads of 128, rotary over a quarter of each head, parallel
+   residual, untied head) at their published widths (random weights,
+   bf16) through ``init_inference`` → ``generate`` (the families' 4
+   prompts, 32 new) and a 4-slot ``SlotBatcher`` of the same prompts in
+   128-token chunks, greedy tokens equal to ``generate``'s up to a
+   near-tie (``TIE_TOL``), exact launches per prefill, chunk and token,
+   logits (bf16, and an fp32 engine on the card) against an fp32 host
+   forward; then Pythia-1.4B under ``dtype="int8"``,
+   ``kv_cache_dtype="int8"`` (5 quantizer launches: ``lm_head`` too; K
+   quantized after rotation), the same checks, bytes, and decode ms per
+   token in turns with bf16 (``run_variant_serving``);
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -245,6 +263,11 @@ imports JAX.  In order it
    bitwise equal to ``cpu`` (losses, params, master and moments), and
    save -> step -> load -> the same step bitwise equal; the save and
    load seconds, the swap bytes and the swap files' read and write GB/s;
+6g. the same for OPT-1.3B and Pythia-1.4B at seq 2048, micro-batch 8, 2
+   warm-up and 5 timed steps: ``flash_fwd`` and ``flash_bwd_fused`` a
+   layer per step (D 64 and D 128), the pair 0, Adam 1 (the untied head
+   trains with the rest), the row check at seq 1024, step ms and MFU
+   (``run_variant_training``);
 7. the same for the sparse training path: the same model at seq 4096
    under the Fixed block-sparse layout (block 64), micro-batch 4, with the
    live-pair attention FLOPs beside MFU; 7b. GPT-2 760M the same way
@@ -2712,36 +2735,61 @@ def check_sparse_sweep(B=2, H=2):
 
 def scaled_params(cfg, seed, device, std_factor):
     """``gpt.init`` weights with every matrix scaled by ``std_factor`` so a
-    tiny model's greedy output is not one repeated token."""
-    params = gpt.init(cfg, torch.Generator(device=device).manual_seed(seed),
-                      device=device)
+    tiny model's greedy output is not one repeated token (the untied head
+    too, and its bias drawn nonzero)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = gpt.init(cfg, gen, device=device)
     for name in ("wqkv", "wo", "wi", "wo_mlp"):
         params["blocks"][name] *= std_factor
-    params["wte"] *= std_factor
-    params["wpe"] *= std_factor
+    for name in ("wte", "wpe", "lm_head"):
+        if name in params:
+            params[name] *= std_factor
+    if "lm_head_bias" in params:
+        params["lm_head_bias"] = torch.randn(
+            params["lm_head_bias"].shape, generator=gen, device=device)
     return params
+
+
+#: the tiny end-to-end layouts beside GPT-2's: OPT (relu, positions at
+#: offset 2), GPT-NeoX (rotary over a quarter of each head, parallel
+#: residual, untied head) and GPT-J (interleaved rotary over 16 of 64
+#: dims, parallel residual, untied head with a bias)
+TINY_LAYOUTS = {
+    "": {},
+    " opt": dict(activation="relu", pos_offset=2),
+    " neox": dict(pos_embed="rotary", rotary_pct=0.25,
+                  parallel_residual=True, tie_word_embeddings=False),
+    " gptj": dict(pos_embed="rotary", rotary_pct=0.25,
+                  rotary_interleaved=True, parallel_residual=True,
+                  tie_word_embeddings=False, lm_head_bias=True),
+}
 
 
 def check_tiny_end_to_end():
     """The whole path in fp32 on the card (kernels) vs on the host
-    (plain versions), same weights and prompts."""
-    cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2, n_head=4,
-                        d_model=256, dtype=torch.float32)
-    params = scaled_params(cfg, 5, "cpu", 15.0)
-    conf = {"dtype": "float32"}
-    dev = deepspeed_tpu_torch.init_inference((cfg, params), conf)
-    host = deepspeed_tpu_torch.init_inference((cfg, params), conf,
-                                              device="cpu")
-    toks = np.random.default_rng(9).integers(0, 512, (3, 40))
-    lens = [40, 23, 9]
-    a = dev.generate(toks, max_new_tokens=24, prompt_lens=lens).cpu().numpy()
-    b = host.generate(toks, max_new_tokens=24, prompt_lens=lens).numpy()
-    err = (dev.forward(toks).cpu() - host.forward(toks)).abs().max().item()
-    log(f"[tiny fp32] greedy tokens equal: {bool((a == b).all())}, "
-        f"forward max_abs_err {err:.3e} (tol 1e-3), distinct tokens per row "
-        f"{[len(set(r)) for r in a.tolist()]}")
-    if not (a == b).all() or not err <= 1e-3:
-        raise AssertionError("tiny fp32 model: card and host disagree")
+    (plain versions), same weights and prompts, for GPT-2's layout and
+    each of ``TINY_LAYOUTS``' (2 layers, d 256, 4 heads of 64)."""
+    for label, layout in TINY_LAYOUTS.items():
+        cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2,
+                            n_head=4, d_model=256, dtype=torch.float32,
+                            **layout)
+        params = scaled_params(cfg, 5, "cpu", 15.0)
+        conf = {"dtype": "float32"}
+        dev = deepspeed_tpu_torch.init_inference((cfg, params), conf)
+        host = deepspeed_tpu_torch.init_inference((cfg, params), conf,
+                                                  device="cpu")
+        toks = np.random.default_rng(9).integers(0, 512, (3, 40))
+        lens = [40, 23, 9]
+        a = dev.generate(toks, max_new_tokens=24,
+                         prompt_lens=lens).cpu().numpy()
+        b = host.generate(toks, max_new_tokens=24, prompt_lens=lens).numpy()
+        err = (dev.forward(toks).cpu() - host.forward(toks)).abs().max().item()
+        log(f"[tiny fp32{label}] greedy tokens equal: {bool((a == b).all())}, "
+            f"forward max_abs_err {err:.3e} (tol 1e-3), distinct tokens per "
+            f"row {[len(set(r)) for r in a.tolist()]}")
+        if not (a == b).all() or not err <= 1e-3:
+            raise AssertionError(f"tiny fp32 model{label}: card and host "
+                                 "disagree")
 
 
 def check_tiny_int8():
@@ -3335,6 +3383,195 @@ def run_family(model, cfg, seed, option):
 
 
 
+# ------------------------------------------ OPT-1.3B and Pythia-1.4B
+
+#: the published widths of the two families (HF ``config.json`` of
+#: facebook/opt-1.3b and EleutherAI/pythia-1.4b, the GPT-NeoX
+#: architecture), weights random: OPT's 2048 positions stored at offset 2
+#: and its relu MLP, 32 heads of 64; Pythia's rotary over a quarter of
+#: each of 16 heads of 128 (base 10000), parallel residual, untied head
+OPT_1_3B = gpt.GPTConfig(
+    vocab_size=50272, max_seq_len=2048, n_layer=24, n_head=32, d_model=2048,
+    d_ff=8192, activation="relu", pos_offset=2)
+PYTHIA_1_4B = gpt.GPTConfig(
+    vocab_size=50304, max_seq_len=2048, n_layer=24, n_head=16, d_model=2048,
+    d_ff=8192, pos_embed="rotary", rotary_pct=0.25, rotary_base=10000.0,
+    parallel_residual=True, tie_word_embeddings=False)
+#: (result key, model, config, seed, int8 weights and cache too)
+VARIANT_MODELS = (("opt_1_3b", "OPT-1.3B", OPT_1_3B, 1300, False),
+                  ("pythia_1_4b", "Pythia-1.4B", PYTHIA_1_4B, 1400, True))
+#: the batcher's admission chunk: the families' prompts of 512, 448, 384
+#: and 300 tokens take 4, 4, 3 and 3 chunks, a prefill then extends at
+#: each slot's own positions
+VARIANT_CHUNK = 128
+
+
+def batcher_vs_generate(engine, cfg, gen_tokens, model, label):
+    """The families' 4 ragged prompts admitted into a 4-slot
+    ``SlotBatcher`` (chunk ``VARIANT_CHUNK``) and ``FAMILY_NEW`` greedy
+    ticks: each slot's tokens equal ``generate``'s row (``gen_tokens``)
+    up to a first divergence only where the batcher's top-2 margin there
+    is below ``TIE_TOL`` (other shapes, other summation orders).  Counts
+    at 0 before, read after.  Returns (results, counts)."""
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
+    bat = SlotBatcher(engine, ServingConfig(slots=4, max_len=1024,
+                                            prefill_chunk=VARIANT_CHUNK))
+    kernels.reset_launch_counts()
+    ACCEL.synchronize()
+    t0 = time.perf_counter()
+    for row, n in enumerate(FAMILY_LENS):
+        bat.admit(row, toks[row, :n], None, True, 1.0)
+    ACCEL.synchronize()
+    t_admit = time.perf_counter() - t0
+    out, margins = [], []
+    for _ in range(FAMILY_NEW):
+        top2 = torch.topk(bat._last[:, :cfg.vocab_size], 2).values
+        margins.append((top2[:, 0] - top2[:, 1]).cpu())
+        out.append(bat.tick())
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    out = np.stack(out, axis=1)
+    want = np.asarray(gen_tokens)
+    divergences = []
+    for row in range(4):
+        diff = np.nonzero(out[row] != want[row])[0]
+        if diff.size:
+            m = float(margins[diff[0]][row])
+            divergences.append({"row": row, "step": int(diff[0]),
+                                "margin": m})
+            if not m < TIE_TOL:
+                raise AssertionError(f"{model} {label}: batcher row {row} "
+                                     f"parts from generate at step "
+                                     f"{diff[0]} with margin {m}")
+    res = {"admit_s": t_admit, "wall_s": wall,
+           "tick_ms_mean": 1e3 * (wall - t_admit) / FAMILY_NEW,
+           "divergences": divergences}
+    log(f"[{model}] {label} SlotBatcher (4 slots, chunk {VARIANT_CHUNK}, "
+        f"prompts {list(FAMILY_LENS)}) x {FAMILY_NEW} greedy ticks vs "
+        f"generate: {4 - len(divergences)}/4 rows equal, divergences "
+        f"{divergences} (tie tol {TIE_TOL}); admission {t_admit * 1e3:.1f} "
+        f"ms, tick mean {res['tick_ms_mean']:.2f} ms")
+    return res, counts
+
+
+def _held(model, what, counts, want):
+    log(f"[{model}] {what} launches: " + ", ".join(
+        f"{k} {counts[k]} (want {n})" for k, n in want.items()))
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{model} {what} launches {counts}, want {want}")
+
+
+def run_variant_serving(model, cfg, seed, int8):
+    """OPT-1.3B's or Pythia-1.4B's serving path at its published widths
+    (random weights from ``seed``) in bf16 through ``init_inference``:
+    ``generate`` of the families' 4 ragged prompts x ``FAMILY_NEW``
+    tokens (``flash_fwd`` a layer per prefill, 5 prefills;
+    ``decode_attn`` a layer per token), a ``SlotBatcher`` whose greedy
+    tokens equal ``generate``'s (``chunk_attn`` a layer per extend
+    chunk; ragged slots put every row's rotary positions on its own
+    frontier), logits of the bf16 engine and of an fp32 one against an
+    fp32 host forward (``family_logits``); with ``int8`` the same under
+    ``dtype="int8"``, ``kv_cache_dtype="int8"`` (the quantizer on
+    ``wqkv``, ``wo``, ``wi``, ``wo_mlp`` and the untied ``lm_head``: 5
+    launches; K quantized after rotation), its logits against an fp32
+    host forward of the dequantized weights and decode ms per token in
+    turns with bf16.  Counts at 0 before each run.  Returns (results,
+    counts)."""
+    L = cfg.n_layer
+    n_chunks = sum(-(-n // VARIANT_CHUNK) for n in FAMILY_LENS)
+    params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda")
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                {"dtype": "bfloat16"})
+    params_host = _host_tree(params)
+    del params
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = {"head_dim": cfg.head_dim,
+           "generate": run_generate(engine, cfg, "bf16", model, FAMILY_LENS,
+                                    FAMILY_NEW)}
+    gen_counts = kernels.launch_counts()
+    _held(model, "bf16 generate", gen_counts,
+          {"flash_fwd": 5 * L, "decode_attn": FAMILY_NEW * L,
+           "chunk_attn": 0, "quantize_kv_append": 0})
+    res["batcher"], bat_counts = batcher_vs_generate(
+        engine, cfg, res["generate"]["tokens"], model, "bf16")
+    _held(model, "bf16 batcher", bat_counts,
+          {"flash_fwd": len(FAMILY_LENS) * L,
+           "chunk_attn": (n_chunks - len(FAMILY_LENS)) * L,
+           "decode_attn": FAMILY_NEW * L})
+    res["resident_gib"] = resident / 2 ** 30
+    res["peak_above_resident_gib"] = \
+        (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    log(f"[{model}] bf16 weights resident {res['resident_gib']:.3f} GiB, "
+        f"generate and batcher peak above them "
+        f"{res['peak_above_resident_gib']:.3f} GiB")
+    res["full_width_logits"] = family_logits(engine, cfg, params_host, model)
+    counts = _add(gen_counts, bat_counts)
+    if int8:
+        kernels.reset_launch_counts()
+        eng8 = deepspeed_tpu_torch.init_inference(
+            (cfg, params_host), {"dtype": "int8", "kv_cache_dtype": "int8"})
+        init_counts = kernels.launch_counts()
+        quantized = sorted(k for k, v in {**eng8.params,
+                                          **eng8.params["blocks"]}.items()
+                           if isinstance(v, Int8Param))
+        res["int8_param_bytes"] = param_bytes(eng8.params)
+        res["bf16_param_bytes"] = param_bytes(engine.params)
+        res["int8_quantized_leaves"] = quantized
+        log(f"[{model}] int8 weights: {res['int8_param_bytes']:,} parameter "
+            f"bytes against {res['bf16_param_bytes']:,} in bf16 "
+            f"({res['int8_param_bytes'] / res['bf16_param_bytes']:.3f}x); "
+            f"quantized {quantized} ({init_counts['quantizer']} quantizer "
+            f"launches), wte kept in {eng8.params['wte'].dtype}")
+        if quantized != ["lm_head", "wi", "wo", "wo_mlp", "wqkv"] or \
+                init_counts["quantizer"] != 5:
+            raise AssertionError(f"{model} int8: quantized {quantized}, "
+                                 f"{init_counts['quantizer']} launches")
+        kernels.reset_launch_counts()
+        res["int8_generate"] = run_generate(
+            eng8, cfg, "int8 weights + int8 cache", model, FAMILY_LENS,
+            FAMILY_NEW)
+        gen8 = kernels.launch_counts()
+        _held(model, "int8 generate", gen8,
+              {"flash_fwd": 5 * L, "decode_attn_int8": FAMILY_NEW * L,
+               "quantize_kv_append": (5 + FAMILY_NEW) * L,
+               "decode_attn": 0, "chunk_attn": 0, "quantizer": 0})
+        res["int8_batcher"], bat8 = batcher_vs_generate(
+            eng8, cfg, res["int8_generate"]["tokens"], model, "int8")
+        _held(model, "int8 batcher", bat8,
+              {"flash_fwd": len(FAMILY_LENS) * L,
+               "chunk_attn_int8": (n_chunks - len(FAMILY_LENS)) * L,
+               "decode_attn_int8": FAMILY_NEW * L,
+               "quantize_kv_append": (n_chunks + FAMILY_NEW) * L,
+               "chunk_attn": 0, "decode_attn": 0})
+        res["int8_logits"], _ = check_full_width_logits(
+            eng8, cfg, _dequantized_host(eng8.params),
+            f"{model} int8 (fp32 host on the dequantized weights)")
+        a = np.asarray(res["int8_generate"]["tokens"])
+        b = np.asarray(res["generate"]["tokens"])
+        res["int8_vs_bf16_token_agreement"] = float((a == b).mean())
+        turns = compare_decode({"bf16": engine, "int8": eng8}, cfg,
+                               rounds=2)
+        med = {k: float(np.median(v)) for k, v in turns.items()}
+        res["decode_ms_per_token_in_turns"] = {"samples": turns,
+                                               "median": med}
+        log(f"[{model}] int8 vs bf16 greedy token agreement "
+            f"{res['int8_vs_bf16_token_agreement']:.3f} (reported); decode "
+            f"ms per token in turns (4 ragged rows, 32 steps): bf16 "
+            f"{[round(x, 3) for x in turns['bf16']]}, int8 "
+            f"{[round(x, 3) for x in turns['int8']]} "
+            f"({med['int8'] / med['bf16']:.2f}x)")
+        counts = _add(counts, _add(_add(init_counts, gen8), bat8))
+        del eng8
+    del engine, params_host
+    torch.cuda.empty_cache()
+    res["launches"] = counts
+    return res, counts
+
+
 # ---------------------------------- GPT-2 760M and 2.7B (head dims 96, 80)
 
 #: the JAX package's GPT-2 presets whose heads are 96 (760M: d 1536, 16
@@ -3668,7 +3905,8 @@ def _leaves(tree):
             for x in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
-def check_tiny_training(sparse=False, bert_model=False, neo=False):
+def check_tiny_training(sparse=False, bert_model=False, neo=False,
+                        layout=None):
     """The training path in fp32 on the card (kernels) vs on the host
     (plain versions) from the same params and batches; then a second card
     run, bitwise equal to the first.  ``sparse``: GPT under a Fixed
@@ -3676,7 +3914,9 @@ def check_tiny_training(sparse=False, bert_model=False, neo=False):
     at seq 64 on right-padded batches (``seq_lens``) under the tutorial's
     LAMB with lr 1e-3.  ``neo``: GPT-Neo's attention (global and local
     layers in turn, unscaled softmax) with a window of 40, not a multiple
-    of any tile, at seq 97."""
+    of any tile, at seq 97.  ``layout``: a key of ``TINY_LAYOUTS`` (NeoX,
+    GPT-J: rotary, parallel residual, the untied head trained) at seq
+    97."""
     rng = np.random.default_rng(10)
     optimizer = None
     if bert_model:
@@ -3690,7 +3930,8 @@ def check_tiny_training(sparse=False, bert_model=False, neo=False):
     else:
         band = dict(local_attention_window=40,
                     local_attention_alternating=True,
-                    attn_softmax_scale=1.0) if neo else {}
+                    attn_softmax_scale=1.0) if neo else \
+            TINY_LAYOUTS[layout] if layout else {}
         cfg = gpt.GPTConfig(vocab_size=512, max_seq_len=128, n_layer=2,
                             n_head=4, d_model=256, dtype=torch.float32,
                             remat=True, remat_policy="attn_out",
@@ -3719,7 +3960,7 @@ def check_tiny_training(sparse=False, bert_model=False, neo=False):
         torch.equal(dev_master, again_master)
     label = ("tiny train bert lamb" if bert_model else
              "tiny train sparse" if sparse else
-             "tiny train neo" if neo else "tiny train")
+             "tiny train neo" if neo else f"tiny train{layout or ''}")
     log(f"[{label}] backward launches on the card {took}")
     log(f"[{label}] fp32, 5 steps, card vs host: losses "
         f"{dev_losses.tolist()} vs {host_losses.tolist()}, max relative "
@@ -4319,6 +4560,30 @@ def run_neo_training(warmup=2, steps=10):
         f"{dense_term:.4e}; MFU with the live pairs in place of the dense "
         f"term {res['mfu_live_pairs']:.4f}")
     return res, counts, engine, batch
+
+
+def run_variant_training(model, base, warmup=2, steps=WIDE_TRAIN_STEPS):
+    """OPT-1.3B's or Pythia-1.4B's training path at its published widths
+    and context of 2048 (bf16, remat ``attn_out``, random weights from a
+    seed) under the GPT step's optimizer (Adam lr 1e-4 wd 0.01, ZeRO 1,
+    gas 1), micro-batch ``NEO_MICRO_BATCH`` (16,384 tokens a step, as
+    GPT-Neo's row): ``flash_fwd`` and ``flash_bwd_fused`` a layer per
+    step (D 64 for OPT, D 128 for Pythia), the pair 0, Adam 1; the untied
+    head's leaves train with the rest.  The one-row bf16-vs-fp32 host
+    check at seq 1024; MFU on the JAX package's count.  Returns (results,
+    counts)."""
+    cfg = dataclasses.replace(base, max_seq_len=2048, dtype=torch.bfloat16,
+                              remat=True, remat_policy="attn_out")
+    L = cfg.n_layer
+    want = {"flash_fwd": L, "flash_bwd_fused": L, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "fused_adam": 1}
+    res, counts, engine, batch = _train_full_width(
+        f"{model} train", model, cfg, NEO_MICRO_BATCH, want, warmup, steps,
+        row_seq=1024)
+    res["head_dim"] = cfg.head_dim
+    del engine, batch
+    torch.cuda.empty_cache()
+    return res, counts
 
 
 def run_sparse_training(warmup=2, steps=10, model="GPT-2 350M",
@@ -5593,6 +5858,9 @@ def main() -> int:
     result["tiny_training_sparse"] = check_tiny_training(sparse=True)
     result["tiny_training_bert"] = check_tiny_training(bert_model=True)
     result["tiny_training_neo"] = check_tiny_training(neo=True)
+    for layout in (" neox", " gptj"):
+        result[f"tiny_training_{layout.strip()}"] = check_tiny_training(
+            layout=layout)
     result["tiny_diffusion"] = check_tiny_diffusion()
     log(f"[time] sweeps and tiny models done at {time.perf_counter() - T0:.1f} s")
 
@@ -5658,6 +5926,16 @@ def main() -> int:
         result["launches"][key] = wide_counts
         counts = _add(counts, wide_counts)
 
+    t_variants = time.perf_counter()
+    for key, model, cfg, seed, int8 in VARIANT_MODELS:
+        result[key], variant_counts = run_variant_serving(model, cfg, seed,
+                                                          int8)
+        result["launches"][key] = variant_counts
+        counts = _add(counts, variant_counts)
+    variant_s = time.perf_counter() - t_variants
+    log(f"[time] OPT-1.3B and Pythia-1.4B serving done at "
+        f"{time.perf_counter() - T0:.1f} s ({variant_s:.1f} s)")
+
     log(f"[time] serving paths done at {time.perf_counter() - T0:.1f} s")
     result["training"], train_counts, trainer, batch = run_training()
     result["launches"]["training"] = train_counts
@@ -5685,6 +5963,7 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+
     for key, model, cfg, _, _, micro, row_seq in WIDE_MODELS:
         result[f"{key}_training"], wide_counts = run_wide_training(
             model, cfg, micro, row_seq)
@@ -5706,6 +5985,17 @@ def main() -> int:
     result["launches"]["offload_nvme"] = nvme_counts
     counts = _add(counts, nvme_counts)
     log(f"[time] offload paths done at {time.perf_counter() - T0:.1f} s")
+
+    t_variants = time.perf_counter()
+    for key, model, cfg, _, _ in VARIANT_MODELS:
+        result[f"{key}_training"], variant_counts = run_variant_training(
+            model, cfg)
+        result["launches"][f"{key}_training"] = variant_counts
+        counts = _add(counts, variant_counts)
+    variant_s += time.perf_counter() - t_variants
+    log(f"[time] OPT-1.3B and Pythia-1.4B training done at "
+        f"{time.perf_counter() - T0:.1f} s; their serving and training "
+        f"phases {variant_s:.1f} s")
 
     result["sparse_training"], sparse_counts, trainer, batch = \
         run_sparse_training()
@@ -5797,7 +6087,11 @@ def main() -> int:
         f"GPT-2 760M sparse training "
         f"{result['launches']['gpt2_760m_sparse_training']}, training "
         f"{train_counts}, preemptible run {preempt_counts}, "
-        f"GPT-Neo training {neo_counts}, sparse training "
+        f"GPT-Neo training {neo_counts}, OPT-1.3B "
+        f"{result['launches']['opt_1_3b']}, Pythia-1.4B "
+        f"{result['launches']['pythia_1_4b']}, OPT-1.3B training "
+        f"{result['launches']['opt_1_3b_training']}, Pythia-1.4B training "
+        f"{result['launches']['pythia_1_4b_training']}, sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
         f"{ROUTE_SEQ} {route_counts}, diffusion "
         f"{diffusion_counts}, bias-GeLU op {op_counts}")

@@ -5,9 +5,11 @@ names and runs on one NVIDIA H100 through kernels written by hand for
 Hopper (``ops/kernels``, sources in ``csrc/``).  It imports ``torch`` and
 never JAX or ``deepspeed_tpu``.
 
-Ported so far: the serving path of GPT-2, GPT-Neo (banded local layers)
-and BLOOM (ALiBi) — ``init_inference`` (from a ``(GPTConfig, params)``
-tuple or a ``transformers`` model) → ``InferenceEngine.generate``, and the
+Ported so far: the serving path of GPT-2, GPT-Neo (banded local layers),
+OPT (offset positions, relu), BLOOM (ALiBi), GPT-NeoX and GPT-J (rotary
+positions, parallel residual, untied heads) — ``init_inference`` (from a
+``(GPTConfig, params)`` tuple or a ``transformers`` model) →
+``InferenceEngine.generate``, and the
 continuous-batching ``SlotBatcher`` (``serving``), in bf16/fp16/fp32 or
 with int8 weights and an int8 KV cache; text-to-image serving of
 Stable-Diffusion-shaped models — ``init_inference(model=<diffusers state
@@ -15,8 +17,8 @@ dict>)`` → ``DSUNet``/``DSVAE``
 → ``inference.diffusion_pipeline.DiffusionPipeline`` (guided DDIM, VAE
 decode); and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
-(``runtime``), for GPT-2 (dense or block-sparse attention, Adam) and for
-BERT masked-LM pre-training (right-padded batches through the flash
+(``runtime``), for the GPT family (dense or block-sparse attention, Adam)
+and for BERT masked-LM pre-training (right-padded batches through the flash
 kernels' per-row key lengths, Adam or LAMB); checkpoints in the JAX
 package's layout; and the preemptible run around the step:
 ``initialize(training_data=...)`` → ``engine.training_dataloader`` (a
@@ -52,8 +54,8 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     from ``models.gpt.init`` or ``models.convert.from_jax_params``); a
     ``transformers`` decoder (a module with ``config`` and
     ``state_dict()``) that a ``module_inject.POLICIES`` entry matches
-    (GPT-2, GPT-Neo, BLOOM; OPT, GPT-NeoX and GPT-J raise), converted and
-    served as a GPT; or a diffusers state dict (or a module with
+    (GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX, GPT-J), converted and served
+    as a GPT; or a diffusers state dict (or a module with
     ``state_dict()``) that ``module_inject.UNetPolicy`` or ``VAEPolicy``
     matches, which returns a ``DSUNet`` or ``DSVAE`` on the device.
     ``config`` is a ``DeepSpeedInferenceConfig`` dict, with remaining
@@ -94,8 +96,8 @@ def init_inference(model=None, config=None, device=None, **kwargs):
                                    device=device)
     raise TypeError("init_inference takes model=(GPTConfig, params) of "
                     "deepspeed_tpu_torch.models.gpt, a transformers GPT-2, "
-                    "GPT-Neo or BLOOM model, or a diffusers UNet or VAE "
-                    "state dict")
+                    "GPT-Neo, OPT, BLOOM, GPT-NeoX or GPT-J model, or a "
+                    "diffusers UNet or VAE state dict")
 
 
 def initialize(args=None, model: ModelSpec = None, optimizer=None,

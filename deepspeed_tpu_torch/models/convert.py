@@ -29,6 +29,7 @@ from . import bert, gpt
 
 _CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
                   "d_ff", "vocab_round_to", "attn_softmax_scale", "pos_embed",
+                  "rotary_pct", "rotary_base", "rotary_interleaved",
                   "activation", "parallel_residual", "local_attention_window",
                   "local_attention_alternating", "tie_word_embeddings",
                   "lm_head_bias", "pos_offset", "embed_layernorm", "dropout",

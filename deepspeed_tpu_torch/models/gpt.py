@@ -1,16 +1,23 @@
 """GPT causal transformer: the port of ``models/gpt.py``.
 
-Ported: pre-LN blocks with a serial residual, tanh-GeLU MLP and a tied
-embedding head, with learned positions (GPT-2) or ALiBi (BLOOM:
-``pos_embed="alibi"``, no ``wpe``, the per-head ``-slope·dist`` bias at a
-fixed 1/sqrt(Dh) scale), an optional embedding LayerNorm
-(``embed_layernorm``, BLOOM), and banded-causal local attention
+Ported: pre-LN blocks with the JAX ``GPTConfig``'s architecture variants,
+which cover the injection policies' families.  Positions: learned (GPT-2;
+OPT stores them at ``pos_offset`` 2), rotary (``pos_embed="rotary"``:
+GPT-NeoX's half split over the leading ``rotary_pct`` of each head,
+GPT-J's interleaved pairs with ``rotary_interleaved``; :func:`_rotate`
+turns q and k before every attention route, in fp32 angles cast to the
+compute dtype), ALiBi (BLOOM: ``pos_embed="alibi"``, no ``wpe``, the
+per-head ``-slope·dist`` bias at a fixed 1/sqrt(Dh) scale) or none.  The
+MLP's ``activation`` is tanh-GeLU, relu (OPT), quick-GeLU or erf-GeLU
+(:func:`_activation_fn`); ``parallel_residual`` sums attention and MLP
+on the block input (GPT-NeoX, GPT-J); the head is tied to ``wte`` or a
+separate ``lm_head`` (``tie_word_embeddings=False``), with an fp32-added
+``lm_head_bias`` (GPT-J).  Also an optional embedding LayerNorm
+(``embed_layernorm``, BLOOM) and banded-causal local attention
 (``local_attention_window``; with ``local_attention_alternating`` only
 the odd layers are banded, GPT-Neo, whose ``attn_softmax_scale`` is 1.0).
 A banded layer runs the flash kernel's window option; ALiBi layers run
-the dense :func:`_alibi_attention`, as the JAX package does.  The other
-architecture variants of the JAX ``GPTConfig`` (rotary positions, relu,
-parallel residual, untied or biased heads, position offsets), dropout and
+the dense :func:`_alibi_attention`, as the JAX package does.  Dropout and
 the ``"dots"`` remat policy raise ``NotImplementedError``.
 
 Training: :func:`loss_fn` (mean next-token cross-entropy, optionally over
@@ -25,12 +32,14 @@ the backward never re-runs the forward kernel (JAX ``gpt.py:609-631``).
 
 Parameters keep the JAX package's tree and layouts, so converting its
 weights is a re-wrap (``convert.from_jax_params``): ``wte`` [V_pad, d],
-``wpe`` [S, d], and the layer-stacked ``blocks`` (``wqkv`` [L, d, 3, H,
-Dh], ``bqkv`` [L, 3, H, Dh], ``wo`` [L, H, Dh, d], ``wi`` [L, d, F],
-``wo_mlp`` [L, F, d], LayerNorm scales and biases [L, d]).  Matmuls run
-in ``config.dtype``; LayerNorm math and the logits are fp32.  Under ALiBi
-the tree has no ``wpe``; with ``embed_layernorm`` it has ``emb_ln_scale``
-and ``emb_ln_bias`` [d].
+``wpe`` [S + pos_offset, d], and the layer-stacked ``blocks`` (``wqkv``
+[L, d, 3, H, Dh], ``bqkv`` [L, 3, H, Dh], ``wo`` [L, H, Dh, d], ``wi``
+[L, d, F], ``wo_mlp`` [L, F, d], LayerNorm scales and biases [L, d]).
+Matmuls run in ``config.dtype``; LayerNorm math and the logits are fp32.
+Only learned positions have ``wpe``; with ``embed_layernorm`` the tree
+has ``emb_ln_scale`` and ``emb_ln_bias`` [d]; an untied head has
+``lm_head`` [V_pad, d] and, with ``lm_head_bias``, ``lm_head_bias``
+[V_pad].
 """
 
 from __future__ import annotations
@@ -55,6 +64,11 @@ from ..ops.sparse_attention.sparsity_config import SparsityConfig
 Params = Dict[str, Any]
 
 
+#: the position schemes and MLP activations of the JAX ``GPTConfig``
+POS_EMBEDS = ("learned", "rotary", "alibi", "none")
+ACTIVATIONS = ("gelu", "relu", "quick_gelu", "gelu_exact")
+
+
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     vocab_size: int = 50257
@@ -67,17 +81,19 @@ class GPTConfig:
     param_dtype: torch.dtype = torch.float32  # dtype of the weights at init
     vocab_round_to: int = 128
     attn_softmax_scale: Optional[float] = None  # None → 1/sqrt(head_dim)
-    # architecture variants of the JAX config: learned or ALiBi positions,
-    # the embedding LayerNorm and the banded window (every layer, or the
-    # odd ones when alternating) are ported; any other value raises
-    pos_embed: str = "learned"          # learned | alibi
-    activation: str = "gelu"
-    parallel_residual: bool = False
+    # architecture variants of the JAX config (the injection policies'
+    # families): every value the JAX model takes is ported
+    pos_embed: str = "learned"          # learned | rotary | alibi | none
+    rotary_pct: float = 1.0             # NeoX rotates only a fraction
+    rotary_base: float = 10000.0
+    rotary_interleaved: bool = False    # GPT-J pairs dims; NeoX splits halves
+    activation: str = "gelu"            # gelu | relu | quick_gelu | gelu_exact
+    parallel_residual: bool = False     # NeoX: x + attn(ln1 x) + mlp(ln2 x)
     local_attention_window: int = 0     # >0: banded-causal window width
     local_attention_alternating: bool = False   # odd layers local (GPT-Neo)
-    tie_word_embeddings: bool = True
-    lm_head_bias: bool = False
-    pos_offset: int = 0
+    tie_word_embeddings: bool = True    # False -> separate lm_head param
+    lm_head_bias: bool = False          # GPT-J: untied head carries a bias
+    pos_offset: int = 0                 # OPT stores positions offset by 2
     embed_layernorm: bool = False       # BLOOM's word_embeddings_layernorm
     # training: only dropout 0.0 is ported; remat recomputes each block in
     # the backward ("nothing": saves the block input; "attn_out": also the
@@ -92,15 +108,11 @@ class GPTConfig:
     sparse_attention: Optional[SparsityConfig] = None
 
     def __post_init__(self):
-        ported = {"pos_embed": ("learned", "alibi"), "activation": ("gelu",),
-                  "parallel_residual": (False,),
-                  "tie_word_embeddings": (True,), "lm_head_bias": (False,),
-                  "pos_offset": (0,)}
-        for name, want in ported.items():
+        choices = {"pos_embed": POS_EMBEDS, "activation": ACTIVATIONS}
+        for name, want in choices.items():
             if getattr(self, name) not in want:
-                raise NotImplementedError(
-                    f"GPTConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (ported: {want}; ROADMAP.md Queue 1 #6)")
+                raise ValueError(f"GPTConfig.{name}={getattr(self, name)!r} "
+                                 f"(want one of {want})")
         if self.local_attention_window < 0:
             raise ValueError(f"local_attention_window "
                              f"{self.local_attention_window} < 0")
@@ -167,9 +179,12 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
          device=None) -> Params:
     """Random weights at full width with the JAX ``init``'s stds (normal
     0.02, residual projections 0.02/sqrt(2L), LayerNorm 1/0, biases 0), in
-    ``config.param_dtype`` on ``device``: ``wpe`` for learned positions
-    only, ``emb_ln_*`` with ``embed_layernorm``.  The draws come from
-    ``generator`` (which must live on ``device``), not JAX's bits."""
+    ``config.param_dtype`` on ``device``: ``wpe`` ([max_seq_len +
+    pos_offset, d]) for learned positions only, ``emb_ln_*`` with
+    ``embed_layernorm``, ``lm_head`` (and ``lm_head_bias``) for an untied
+    head (JAX ``gpt.py:182-191``).  The draws come from ``generator``
+    (which must live on ``device``), not JAX's bits; the untied head is
+    drawn last, so the other leaves of a tied model draw as before."""
     device = torch.device(device) if device is not None else torch.device("cpu")
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -207,10 +222,15 @@ def init(config: GPTConfig, generator: Optional[torch.Generator] = None,
         "lnf_bias": full((d,), 0.0),
     }
     if config.pos_embed == "learned":
-        params["wpe"] = normal((config.max_seq_len, d), std)
+        params["wpe"] = normal((config.max_seq_len + config.pos_offset, d),
+                               std)
     if config.embed_layernorm:
         params["emb_ln_scale"] = full((d,), 1.0)
         params["emb_ln_bias"] = full((d,), 0.0)
+    if not config.tie_word_embeddings:
+        params["lm_head"] = normal((v, d), std)
+        if config.lm_head_bias:
+            params["lm_head_bias"] = full((v,), 0.0)
     return params
 
 
@@ -227,6 +247,61 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     var = (x32 - mu).square().mean(dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rotary_tables(positions, config: GPTConfig, head_dim: int, dtype):
+    """The rotation's (cos, sin) at ``positions`` ([S] shared or [B, S]
+    per row), each [1 or B, S, rot/2] in ``dtype``, over the leading ``rot
+    = int(head_dim * rotary_pct) // 2 * 2`` dims; None when ``rot`` is 0.
+    Angles ``position * base^(-2i/rot)`` in fp32, cos and sin cast to
+    ``dtype`` before the products (JAX ``gpt.py:245-257``)."""
+    rot = int(head_dim * config.rotary_pct) // 2 * 2
+    if rot == 0:
+        return None
+    inv = 1.0 / (config.rotary_base ** (torch.arange(
+        0, rot, 2, dtype=torch.float32, device=positions.device) / rot))
+    ang = positions.float()[..., None] * inv
+    if ang.dim() == 2:
+        ang = ang[None]
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def position_tables(config: GPTConfig, positions):
+    """:func:`rotary_tables` of one forward's ``positions`` at the model's
+    head dim and compute dtype, shared by every layer; None unless
+    ``pos_embed="rotary"``."""
+    if config.pos_embed != "rotary":
+        return None
+    return rotary_tables(positions, config, config.head_dim, config.dtype)
+
+
+def _apply_rotary(x, tables, config: GPTConfig):
+    """Rotate x [B, S, ..., D] by ``tables`` (from :func:`rotary_tables`):
+    GPT-J's interleaved pairs (0, 1), (2, 3)... with
+    ``rotary_interleaved``, else NeoX's half split (i, i + rot/2); the
+    dims past ``rot`` pass through."""
+    if tables is None:
+        return x
+    cos, sin = tables
+    half = cos.shape[-1]
+    shape = cos.shape[:2] + (1,) * (x.dim() - 3) + (half,)
+    cos, sin = cos.view(shape), sin.view(shape)
+    x_rot, x_pass = x[..., :2 * half], x[..., 2 * half:]
+    if config.rotary_interleaved:
+        x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                          dim=-1).flatten(-2)
+    else:
+        x1, x2 = x_rot[..., :half], x_rot[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out, x_pass], dim=-1)
+
+
+def _rotate(x, positions, config: GPTConfig):
+    """Rotary position embedding on x [B, S, H, D] at ``positions`` ([S]
+    or [B, S]): the JAX ``_rotate`` (``gpt.py:238-266``)."""
+    return _apply_rotary(
+        x, rotary_tables(positions, config, x.shape[-1], x.dtype), config)
 
 
 def alibi_slopes(n_head: int, device=None) -> torch.Tensor:
@@ -307,20 +382,32 @@ def _sparse_plan(config: GPTConfig, x):
     return config_plan(config.sparse_attention, x.shape[1], True, x.device)
 
 
-def qkv_packed(x, p: Params, config: GPTConfig):
-    """LN1 + qkv projection: [B, S, d] → the packed [B, S, 3, H, Dh]."""
+def qkv_packed(x, p: Params, config: GPTConfig, tables=None):
+    """LN1 + qkv projection: [B, S, d] → the packed [B, S, 3, H, Dh].
+    Under rotary positions q and k are rotated (JAX ``gpt.py:457-461``) by
+    ``tables``, :func:`position_tables` of the tokens' positions (by
+    default 0..S-1)."""
     cdt = config.dtype
     B, S, d = x.shape
     h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     qkv = h @ p["wqkv"].to(cdt).reshape(d, -1)
-    return qkv.view(B, S, 3, config.n_head, config.head_dim) \
+    qkv = qkv.view(B, S, 3, config.n_head, config.head_dim) \
         + p["bqkv"].to(cdt)
+    if config.pos_embed != "rotary":
+        return qkv
+    if tables is None:
+        tables = position_tables(config, torch.arange(S, device=x.device))
+    if tables is None:      # rotary_pct rotates no dim
+        return qkv
+    return torch.cat([_apply_rotary(qkv[:, :, :2], tables, config),
+                      qkv[:, :, 2:]], dim=2)
 
 
-def qkv_proj(x, p: Params, config: GPTConfig):
+def qkv_proj(x, p: Params, config: GPTConfig, tables=None):
     """LN1 + qkv projection: [B, S, d] → (q, k, v) each [B, S, H, Dh],
-    strided views of one [B, S, 3, H, Dh] product."""
-    qkv = qkv_packed(x, p, config)
+    strided views of one [B, S, 3, H, Dh] tensor; q and k rotated as in
+    :func:`qkv_packed`."""
+    qkv = qkv_packed(x, p, config, tables)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -332,24 +419,45 @@ def attn_project(attn, p: Params, config: GPTConfig):
         + p["bo"].to(cdt)
 
 
+def _activation_fn(x, config: GPTConfig):
+    """The MLP's activation (JAX ``gpt.py:307-314``): ``relu`` (OPT),
+    ``quick_gelu`` x·sigmoid(1.702x) (CLIP), ``gelu_exact`` the erf form
+    (HF ``gelu``), else the tanh form (HF ``gelu_new``: GPT-2, GPT-J,
+    GPT-Neo)."""
+    if config.activation == "relu":
+        return F.relu(x)
+    if config.activation == "quick_gelu":
+        return x * torch.sigmoid(1.702 * x)
+    if config.activation == "gelu_exact":
+        return F.gelu(x)
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_out(x, p: Params, config: GPTConfig):
-    """LN2 + tanh-GeLU MLP (no residual add)."""
+    """LN2 + MLP (no residual add)."""
     cdt = config.dtype
     h2 = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     ff = h2 @ p["wi"].to(cdt) + p["bi"].to(cdt)
-    ff = F.gelu(ff, approximate="tanh")
+    ff = _activation_fn(ff, config)
     return ff @ p["wo_mlp"].to(cdt) + p["bo_mlp"].to(cdt)
 
 
 def block_tail(x, attn, p: Params, config: GPTConfig):
-    """Attention output projection + residual + LN2 + MLP + residual."""
-    x = x + attn_project(attn, p, config)
+    """Attention output projection, LN2 + MLP and the residuals: serial
+    (``h = x + attn``, then ``h + MLP(h)``) or, with
+    ``parallel_residual``, both branches on the block input: ``x + attn +
+    MLP(x)`` (JAX ``gpt.py:522-532``)."""
+    a = attn_project(attn, p, config)
+    if config.parallel_residual:
+        return x + a + mlp_out(x, p, config)
+    x = x + a
     return x + mlp_out(x, p, config)
 
 
 def embed(params: Params, tokens, config: GPTConfig, positions=None):
     """Token embedding, then the embedding LayerNorm (``embed_layernorm``)
-    and the learned positions (``pos_embed="learned"``; ALiBi adds none).
+    and the learned positions (``pos_embed="learned"``, read at
+    ``positions + pos_offset``; rotary, ALiBi and none add nothing here).
     ``positions``: [S] shared or [B, S] per row (ragged decode)."""
     cdt = config.dtype
     x = F.embedding(tokens, params["wte"].to(cdt))
@@ -359,7 +467,7 @@ def embed(params: Params, tokens, config: GPTConfig, positions=None):
         return x
     if positions is None:
         positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    pe = F.embedding(positions, params["wpe"].to(cdt))
+    pe = F.embedding(positions + config.pos_offset, params["wpe"].to(cdt))
     return x + (pe if pe.dim() == x.dim() else pe[None])
 
 
@@ -380,19 +488,37 @@ class _HeadLogits(torch.autograd.Function):
         return g @ head, g.t() @ h2
 
 
+def _head_key(config) -> str:
+    """The head's weight: ``wte`` when tied (always for BERT's MLM
+    decoder, whose config has no such field), else ``lm_head``."""
+    return "wte" if getattr(config, "tie_word_embeddings", True) \
+        else "lm_head"
+
+
 def _head_logits(params: Params, h, config: GPTConfig):
-    """Tied head on final-LayerNormed hiddens: operands in the compute
-    dtype, fp32 logits (a bf16 product would round the logits and create
-    greedy ties the JAX path does not have)."""
+    """The head on final-LayerNormed hiddens: ``wte`` (tied) or
+    ``lm_head``, operands in the compute dtype, fp32 logits (a bf16
+    product would round the logits and create greedy ties the JAX path
+    does not have), then ``lm_head_bias`` added in fp32 where the tree
+    has it (GPT-J; JAX ``gpt.py:551-564``)."""
     cdt = config.dtype
-    head = params["wte"].to(cdt)
+    head = params[_head_key(config)].to(cdt)
     h2 = h.to(cdt).reshape(-1, h.shape[-1])
     if h2.is_cuda and cdt != torch.float32:
         logits = _HeadLogits.apply(h2, head)
     else:
         # the same products (exact in fp32) with fp32 accumulation
         logits = h2.float() @ head.float().t()
+    if "lm_head_bias" in params:
+        logits = logits + params["lm_head_bias"].float()
     return logits.view(*h.shape[:-1], -1)
+
+
+def _head_params(params: Params, config: GPTConfig) -> Params:
+    """The leaves the head reads: ``wte`` or ``lm_head``, and
+    ``lm_head_bias`` where the tree has it."""
+    return {k: params[k] for k in (_head_key(config), "lm_head_bias")
+            if k in params}
 
 
 def lm_logits(params: Params, x, config: GPTConfig):
@@ -408,14 +534,15 @@ LAYER_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
 
 
 def _block(x, p: Params, config: GPTConfig, saved=None,
-           window: Optional[int] = None):
+           window: Optional[int] = None, tables=None):
     """One transformer block on [B, S, d] → (output, (O, lse)).  The
-    packed qkv goes to the differentiable flash op (banded by ``window``),
-    or the block-sparse one under ``config.sparse_attention``; ``saved`` =
+    packed qkv (q and k rotated by ``tables`` under rotary positions) goes
+    to the differentiable flash op (banded by ``window``), or the
+    block-sparse one under ``config.sparse_attention``; ``saved`` =
     (O, lse) replays an earlier forward's attention without the kernel.
     An unbanded ALiBi layer runs the dense path (lse None; it recomputes
     rather than replays)."""
-    qkv = qkv_packed(x, p, config)
+    qkv = qkv_packed(x, p, config, tables=tables)
     if window is None and config.pos_embed == "alibi":
         o = _alibi_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                              config)
@@ -440,18 +567,20 @@ class _RematBlock(torch.autograd.Function):
     The forward runs the block without recording a graph and keeps the
     block input; under ``remat_policy="attn_out"`` also the attention's O
     [B, S, H, Dh] and lse [B, H, S] fp32.  The backward re-runs the block
-    with gradients from the input and takes its gradient; with O and lse
-    kept, the attention is replayed from them, so the forward kernel runs
-    once per block and step instead of twice."""
+    with gradients from the input (the rotation of q and k included) and
+    takes its gradient; with O and lse kept, the attention is replayed
+    from them, so the forward kernel runs once per block and step instead
+    of twice."""
 
     @staticmethod
-    def forward(ctx, x, config, window, *leaves):
+    def forward(ctx, x, config, window, tables, *leaves):
         y, (o, lse) = _block(x, dict(zip(LAYER_KEYS, leaves)), config,
-                             window=window)
+                             window=window, tables=tables)
         keep = (o, lse) if config.remat_policy == "attn_out" and \
             lse is not None else ()
         ctx.save_for_backward(x, *keep, *leaves)
         ctx.config, ctx.n_keep, ctx.window = config, len(keep), window
+        ctx.tables = tables
         return y
 
     @staticmethod
@@ -463,29 +592,34 @@ class _RematBlock(torch.autograd.Function):
         with torch.enable_grad():
             x_in = x.detach().requires_grad_(needs[0])
             ps = [t.detach().requires_grad_(need)
-                  for t, need in zip(leaves, needs[3:])]
+                  for t, need in zip(leaves, needs[4:])]
             y, _ = _block(x_in, dict(zip(LAYER_KEYS, ps)), ctx.config,
-                          saved=tuple(keep) or None, window=ctx.window)
+                          saved=tuple(keep) or None, window=ctx.window,
+                          tables=ctx.tables)
         inputs = [t for t in (x_in, *ps) if t.requires_grad]
         grads = iter(torch.autograd.grad(y, inputs, gy, allow_unused=True))
         return ((next(grads) if x_in.requires_grad else None), None, None,
-                *(next(grads) if t.requires_grad else None for t in ps))
+                None, *(next(grads) if t.requires_grad else None for t in ps))
 
 
 def backbone(params: Params, tokens, config: GPTConfig):
     """Embed + transformer stack: tokens [B, S] → hidden [B, S, d]
     (before the final LayerNorm).  A stacked block weight may also be a
-    list of per-layer tensors (the engine's per-layer autograd leaves)."""
+    list of per-layer tensors (the engine's per-layer autograd leaves).
+    Under rotary positions the rotation's tables are built once and
+    shared by every layer."""
     x = embed(params, tokens, config)
+    tables = position_tables(
+        config, torch.arange(tokens.shape[-1], device=tokens.device))
     remat = config.remat and torch.is_grad_enabled()
     for idx in range(config.n_layer):
         p = layer_params(params, idx)
         window = layer_window(config, idx)
         if remat:
-            x = _RematBlock.apply(x, config, window,
+            x = _RematBlock.apply(x, config, window, tables,
                                   *(p[k] for k in LAYER_KEYS))
         else:
-            x = _block(x, p, config, window=window)[0]
+            x = _block(x, p, config, window=window, tables=tables)[0]
     return x
 
 
@@ -506,8 +640,10 @@ def _token_nll(logits, targets):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
-def _chunk_nll(h, wte, targets, config: GPTConfig):
-    return _token_nll(_head_logits({"wte": wte}, h, config), targets)
+def _chunk_nll(h, targets, config: GPTConfig, names, *leaves):
+    """One chunk's NLL sums through the head's own leaves (``names``)."""
+    return _token_nll(_head_logits(dict(zip(names, leaves)), h, config),
+                      targets)
 
 
 def loss_fn(params: Params, batch, config: GPTConfig):
@@ -535,6 +671,8 @@ def loss_fn(params: Params, batch, config: GPTConfig):
         chunk = eff
     x = backbone(params, inputs, config)
     h = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    head = _head_params(params, config)
+    names, leaves = tuple(head), tuple(head.values())
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(S // chunk):
@@ -542,9 +680,10 @@ def loss_fn(params: Params, batch, config: GPTConfig):
         if torch.is_grad_enabled():
             # the chunk's logits are recomputed in the backward
             t_i, c_i = torch.utils.checkpoint.checkpoint(
-                _chunk_nll, hc, params["wte"], tc, config, use_reentrant=False)
+                _chunk_nll, hc, tc, config, names, *leaves,
+                use_reentrant=False)
         else:
-            t_i, c_i = _chunk_nll(hc, params["wte"], tc, config)
+            t_i, c_i = _chunk_nll(hc, tc, config, names, *leaves)
         tot, cnt = tot + t_i, cnt + c_i
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -25,12 +25,16 @@ per-row ``lengths`` as host integers (a list, numpy array or CPU tensor);
 they are copied to the device once per call for the kernels, so a decode
 loop never waits on the device to learn a frontier.
 
-The GPT variants follow the JAX package (``gpt_inference.py:90-120``): a
+The GPT variants follow the JAX package (``gpt_inference.py:90-153``): a
 banded layer (``gpt.layer_window``) hands its window to the flash kernel in
 prefill and to the cache kernels in extend/decode; an ALiBi model prefills
 through the dense ``gpt._alibi_attention`` and hands the cache kernels its
 slopes (built once per head count and device) on every unbanded layer, at
-a fixed 1/sqrt(Dh) scale.
+a fixed 1/sqrt(Dh) scale.  Each step hands its token positions (``[S]`` in
+prefill, ``[B, S_c]`` or ``[S_c]`` in extend, ``[B, 1]`` or ``[1]`` in
+decode) to the learned embedding and, under rotary positions, to the
+rotation of q and k, so the cache holds rotated K (an int8 cache its
+codes); the block tail honours ``parallel_residual`` (``gpt.block_tail``).
 """
 
 from __future__ import annotations
@@ -145,15 +149,18 @@ def _host_lengths(lengths: Lengths) -> np.ndarray:
 
 
 def _layers(x, params, cache: KVCache, config: gpt.GPTConfig, write, attn,
-            pos):
-    """The layer loop every cache-filling path shares: ``write(buf, val)``
-    stores this step's K or V into a layer of a cache in the compute
-    dtype in place; an int8 cache takes them quantized at slots ``pos +
-    i`` (``quantize_kv_into``); ``attn(q, k, v, layer)`` computes the
+            pos, positions):
+    """The layer loop every cache-filling path shares: q, k and v of the
+    step's tokens at ``positions`` (rotated under rotary positions, the
+    tables built once for every layer); ``write(buf, val)`` stores this
+    step's K or V into a layer of a cache in the compute dtype in place;
+    an int8 cache takes them quantized at slots ``pos + i``
+    (``quantize_kv_into``); ``attn(q, k, v, layer)`` computes the
     sublayer's attention."""
+    tables = gpt.position_tables(config, positions)
     for idx in range(config.n_layer):
         p = gpt.layer_params(params, idx)
-        q, k, v = gpt.qkv_proj(x, p, config)
+        q, k, v = gpt.qkv_proj(x, p, config, tables=tables)
         if cache.int8:
             quantize_kv_into(k, v, cache.layer(idx), pos)
         else:
@@ -182,7 +189,8 @@ def prefill(params, tokens: torch.Tensor, config: gpt.GPTConfig,
     if S > cache.max_len:
         raise ValueError(f"prefill of {S} tokens overflows the cache "
                          f"(max_len {cache.max_len})")
-    x = gpt.embed(params, tokens, config)
+    positions = torch.arange(S, device=tokens.device)
+    x = gpt.embed(params, tokens, config, positions=positions)
 
     def write(buf, val):
         buf[:, :S] = val
@@ -191,7 +199,7 @@ def prefill(params, tokens: torch.Tensor, config: gpt.GPTConfig,
         return gpt._attention(q, k, v, config,
                               window=gpt.layer_window(config, idx))
 
-    x = _layers(x, params, cache, config, write, attn, 0)
+    x = _layers(x, params, cache, config, write, attn, 0, positions)
     cache.length = S
     return _logits(params, x, config, logits_at), cache
 
@@ -240,7 +248,7 @@ def extend(params, tokens: torch.Tensor, config: gpt.GPTConfig,
     def attn(q, k, v, idx):
         return _cache_attention(q, cache, idx, pos, config)
 
-    x = _layers(x, params, cache, config, write, attn, pos)
+    x = _layers(x, params, cache, config, write, attn, pos, positions)
     cache.length = top + Sc
     return _logits(params, x, config, logits_at), cache
 
@@ -280,7 +288,7 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
     def attn(q, k, v, idx):
         return _cache_attention(q, cache, idx, pos, config)
 
-    x = _layers(x, params, cache, config, write, attn, pos)
+    x = _layers(x, params, cache, config, write, attn, pos, positions)
     cache.length = top + 1
     return gpt.lm_logits(params, x[:, 0], config), cache
 

@@ -1,7 +1,8 @@
 """Weight-injection policies of the port: diffusers state dicts → the
 served UNet and VAE (``UNetPolicy``, ``VAEPolicy``), and HF decoder models
 → the GPT tree (``HFGPT2LayerPolicy``, ``HFGPTNEOLayerPolicy``,
-``BLOOMLayerPolicy``; ``convert_hf_model``)."""
+``HFOPTLayerPolicy``, ``BLOOMLayerPolicy``, ``GPTNEOXLayerPolicy``,
+``HFGPTJLayerPolicy``; ``convert_hf_model``)."""
 
 from .replace_policy import (GENERIC_POLICIES, POLICIES, BLOOMLayerPolicy,
                              GPTNEOXLayerPolicy, HFGPT2LayerPolicy,

@@ -10,10 +10,10 @@ as they are (the port's tree is OIHW).  The architecture is inferred from
 the state dict; ``n_head`` and ``groups`` are not recoverable from the
 weights and come from the caller (SD 1.x: 8 and 32).
 
-The HF decoder policies (GPT-2, GPT-Neo, BLOOM; :data:`POLICIES`,
-:func:`convert_hf_model`) map a ``transformers`` model's state dict into
-the tree of ``models/gpt.py``; OPT, GPT-NeoX and GPT-J match and raise.
-The BERT and CLIP text policies are not ported yet.
+The HF decoder policies (GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX, GPT-J;
+:data:`POLICIES`, :func:`convert_hf_model`) map a ``transformers``
+model's state dict into the tree of ``models/gpt.py``.  The BERT and CLIP
+text policies are not ported yet.
 """
 
 from __future__ import annotations
@@ -295,13 +295,10 @@ GENERIC_POLICIES = [UNetPolicy, VAEPolicy]
 
 # ------------------------------------------------ HF decoder policies
 #
-# The port of ``HFGPT2LayerPolicy``, ``HFGPTNEOLayerPolicy`` and
-# ``BLOOMLayerPolicy`` (JAX ``replace_policy.py:28-221,396-471``): an HF
-# state dict (torch tensors or numpy arrays) → the stacked [L, ...] tree
-# of ``models/gpt.py``, the same arrays as the JAX policies build, as fp32
-# tensors.  The OPT, GPT-NeoX and GPT-J policies match as in JAX and
-# raise: their variants (offset positions and relu, rotary and parallel
-# residual, an untied biased head) are not ported yet.
+# The port of the JAX decoder policies (``replace_policy.py:28-221,
+# 314-560, 664-744``): an HF state dict (torch tensors or numpy arrays) →
+# the stacked [L, ...] tree of ``models/gpt.py``, the same arrays as the
+# JAX policies build, as tensors in the config's ``param_dtype``.
 
 
 def _np(t) -> np.ndarray:
@@ -316,8 +313,8 @@ def _linear_w(sd_get, name):
 
 
 def _fused_qkv_per_head(w, b, H, Dh, d):
-    """BLOOM fuses qkv as [(H, 3, Dh), d], per head interleaved.  Returns
-    (wqkv [d, 3, H, Dh], bqkv [3, H, Dh])."""
+    """BLOOM and GPT-NeoX fuse qkv as [(H, 3, Dh), d], per head
+    interleaved.  Returns (wqkv [d, 3, H, Dh], bqkv [3, H, Dh])."""
     wq = w.reshape(H, 3, Dh, d).transpose(3, 1, 0, 2)
     bq = b.reshape(H, 3, Dh).transpose(1, 0, 2)
     return wq, bq
@@ -493,6 +490,95 @@ class HFGPTNEOLayerPolicy:
         return _tree_to_torch(params, config.param_dtype)
 
 
+class HFOPTLayerPolicy:
+    """transformers OPT (``OPTForCausalLM``): separate q/k/v projections,
+    relu MLP, learned positions stored with a +2 offset.  The layouts the
+    JAX policy refuses are refused here too: embedding projections
+    (``word_embed_proj_dim`` != ``hidden_size``) and the post-LN OPT-350m
+    (``do_layer_norm_before=False``)."""
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("self_attn.q_proj.weight" in k and "decoder" in k
+                   for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        if getattr(hf_config, "word_embed_proj_dim",
+                   hf_config.hidden_size) != hf_config.hidden_size:
+            raise NotImplementedError(
+                "OPT variants with embedding projections are not supported")
+        if not getattr(hf_config, "do_layer_norm_before", True):
+            raise NotImplementedError(
+                "post-LN OPT-350m layout is not supported")
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            n_layer=hf_config.num_hidden_layers,
+            n_head=hf_config.num_attention_heads,
+            d_model=hf_config.hidden_size,
+            d_ff=hf_config.ffn_dim,
+            activation="relu",
+            pos_offset=2,
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        pre = "model.decoder." if any(k.startswith("model.") for k in sd) \
+            else "decoder."
+
+        def get(name):
+            return sd[pre + name]
+
+        def lw(i, name):
+            return _linear_w(get, f"layers.{i}.{name}.weight")
+
+        def lb(i, name):
+            return _np(get(f"layers.{i}.{name}.bias"))
+
+        def ln(i, name, part):
+            return _np(get(f"layers.{i}.{name}.{part}"))
+
+        def qkv_w(i):
+            return np.stack([lw(i, f"self_attn.{n}_proj").reshape(d, H, Dh)
+                             for n in ("q", "k", "v")], axis=1)
+
+        def qkv_b(i):
+            return np.stack([lb(i, f"self_attn.{n}_proj").reshape(H, Dh)
+                             for n in ("q", "k", "v")], axis=0)
+
+        block = {
+            "ln1_scale": np.stack([ln(i, "self_attn_layer_norm", "weight")
+                                   for i in range(L)]),
+            "ln1_bias": np.stack([ln(i, "self_attn_layer_norm", "bias")
+                                  for i in range(L)]),
+            "wqkv": np.stack([qkv_w(i) for i in range(L)]),
+            "bqkv": np.stack([qkv_b(i) for i in range(L)]),
+            "wo": np.stack([lw(i, "self_attn.out_proj").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": np.stack([lb(i, "self_attn.out_proj") for i in range(L)]),
+            "ln2_scale": np.stack([ln(i, "final_layer_norm", "weight")
+                                   for i in range(L)]),
+            "ln2_bias": np.stack([ln(i, "final_layer_norm", "bias")
+                                  for i in range(L)]),
+            "wi": np.stack([lw(i, "fc1") for i in range(L)]),
+            "bi": np.stack([lb(i, "fc1") for i in range(L)]),
+            "wo_mlp": np.stack([lw(i, "fc2") for i in range(L)]),
+            "bo_mlp": np.stack([lb(i, "fc2") for i in range(L)]),
+        }
+        params = {
+            "wte": _pad_vocab(_np(get("embed_tokens.weight")),
+                              config.padded_vocab),
+            "wpe": _np(get("embed_positions.weight")),
+            "blocks": block,
+            "lnf_scale": _np(get("final_layer_norm.weight")),
+            "lnf_bias": _np(get("final_layer_norm.bias")),
+        }
+        return _tree_to_torch(params, config.param_dtype)
+
+
 class BLOOMLayerPolicy:
     """transformers BLOOM (``BloomForCausalLM``): ALiBi positions, fused
     per-head qkv, embedding LayerNorm."""
@@ -570,55 +656,170 @@ class BLOOMLayerPolicy:
         return _tree_to_torch(params, config.param_dtype)
 
 
-class _UnportedPolicy:
-    """A decoder family the JAX package injects whose model variants the
-    port does not have yet: it matches as the JAX policy does, then
-    raises, so such a model is refused by name rather than unmatched."""
-
-    variants = ""
-
-    @classmethod
-    def _refuse(cls, *_args, **_kwargs):
-        raise NotImplementedError(
-            f"{cls.__name__}: {cls.variants} are not ported yet (ROADMAP.md "
-            "Queue 1 #6)")
-
-    model_config = convert = _refuse
-
-
-class HFOPTLayerPolicy(_UnportedPolicy):
-    """transformers OPT: positions stored at an offset of 2, relu MLP."""
-
-    variants = "OPT's offset positions and relu MLP"
-
-    @staticmethod
-    def match(sd: Dict[str, Any]) -> bool:
-        return any("self_attn.q_proj.weight" in k and "decoder" in k
-                   for k in sd)
-
-
-class GPTNEOXLayerPolicy(_UnportedPolicy):
-    """transformers GPT-NeoX: rotary positions, parallel residual, untied
-    head."""
-
-    variants = "GPT-NeoX's rotary positions, parallel residual and untied head"
+class GPTNEOXLayerPolicy:
+    """transformers GPT-NeoX (``GPTNeoXForCausalLM``, the Pythia suite):
+    rotary over the leading ``rotary_pct`` of each head (half split),
+    parallel residual, fused per-head qkv, an untied ``embed_out`` head."""
 
     @staticmethod
     def match(sd: Dict[str, Any]) -> bool:
         return any("attention.query_key_value" in k and
                    ("gpt_neox" in k or k.startswith("layers.")) for k in sd)
 
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            n_layer=hf_config.num_hidden_layers,
+            n_head=hf_config.num_attention_heads,
+            d_model=hf_config.hidden_size,
+            d_ff=hf_config.intermediate_size,
+            pos_embed="rotary",
+            rotary_pct=getattr(hf_config, "rotary_pct", 0.25),
+            rotary_base=getattr(hf_config, "rotary_emb_base", 10000),
+            parallel_residual=getattr(hf_config, "use_parallel_residual",
+                                      True),
+            tie_word_embeddings=False,
+            dtype=dtype)
 
-class HFGPTJLayerPolicy(_UnportedPolicy):
-    """transformers GPT-J: interleaved rotary, parallel residual, biased
-    untied head."""
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        pre = "gpt_neox." if any(k.startswith("gpt_neox.") for k in sd) \
+            else ""
 
-    variants = ("GPT-J's interleaved rotary positions, parallel residual "
-                "and biased untied head")
+        def get(name):
+            return sd[pre + name]
+
+        def fused(i):
+            w = _np(get(f"layers.{i}.attention.query_key_value.weight"))
+            b = _np(get(f"layers.{i}.attention.query_key_value.bias"))
+            return _fused_qkv_per_head(w, b, H, Dh, d)
+
+        qkvs = [fused(i) for i in range(L)]
+
+        def lw(i, name):
+            return _np(get(f"layers.{i}.{name}.weight")).T
+
+        def lb(i, name):
+            return _np(get(f"layers.{i}.{name}.bias"))
+
+        def ln(i, name, part):
+            return _np(get(f"layers.{i}.{name}.{part}"))
+
+        block = {
+            "ln1_scale": np.stack([ln(i, "input_layernorm", "weight")
+                                   for i in range(L)]),
+            "ln1_bias": np.stack([ln(i, "input_layernorm", "bias")
+                                  for i in range(L)]),
+            "wqkv": np.stack([w for w, _ in qkvs]),
+            "bqkv": np.stack([b for _, b in qkvs]),
+            "wo": np.stack([lw(i, "attention.dense").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": np.stack([lb(i, "attention.dense") for i in range(L)]),
+            "ln2_scale": np.stack([ln(i, "post_attention_layernorm", "weight")
+                                   for i in range(L)]),
+            "ln2_bias": np.stack([ln(i, "post_attention_layernorm", "bias")
+                                  for i in range(L)]),
+            "wi": np.stack([lw(i, "mlp.dense_h_to_4h") for i in range(L)]),
+            "bi": np.stack([lb(i, "mlp.dense_h_to_4h") for i in range(L)]),
+            "wo_mlp": np.stack([lw(i, "mlp.dense_4h_to_h") for i in range(L)]),
+            "bo_mlp": np.stack([lb(i, "mlp.dense_4h_to_h") for i in range(L)]),
+        }
+        # the untied head lives outside the gpt_neox. prefix on CausalLM
+        head = sd.get("embed_out.weight", sd.get(pre + "embed_out.weight"))
+        params = {
+            "wte": _pad_vocab(_np(get("embed_in.weight")),
+                              config.padded_vocab),
+            "lm_head": _pad_vocab(_np(head), config.padded_vocab),
+            "blocks": block,
+            "lnf_scale": _np(get("final_layer_norm.weight")),
+            "lnf_bias": _np(get("final_layer_norm.bias")),
+        }
+        return _tree_to_torch(params, config.param_dtype)
+
+
+class HFGPTJLayerPolicy:
+    """transformers GPT-J (``GPTJForCausalLM``): interleaved rotary over
+    ``rotary_dim`` dims, parallel residual with one shared LayerNorm
+    (ln2 is a copy of ln1), bias-free attention (``bqkv`` and ``bo``
+    zero), a biased untied head."""
 
     @staticmethod
     def match(sd: Dict[str, Any]) -> bool:
         return any("attn.q_proj.weight" in k and "h." in k for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        hd = hf_config.n_embd // hf_config.n_head
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.n_positions,
+            n_layer=hf_config.n_layer,
+            n_head=hf_config.n_head,
+            d_model=hf_config.n_embd,
+            d_ff=getattr(hf_config, "n_inner", None) or 4 * hf_config.n_embd,
+            pos_embed="rotary",
+            rotary_pct=(hf_config.rotary_dim or hd) / hd,
+            rotary_interleaved=True,
+            parallel_residual=True,
+            tie_word_embeddings=False,
+            lm_head_bias=True,
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        pre = _prefix(sd)
+
+        def get(name):
+            return sd[pre + name]
+
+        def lw(i, name):
+            return _np(get(f"h.{i}.{name}.weight")).T
+
+        def lb(i, name):
+            return _np(get(f"h.{i}.{name}.bias"))
+
+        def qkv_w(i):
+            return np.stack([lw(i, f"attn.{n}_proj").reshape(d, H, Dh)
+                             for n in ("q", "k", "v")], axis=1)
+
+        ln1_scale = np.stack([_np(get(f"h.{i}.ln_1.weight"))
+                              for i in range(L)])
+        ln1_bias = np.stack([_np(get(f"h.{i}.ln_1.bias")) for i in range(L)])
+        block = {
+            "ln1_scale": ln1_scale,
+            "ln1_bias": ln1_bias,
+            # GPT-J has one LayerNorm feeding both parallel branches; the
+            # block applies ln1 to attention and ln2 to the MLP, so ln2 as
+            # a copy of ln1 reproduces the shared LayerNorm
+            "ln2_scale": ln1_scale.copy(),
+            "ln2_bias": ln1_bias.copy(),
+            "wqkv": np.stack([qkv_w(i) for i in range(L)]),
+            "bqkv": np.zeros((L, 3, H, Dh), np.float32),
+            "wo": np.stack([lw(i, "attn.out_proj").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": np.zeros((L, d), np.float32),
+            "wi": np.stack([lw(i, "mlp.fc_in") for i in range(L)]),
+            "bi": np.stack([lb(i, "mlp.fc_in") for i in range(L)]),
+            "wo_mlp": np.stack([lw(i, "mlp.fc_out") for i in range(L)]),
+            "bo_mlp": np.stack([lb(i, "mlp.fc_out") for i in range(L)]),
+        }
+        params = {
+            "wte": _pad_vocab(_np(get("wte.weight")), config.padded_vocab),
+            "lm_head": _pad_vocab(_np(sd["lm_head.weight"]),
+                                  config.padded_vocab),
+            "lm_head_bias": _pad_vocab(_np(sd["lm_head.bias"]),
+                                       config.padded_vocab),
+            "blocks": block,
+            "lnf_scale": _np(get("ln_f.weight")),
+            "lnf_bias": _np(get("ln_f.bias")),
+        }
+        return _tree_to_torch(params, config.param_dtype)
 
 
 #: the decoder policies, in the JAX package's order

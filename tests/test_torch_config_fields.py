@@ -56,10 +56,6 @@ INERT = {
                          "port runs on one device",
     "act_quant_symmetric": "qualifies act_quant_bits, which the converter "
                            "refuses unless None",
-    "rotary_pct": "qualifies pos_embed='rotary', which the port refuses",
-    "rotary_base": "qualifies pos_embed='rotary', which the port refuses",
-    "rotary_interleaved": "qualifies pos_embed='rotary', which the port "
-                          "refuses",
 }
 
 #: JAX dtype fields, carried as the torch dtype of the same name
@@ -113,10 +109,17 @@ def test_bert_field_is_carried_or_refused(name):
     {"pos_embed": "alibi", "embed_layernorm": True},
     {"local_attention_window": 256, "local_attention_alternating": True,
      "attn_softmax_scale": 1.0},
-    {"local_attention_window": 4}])
+    {"local_attention_window": 4},
+    {"pos_embed": "rotary", "rotary_pct": 0.25, "rotary_base": 10000,
+     "parallel_residual": True, "tie_word_embeddings": False},
+    {"pos_embed": "rotary", "rotary_pct": 0.25, "rotary_interleaved": True,
+     "parallel_residual": True, "tie_word_embeddings": False,
+     "lm_head_bias": True},
+    {"activation": "relu", "pos_offset": 2}],
+    ids=["bloom", "neo", "window", "neox", "gptj", "opt"])
 def test_gpt_family_fields_are_carried(fields):
-    """BLOOM's and GPT-Neo's fields cross together (the walk above sets one
-    field at a time, and its pos_embed case is the refused rotary)."""
+    """BLOOM's, GPT-Neo's, GPT-NeoX's, GPT-J's and OPT's fields cross
+    together (the walk above sets one field at a time)."""
     port = convert.config_from_jax(jgpt.GPTConfig(**GPT_BASE, **fields))
     for name, value in fields.items():
         assert getattr(port, name) == value, (name, getattr(port, name))

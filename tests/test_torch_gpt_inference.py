@@ -179,15 +179,6 @@ def test_slot_ops_round_trip_match_jax(model):
         tinf.write_slot(tinf.init_cache(tcfg, 3, 16), 0, tsmall)
 
 
-def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="pos_embed"):
-        gpt.GPTConfig(pos_embed="rotary")
-    with pytest.raises(NotImplementedError, match="parallel_residual"):
-        gpt.GPTConfig(parallel_residual=True)
-    with pytest.raises(NotImplementedError, match="activation"):
-        gpt.GPTConfig(activation="relu")
-
-
 def test_config_from_jax_refuses_act_quant_bits():
     """A JAX config with activation fake-quant raises rather than
     converting to a port config that silently serves without it."""

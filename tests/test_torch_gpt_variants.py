@@ -271,15 +271,6 @@ def test_batcher_equals_generate(family, kv):
             assert gen.tolist() == alone, (i, gen.tolist(), alone)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("pos_embed", "rotary"), ("activation", "relu"),
-    ("parallel_residual", True), ("tie_word_embeddings", False),
-    ("lm_head_bias", True), ("pos_offset", 2)])
-def test_other_variants_still_raise(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gpt.GPTConfig(**{field: value})
-
-
 @pytest.mark.parametrize("remat", [False, True],
                          ids=["plain", "remat_attn_out"])
 def test_banded_gradients_match_jax(remat):

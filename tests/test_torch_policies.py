@@ -1,8 +1,9 @@
 """The port's HF decoder policies against the JAX package's, on
 random-init ``transformers`` models (nothing is downloaded): the same
 arrays exactly (fp32), and ``init_inference(model=hf_model)`` logits equal
-to the JAX engine's at 3e-4 (the JAX tests' parity tolerance).  The OPT,
-GPT-NeoX and GPT-J policies match and raise."""
+to the JAX engine's and HF's own at 3e-4 (the JAX tests' parity
+tolerance), for GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX and GPT-J; and OPT's
+two refused layouts, refused by both packages."""
 
 import numpy as np
 import pytest
@@ -45,10 +46,47 @@ def _bloom(heads=2, hidden=32):
     return transformers.BloomForCausalLM(cfg)
 
 
+def _opt(**layout):
+    kw = dict(word_embed_proj_dim=32, do_layer_norm_before=True)
+    kw.update(layout)
+    cfg = transformers.OPTConfig(
+        vocab_size=128, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=2, ffn_dim=64, max_position_embeddings=64,
+        dropout=0.0, attention_dropout=0.0, activation_function="relu", **kw)
+    torch.manual_seed(1)
+    return transformers.OPTForCausalLM(cfg)
+
+
+def _neox():
+    cfg = transformers.GPTNeoXConfig(
+        vocab_size=128, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=64, rotary_pct=0.25,
+        use_parallel_residual=True, hidden_dropout=0.0,
+        attention_dropout=0.0)
+    torch.manual_seed(3)
+    return transformers.GPTNeoXForCausalLM(cfg)
+
+
+def _gptj():
+    cfg = transformers.GPTJConfig(vocab_size=128, n_positions=64, n_embd=32,
+                                  n_layer=2, n_head=2, rotary_dim=8,
+                                  resid_pdrop=0.0, embd_pdrop=0.0,
+                                  attn_pdrop=0.0)
+    torch.manual_seed(4)
+    model = transformers.GPTJForCausalLM(cfg)
+    with torch.no_grad():   # HF initialises the head's bias to zero
+        model.lm_head.bias.normal_(0.0, 0.02)
+    return model
+
+
 MODELS = {"gpt2": (_gpt2, "HFGPT2LayerPolicy"),
           "neo": (_neo, "HFGPTNEOLayerPolicy"),
+          "opt": (_opt, "HFOPTLayerPolicy"),
           "bloom": (_bloom, "BLOOMLayerPolicy"),
-          "bloom_6_heads": (lambda: _bloom(6, 48), "BLOOMLayerPolicy")}
+          "bloom_6_heads": (lambda: _bloom(6, 48), "BLOOMLayerPolicy"),
+          "neox": (_neox, "GPTNEOXLayerPolicy"),
+          "gptj": (_gptj, "HFGPTJLayerPolicy")}
 
 
 def _flat(tree, prefix=""):
@@ -93,34 +131,16 @@ def test_init_inference_matches_jax_engine(name):
     np.testing.assert_allclose(got, hf_logits, atol=ATOL, rtol=ATOL)
 
 
-def _opt():
-    cfg = transformers.OPTConfig(
-        vocab_size=128, hidden_size=32, num_hidden_layers=2,
-        num_attention_heads=2, ffn_dim=64, max_position_embeddings=64,
-        word_embed_proj_dim=32)
-    return transformers.OPTForCausalLM(cfg)
-
-
-def _neox():
-    cfg = transformers.GPTNeoXConfig(
-        vocab_size=128, hidden_size=32, num_hidden_layers=2,
-        num_attention_heads=2, intermediate_size=64,
-        max_position_embeddings=64)
-    return transformers.GPTNeoXForCausalLM(cfg)
-
-
-def _gptj():
-    cfg = transformers.GPTJConfig(vocab_size=128, n_positions=64, n_embd=32,
-                                  n_layer=2, n_head=2, rotary_dim=8)
-    return transformers.GPTJForCausalLM(cfg)
-
-
-@pytest.mark.parametrize("make,policy", [
-    (_opt, "HFOPTLayerPolicy"), (_neox, "GPTNEOXLayerPolicy"),
-    (_gptj, "HFGPTJLayerPolicy")])
-def test_unported_families_raise(make, policy):
-    hf = make().eval()
-    assert tpol.match_decoder(hf.state_dict()) is getattr(tpol, policy)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+@pytest.mark.parametrize("layout", [{"word_embed_proj_dim": 16},
+                                    {"do_layer_norm_before": False}],
+                         ids=["embedding_projection", "post_ln"])
+def test_opt_layouts_the_jax_policy_refuses_are_refused(layout):
+    """OPT with embedding projections, and OPT-350m's post-LN layout: the
+    JAX policy asserts them away, the port's raises."""
+    hf = _opt(**layout).eval()
+    assert tpol.match_decoder(hf.state_dict()) is tpol.HFOPTLayerPolicy
+    with pytest.raises(AssertionError):
+        jpol.HFOPTLayerPolicy.model_config(hf.config)
+    with pytest.raises(NotImplementedError, match="not supported"):
         deepspeed_tpu_torch.init_inference(
             model=hf, config={"dtype": "float32"}, device="cpu")
