@@ -7,9 +7,11 @@ never JAX or ``deepspeed_tpu``.
 
 Ported so far: the serving path of GPT-2, GPT-Neo (banded local layers),
 OPT (offset positions, relu), BLOOM (ALiBi), GPT-NeoX and GPT-J (rotary
-positions, parallel residual, untied heads) — ``init_inference`` (from a
-``(GPTConfig, params)`` tuple or a ``transformers`` model) →
-``InferenceEngine.generate``, and the
+positions, parallel residual, untied heads) and GPT-MoE (``models/
+gpt_moe``: dense blocks and expert layers in pairs, top-1 or top-2
+gating, dropless in serving; ``moe/``) — ``init_inference`` (from a
+``(GPTConfig, params)`` or ``(GPTMoEConfig, params)`` tuple or a
+``transformers`` model) → ``InferenceEngine.generate``, and the
 continuous-batching ``SlotBatcher`` (``serving``), in bf16/fp16/fp32 or
 with int8 weights and an int8 KV cache; text-to-image serving of
 Stable-Diffusion-shaped models — ``init_inference(model=<diffusers state
@@ -17,7 +19,8 @@ dict>)`` → ``DSUNet``/``DSVAE``
 → ``inference.diffusion_pipeline.DiffusionPipeline`` (guided DDIM, VAE
 decode); and the training path: ``initialize`` →
 ``DeepSpeedEngine`` forward / backward / step and ``train_batch_fused``
-(``runtime``), for the GPT family (dense or block-sparse attention, Adam)
+(``runtime``), for the GPT family (dense or block-sparse attention, Adam),
+GPT-MoE (``from_gpt_moe``, the ``moe`` section at ``ep_size`` 1)
 and for BERT masked-LM pre-training (right-padded batches through the flash
 kernels' per-row key lengths, Adam or LAMB); checkpoints in the JAX
 package's layout; and the preemptible run around the step:
@@ -41,7 +44,7 @@ from .inference.config import DeepSpeedInferenceConfig
 from .inference.engine import InferenceEngine
 from .models import gpt
 from .runtime.engine import DeepSpeedEngine
-from .runtime.model import ModelSpec, from_bert, from_gpt
+from .runtime.model import ModelSpec, from_bert, from_gpt, from_gpt_moe
 
 __version__ = "0.1.0"
 
@@ -51,7 +54,9 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     (reference ``deepspeed/__init__.py`` ``init_inference``).
 
     ``model`` is a ``(GPTConfig, params)`` tuple of the port's GPT (params
-    from ``models.gpt.init`` or ``models.convert.from_jax_params``); a
+    from ``models.gpt.init`` or ``models.convert.from_jax_params``) or a
+    ``(GPTMoEConfig, params)`` tuple of its GPT-MoE (``models.gpt_moe``;
+    the config's ``moe`` section, if any, at ``ep_size`` 1); a
     ``transformers`` decoder (a module with ``config`` and
     ``state_dict()``) that a ``module_inject.POLICIES`` entry matches
     (GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX, GPT-J), converted and served
@@ -108,9 +113,11 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
     ``deepspeed/__init__.py`` ``initialize``); returns ``(engine,
     optimizer, training_dataloader, lr_scheduler)``.
 
-    ``model`` is a ``ModelSpec`` (``runtime.model.from_gpt`` or
-    ``from_bert``); ``config`` a DeepSpeed config dict or path, whose
-    ``optimizer`` section may name Adam/AdamW, LAMB or SGD.  The params come from
+    ``model`` is a ``ModelSpec`` (``runtime.model.from_gpt``,
+    ``from_gpt_moe`` or ``from_bert``); ``config`` a DeepSpeed config dict
+    or path, whose ``optimizer`` section may name Adam/AdamW, LAMB or SGD
+    and whose ``moe`` section takes ``ep_size`` 1 (above 1 raises: expert
+    parallelism is ROADMAP.md Queue 1 #7).  The params come from
     ``model.params`` or ``model.init_fn(generator)`` (default: a
     generator on the device seeded with 0).  ``device=None`` runs on CUDA
     and raises when there is none; pass ``device="cpu"`` for the plain
@@ -127,8 +134,8 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
     config = config if config is not None else config_params
     if not isinstance(model, ModelSpec):
         raise TypeError("initialize takes model=ModelSpec "
-                        "(deepspeed_tpu_torch.runtime.model.from_gpt or "
-                        "from_bert)")
+                        "(deepspeed_tpu_torch.runtime.model.from_gpt, "
+                        "from_gpt_moe or from_bert)")
     at = config.get("autotuning", {}) if isinstance(config, dict) else {}
     if (isinstance(at, dict) and at.get("enabled")) or \
             os.environ.get("DS_AUTOTUNING", "").strip():
@@ -149,5 +156,6 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
 
 
 __all__ = ["DeepSpeedEngine", "DeepSpeedInferenceConfig", "InferenceEngine",
-           "ModelSpec", "from_bert", "from_gpt", "init_inference",
+           "ModelSpec", "from_bert", "from_gpt", "from_gpt_moe",
+           "init_inference",
            "initialize"]

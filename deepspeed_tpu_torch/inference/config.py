@@ -1,12 +1,13 @@
 """Inference config (reference ``inference/config.py``
 ``DeepSpeedInferenceConfig``): serving dtype (``"int8"``: int8 weights
 with bf16 compute), KV-cache dtype (``"int8"``: int8 codes with one fp32
-scale per head vector), quantization, tensor parallelism and
+scale per head vector), quantization, tensor parallelism, ``moe`` and
 ``max_out_tokens``.
 
 Options the JAX package has and this port does not yet (tensor
-parallelism, ``quant.int8_compute``, weights of other than 8 bits, MoE)
-raise at construction; none is ignored.
+parallelism, ``quant.int8_compute``, weights of other than 8 bits, expert
+parallelism: ``moe.ep_size`` above 1) raise at construction; none is
+ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "half": torch.float16,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "int8": torch.int8}
+#: the ``moe`` keys the port reads
+_MOE_KEYS = frozenset({"ep_size", "enabled"})
 
 
 @dataclasses.dataclass
@@ -55,6 +58,8 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     kv_cache_dtype: str = "auto"
     tensor_parallel: Dict = dataclasses.field(default_factory=dict)
     quant: Dict = dataclasses.field(default_factory=dict)
+    #: ``{"ep_size": 1}`` (and ``enabled``, accepted for reference
+    #: parity): a GPT-MoE model serves with every expert on the device
     moe: Dict = dataclasses.field(default_factory=dict)
     #: accepted for reference parity; neither engine reads it
     max_out_tokens: int = 1024
@@ -80,8 +85,17 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
                 f"tensor_parallel.tp_size={self.tp_size}: tensor-parallel "
                 "serving is not ported yet")
         self.quantization = QuantizationConfig.from_dict(self.quant or {})
-        if self.moe:
-            raise NotImplementedError("MoE serving is not ported yet")
+        unknown = sorted(k for k in self.moe if k not in _MOE_KEYS)
+        if unknown:
+            raise NotImplementedError(
+                f"moe keys {unknown} are not ported (the port reads "
+                f"{sorted(_MOE_KEYS)})")
+        if self.ep_size < 1:
+            raise ValueError(f"moe.ep_size must be >= 1, got {self.ep_size}")
+        if self.ep_size > 1:
+            raise NotImplementedError(
+                f"moe.ep_size={self.ep_size}: expert-parallel serving is not "
+                "ported yet (ROADMAP.md Queue 1 #7)")
         if self.max_out_tokens < 1:
             raise ValueError(
                 f"max_out_tokens must be >= 1, got {self.max_out_tokens}")
@@ -89,6 +103,10 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     @property
     def tp_size(self) -> int:
         return int(self.tensor_parallel.get("tp_size", 1))
+
+    @property
+    def ep_size(self) -> int:
+        return int(self.moe.get("ep_size", 1))
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -1,7 +1,12 @@
 """Inference engine: the port of ``inference/engine.py``.
 
-``InferenceEngine`` holds a GPT-2 model's weights in the serving dtype on
-one device and offers ``forward`` and ``generate``.  ``dtype="int8"``
+``InferenceEngine`` holds a GPT model's weights in the serving dtype on
+one device and offers ``forward`` and ``generate``.  The model family is
+dispatched on the config, as in the JAX engine: a ``GPTMoEConfig`` runs
+``gpt_moe`` (``forward``: eval capacity gating) and
+``gpt_moe_inference`` (dropless gating in every cache path), any other
+``GPTConfig`` ``gpt`` and ``gpt_inference``; ``generate``, sessions and a
+``SlotBatcher`` over the engine read ``engine._family``.  ``dtype="int8"``
 serves int8 weights with bf16 compute: the weights are cast to bf16, then
 the big matmul weights are quantized to int8 codes with per-vector scales
 (``inference/quantization.py``, the ``quantizer`` kernel on CUDA);
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from ..accelerator import get_accelerator
-from ..models import gpt, gpt_inference
+from ..models import gpt, gpt_inference, gpt_moe, gpt_moe_inference
 from ..utils.logging import logger
 from .bucketing import (bucket_cache_len, bucket_max_new_tokens,
                         tile_cache_len)
@@ -68,7 +73,16 @@ class InferenceEngine:
         self._config = config
         dtype, self._weight_int8 = _serving_dtype(config)
         self._kv_dtype = "int8" if config.kv_cache_dtype == "int8" else None
-        self.model_config = dataclasses.replace(model_config, dtype=dtype)
+        self.model_config = cfg = dataclasses.replace(model_config,
+                                                      dtype=dtype)
+        # model-family dispatch (JAX inference/engine.py:114-129)
+        if isinstance(cfg, gpt_moe.GPTMoEConfig):
+            self._family = gpt_moe_inference
+            self._apply_fn = lambda p, t: gpt_moe.apply(p, t, cfg,
+                                                        train=False)[0]
+        else:
+            self._family = gpt_inference
+            self._apply_fn = lambda p, t: gpt.apply(p, t, cfg)
         # cast first, then quantize: the codes of the bf16-cast weights
         self.params = _shard_and_quantize(
             _to_device(params, self.device, dtype), self._weight_int8)
@@ -86,7 +100,7 @@ class InferenceEngine:
     @torch.no_grad()
     def forward(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, S, padded_vocab] fp32; tokens [B, S]."""
-        return gpt.apply(self.params, self._tokens(tokens), self.model_config)
+        return self._apply_fn(self.params, self._tokens(tokens))
 
     __call__ = forward
 
@@ -137,12 +151,13 @@ class InferenceEngine:
                                  cfg.max_seq_len)
         if do_sample and generator is None:
             generator = self._next_generator()
-        cache = gpt_inference.init_cache(cfg, B, max_len, device=self.device,
-                                         kv_dtype=self._kv_dtype)
+        fam = self._family
+        cache = fam.init_cache(cfg, B, max_len, device=self.device,
+                               kv_dtype=self._kv_dtype)
         last_pos = torch.as_tensor(lens - 1).to(self.device)
         # logits at the last prompt token predict the first new token
-        last, cache = gpt_inference.prefill(self.params, tokens, cfg, cache,
-                                            logits_at=last_pos)
+        last, cache = fam.prefill(self.params, tokens, cfg, cache,
+                                  logits_at=last_pos)
         out = torch.full((B, max_new_tokens),
                          eos_token_id if eos_token_id is not None else 0,
                          dtype=torch.long, device=self.device)
@@ -162,7 +177,7 @@ class InferenceEngine:
             if i == max_new_tokens - 1 or (
                     eos_token_id is not None and bool(done.all())):
                 break
-            last, cache = gpt_inference.decode_step(
+            last, cache = fam.decode_step(
                 self.params, nxt, cfg, cache,
                 lengths=lengths if ragged else None)
             lengths += 1
@@ -218,9 +233,9 @@ class InferenceSession:
         cfg = engine.model_config
         self._engine = engine
         max_len = tile_cache_len(max_len, cfg.max_seq_len)
-        self.cache = gpt_inference.init_cache(cfg, batch, max_len,
-                                              device=engine.device,
-                                              kv_dtype=engine._kv_dtype)
+        self.cache = engine._family.init_cache(cfg, batch, max_len,
+                                               device=engine.device,
+                                               kv_dtype=engine._kv_dtype)
         self._last_logits: Optional[torch.Tensor] = None
         self._key_seq = 0
 
@@ -245,7 +260,7 @@ class InferenceSession:
         new = object.__new__(InferenceSession)
         new._engine = self._engine
         src = self.cache
-        new.cache = gpt_inference.init_cache(
+        new.cache = self._engine._family.init_cache(
             self._engine.model_config, src.batch, src.max_len,
             device=self._engine.device, kv_dtype=self._engine._kv_dtype)
         n = src.length
@@ -266,8 +281,8 @@ class InferenceSession:
             raise ValueError(f"append wants tokens [{self.cache.batch}, S], "
                              f"got {tuple(tokens.shape)}")
         self._check_room(tokens.shape[1])
-        run = gpt_inference.prefill if self.length == 0 \
-            else gpt_inference.extend
+        fam = self._engine._family
+        run = fam.prefill if self.length == 0 else fam.extend
         logits, self.cache = run(self._engine.params, tokens,
                                  self._engine.model_config, self.cache)
         self._last_logits = logits[:, -1].clone()
@@ -307,8 +322,8 @@ class InferenceSession:
                                            top_p=top_p), generator)
             else:
                 nxt = torch.argmax(lg, dim=-1)
-            last, self.cache = gpt_inference.decode_step(eng.params, nxt, cfg,
-                                                         self.cache)
+            last, self.cache = eng._family.decode_step(eng.params, nxt, cfg,
+                                                       self.cache)
             out.append(nxt)
         self._last_logits = last
         return torch.stack(out, dim=1)

@@ -17,6 +17,7 @@ imports JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Any, Mapping
 
@@ -25,7 +26,7 @@ import torch
 
 from ..inference.quantization import Int8Param
 from ..ops.sparse_attention import sparsity_config
-from . import bert, gpt
+from . import bert, gpt, gpt_moe
 
 _CONFIG_FIELDS = ("vocab_size", "max_seq_len", "n_layer", "n_head", "d_model",
                   "d_ff", "vocab_round_to", "attn_softmax_scale", "pos_embed",
@@ -139,6 +140,25 @@ def config_from_jax(jax_config, dtype=None) -> gpt.GPTConfig:
         param_dtype=_torch_dtype(jax_config.param_dtype),
         sparse_attention=sparsity_from_jax(jax_config.sparse_attention),
         **fields)
+
+
+#: the fields ``GPTMoEConfig`` adds to ``GPTConfig``
+_MOE_CONFIG_FIELDS = ("num_experts", "moe_top_k", "capacity_factor",
+                      "eval_capacity_factor", "min_capacity", "aux_loss_coef",
+                      "use_residual", "ep_size")
+
+
+def moe_config_from_jax(jax_config, dtype=None) -> gpt_moe.GPTMoEConfig:
+    """The port's ``GPTMoEConfig`` of a JAX ``GPTMoEConfig``: its GPT
+    fields as :func:`config_from_jax` maps them, and the expert layer's.
+    The parameter tree (``dense_blocks``, ``moe_attn_blocks``,
+    ``moe_blocks/{gate, experts, residual_mlp, coefficient}``) converts
+    through :func:`from_jax_params` as it is."""
+    base = config_from_jax(jax_config, dtype)
+    return gpt_moe.GPTMoEConfig(
+        **{f.name: getattr(base, f.name)
+           for f in dataclasses.fields(gpt.GPTConfig)},
+        **{f: getattr(jax_config, f) for f in _MOE_CONFIG_FIELDS})
 
 
 _BERT_CONFIG_FIELDS = ("vocab_size", "max_seq_len", "type_vocab_size",

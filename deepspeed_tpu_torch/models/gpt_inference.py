@@ -148,25 +148,34 @@ def _host_lengths(lengths: Lengths) -> np.ndarray:
     return np.asarray(lengths, dtype=np.int64).reshape(-1)
 
 
+def attend(x, p, cache: KVCache, idx: int, config: gpt.GPTConfig, write,
+           attn, pos, tables=None):
+    """One attention sublayer of a cache-filling path: q, k and v of the
+    step's tokens (rotated by ``tables`` under rotary positions);
+    ``write(buf, val)`` stores this step's K or V into cache layer
+    ``idx`` in the compute dtype in place; an int8 cache takes them
+    quantized at slots ``pos + i`` (``quantize_kv_into``); returns
+    ``attn(q, k, v, idx)``, the sublayer's attention output."""
+    q, k, v = gpt.qkv_proj(x, p, config, tables=tables)
+    if cache.int8:
+        quantize_kv_into(k, v, cache.layer(idx), pos)
+    else:
+        write(cache.k[idx], k)
+        write(cache.v[idx], v)
+    return attn(q, k, v, idx)
+
+
 def _layers(x, params, cache: KVCache, config: gpt.GPTConfig, write, attn,
             pos, positions):
-    """The layer loop every cache-filling path shares: q, k and v of the
-    step's tokens at ``positions`` (rotated under rotary positions, the
-    tables built once for every layer); ``write(buf, val)`` stores this
-    step's K or V into a layer of a cache in the compute dtype in place;
-    an int8 cache takes them quantized at slots ``pos + i``
-    (``quantize_kv_into``); ``attn(q, k, v, layer)`` computes the
-    sublayer's attention."""
+    """The layer loop every cache-filling path shares (:func:`attend`,
+    then the block's tail), the rotary tables of ``positions`` built once
+    for every layer.  A model family passes its own loop of this
+    signature as ``layers`` (``gpt_moe_inference``)."""
     tables = gpt.position_tables(config, positions)
     for idx in range(config.n_layer):
         p = gpt.layer_params(params, idx)
-        q, k, v = gpt.qkv_proj(x, p, config, tables=tables)
-        if cache.int8:
-            quantize_kv_into(k, v, cache.layer(idx), pos)
-        else:
-            write(cache.k[idx], k)
-            write(cache.v[idx], v)
-        x = gpt.block_tail(x, attn(q, k, v, idx), p, config)
+        a = attend(x, p, cache, idx, config, write, attn, pos, tables)
+        x = gpt.block_tail(x, a, p, config)
     return x
 
 
@@ -178,8 +187,8 @@ def _logits(params, x, config, logits_at):
 
 
 def prefill(params, tokens: torch.Tensor, config: gpt.GPTConfig,
-            cache: KVCache, logits_at: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, KVCache]:
+            cache: KVCache, logits_at: Optional[torch.Tensor] = None,
+            layers=_layers) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt [B, S] through the model, filling cache[:, :, 0:S]
     (assumes an empty cache).  Returns (logits [B, S, padded_vocab] fp32,
     cache); with ``logits_at`` ([B] positions) only those rows' logits
@@ -199,14 +208,14 @@ def prefill(params, tokens: torch.Tensor, config: gpt.GPTConfig,
         return gpt._attention(q, k, v, config,
                               window=gpt.layer_window(config, idx))
 
-    x = _layers(x, params, cache, config, write, attn, 0, positions)
+    x = layers(x, params, cache, config, write, attn, 0, positions)
     cache.length = S
     return _logits(params, x, config, logits_at), cache
 
 
 def extend(params, tokens: torch.Tensor, config: gpt.GPTConfig,
            cache: KVCache, lengths: Optional[Lengths] = None,
-           logits_at: Optional[torch.Tensor] = None
+           logits_at: Optional[torch.Tensor] = None, layers=_layers
            ) -> Tuple[torch.Tensor, KVCache]:
     """Chunked prefill: append ``tokens`` [B, S_c] at positions
     ``cache.length .. cache.length + S_c - 1``, attending causally over the
@@ -248,14 +257,14 @@ def extend(params, tokens: torch.Tensor, config: gpt.GPTConfig,
     def attn(q, k, v, idx):
         return _cache_attention(q, cache, idx, pos, config)
 
-    x = _layers(x, params, cache, config, write, attn, pos, positions)
+    x = layers(x, params, cache, config, write, attn, pos, positions)
     cache.length = top + Sc
     return _logits(params, x, config, logits_at), cache
 
 
 def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
-                cache: KVCache, lengths: Optional[Lengths] = None
-                ) -> Tuple[torch.Tensor, KVCache]:
+                cache: KVCache, lengths: Optional[Lengths] = None,
+                layers=_layers) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode: token [B] at position ``cache.length``, or with
     ``lengths`` [B] at per-row positions (ragged right-padded prompts:
     each row's token lands on its own next slot and sees only its own live
@@ -288,7 +297,7 @@ def decode_step(params, token: torch.Tensor, config: gpt.GPTConfig,
     def attn(q, k, v, idx):
         return _cache_attention(q, cache, idx, pos, config)
 
-    x = _layers(x, params, cache, config, write, attn, pos, positions)
+    x = layers(x, params, cache, config, write, attn, pos, positions)
     cache.length = top + 1
     return gpt.lm_logits(params, x[:, 0], config), cache
 

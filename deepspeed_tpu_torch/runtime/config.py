@@ -12,7 +12,8 @@ optimizer-state offload), ``data_types`` (``grad_accum_dtype``), ``aio``
 ``checkpoint`` (the typed durability section,
 ``checkpoint_engine/config.py``), ``data`` (the resumable loader,
 ``data_pipeline/config.py``), ``supervision`` (watchdog, heartbeats,
-rollback, ``supervision/config.py``), ``telemetry`` (spans and the metrics
+rollback, ``supervision/config.py``), ``moe`` (``ep_size``: 1, the one
+device's expert layout; above 1 raises), ``telemetry`` (spans and the metrics
 stream, ``telemetry/config.py``), ``elasticity`` (kept raw, read by the
 elastic runner's admission check) and ``wall_clock_breakdown``.  Any
 other top-level section raises
@@ -57,7 +58,7 @@ PORTED_SECTIONS = frozenset({
     C.FP16, C.BFLOAT16, C.BFLOAT16_OLD, C.OPTIMIZER, C.SCHEDULER,
     C.SPARSE_ATTENTION, C.CHECKPOINT, ZERO_OPTIMIZATION, C.DATA,
     C.SUPERVISION, C.TELEMETRY, C.ELASTICITY, C.WALL_CLOCK_BREAKDOWN,
-    C.DATA_TYPES, AIO})
+    C.DATA_TYPES, AIO, C.MOE})
 _FP16_KEYS = frozenset({C.FP16_ENABLED, C.FP16_AUTO_CAST, C.FP16_LOSS_SCALE,
                         C.FP16_INITIAL_SCALE_POWER, C.FP16_LOSS_SCALE_WINDOW,
                         C.FP16_HYSTERESIS, C.FP16_MIN_LOSS_SCALE,
@@ -68,7 +69,8 @@ _SECTION_KEYS = {C.FP16: _FP16_KEYS,
                  C.OPTIMIZER: frozenset({C.TYPE, C.OPTIMIZER_PARAMS,
                                          C.LEGACY_FUSION}),
                  C.SCHEDULER: frozenset({C.TYPE, C.SCHEDULER_PARAMS}),
-                 C.DATA_TYPES: frozenset({C.GRAD_ACCUM_DTYPE})}
+                 C.DATA_TYPES: frozenset({C.GRAD_ACCUM_DTYPE}),
+                 C.MOE: frozenset({C.MOE_EP_SIZE})}
 
 #: ``data_types.grad_accum_dtype`` names (JAX ``engine.py:780-784``)
 GRAD_ACCUM_DTYPES = {"fp32": "float32", "float32": "float32",
@@ -244,6 +246,17 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"data_types.grad_accum_dtype={self.grad_accum_dtype!r} "
                 f"(want one of {sorted(GRAD_ACCUM_DTYPES)})")
+        # the JAX package's initialize reads moe.ep_size raw into its mesh
+        # (deepspeed_tpu/__init__.py:111-112); one device holds every expert
+        self.moe_ep_size = int(pd.get(C.MOE, {}).get(
+            C.MOE_EP_SIZE, C.MOE_EP_SIZE_DEFAULT))
+        if self.moe_ep_size < 1:
+            raise DeepSpeedConfigError(
+                f"moe.ep_size must be >= 1, got {self.moe_ep_size}")
+        if self.moe_ep_size != 1:
+            raise NotImplementedError(
+                f"moe.ep_size={self.moe_ep_size}: expert parallelism is not "
+                "ported yet (ROADMAP.md Queue 1 #7)")
         aio = pd.get(AIO, {})
         if not isinstance(aio, dict):
             raise DeepSpeedConfigError(f"'{AIO}' must be a dict")

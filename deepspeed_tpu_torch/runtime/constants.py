@@ -208,6 +208,13 @@ GRAD_ACCUM_DTYPE_DEFAULT = None
 ELASTICITY = "elasticity"
 
 #############################################
+# Mixture of Experts (read raw by the JAX package's initialize)
+#############################################
+MOE = "moe"
+MOE_EP_SIZE = "ep_size"
+MOE_EP_SIZE_DEFAULT = 1
+
+#############################################
 # Run supervision (watchdog / heartbeats / rollback-and-retry)
 #############################################
 SUPERVISION = "supervision"

@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``runtime/model.py``: the engine trains a
 loss function over a tree (nested dict) of parameter tensors.
-``from_gpt`` adapts the port's GPT (next-token loss) and ``from_bert`` its
-BERT encoder (masked-LM loss; the counterpart of ``bert.model_spec``).
+``from_gpt`` adapts the port's GPT (next-token loss), ``from_gpt_moe`` its
+GPT-MoE (next-token loss plus the weighted load-balancing loss; the
+counterpart of ``gpt_moe.model_spec``) and ``from_bert`` its BERT encoder
+(masked-LM loss; the counterpart of ``bert.model_spec``).
 """
 
 from __future__ import annotations
@@ -72,6 +74,31 @@ def from_gpt(config, dtype=None) -> ModelSpec:
         apply_fn=lambda params, tokens: gpt.apply(params, tokens, config),
         name="gpt",
         meta={"config": config, "layer_stacked": ("blocks",)},
+    )
+
+
+def from_gpt_moe(config, dtype=None) -> ModelSpec:
+    """Adapt ``deepspeed_tpu_torch.models.gpt_moe`` to a ModelSpec: its
+    three pair stacks are layer-stacked, and ``meta["flops_per_token"]``
+    counts the active parameters (``moe_top_k`` routed experts a token,
+    no capacity padding)."""
+    from ..models import gpt_moe
+
+    if dtype is not None:
+        config = dataclasses.replace(config, dtype=dtype)
+
+    return ModelSpec(
+        loss_fn=lambda params, batch: gpt_moe.loss_fn(params, batch, config),
+        init_fn=lambda generator, device=None: gpt_moe.init(
+            config, generator,
+            device=generator.device if device is None else device),
+        apply_fn=lambda params, tokens: gpt_moe.apply(
+            params, tokens, config, train=False)[0],
+        name="gpt-moe",
+        meta={"config": config,
+              "layer_stacked": ("dense_blocks", "moe_attn_blocks",
+                                "moe_blocks"),
+              "flops_per_token": gpt_moe.flops_per_token(config)},
     )
 
 

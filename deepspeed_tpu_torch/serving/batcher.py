@@ -2,7 +2,9 @@
 (without speculation).
 
 The batcher owns one fixed-geometry ``[L, B=slots, max_len, H, D]`` KV
-cache.  Admission prefills a prompt batch-1 through fixed-width chunks
+cache of the engine's model family (``engine._family``: ``gpt_inference``
+or, for GPT-MoE, ``gpt_moe_inference``, whose cache interleaves the
+pairs' sublayers).  Admission prefills a prompt batch-1 through fixed-width chunks
 (prompts right-pad to a multiple of ``prefill_chunk``; pad K/V lands past
 the row's frontier, where per-row visibility masks it) into a scratch
 cache, then copies it into a free slot with ``write_slot``.  Each decode
@@ -31,7 +33,6 @@ import torch
 
 from ..inference.bucketing import bucket_cache_len
 from ..inference.sampling import filter_logits, sample
-from ..models import gpt_inference
 from ..models.gpt_inference import KVCache
 from ..telemetry.spans import SpanName, Tracer
 from .config import ServingConfig
@@ -58,6 +59,7 @@ class SlotBatcher:
         self._engine = engine
         cfg = engine.model_config
         self._cfg = cfg
+        self._family = fam = engine._family
         self.device = engine.device
         self.slots = config.slots
         self.max_len = bucket_cache_len(config.max_len or cfg.max_seq_len,
@@ -72,11 +74,10 @@ class SlotBatcher:
         B = self.slots
         # the engine's KV dtype (an int8 cache holds codes and scales)
         kv = engine._kv_dtype
-        self.cache = gpt_inference.init_cache(cfg, B, self.max_len,
-                                              device=self.device, kv_dtype=kv)
-        self._scratch = gpt_inference.init_cache(cfg, 1, self.max_len,
-                                                 device=self.device,
-                                                 kv_dtype=kv)
+        self.cache = fam.init_cache(cfg, B, self.max_len, device=self.device,
+                                    kv_dtype=kv)
+        self._scratch = fam.init_cache(cfg, 1, self.max_len,
+                                       device=self.device, kv_dtype=kv)
         self.lengths = np.zeros((B,), np.int64)
         self.greedy = np.ones((B,), bool)
         self.temp = np.ones((B,), np.float32)
@@ -112,12 +113,12 @@ class SlotBatcher:
         cache, starting past ``prefix`` when given.  Returns ``(cache,
         last_vec, frontier)``: ``last_vec`` the logits at the last real
         token (chunk padding sits past the frontier, masked)."""
-        cfg, params = self._cfg, self._engine.params
+        cfg, params, fam = self._cfg, self._engine.params, self._family
         C = self.chunk_wide if self._wide else self.chunk
         cache = self._scratch
         start = 0
         if prefix is not None:
-            gpt_inference.write_slot(cache, 0, prefix.cache)
+            fam.write_slot(cache, 0, prefix.cache)
             start = cache.length = prefix.length
         S = int(tokens.shape[0])
         with self.tracer.span(SpanName.SERVE_PREFILL, tokens=S, start=start,
@@ -131,10 +132,10 @@ class SlotBatcher:
                 at = torch.full((1,), idx if i == chunks.shape[0] - 1 else 0,
                                 dtype=torch.long, device=self.device)
                 if pos == 0:
-                    lg, cache = gpt_inference.prefill(
+                    lg, cache = fam.prefill(
                         params, chunks[i:i + 1], cfg, cache, logits_at=at)
                 else:
-                    lg, cache = gpt_inference.extend(
+                    lg, cache = fam.extend(
                         params, chunks[i:i + 1], cfg, cache, lengths=[pos],
                         logits_at=at)
         return cache, lg[0], start + S
@@ -143,7 +144,7 @@ class SlotBatcher:
     def build_prefix(self, tokens: np.ndarray) -> PrefixEntry:
         """Prefill a shared prefix once into a cache of its own."""
         cache, _vec, frontier = self._chunked_prefill(np.asarray(tokens))
-        own = gpt_inference.read_slot(cache, 0, frontier)
+        own = self._family.read_slot(cache, 0, frontier)
         return PrefixEntry(cache=own, length=frontier)
 
     # ----------------------------------------------------------- admission
@@ -176,7 +177,7 @@ class SlotBatcher:
         if self._last is None:
             self._last = torch.zeros((self.slots,) + vec.shape,
                                      dtype=vec.dtype, device=self.device)
-        gpt_inference.write_slot(self.cache, row, cache)
+        self._family.write_slot(self.cache, row, cache)
         self._last[row] = vec
         self.lengths[row] = frontier
         self.greedy[row] = bool(greedy)
@@ -212,7 +213,7 @@ class SlotBatcher:
                                      top_p=self.top_p)
                 for j, r in enumerate(rows):
                     nxt[r] = sample(filt[j:j + 1], self.generators[r])[0]
-            self._last, self.cache = gpt_inference.decode_step(
+            self._last, self.cache = self._family.decode_step(
                 self._engine.params, nxt, self._cfg, self.cache,
                 lengths=self.lengths)
             # only live slots advance; a freed slot re-writes its own cell

@@ -1,5 +1,6 @@
-"""Every field of the JAX package's ``GPTConfig`` and ``BertConfig``
-crosses ``convert.config_from_jax`` / ``bert_config_from_jax``: set to a
+"""Every field of the JAX package's ``GPTConfig``, ``GPTMoEConfig`` and
+``BertConfig`` crosses ``convert.config_from_jax`` /
+``moe_config_from_jax`` / ``bert_config_from_jax``: set to a
 value other than its default, it is either carried into the port's
 config or refused with an error.  A field that stays behind silently
 must be on ``INERT`` with its reason; a field the JAX package adds later
@@ -13,6 +14,7 @@ import torch
 
 from deepspeed_tpu.models import bert as jbert
 from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.models import gpt_moe as jmoe
 from deepspeed_tpu.ops.sparse_attention import FixedSparsityConfig
 from deepspeed_tpu_torch.models import convert
 
@@ -37,6 +39,12 @@ GPT_CASES = {
     "local_attention_window": 8, "local_attention_alternating": True,
     "tie_word_embeddings": False, "lm_head_bias": True, "pos_offset": 2,
     "embed_layernorm": True}
+
+#: the fields the JAX GPTMoEConfig adds (ep_size above 1 is refused)
+MOE_CASES = {
+    "num_experts": 4, "moe_top_k": 2, "capacity_factor": 2.0,
+    "eval_capacity_factor": 1.0, "min_capacity": 2, "aux_loss_coef": 0.1,
+    "use_residual": True, "ep_size": 2}
 
 #: the same for every field of the JAX BertConfig
 BERT_CASES = {
@@ -84,8 +92,9 @@ def _walk(jax_cls, port_from_jax, base, name, value):
         assert got == _expected(name, value), (name, got, value)
 
 
-@pytest.mark.parametrize("jax_cls,cases", [(jgpt.GPTConfig, GPT_CASES),
-                                           (jbert.BertConfig, BERT_CASES)])
+@pytest.mark.parametrize("jax_cls,cases", [
+    (jgpt.GPTConfig, GPT_CASES), (jbert.BertConfig, BERT_CASES),
+    (jmoe.GPTMoEConfig, {**GPT_CASES, **MOE_CASES})])
 def test_every_field_has_a_case(jax_cls, cases):
     fields = {f.name for f in dataclasses.fields(jax_cls)}
     assert fields == set(cases), (
@@ -97,6 +106,12 @@ def test_every_field_has_a_case(jax_cls, cases):
 def test_gpt_field_is_carried_or_refused(name):
     _walk(jgpt.GPTConfig, convert.config_from_jax, GPT_BASE, name,
           GPT_CASES[name])
+
+
+@pytest.mark.parametrize("name", sorted(MOE_CASES))
+def test_moe_field_is_carried_or_refused(name):
+    _walk(jmoe.GPTMoEConfig, convert.moe_config_from_jax, GPT_BASE, name,
+          MOE_CASES[name])
 
 
 @pytest.mark.parametrize("name", sorted(BERT_CASES))

@@ -49,8 +49,9 @@ def test_every_module_imports_without_jax():
     # of the serving front end (serving/{request, metrics, gateway},
     # telemetry/propagate), 12 of ZeRO-Offload (ops/op_builder and its
     # three modules, ops/adam/cpu_adam, runtime/swap_tensor and its four
-    # modules, runtime/zero/offload_engine, runtime/memory_model)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 106
+    # modules, runtime/zero/offload_engine, runtime/memory_model), 7 of
+    # MoE (moe and its four modules, models/gpt_moe, gpt_moe_inference)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 113
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -151,6 +152,49 @@ def test_serving_front_end_modules_are_importable():
     assert len(mint_context().fields()["trace_id"]) == 16
     for cls in (RequestHandle, ServingGateway, ServingMetrics):
         assert cls.__module__.startswith("deepspeed_tpu_torch.serving.")
+
+
+def test_moe_modules_are_importable():
+    from deepspeed_tpu_torch import from_gpt_moe
+    from deepspeed_tpu_torch.models import gpt_moe, gpt_moe_inference
+    from deepspeed_tpu_torch.models.convert import moe_config_from_jax
+    from deepspeed_tpu_torch.moe import (MoE, TopKGate, has_moe_layers,
+                                         split_moe_param_tree, top1gating,
+                                         top2gating)
+    cfg = gpt_moe.GPT_MOE_350M_64E
+    assert (cfg.n_layer, cfg.d_model, cfg.num_experts, cfg.moe_top_k) == \
+        (24, 1024, 64, 1)
+    assert from_gpt_moe(cfg).meta["layer_stacked"] == (
+        "dense_blocks", "moe_attn_blocks", "moe_blocks")
+    assert gpt_moe_inference._PREFILL_CHUNK == 128
+    for obj in (MoE, TopKGate, has_moe_layers, split_moe_param_tree,
+                top1gating, top2gating, moe_config_from_jax):
+        assert obj.__module__.startswith("deepspeed_tpu_torch.")
+
+
+def test_moe_entry_points_without_cuda_raise(monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt_moe
+    from deepspeed_tpu_torch.runtime.model import from_gpt_moe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = gpt_moe.GPTMoEConfig(vocab_size=64, max_seq_len=16, n_layer=2,
+                               n_head=2, d_model=32, num_experts=4,
+                               dtype=torch.float32)
+    params = gpt_moe.init(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.init_inference(model=(cfg, params),
+                                           config={"dtype": "float32"})
+    eng = deepspeed_tpu_torch.init_inference(
+        model=(cfg, params), config={"dtype": "float32"}, device="cpu")
+    assert eng.device.type == "cpu"
+    config = {"train_micro_batch_size_per_gpu": 2}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=from_gpt_moe(cfg), config=config)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=from_gpt_moe(cfg), config=config, device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    assert engine.state["master"]["moe_blocks"]["experts"]["wi"].shape == \
+        (1, 4, 32, 128)
 
 
 def test_diffusion_modules_are_importable():

@@ -103,7 +103,7 @@ def test_sampled_generate_is_reproducible(engines):
 
 @pytest.mark.parametrize("config,match", [
     ({"dtype": "int8", "quant": {"int8_compute": True}}, "int8"),
-    ({"moe": {"enabled": True}}, "MoE"),
+    ({"moe": {"ep_size": 2}}, "expert-parallel"),
     ({"tensor_parallel": {"tp_size": 2}}, "tensor-parallel"),
 ])
 def test_unported_config_options_raise(engines, config, match):

@@ -146,6 +146,26 @@ def test_unported_features_raise(d, exc, match):
         DeepSpeedConfig(d)
 
 
+@pytest.mark.parametrize("d,exc,match", [
+    ({"train_batch_size": 8, "moe": {"ep_size": 2}}, NotImplementedError,
+     "Queue 1 #7"),
+    ({"train_batch_size": 8, "moe": {"ep_size": 0}}, DeepSpeedConfigError,
+     ">= 1"),
+    ({"train_batch_size": 8, "moe": {"num_experts": 8}},
+     DeepSpeedConfigError, "unknown keys"),
+], ids=["ep_size_2", "ep_size_0", "unknown_key"])
+def test_moe_section(d, exc, match):
+    """``moe.ep_size`` (read raw by the JAX package's ``initialize``):
+    1, with or without the section, parses as in JAX; expert parallelism
+    raises, naming its queue item."""
+    for ok in ({"train_batch_size": 8}, {"train_batch_size": 8,
+                                         "moe": {"ep_size": 1}}):
+        JConfig(ok, mesh_manager=make_mesh(dp=8))
+        assert DeepSpeedConfig(ok, world_size=8).moe_ep_size == 1
+    with pytest.raises(exc, match=match):
+        DeepSpeedConfig(d)
+
+
 @pytest.mark.parametrize("zero,device", [
     ({"stage": 1, "offload_optimizer": {"device": "cpu"}}, "cpu"),
     ({"stage": 1, "cpu_offload": True}, "cpu"),
