@@ -84,7 +84,11 @@ imports JAX.  In order it
    and with BLOOM-560m's slopes at B8 S_max 1024 H16 D64, and
    ``chunk_attn(_int8)`` with each option on a 128-token extend chunk
    (against SDPA with the option as an explicit float mask; two launches
-   of each bitwise equal), then ``[option sweep]``: every window of
+   of each bitwise equal), ``chunk_attn`` at the speculative verify
+   pass's shape (8 slots, 4 queries at ragged frontiers of 1024, H16 D64)
+   beside the four ``decode_attn`` launches it stands in for and SDPA
+   with the causal tail as a float mask (``[verify shape]``), then
+   ``[option sweep]``: every window of
    ``SWEEP_WINDOWS`` at the tile-edge lengths and two Sq < Sk shapes for
    the flash forward and both backward kernels, slopes at 6 and 16
    heads, every dtype and head dim, bf16 and int8 caches; and the fused
@@ -204,6 +208,29 @@ imports JAX.  In order it
    ``kv_cache_dtype="int8"``: one quantizer launch per quantized leaf (8),
    bytes against bf16, exact launches, decode ms per token in turns with
    bf16 (``run_moe_serving``);
+5f. speculative decoding (``run_speculative``), with every launch count
+   at 0 before each run: the phase-4 GPT-2 350M (seed 1234, bf16) as its
+   own draft through ``generate_speculative`` (draft_k 3) on phase 3's
+   four prompts, one request each, 64 tokens: replies equal
+   ``generate``'s up to a near-tie (``TIE_TOL``), every rejected
+   proposal at a near-tie, the accepted share at least
+   ``SPEC_ACCEPT_MIN``, ceil(64 / 4) + 1 target forwards where nothing
+   was rejected, exactly 4 x 24 ``decode_attn`` and 24 ``chunk_attn``
+   launches a round and 2 x 24 ``flash_fwd`` a prefill; then GPT-2 350M
+   and GPT-2 125M trained on the card through ``initialize`` on the
+   affine rule t[i+1] = (3 t[i] + 7) % 256 (rows covering every
+   serve-time position), served in bf16: the target's greedy chain
+   follows the rule and changes token at every step, batched
+   ``generate_speculative`` with the 125M draft equals ``generate`` up
+   to a near-tie in fewer target forwards than tokens; ``engine.serve``
+   (8 slots, chunk 64, draft_k 3) with speculation off and on in turns
+   over 16 greedy rule requests (prompts 16-128, budgets 32-64): replies
+   equal up to a near-tie, tokens/s, TTFT p50/p99, acceptance, tokens a
+   tick, rounds and the ``serve.spec_round`` journal reported, and a
+   round's device-to-host reads (one) and synchronizing CUDA calls
+   counted under ``torch.cuda.set_sync_debug_mode``; 4 sampled requests
+   (temperature 0.8, top_k 50, a seed each) alone twice bitwise equal;
+   a tiny fp32 target and draft, card = host at draft_k 1 and 3;
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -278,7 +305,8 @@ imports JAX.  In order it
    H2D GB/s by CUDA events) and a profiled step's busy share; it fails
    if the host lacks the memory;
 6f. with every launch count at 0, GPT-2 350M at phase 6's configuration
-   under offload (``run_offload_nvme``): one step with
+   and 6 of its 24 layers (``NVME_LAYERS``) under offload
+   (``run_offload_nvme``): one step with
    ``pipeline_transfers: false`` bitwise equal to one with it on, 2 steps
    under ``nvme`` (swap files in a temporary directory on local disk)
    bitwise equal to ``cpu`` (losses, params, master and moments), and
@@ -1191,6 +1219,42 @@ def check_chunk(pos, Sq=128, Smax=1024, H=16, D=64, int8=False):
                             _int8_cache(ck, cv), pos, mask, Sq, repeat=True)
     return _cache_check("chunk_attn", kernels.chunk_attn, q, (ck, cv), pos,
                         mask, Sq, repeat=True)
+
+
+#: the speculative verify pass's shape: 8 slots, a window of draft_k + 1
+#: = 4 queries at ragged frontiers of a 1024-token slot cache
+VERIFY_SHAPE = (8, 4, 1024, 16, 64)
+
+
+def check_chunk_verify():
+    """``chunk_attn`` at the verify pass's shape (``VERIFY_SHAPE``, ragged
+    ``pos``; its 64-row query tile computes 60 padded rows a unit) against
+    the plain version and SDPA with the causal tail as a float mask, and
+    the four ``decode_attn`` launches it stands in for (one a query, at
+    ``pos + i``), timed on the same cache layers."""
+    B, Sq, Smax, H, D = VERIFY_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    ck, cv, L = _caches(B, Smax, H, D, gen)
+    host = np.random.default_rng(41).integers(0, Smax - Sq, B)
+    pos = torch.as_tensor(host.astype(np.int32)).cuda()
+    q = _qkv_views(1, B, Sq, H, D, gen)[0][0]
+    qpos = pos.long()[:, None] + torch.arange(Sq, device="cuda")
+    visible = torch.arange(Smax, device="cuda")[None, None, :] \
+        <= qpos[:, :, None]                                  # [B, Sq, Smax]
+    mask = torch.zeros(visible.shape, dtype=q.dtype, device="cuda")
+    mask = mask.masked_fill(~visible, float("-inf"))[:, None]
+    row = _cache_check("chunk_attn", kernels.chunk_attn, q, (ck, cv), pos,
+                       mask, Sq, repeat=True)
+    steps = [(q[:, i:i + 1], (pos + i).to(torch.int32)) for i in range(Sq)]
+    scale = 1.0 / math.sqrt(D)
+    row["decode_x4_ms"] = time_ms(lambda i: [
+        kernels.decode_attn(qi, ck[i % L], cv[i % L], pi, scale)
+        for qi, pi in steps], 50)
+    log(f"[verify shape] chunk_attn {row['ms']:.4f} ms against "
+        f"{Sq} x decode_attn {row['decode_x4_ms']:.4f} ms and SDPA "
+        f"{row['library_ms']:.4f} ms (bound {row['bound_ms']:.4f} ms, "
+        f"{row['bound_by']}); {row['shape']}")
+    return row
 
 
 #: GPT-2 350M's int8 leaves as ``quantize_leaf`` hands them to the
@@ -4109,6 +4173,451 @@ def run_moe_serving():
     return res, counts
 
 
+# ------------------------------------------------- speculative decoding
+
+#: phase 5f: draft proposals a round (a verify window of 4)
+SPEC_K = 3
+#: the self-draft's prompts (phase 3's lengths, one request each) and
+#: reply budget
+SPEC_LENS = (512, 384, 200, 77)
+SPEC_NEW = 64
+#: the self-draft's accepted share must reach this
+SPEC_ACCEPT_MIN = 0.95
+#: the trained pair learns the affine rule t[i+1] = (3 t[i] + 7) % 256
+#: (``scripts/serve_bench.py``): RULE_ROWS rows of RULE_SEQ + 1 tokens
+#: cover every serve-time position (prompt + budget + draft_k + 1 <=
+#: 196), since a model trained on shorter rows emits noise past them
+#: (learned positions); Adam at RULE_LR after a linear warm-up of
+#: RULE_WARMUP steps, gradients clipped at 1.0 (at 1e-3 without the
+#: warm-up the 350M had not learned the rule in 120 steps)
+RULE_ROWS, RULE_SEQ, RULE_STEPS = 16, 256, 80
+RULE_LR, RULE_WARMUP = 3e-4, 30
+#: the share of greedy positions on which the trained target must follow
+#: the rule
+RULE_FOLLOW_MIN = 0.9
+#: the speculative gateway (speculation on or off) and its traffic: 16
+#: greedy rule prompts of 16-128 tokens, budgets 32-64, in turns
+SPEC_GATEWAY = {"slots": 8, "max_len": 256, "prefill_chunk": 64,
+                "top_k": 50, "journal_every_ticks": 4, "queue_capacity": 64}
+SPEC_REQUESTS = 16
+SPEC_TURNS = (False, True, False, True)
+#: rounds read under ``torch.cuda.set_sync_debug_mode("warn")``
+SYNC_ROUNDS = 8
+
+
+def rule_chain(start, n):
+    """``n`` tokens of the affine rule from ``start``."""
+    t = [int(start) % 256]
+    for _ in range(n - 1):
+        t.append((t[-1] * 3 + 7) % 256)
+    return np.asarray(t, np.int64)
+
+
+def _tie_margin(engine, prompt, tokens):
+    """Top-2 logit margin of ``engine`` at the position after ``prompt`` +
+    ``tokens`` (a fresh session: one prefill)."""
+    vocab = engine.model_config.vocab_size
+    s = engine.start_session(batch=1, max_len=engine.model_config.max_seq_len)
+    s.append(np.concatenate([np.asarray(prompt), np.asarray(tokens)])[None])
+    top2 = torch.topk(s._last_logits[0, :vocab].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def _parting(engine, prompt, got, want, what):
+    """None where ``got`` equals ``want``, else (first differing step,
+    the engine's top-2 margin there); fails unless that margin is below
+    ``TIE_TOL`` (bf16 sums in other orders on other paths)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if np.array_equal(got, want):
+        return None
+    t = int(np.flatnonzero(got != want)[0])
+    m = _tie_margin(engine, prompt, want[:t])
+    if not m < TIE_TOL:
+        raise AssertionError(f"{what}: parts at step {t} with top-2 margin "
+                             f"{m} (tie tol {TIE_TOL})")
+    return t, m
+
+
+def _rejections(rounds, n, K):
+    """Output positions at which the target replaced a proposal (round by
+    round: ``a`` accepted, the correction lands at ``done + a + 1``) that
+    fall inside the reply, and the accepted and proposed counts of row 0."""
+    done, pos, acc = 0, [], 0
+    for a in rounds:
+        a = int(a[0])
+        if done >= n:
+            break
+        acc += a
+        if a < K and done + a + 1 < n:
+            pos.append(done + a + 1)
+        done += a + 1
+    return pos, acc, K * len(rounds)
+
+
+def spec_self_draft(engine, model):
+    """5f-1: ``generate_speculative`` with the target as its own draft on
+    phase 3's four prompts, one request each, ``SPEC_NEW`` tokens: replies
+    equal ``generate``'s up to a near-tie, every rejection rooted at a
+    near-tie, the accepted share >= ``SPEC_ACCEPT_MIN``, 17 forwards where
+    nothing was rejected, exact launches a round and a prefill."""
+    cfg = engine.model_config
+    L, K = cfg.n_layer, SPEC_K
+    toks = np.random.default_rng(21).integers(0, cfg.vocab_size, (4, 512))
+    engine.generate_speculative(toks[:1, :77], engine, max_new_tokens=4,
+                                draft_k=K)                     # warm-up
+    rows, counts, acc, prop = [], {}, 0, 0
+    spec_s = plain_s = 0.0
+    for n in SPEC_LENS:
+        p = toks[:1, :n]
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        ref = engine.generate(p, max_new_tokens=SPEC_NEW).cpu().numpy()[0]
+        plain_s += time.perf_counter() - t0
+        rounds = []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, fwds = engine.generate_speculative(
+            p, engine, max_new_tokens=SPEC_NEW, draft_k=K, rounds=rounds)
+        out = out.cpu().numpy()[0]
+        spec_s += time.perf_counter() - t0
+        c = kernels.launch_counts()
+        counts = _add(counts, c) if counts else c
+        R = len(rounds)
+        _held(model, f"self-draft prompt {n}, {R} rounds", c,
+              {"flash_fwd": 2 * L, "decode_attn": (K + 1) * L * R,
+               "chunk_attn": L * R})
+        rej, a, pr = _rejections(rounds, SPEC_NEW, K)
+        acc, prop = acc + a, prop + pr
+        roots = [(t, _tie_margin(engine, p[0], out[:t])) for t in rej]
+        wide = [r for r in roots if not r[1] < TIE_TOL]
+        if wide:
+            raise AssertionError(f"{model} self-draft prompt {n}: rejections "
+                                 f"not at a near-tie {wide}")
+        parted = _parting(engine, p[0], out, ref,
+                          f"{model} self-draft prompt {n} vs generate")
+        if fwds != R + 1 or (not rej and R != -(-SPEC_NEW // (K + 1))):
+            raise AssertionError(f"{model} self-draft prompt {n}: {fwds} "
+                                 f"forwards over {R} rounds, rejections {rej}")
+        rows.append({"prompt": n, "forwards": fwds, "rounds": R,
+                     "rejections": roots, "parted": parted})
+    share = acc / prop
+    res = {"rows": rows, "accepted_share": share, "spec_s": spec_s,
+           "generate_s": plain_s,
+           "spec_tokens_per_s": 4 * SPEC_NEW / spec_s,
+           "generate_tokens_per_s": 4 * SPEC_NEW / plain_s}
+    log(f"[speculative] {model} self-draft, draft_k {K}, prompts "
+        f"{list(SPEC_LENS)} x {SPEC_NEW} tokens one at a time: forwards "
+        f"{[r['forwards'] for r in rows]}, accepted share {share:.4f} (min "
+        f"{SPEC_ACCEPT_MIN}), rejections (step, top-2 margin) "
+        f"{[r['rejections'] for r in rows]}, parted from generate "
+        f"{[r['parted'] for r in rows]} (tie tol {TIE_TOL}); "
+        f"{res['spec_tokens_per_s']:.1f} tokens/s against generate's "
+        f"{res['generate_tokens_per_s']:.1f}")
+    if share < SPEC_ACCEPT_MIN:
+        raise AssertionError(f"{model} self-draft accepted share {share}")
+    return res, counts
+
+
+def train_rule_model(model, base, device="cuda", seed=25):
+    """``base`` (bf16, remat off) trained on the affine rule through
+    ``initialize`` (phase 6's configuration at micro-batch ``RULE_ROWS``,
+    Adam at ``RULE_LR`` after ``RULE_WARMUP`` warm-up steps, gradients
+    clipped at 1.0): (fp32 master weights, first and last loss,
+    seconds)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=from_gpt(cfg), device=device,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        config={**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": RULE_ROWS,
+                "gradient_clipping": 1.0,
+                "optimizer": {"type": "Adam", "params": {
+                    "lr": RULE_LR, "weight_decay": 0.01}},
+                "scheduler": {"type": "WarmupLR", "params": {
+                    "warmup_min_lr": 0.0, "warmup_max_lr": RULE_LR,
+                    "warmup_num_steps": RULE_WARMUP,
+                    "warmup_type": "linear"}}})
+    data = np.stack([rule_chain(s * 37 + 5, RULE_SEQ + 1)
+                     for s in range(RULE_ROWS)])
+    losses = [engine.train_batch_fused({"tokens": data})
+              for _ in range(RULE_STEPS)]
+    first, last = float(losses[0]), float(losses[-1])
+    master = {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.detach().clone())
+              for k, v in engine.state["master"].items()}
+    del engine, losses
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"[speculative] {model} trained on the rule: {RULE_STEPS} steps of "
+        f"{RULE_ROWS} x {RULE_SEQ} tokens, loss {first:.4f} -> {last:.6f}, "
+        f"{seconds:.1f} s")
+    return master, first, last, seconds
+
+
+def spec_gateway_run(engine, draft, on, reqs, warm):
+    """One turn: ``engine.serve`` with ``SPEC_GATEWAY`` and speculation
+    ``on`` (the draft) or off, a warm-up request, then ``reqs`` at once;
+    (replies, results)."""
+    jdir = tempfile.mkdtemp(prefix="ds_torch_spec_")
+    try:
+        journal = EventJournal(os.path.join(jdir, "events.jsonl"))
+        conf = dict(SPEC_GATEWAY, speculative={"enabled": on,
+                                               "draft_k": SPEC_K})
+        gw = engine.serve(conf, journal=journal, draft=draft if on else None)
+        gw.submit(warm, max_new_tokens=8).result(timeout=300)
+        s0 = gw.snapshot()
+        ACCEL.synchronize()
+        t0 = time.perf_counter()
+        handles = [gw.submit(**r) for r in reqs]
+        replies = [h.result(timeout=300) for h in handles]
+        wall = time.perf_counter() - t0
+        s1 = gw.snapshot()
+        gw.shutdown(timeout=120)
+        events = read_events(journal.path)
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    ttft = [h.ttft_s for h in handles]
+    ticks = s1["ticks"] - s0["ticks"]
+    tokens = sum(len(r) for r in replies)
+    proposed = s1["spec_proposed"] - s0["spec_proposed"]
+    res = {"speculative": on, "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "ticks": ticks,
+           "tokens_per_tick": tokens / max(1, ticks),
+           "ttft_ms_p50": 1e3 * pct(ttft, 50),
+           "ttft_ms_p99": 1e3 * pct(ttft, 99),
+           "spec_rounds": s1["spec_rounds"] - s0["spec_rounds"],
+           "spec_accept_rate_mean": (
+               (s1["spec_accepted"] - s0["spec_accepted"]) / proposed
+               if proposed else None),
+           "spec_round_events": sum(e["kind"] == "serve.spec_round"
+                                    for e in events)}
+    return replies, res
+
+
+def spec_sync_count(engine, draft, reqs):
+    """Device syncs and device-to-host reads a round: a speculative
+    ``SlotBatcher`` over the gateway's geometry with 8 requests admitted,
+    ``SYNC_ROUNDS`` rounds under ``torch.cuda.set_sync_debug_mode("warn")``
+    (every synchronizing CUDA call warns; the lengths' host-to-device
+    copies count, as they wait on the stream)."""
+    import warnings
+    bat = SlotBatcher(engine, ServingConfig.from_dict(dict(
+        SPEC_GATEWAY, speculative={"enabled": True, "draft_k": SPEC_K})),
+        draft=draft)
+    for row, r in enumerate(reqs[:bat.slots]):
+        bat.admit(row, r["tokens"], None, True, 1.0)
+    bat.tick()
+    reads0 = bat.host_reads
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(SYNC_ROUNDS):
+                bat.tick()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return {"syncs_per_round": syncs / SYNC_ROUNDS,
+            "host_reads_per_round": (bat.host_reads - reads0) / SYNC_ROUNDS,
+            "draft_k": bat.draft_k}
+
+
+def spec_trained_pair(device="cuda", target=None, draft=None):
+    """5f-2 and 5f-3: GPT-2 350M and 125M trained on the rule, served in
+    bf16: the target's greedy chain follows the rule; batched
+    ``generate_speculative`` with the 125M draft equals ``generate`` in
+    fewer forwards than tokens; the gateway with speculation on against
+    off in turns (replies equal up to a near-tie; tokens/s, TTFT,
+    acceptance, tokens a tick, rounds, syncs a round, the journal); 4
+    sampled requests alone twice bitwise equal."""
+    target = target or ("GPT-2 350M", gpt.GPT2_350M)
+    draft = draft or ("GPT-2 125M", gpt.GPT2_125M)
+    res, counts = {}, {}
+    engines = {}
+    for key, (model, base) in (("target", target), ("draft", draft)):
+        master, first, last, secs = train_rule_model(model, base, device)
+        res[f"{key}_training"] = {"model": model, "loss_first": first,
+                                  "loss_last": last, "seconds": secs}
+        engines[key] = deepspeed_tpu_torch.init_inference(
+            (dataclasses.replace(base, dtype=torch.float32), master),
+            {"dtype": "bfloat16"}, device=device)
+        del master
+    eng, deng = engines["target"], engines["draft"]
+    model = target[0]
+    K = SPEC_K
+    rng = np.random.default_rng(25)
+    p = np.stack([rule_chain(s, 64) for s in rng.integers(0, 256, 4)])
+    kernels.reset_launch_counts()
+    ref = eng.generate(p, max_new_tokens=SPEC_NEW).cpu().numpy()
+    follow = np.mean([(np.concatenate([p[b, -1:], ref[b, :-1]]) * 3 + 7)
+                      % 256 == ref[b] for b in range(4)])
+    changes = bool((ref[:, 1:] != ref[:, :-1]).all())
+    log(f"[speculative] {model} trained: greedy chain follows the rule on "
+        f"{follow:.4f} of {ref.size} positions (min {RULE_FOLLOW_MIN}), "
+        f"changes token at every step {changes}")
+    if not (follow >= RULE_FOLLOW_MIN and changes):
+        raise AssertionError(f"{model} trained on the rule: follows "
+                             f"{follow}, changes every step {changes}")
+    rounds = []
+    ACCEL.synchronize()
+    t0 = time.perf_counter()
+    out, fwds = eng.generate_speculative(p, deng, max_new_tokens=SPEC_NEW,
+                                         draft_k=K, rounds=rounds)
+    out = out.cpu().numpy()
+    spec_s = time.perf_counter() - t0
+    accepted = float(np.sum(rounds)) / (K * 4 * len(rounds))
+    parted = [_parting(eng, p[b], out[b], ref[b],
+                       f"{model} with the 125M draft, row {b}")
+              for b in range(4)]
+    res["generate_speculative"] = {
+        "forwards": fwds, "rounds": len(rounds), "accepted_share": accepted,
+        "parted": parted, "seconds": spec_s, "rule_follow": follow}
+    log(f"[speculative] {model} + {draft[0]} draft, 4 rule prompts of 64 x "
+        f"{SPEC_NEW} tokens, draft_k {K}: {fwds} target forwards for "
+        f"{SPEC_NEW} tokens a row, accepted share {accepted:.4f}, parted "
+        f"from generate {parted}, {spec_s:.2f} s")
+    if fwds >= SPEC_NEW:
+        raise AssertionError(f"{model}: {fwds} forwards for {SPEC_NEW} "
+                             "tokens")
+    counts = kernels.launch_counts()
+
+    reqs = [{"tokens": rule_chain(int(s), int(n)),
+             "max_new_tokens": int(m)}
+            for s, n, m in zip(rng.integers(0, 256, SPEC_REQUESTS),
+                               rng.integers(16, 129, SPEC_REQUESTS),
+                               rng.integers(32, 65, SPEC_REQUESTS))]
+    warm = rule_chain(200, 70)
+    turns, replies = [], {}
+    kernels.reset_launch_counts()
+    for on in SPEC_TURNS:
+        got, r = spec_gateway_run(eng, deng, on, reqs, warm)
+        turns.append(r)
+        replies.setdefault(on, []).append(got)
+    # every turn's replies against the first turn without speculation:
+    # the batch's make-up at each tick depends on when the scheduler
+    # admits, and bf16 sums in other orders at other shapes
+    parted = [[_parting(eng, r["tokens"], a, b,
+                        f"{model} gateway request {i}, turn {t}")
+               for i, (r, a, b) in enumerate(zip(reqs, got,
+                                                 replies[False][0]))]
+              for t, got in enumerate(replies[False][1:] + replies[True])]
+    res["gateway"] = {"turns": turns, "parted": parted,
+                      "sync": spec_sync_count(eng, deng, reqs)}
+    for r in turns:
+        log(f"[speculative] gateway, speculation "
+            f"{'on ' if r['speculative'] else 'off'}: {SPEC_REQUESTS} rule "
+            f"requests at once through 8 slots in {r['wall_s']:.3f} s, "
+            f"{r['tokens']} tokens ({r['tokens_per_s']:.1f} tokens/s), TTFT "
+            f"p50 {r['ttft_ms_p50']:.1f} ms p99 {r['ttft_ms_p99']:.1f} ms, "
+            f"{r['ticks']} ticks ({r['tokens_per_tick']:.2f} tokens a tick), "
+            f"rounds {r['spec_rounds']}, spec_accept_rate mean "
+            f"{r['spec_accept_rate_mean']}, serve.spec_round events "
+            f"{r['spec_round_events']}")
+    sync = res["gateway"]["sync"]
+    log(f"[speculative] gateway replies against the first turn without "
+        f"speculation: off {parted[0].count(None)}/{SPEC_REQUESTS} equal, on "
+        f"{[p.count(None) for p in parted[1:]]}/{SPEC_REQUESTS}, parted "
+        f"{[x for p in parted for x in p if x]} (tie tol {TIE_TOL}); a round "
+        f"(draft_k {sync['draft_k']}, 8 "
+        f"slots): {sync['host_reads_per_round']:.2f} device-to-host reads, "
+        f"{sync['syncs_per_round']:.2f} synchronizing CUDA calls")
+    if sync["host_reads_per_round"] != 1.0:
+        raise AssertionError(f"speculative round reads {sync}")
+
+    # 5f-3: sampled requests through the speculative gateway
+    sampled = [{"tokens": rule_chain(int(s), 40), "max_new_tokens": 32,
+                "do_sample": True, "temperature": 0.8, "seed": 100 + i}
+               for i, s in enumerate(rng.integers(0, 256, 4))]
+    with eng.serve(dict(SPEC_GATEWAY, speculative={
+            "enabled": True, "draft_k": K}), draft=deng) as gw:
+        together = [h.result(timeout=300)
+                    for h in [gw.submit(**r) for r in sampled]]
+        alone = [[gw.submit(**r).result(timeout=300) for _ in range(2)]
+                 for r in sampled]
+    repeat = all(np.array_equal(a, b) for a, b in alone)
+    same = sum(np.array_equal(t, a[0]) for t, a in zip(together, alone))
+    bad = [t for t in together if len(t) != 32 or t.max() >= 50257]
+    res["sampled"] = {"alone_twice_equal": repeat, "together_equal_alone":
+                      same, "replies": [a[0].tolist() for a in alone]}
+    log(f"[speculative] 4 sampled requests (temperature 0.8, top_k 50, a "
+        f"seed each) through the speculative gateway: alone twice bitwise "
+        f"equal {repeat}; submitted together equal to alone {same}/4")
+    if not repeat or bad:
+        raise AssertionError("speculative sampled replies do not repeat "
+                             f"under their seed: {alone}")
+    counts = _add(counts, kernels.launch_counts())
+    del eng, deng, engines
+    return res, counts
+
+
+def spec_tiny():
+    """5f-4: a tiny fp32 target (2 layers, d 64, 2 heads) with a draft (1
+    layer, d 32, 1 head) and with itself as the draft, on the card and on
+    the host: equal greedy speculative tokens and forwards at draft_k 1
+    and 3, equal to ``generate``."""
+    T = gpt.GPTConfig(vocab_size=256, max_seq_len=256, n_layer=2, n_head=2,
+                      d_model=64, dtype=torch.float32)
+    D = gpt.GPTConfig(vocab_size=256, max_seq_len=256, n_layer=1, n_head=1,
+                      d_model=32, dtype=torch.float32)
+    tp, dp = scaled_params(T, 31, "cpu", 15.0), scaled_params(D, 32, "cpu",
+                                                              15.0)
+    conf = {"dtype": "float32"}
+    card = deepspeed_tpu_torch.init_inference((T, tp), conf)
+    host = deepspeed_tpu_torch.init_inference((T, tp), conf, device="cpu")
+    toks = np.random.default_rng(33).integers(0, 256, (2, 12))
+    want = card.generate(toks, max_new_tokens=24).cpu().numpy()
+    out = {}
+    for name, draft in (("draft", (D, dp)), ("self", (T, tp))):
+        for k in (1, 3):
+            a, fa = card.generate_speculative(toks, draft, 24, draft_k=k)
+            b, fb = host.generate_speculative(toks, draft, 24, draft_k=k)
+            a = a.cpu().numpy()
+            ok = np.array_equal(a, b.numpy()) and fa == fb and \
+                np.array_equal(a, want)
+            out[f"{name} k{k}"] = {"equal": ok, "forwards": fa}
+            if not ok:
+                raise AssertionError(
+                    f"tiny fp32 speculative ({name}, draft_k {k}): card "
+                    f"{a.tolist()} ({fa}) vs host {b.tolist()} ({fb})")
+    log(f"[tiny fp32 speculative] card = host = generate (distinct tokens "
+        f"per row {[len(set(r)) for r in want.tolist()]}): {out}")
+    return out
+
+
+def run_speculative():
+    """Phase 5f: speculative decoding at full width (``run_speculative``):
+    the phase-4 GPT-2 350M (seed 1234) as its own draft, then the trained
+    350M + 125M pair through ``generate_speculative`` and the gateway,
+    sampled requests, and the tiny fp32 row.  Returns (results, counts:
+    the main path's launches)."""
+    t_phase = time.perf_counter()
+    marks = {}
+    cfg = gpt.GPT2_350M
+    params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(1234),
+                      device="cuda")
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                {"dtype": "bfloat16"})
+    del params
+    res = {}
+    res["self_draft"], counts = spec_self_draft(engine, "GPT-2 350M")
+    marks["self_draft"] = time.perf_counter() - t_phase
+    del engine
+    torch.cuda.empty_cache()
+    res["trained_pair"], pair_counts = spec_trained_pair()
+    counts = _add(counts, pair_counts)
+    marks["trained_pair"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    res["tiny"] = spec_tiny()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["marks_s"] = marks
+    log(f"[time] phase 5f (speculative decoding) {res['phase_s']:.1f} s, "
+        f"cumulative at each part's end "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items())
+        + f"; launches {counts}")
+    return res, counts
+
+
 # ---------------------------------- GPT-2 760M and 2.7B (head dims 96, 80)
 
 #: the JAX package's GPT-2 presets whose heads are 96 (760M: d 1536, 16
@@ -5564,8 +6073,10 @@ OFFLOAD_LOSS_RTOL = 2e-3
 #: p, m, v (12) and the bf16 copy-out (2); its bound is these bytes over
 #: the host's streaming rate (``host_facts``)
 HOST_ADAM_BYTES = 30
-#: phase 6f: GPT-2 350M's steps under nvme offload
+#: phase 6f: GPT-2 350M's steps under nvme offload, at 6 of its 24
+#: layers (the phase's time is the host's tag and swap I/O)
 NVME_STEPS = 2
+NVME_LAYERS = 6
 
 
 def _meminfo_kib(key):
@@ -5799,8 +6310,9 @@ def _host_equal(a, b):
 
 
 def run_offload_nvme():
-    """Phase 6f: GPT-2 350M at phase 6's configuration under
-    ``offload_optimizer``, counts at 0 before: ``cpu`` (pipelined) and
+    """Phase 6f: GPT-2 350M at phase 6's configuration and
+    ``NVME_LAYERS`` of its 24 layers under ``offload_optimizer``, counts
+    at 0 before: ``cpu`` (pipelined) and
     ``cpu`` with ``pipeline_transfers: false`` one step each, bitwise
     equal (losses, params, host state); ``nvme`` (swap files in a
     temporary directory on local disk, read prefetch and write pipeline
@@ -5810,8 +6322,8 @@ def run_offload_nvme():
     the swap files' read and write GB/s (a whole pass each, the page
     cache warm).  Returns (results, counts)."""
     cfg = dataclasses.replace(gpt.GPT2_350M, max_seq_len=1024,
-                              dtype=torch.bfloat16, remat=True,
-                              remat_policy="attn_out")
+                              n_layer=NVME_LAYERS, dtype=torch.bfloat16,
+                              remat=True, remat_policy="attn_out")
     tmp = tempfile.mkdtemp(prefix="offload_nvme_")
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
@@ -5837,8 +6349,9 @@ def run_offload_nvme():
         if not ok:
             raise AssertionError(f"offload nvme: {label} not bitwise equal")
 
-    res = {"config": "GPT-2 350M seq 1024 bf16 remat attn_out, Adam lr 1e-4 "
-                     f"wd 0.01, ZeRO 1, micro {TRAIN_MICRO_BATCH}"}
+    res = {"config": f"GPT-2 350M at {NVME_LAYERS} of its 24 layers, seq "
+                     "1024 bf16 remat attn_out, Adam lr 1e-4 wd 0.01, ZeRO 1, "
+                     f"micro {TRAIN_MICRO_BATCH}"}
     kernels.reset_launch_counts()
     n_steps = 0
     try:
@@ -5906,7 +6419,8 @@ def run_offload_nvme():
         shutil.rmtree(tmp, ignore_errors=True)
     counts = kernels.launch_counts()
     res["launches_per_step"] = {k: v / n_steps for k, v in counts.items()}
-    log(f"[offload nvme] GPT-2 350M: save {res['save_s']:.2f} s "
+    log(f"[offload nvme] GPT-2 350M at {NVME_LAYERS} layers: save "
+        f"{res['save_s']:.2f} s "
         f"({res['tag_bytes'] / 1e9:.2f} GB tag), load {res['load_s']:.2f} s, "
         f"swap files {res['swap_bytes'] / 1e9:.2f} GB, a whole read "
         f"{res['swap_read_gbps']:.2f} GB/s and write "
@@ -6429,7 +6943,7 @@ def main() -> int:
 
     checks = [check_flash(4, 512), check_flash(1, 128), check_flash(16, 1024),
               *[check_decode(B=B, kind=kind) for B, kind in DECODE_CASES],
-              check_chunk(128), check_chunk(640),
+              check_chunk(128), check_chunk(640), check_chunk_verify(),
               *check_flash_bwd(16, 1024), *check_flash_bwd(1, 128),
               check_fused_adam(), *check_block_sparse(), *check_fused_lamb(),
               *check_flash_kv_lens(), *check_quantizer(),
@@ -6545,6 +7059,11 @@ def main() -> int:
     result["launches"]["gpt_moe_350m_64e"] = moe_counts
     counts = _add(counts, moe_counts)
     log(f"[time] GPT-MoE 350M x 64E serving done at "
+        f"{time.perf_counter() - T0:.1f} s")
+    result["speculative"], spec_counts = run_speculative()
+    result["launches"]["speculative"] = spec_counts
+    counts = _add(counts, spec_counts)
+    log(f"[time] speculative decoding done at "
         f"{time.perf_counter() - T0:.1f} s")
 
     log(f"[time] serving paths done at {time.perf_counter() - T0:.1f} s")
@@ -6710,7 +7229,8 @@ def main() -> int:
         f"{result['launches']['pythia_1_4b']}, OPT-1.3B training "
         f"{result['launches']['opt_1_3b_training']}, Pythia-1.4B training "
         f"{result['launches']['pythia_1_4b_training']}, GPT-MoE 350M x 64E "
-        f"{moe_counts}, GPT-MoE 350M x 8E training {moe_train_counts}, "
+        f"{moe_counts}, speculative decoding {spec_counts}, GPT-MoE 350M "
+        f"x 8E training {moe_train_counts}, "
         f"sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
         f"{ROUTE_SEQ} {route_counts}, diffusion "

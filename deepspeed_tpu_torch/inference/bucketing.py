@@ -44,3 +44,14 @@ def tile_cache_len(max_len: int, cap: int) -> int:
     context ``cap`` (the batch ``generate()`` cache geometry)."""
     max_len = -(-max_len // 128) * 128 if max_len > 128 else max_len
     return min(max_len, cap)
+
+
+def bucket_draft_k(k: int, cap: int) -> int:
+    """Round a speculative draft depth so the ``k + 1``-token verify
+    window is a power of two (1→1, 2→3, 3→3, 4→7, …), clamped so the
+    window never exceeds ``cap`` positions (the slot's overshoot
+    budget)."""
+    if k < 1:
+        raise ValueError(f"draft_k must be >= 1, got {k}")
+    b = next_pow2(int(k) + 1) - 1
+    return max(1, min(b, int(cap) - 1))

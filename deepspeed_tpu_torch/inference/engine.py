@@ -18,9 +18,11 @@ launches the model's kernels eagerly.  The all-rows-finished early exit
 under ``eos_token_id`` reads one flag from the device per token; without
 an eos the loop never waits on the device until the tokens are returned.
 
-``start_session`` gives a multi-turn :class:`InferenceSession` over one
-persistent KV cache, and ``serve`` a continuous-batching
-``serving.ServingGateway`` over the engine.
+``generate_speculative`` decodes with a draft model's proposals verified
+by the target (``inference/speculative.py``).  ``start_session`` gives a
+multi-turn :class:`InferenceSession` over one persistent KV cache, and
+``serve`` a continuous-batching ``serving.ServingGateway`` over the
+engine (with a draft: speculative rounds in its tick loop).
 """
 
 from __future__ import annotations
@@ -184,6 +186,53 @@ class InferenceEngine:
         return out
 
 
+    # ---------------------------------------------------------- speculative
+
+    @torch.no_grad()
+    def generate_speculative(self, tokens, draft, max_new_tokens: int = 32,
+                             draft_k: int = 7, temperature: float = 0.0,
+                             top_k: int = 0, top_p: float = 1.0,
+                             generator: Optional[torch.Generator] = None,
+                             seed: Optional[int] = None, rounds=None):
+        """Generation with draft-model speculation
+        (``inference/speculative.py``): fewer target forwards, the same
+        output semantics.  ``temperature=0`` (default) is greedy and gives
+        ``generate``'s tokens; ``temperature>0`` is speculative sampling
+        (the rejection rule), its tokens distributed as target sampling at
+        that temperature, drawn from ``generator`` (or a generator seeded
+        with ``seed``; neither: the engine's seed sequence).  ``draft`` is
+        a ``(GPTConfig, params)`` pair or a dense GPT-family
+        :class:`InferenceEngine` over the same vocabulary; the target may
+        be dense or GPT-MoE.  Greedy speculation is batched (``tokens``
+        [B, S]); sampling serves batch 1.  ``rounds``, a list, collects
+        each round's accepted counts [B].  Returns ``(tokens [B, N],
+        n_target_forwards)``."""
+        from .speculative import (cast_floats, check_draft_config,
+                                  speculative_generate)
+        if temperature <= 0 and (top_k > 0 or top_p < 1.0):
+            raise ValueError(
+                "top_k/top_p only apply to speculative SAMPLING — set "
+                "temperature > 0 (temperature=0 is greedy and would "
+                "silently ignore the filters)")
+        if isinstance(draft, InferenceEngine):
+            if draft._family is not gpt_inference:
+                raise NotImplementedError(
+                    "the draft must be a dense GPT-family engine")
+            dcfg, dparams = draft.model_config, draft.params
+        else:
+            dcfg, dparams = draft
+        check_draft_config(dcfg, self.model_config)
+        if not isinstance(draft, InferenceEngine):
+            dparams = cast_floats(dparams, self.device, dcfg.dtype)
+        if temperature > 0 and generator is None:
+            generator = self._next_generator() if seed is None else \
+                torch.Generator(device=self.device).manual_seed(int(seed))
+        return speculative_generate(
+            self.params, self.model_config, dparams, dcfg,
+            self._tokens(tokens), max_new_tokens, draft_k,
+            kv_dtype=self._kv_dtype, temperature=temperature, top_k=top_k,
+            top_p=top_p, generator=generator, rounds=rounds)
+
     # -------------------------------------------------------------- session
 
     def start_session(self, batch: int = 1,
@@ -210,14 +259,14 @@ class InferenceEngine:
         ``config`` is a :class:`~deepspeed_tpu_torch.serving.ServingConfig`
         or its dict; ``journal`` an optional supervision ``EventJournal``;
         ``tracer`` an optional telemetry ``Tracer`` recording the serve.*
-        spans.  ``draft`` (speculative decoding) is not ported yet."""
-        if draft is not None:
-            raise NotImplementedError(
-                "serve(draft=...) is speculative decoding, which is not "
-                "ported yet (ROADMAP.md Queue 1 #4.4)")
+        spans.  ``draft`` is the proposal model of speculative decoding
+        (``serving.speculative``): a dense GPT-family engine or a
+        ``(GPTConfig, params)`` pair; without one, the section's geometry
+        spec builds a random-init draft."""
         from ..serving import ServingGateway
         return ServingGateway(self, config=config, journal=journal,
-                              autostart=autostart, tracer=tracer)
+                              autostart=autostart, tracer=tracer,
+                              draft=draft)
 
 
 class InferenceSession:

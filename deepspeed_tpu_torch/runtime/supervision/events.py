@@ -66,6 +66,9 @@ class EventKind:
     SERVE_DONE = "serve.done"
     SERVE_EVICT = "serve.evict"
     SERVE_TICK = "serve.tick"
+    #: a speculative round's acceptance (fields ``tick, active, draft_k,
+    #: accepted, emitted, accept_rate``), every ``journal_every_ticks``
+    SERVE_SPEC_ROUND = "serve.spec_round"
     TRACE_EXPORT = "trace.export"
     CONCURRENCY_LOCK_CYCLE = "concurrency.lock_cycle"
     CONCURRENCY_CONTENTION = "concurrency.contention"

@@ -9,15 +9,17 @@
   bounded FIFO+priority admission queue, per-request budgets, deadlines,
   seeds and eos, cancellation, an LRU pool of shared prefixes;
 - ``metrics`` + supervision ``EventJournal`` ``serve.*`` events: queue
-  depth, TTFT, tokens/sec, slot occupancy.
+  depth, TTFT, tokens/sec, slot occupancy, speculative acceptance.
 
-Entry point: ``InferenceEngine.serve()`` or :class:`ServingGateway`
-directly.  Paging, speculation, overload control, the transport and the
-fleet are not ported yet (their config keys raise).
+With ``serving.speculative`` (:class:`SpeculativeConfig`) and a draft
+model the tick runs batched draft/verify rounds.  Entry point:
+``InferenceEngine.serve()`` or :class:`ServingGateway` directly.  Paging,
+overload control, the transport and the fleet are not ported yet (their
+config keys raise).
 """
 
 from .batcher import PrefixEntry, SlotBatcher
-from .config import ServingConfig
+from .config import ServingConfig, SpeculativeConfig
 from .gateway import ServingGateway
 from .metrics import ServingMetrics
 from .request import (QueueFullError, RequestCancelled, RequestFailed,
@@ -25,7 +27,7 @@ from .request import (QueueFullError, RequestCancelled, RequestFailed,
                       RequestTimedOut)
 
 __all__ = [
-    "ServingConfig", "ServingGateway", "ServingMetrics", "SlotBatcher",
+    "ServingConfig", "SpeculativeConfig", "ServingGateway", "ServingMetrics", "SlotBatcher",
     "PrefixEntry", "RequestHandle", "RequestState", "QueueFullError",
     "RequestShed", "RequestCancelled", "RequestFailed", "RequestTimedOut",
 ]

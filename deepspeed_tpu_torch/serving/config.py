@@ -1,21 +1,73 @@
 """Serving config: the ``ServingConfig`` fields the port's ``SlotBatcher``
 and ``ServingGateway`` read (the JAX package's ``serving/config.py``, with
-its defaults and validation).
+its defaults and validation), and the ``speculative`` section
+(:class:`SpeculativeConfig`, typed view ``speculative_config``).
 
-The gateway's subsystem sections (paging, speculation, overload,
-transport) are not ported yet: setting one raises
-``NotImplementedError`` instead of being ignored.
+The gateway's other subsystem sections (paging, overload, transport) are
+not ported yet: setting one raises ``NotImplementedError`` instead of
+being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
+from ..runtime.config import DeepSpeedConfigError
 from ..runtime.config_utils import DeepSpeedConfigModel
 
 #: JAX ``ServingConfig`` keys whose subsystems are not ported yet
-_NOT_PORTED = ("paging", "speculative", "overload", "transport")
+_NOT_PORTED = ("paging", "overload", "transport")
+
+#: keys a ``"speculative"."draft"`` geometry spec may carry
+_DRAFT_SPEC_KEYS = ("n_layer", "d_model", "n_head", "seed")
+
+
+@dataclasses.dataclass
+class SpeculativeConfig(DeepSpeedConfigModel):
+    """The ``"serving"."speculative"`` section: batched draft/verify rounds
+    in the continuous-batching tick loop.  A wrong draft spec raises
+    :class:`~deepspeed_tpu_torch.runtime.config.DeepSpeedConfigError` at
+    config time."""
+
+    #: switch the tick loop from one-token decode steps to draft_k-token
+    #: draft/verify rounds (the same output semantics)
+    enabled: bool = False
+    #: draft proposals per round; bucketed so the k+1 verify window is a
+    #: power of two (``bucket_draft_k``)
+    draft_k: int = 3
+    #: draft geometry spec ``{"n_layer", "d_model", "n_head", "seed"}``:
+    #: builds a random-init dense GPT draft over the target's vocabulary
+    #: when no draft is passed to ``engine.serve(draft=...)``.  None: a
+    #: draft engine or ``(GPTConfig, params)`` must be passed.
+    draft: Optional[Dict] = None
+
+    def __post_init__(self):
+        if not isinstance(self.draft_k, int) or isinstance(self.draft_k, bool) \
+                or not 1 <= self.draft_k <= 64:
+            raise DeepSpeedConfigError(
+                f"serving.speculative.draft_k must be an int in [1, 64], "
+                f"got {self.draft_k!r}")
+        if self.draft is None:
+            return
+        if not isinstance(self.draft, dict):
+            raise DeepSpeedConfigError(
+                "serving.speculative.draft must be a dict draft-model "
+                f"spec with keys {_DRAFT_SPEC_KEYS}, got "
+                f"{type(self.draft).__name__}")
+        unknown = sorted(set(self.draft) - set(_DRAFT_SPEC_KEYS))
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"serving.speculative.draft: unknown keys {unknown} "
+                f"(known: {_DRAFT_SPEC_KEYS})")
+        for k in ("n_layer", "d_model", "n_head"):
+            if k in self.draft and (
+                    not isinstance(self.draft[k], int)
+                    or isinstance(self.draft[k], bool)
+                    or self.draft[k] < 1):
+                raise DeepSpeedConfigError(
+                    f"serving.speculative.draft.{k} must be an int >= 1, "
+                    f"got {self.draft[k]!r}")
 
 
 @dataclasses.dataclass
@@ -55,8 +107,12 @@ class ServingConfig(DeepSpeedConfigModel):
     #: scheduler idle wait between queue polls, seconds
     idle_wait_s: float = 0.02
     #: run ``SlotBatcher.prewarm`` at construction: the kernels' build and
-    #: the library handles' set-up land before the first request
+    #: the library handles' set-up land before the first request (with
+    #: speculation: every ladder level's tick too)
     warm_start: bool = False
+    #: raw "speculative" section (typed view: ``speculative_config``):
+    #: batched draft/verify in the tick loop; see :class:`SpeculativeConfig`
+    speculative: Optional[Dict] = None
 
     @classmethod
     def from_dict(cls, data=None, **overrides) -> "ServingConfig":
@@ -70,6 +126,12 @@ class ServingConfig(DeepSpeedConfigModel):
         return super().from_dict(data)
 
     def __post_init__(self):
+        # the typed view is an attribute, not a field: dict round trips and
+        # equality read the raw section only
+        if isinstance(self.speculative, SpeculativeConfig):
+            self.speculative = self.speculative.to_dict()
+        self.speculative_config = SpeculativeConfig.from_dict(
+            self.speculative or {})
         if self.slots < 1:
             raise ValueError(f"serving.slots must be >= 1, got {self.slots}")
         if self.prefill_chunk < 1:

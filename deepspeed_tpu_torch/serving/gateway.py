@@ -1,6 +1,6 @@
 """The serving gateway: an async request scheduler over the slot batcher
-(the port of the JAX package's ``serving/gateway.py``, without its paging,
-overload and speculative branches, whose config keys still raise).
+(the port of the JAX package's ``serving/gateway.py``, without its paging
+and overload branches, whose config keys still raise).
 
 ``submit()`` is thread-safe and non-blocking: requests land in a bounded
 priority queue (FIFO within a priority class) and a daemon scheduler
@@ -13,6 +13,9 @@ thread runs the serve loop:
 3. one continuous-batching decode tick for every live slot; harvest
    per-slot tokens, finish rows that hit eos / budget / deadline /
    cancellation, and free their slots for step 2 of the next iteration.
+   With ``serving.speculative`` on, a tick is a draft/verify round that
+   emits 1..draft_k+1 tokens a slot; a window is cut at eos or at the
+   budget, and admission keeps the round's overshoot inside the slot.
 
 The scheduler thread issues every device call, under ``torch.no_grad``
 (grad mode is thread-local).  Every decision lands in the supervision
@@ -70,7 +73,8 @@ class ServingGateway:
 
     def __init__(self, engine, config=None,
                  journal: Optional[EventJournal] = None,
-                 autostart: bool = True, tracer: Optional[Tracer] = None):
+                 autostart: bool = True, tracer: Optional[Tracer] = None,
+                 draft=None):
         if config is None:
             config = ServingConfig()
         elif isinstance(config, dict):
@@ -81,7 +85,10 @@ class ServingGateway:
         #: the default is a disabled no-op.
         self.tracer = tracer if tracer is not None else Tracer(
             enabled=False, name="serving")
-        self._batcher = SlotBatcher(engine, config, tracer=self.tracer)
+        #: ``draft`` is the speculative proposal model, resolved and
+        #: checked by the batcher (ignored while speculation is off)
+        self._batcher = SlotBatcher(engine, config, tracer=self.tracer,
+                                    draft=draft)
         self._journal = journal
         self.metrics = ServingMetrics()
         if config.warm_start:
@@ -156,11 +163,15 @@ class ServingGateway:
         handle = RequestHandle(rid)
         # every request is a trace root
         ctx = mint_context()
-        if tokens.shape[0] + n_new > self._batcher.max_len:
+        # a speculative round may write draft_k positions past the last
+        # emission: the whole overshoot must fit the slot
+        margin = self._batcher.spec_overshoot
+        if tokens.shape[0] + n_new + margin > self._batcher.max_len:
             self._reject(rid, handle, "too_long")
             raise ValueError(
-                f"prompt ({tokens.shape[0]}) + max_new_tokens ({n_new}) "
-                f"exceeds the {self._batcher.max_len}-token slot; raise "
+                f"prompt ({tokens.shape[0]}) + max_new_tokens ({n_new})"
+                + (f" + speculative overshoot ({margin})" if margin else "")
+                + f" exceeds the {self._batcher.max_len}-token slot; raise "
                 "serving.max_len or shorten the request")
         deadline_s = deadline_s if deadline_s is not None \
             else cfg.default_deadline_s
@@ -470,14 +481,18 @@ class ServingGateway:
     def _decode_tick(self) -> None:
         fault_injection.fire("serve.decode_tick", tick=self._ticks,
                              active=len(self._active))
-        # the tick's one device→host read: the [B] tokens just emitted
-        tokens = self._batcher.tick()
+        # the tick's one device→host read.  Dispatch on the return type: a
+        # speculative round is (window [B, k+1], counts [B]), slot b having
+        # emitted window[b, :counts[b]]; a plain tick (speculation off or
+        # paused) is the [B] tokens just emitted
+        res = self._batcher.tick()
+        tokens, counts = res if isinstance(res, tuple) else (res, None)
         self._ticks += 1
         now = time.monotonic()
         with self._cond:
             live = list(self._active.items())
         n_live = len(live)
-        harvested = 0
+        harvested = accepted = 0
         for row, req in live:
             h = req.handle
             if h.cancel_requested:
@@ -487,15 +502,28 @@ class ServingGateway:
                         f"{req.rid} cancelled mid-decode",
                         partial=np.asarray(req.out, np.int32)))
                 continue
-            tok = int(tokens[row])
-            req.out.append(tok)
-            harvested += 1
-            h.tokens_out = len(req.out)
-            if h.t_first_token is None:
-                h.t_first_token = now
-                self.metrics.record_ttft(h.ttft_s)
-            if (req.eos_token_id is not None and tok == req.eos_token_id) \
-                    or len(req.out) >= req.max_new_tokens:
+            if counts is None:
+                toks = [int(tokens[row])]
+            else:
+                toks = [int(t) for t in tokens[row, :int(counts[row])]]
+                accepted += max(int(counts[row]) - 1, 0)
+            finished = False
+            for tok in toks:
+                # eos or the budget cut a speculative window short: the
+                # tokens past the cut are dropped (their K/V sits past the
+                # retired frontier)
+                req.out.append(tok)
+                harvested += 1
+                h.tokens_out = len(req.out)
+                if h.t_first_token is None:
+                    h.t_first_token = now
+                    self.metrics.record_ttft(h.ttft_s)
+                if (req.eos_token_id is not None
+                        and tok == req.eos_token_id) \
+                        or len(req.out) >= req.max_new_tokens:
+                    finished = True
+                    break
+            if finished:
                 self._finish_row(row, req, RequestState.DONE)
             elif req.deadline is not None and now > req.deadline:
                 self._finish_row(
@@ -505,6 +533,13 @@ class ServingGateway:
                         partial=np.asarray(req.out, np.int32)))
         self.metrics.record_tick(active=n_live, slots=self.config.slots,
                                  tokens=harvested)
+        round_k = self._batcher.round_draft_k
+        spec_round = counts is not None and n_live
+        if spec_round:
+            proposed = n_live * max(1, round_k)
+            self.metrics.record_spec_round(accepted=accepted,
+                                           proposed=proposed,
+                                           emitted=harvested)
         every = self.config.journal_every_ticks
         if every and self._ticks % every == 0:
             with self._cond:
@@ -513,6 +548,11 @@ class ServingGateway:
                        active=n_live, queue_depth=depth,
                        tok_per_s=round(
                            self.metrics.snapshot()["tokens_per_s"], 3))
+            if spec_round:
+                self._emit(EventKind.SERVE_SPEC_ROUND, tick=self._ticks,
+                           active=n_live, draft_k=round_k,
+                           accepted=accepted, emitted=harvested,
+                           accept_rate=round(accepted / max(1, proposed), 4))
 
     def _finish_row(self, row: int, req: ServeRequest, state: str,
                     error: Optional[Exception] = None) -> None:

@@ -1,7 +1,8 @@
 """Serving metrics: thread-safe counters + a snapshot the journal, the
 smoke run and operators share (the port of the JAX package's
-``serving/metrics.py``, without the counters of its paging, speculative,
-overload and compile-watch subsystems, which are not ported).
+``serving/metrics.py``, with its speculative counters and without those
+of its paging, overload and compile-watch subsystems, which are not
+ported).
 
 Kept deliberately dumb — monotonically increasing counters plus a TTFT
 :class:`~deepspeed_tpu_torch.telemetry.metrics.Histogram` (the same
@@ -43,6 +44,18 @@ class ServingMetrics:
         #: time-to-first-token, seconds — the shared telemetry histogram
         #: (count/sum exact, reservoir bounded at :data:`_TTFT_CAP`)
         self.ttft = Histogram(MetricName.SERVE_TTFT_S, cap=_TTFT_CAP)
+        #: speculative draft/verify rounds run
+        self.spec_rounds = 0
+        #: draft proposals accepted / proposed (cumulative, all slots)
+        self.spec_accepted = 0
+        self.spec_proposed = 0
+        #: per-round acceptance rate (accepted / proposed over the round's
+        #: live slots)
+        self.spec_accept_rate = Histogram(
+            MetricName.SERVE_SPEC_ACCEPT_RATE, cap=_TTFT_CAP)
+        #: tokens emitted per speculative tick (all live slots)
+        self.spec_tokens_per_tick = Histogram(
+            MetricName.SERVE_SPEC_TOKENS_PER_TICK, cap=_TTFT_CAP)
 
     def count(self, field: str, n: int = 1) -> None:
         with self._lock:
@@ -54,6 +67,15 @@ class ServingMetrics:
             self.tokens_out += tokens
             self.active_slot_ticks += active
             self.slot_ticks += slots
+
+    def record_spec_round(self, accepted: int, proposed: int,
+                          emitted: int) -> None:
+        with self._lock:
+            self.spec_rounds += 1
+            self.spec_accepted += accepted
+            self.spec_proposed += proposed
+        self.spec_accept_rate.observe(accepted / max(1, proposed))
+        self.spec_tokens_per_tick.observe(float(emitted))
 
     def record_ttft(self, seconds: float) -> None:
         self.ttft.observe(float(seconds))
@@ -76,6 +98,12 @@ class ServingMetrics:
                 "prefix_builds": self.prefix_builds,
                 "ticks": self.ticks,
                 "tokens_out": self.tokens_out,
+                "spec_rounds": self.spec_rounds,
+                "spec_accepted": self.spec_accepted,
+                "spec_proposed": self.spec_proposed,
+                "spec_accept_rate_mean": (
+                    self.spec_accepted / self.spec_proposed
+                    if self.spec_proposed else 0.0),
                 "elapsed_s": elapsed,
                 "tokens_per_s": self.tokens_out / elapsed,
                 "slot_occupancy": (self.active_slot_ticks / self.slot_ticks

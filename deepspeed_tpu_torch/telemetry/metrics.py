@@ -76,6 +76,11 @@ class MetricName:
     SERVE_TTFT_S = "serve.ttft_s"
     #: decode tokens emitted per second over the gateway lifetime
     SERVE_TOKENS_PER_S = "serve.tokens_per_s"
+    #: histogram of per-round speculative acceptance rate (accepted /
+    #: proposed over the round's live slots)
+    SERVE_SPEC_ACCEPT_RATE = "serve.spec_accept_rate"
+    #: histogram of tokens emitted per speculative tick (all live slots)
+    SERVE_SPEC_TOKENS_PER_TICK = "serve.spec_tokens_per_tick"
     #: divergence rollbacks performed by the run supervisor
     ROLLBACKS = "elastic.rollbacks"
     #: tracked-lock contended acquisitions, process total

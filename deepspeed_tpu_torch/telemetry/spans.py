@@ -75,6 +75,8 @@ class SpanName:
     SERVE_ADMIT = "serve.admit"
     #: chunked prefill of a prompt/prefix through fixed-width chunks
     SERVE_PREFILL = "serve.prefill"
+    #: one speculative draft/verify/accept round (nested in serve.tick)
+    SERVE_SPEC = "serve.spec"
 
 
 #: every registered span name, as a frozenset of strings

@@ -20,6 +20,7 @@ import torch
 from deepspeed_tpu.serving import ServingConfig as JaxServingConfig
 from deepspeed_tpu.serving import ServingMetrics as JaxServingMetrics
 from deepspeed_tpu.telemetry import metrics as jmetrics
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.supervision.events import (EventJournal,
                                                             EventKind)
 from deepspeed_tpu_torch.serving import (QueueFullError, RequestCancelled,
@@ -533,8 +534,7 @@ def test_gateway_keys_are_validated_as_in_jax(key, value):
         ServingConfig.from_dict({key: value})
 
 
-@pytest.mark.parametrize("key", ["paging", "speculative", "overload",
-                                 "transport"])
+@pytest.mark.parametrize("key", ["paging", "overload", "transport"])
 def test_unported_subsystems_raise(engines, key):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingConfig.from_dict({key: {"enabled": True}})
@@ -543,8 +543,19 @@ def test_unported_subsystems_raise(engines, key):
 
 
 def test_serve_draft_raises(engines):
-    with pytest.raises(NotImplementedError, match="Queue 1 #4.4"):
-        engines[None].serve(draft=engines[None], autostart=False)
+    """``serve(draft=...)`` hands the draft to the batcher, which refuses
+    a speculative section without any draft, and ignores the draft while
+    speculation is off (as the JAX gateway does)."""
+    eng = engines[None]
+    gw = eng.serve(config={"max_len": 64, "speculative": {"enabled": True}},
+                   draft=eng, autostart=False)
+    bat = gw._batcher
+    assert bat.spec and bat.draft_k == 3 and bat.spec_overshoot == 3
+    assert bat._dcfg == eng.model_config and bat.draft_cache.max_len == 64
+    off = eng.serve(config={"max_len": 64}, draft=eng, autostart=False)
+    assert not off._batcher.spec and off._batcher.spec_overshoot == 0
+    with pytest.raises(DeepSpeedConfigError, match="needs a draft model"):
+        eng.serve(config={"speculative": {"enabled": True}}, autostart=False)
 
 
 def test_warm_start_prewarms_and_leaves_no_slot_live(engines):

@@ -15,6 +15,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu.serving import ServingConfig as JaxServingConfig
 from deepspeed_tpu.serving import SlotBatcher as JaxSlotBatcher
 from deepspeed_tpu_torch.models import convert
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.serving import ServingConfig, SlotBatcher
 
 from .test_torch_gpt_inference import tiny_configs, tiny_params
@@ -142,8 +143,9 @@ def test_batcher_guards(engines):
         bat.admit(0, np.zeros(20, np.int64), None, True, 1.0)
     with pytest.raises(ValueError, match="Generator"):
         bat.admit(0, np.zeros(4, np.int64), None, False, 1.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingConfig.from_dict({"slots": 2, "speculative": {"enabled": True}})
+    with pytest.raises(DeepSpeedConfigError, match="needs a draft model"):
+        SlotBatcher(teng, ServingConfig.from_dict(
+            {"slots": 2, "speculative": {"enabled": True}}))
     bat.prewarm()
     assert not bat.active.any()
 
