@@ -231,6 +231,38 @@ imports JAX.  In order it
    counted under ``torch.cuda.set_sync_debug_mode``; 4 sampled requests
    (temperature 0.8, top_k 50, a seed each) alone twice bitwise equal;
    a tiny fp32 target and draft, card = host at draft_k 1 and 3;
+5g. the encoders (``run_encoders``), bf16, weights from a seed, with
+   every launch count at 0 before each run: BERT-large (24 layers, d
+   1024, 16 heads of 64, vocab 30522) behind
+   ``init_inference((BERT_LARGE, params))`` → ``BertInferenceEngine``:
+   MLM logits at B64 S128 and B8 S512 within 5% of the fp32 plain
+   forward on the card, exactly 24 ``flash_fwd`` a forward; ``encode``
+   and ``pooled`` shapes, an all-ones ``attention_mask`` bitwise equal to
+   none, a right-padded mask (lengths 64-128) through the dense path with
+   no launch, within 5%; the int8 engine (4 ``Int8Param`` leaves, 4
+   quantizer launches at init, 24 ``flash_fwd`` a forward), its mean
+   log-softmax drift against bf16 below ``ENC_DRIFT_MAX``, its bytes; the
+   same params as an HF-keyed state dict through ``init_inference`` on a
+   ``transformers``-shaped stand-in, and as 3 ``.bin`` shards with an
+   index through ``load_sharded_state_dict``: logits bitwise equal;
+   ``module_quantize`` of the tree (one quantizer launch a leaf of 2+
+   dims, ``wi`` bitwise equal to the host's plain version, at most 255
+   values a group, its time and the quantizer's on ``wi``'s 24 groups);
+   ``save_16bit_model`` of the int8 engine (JAX's keys, no int8, each
+   leaf reloaded bitwise equal to the dequantized weight);
+   ``DeepSpeedTransformerLayer`` at BERT-large's layer width in both
+   LayerNorm orders, B64 S128, ragged ``seq_lens``: y, dx and every
+   parameter gradient of ``(y * g).sum()`` within ``LAYER_TOL`` of the
+   fp32 plain version (max-abs error over max-abs), 1 ``flash_fwd`` and 1
+   ``flash_bwd_fused``, two runs bitwise equal; 24 post-LN layers on
+   BERT-large's blocks = the ``bert._block`` loop bitwise, with and
+   without ``seq_lens``; the SD 1.5 text encoder (CLIP ViT-L/14's text
+   tower, HF names, random weights) through ``convert_hf_clip_text`` →
+   ``gpt.encode`` on a prompt and the empty prompt (2 x 77): within 5% of
+   the fp32 plain version on the host, exactly 12 causal ``flash_fwd``;
+   forward ms and sequences/s of bf16 and int8 in turns, the padded
+   batch's, the layer's fwd+bwd, CLIP's, the shard load's seconds and a
+   profile;
 6. with every launch count at 0, drives the training path at full width:
    bench.py's configuration (GPT-2 350M, seq 1024, bf16, remat
    ``attn_out``, Adam lr 1e-4 wd 0.01, ZeRO 1, micro-batch 16) through
@@ -345,7 +377,9 @@ imports JAX.  In order it
    full width: Stable Diffusion 1.5 (published widths, random weights from
    a seed, bf16) through ``init_inference`` on diffusers-named state
    dicts (686 and 248 tensors) → ``DSUNet``/``DSVAE`` →
-   ``DiffusionPipeline``, one prompt, guided 50-step DDIM, 512x512:
+   ``DiffusionPipeline``, one prompt (phase 5g's text encoder gives the
+   prompt's and the empty prompt's embeddings), guided 50-step DDIM,
+   512x512:
    exactly 6,636 ``nhwc_bias_add`` launches (66 per UNet forward, 36 per
    VAE decode); seconds per image, UNet forward, DDIM step and decode ms,
    FLOPs and MFU, the fp32 attention scores' time, peak memory, the
@@ -386,6 +420,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 # The host's fp32 references (the tiny models trained on the host, the
 # full-width forwards) are held to the card's results at tolerances that
@@ -403,6 +438,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import bert, diffusion, gpt
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.diffusion_pipeline import DiffusionPipeline
+from deepspeed_tpu_torch.inference.engine import BertInferenceEngine
 from deepspeed_tpu_torch.model_implementations.diffusers import DSUNet, DSVAE
 from deepspeed_tpu_torch.ops import kernels
 from deepspeed_tpu_torch.inference.quantization import (Int8Param,
@@ -411,6 +447,11 @@ from deepspeed_tpu_torch.inference.quantization import (Int8Param,
 from deepspeed_tpu_torch.models import (gpt_inference, gpt_moe,
                                         gpt_moe_inference)
 from deepspeed_tpu_torch.moe import recording_routes
+from deepspeed_tpu_torch.module_inject import (convert_hf_clip_text,
+                                               load_sharded_state_dict,
+                                               module_quantize)
+from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
+                                                 DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.ops.kernels import (
     adam_hyper, block_sparse_attention_backward_reference,
     block_sparse_attention_reference, build, cached_attention_reference,
@@ -3464,10 +3505,10 @@ def family_logits(engine, cfg, params_host, model):
     if cfg.local_attention_window > 0:
         unbanded = {"local_attention_window": 0,
                     "local_attention_alternating": False}
-        ref_g = gpt.apply(host.params, host._tokens(toks),
+        ref_g = gpt.apply(host.params, torch.as_tensor(toks),
                           dataclasses.replace(host.model_config,
                                               **unbanded))[..., :V]
-        out_g = gpt.apply(engine.params, engine._tokens(toks),
+        out_g = gpt.apply(engine.params, torch.as_tensor(toks, device="cuda"),
                           dataclasses.replace(engine.model_config,
                                               **unbanded)).cpu()[..., :V]
         rel_g, agree_g = _rel_agree(out_g, ref_g)
@@ -4616,6 +4657,557 @@ def run_speculative():
         + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items())
         + f"; launches {counts}")
     return res, counts
+
+
+# ------------------------------------------------ phase 5g: the encoders
+
+#: BERT-large's forward shapes: the BERT slice's micro-batch at seq 128,
+#: and BERT phase 2's seq 512
+ENC_SHAPES = ((64, 128), (8, 512))
+ENC_SEED = 2600
+#: the int8 engine's mean absolute log-softmax drift against bf16 (the
+#: JAX test's bound, tests/unit/inference/test_bert_inference.py:116)
+ENC_DRIFT_MAX = 0.05
+#: DeepSpeedTransformerLayer vs its fp32 plain version: max-abs error over
+#: the reference's max-abs, for y, dx and every parameter gradient
+LAYER_TOL = 2e-2
+#: the SD 1.5 text encoder (CLIP ViT-L/14's text tower): HF
+#: ``text_encoder/config.json`` of runwayml/stable-diffusion-v1-5
+CLIP_TEXT = types.SimpleNamespace(
+    vocab_size=49408, max_position_embeddings=77, num_hidden_layers=12,
+    num_attention_heads=12, hidden_size=768, intermediate_size=3072,
+    hidden_act="quick_gelu")
+CLIP_BOS, CLIP_EOS = 49406, 49407
+#: bert-large-uncased's HF config fields that HFBertLayerPolicy reads
+BERT_LARGE_HF = types.SimpleNamespace(
+    vocab_size=30522, max_position_embeddings=512, type_vocab_size=2,
+    num_hidden_layers=24, num_attention_heads=16, hidden_size=1024,
+    intermediate_size=4096, layer_norm_eps=1e-12)
+
+
+def _copy(t):
+    return t.detach().cpu().clone(memory_format=torch.contiguous_format)
+
+
+def bert_hf_state_dict(params, cfg):
+    """A port BERT tree (fp32) as a ``BertForMaskedLM`` state dict of CPU
+    tensors: the inverse of ``HFBertLayerPolicy.convert`` (linears
+    ``[out, in]``, q/k/v apart, the vocabulary unpadded)."""
+    L, d, V = cfg.n_layer, cfg.d_model, cfg.vocab_size
+    b = params["blocks"]
+    sd = {"bert.embeddings.word_embeddings.weight": _copy(params["wte"][:V]),
+          "bert.embeddings.position_embeddings.weight": _copy(params["wpe"]),
+          "bert.embeddings.token_type_embeddings.weight":
+              _copy(params["wtype"]),
+          "bert.embeddings.LayerNorm.weight": _copy(params["emb_ln_scale"]),
+          "bert.embeddings.LayerNorm.bias": _copy(params["emb_ln_bias"]),
+          "bert.pooler.dense.weight": _copy(params["pool_w"].T),
+          "bert.pooler.dense.bias": _copy(params["pool_b"]),
+          "cls.predictions.transform.dense.weight":
+              _copy(params["mlm_dense"].T),
+          "cls.predictions.transform.dense.bias":
+              _copy(params["mlm_dense_bias"]),
+          "cls.predictions.transform.LayerNorm.weight":
+              _copy(params["mlm_ln_scale"]),
+          "cls.predictions.transform.LayerNorm.bias":
+              _copy(params["mlm_ln_bias"]),
+          "cls.predictions.bias": _copy(params["mlm_bias"][:V])}
+    for i in range(L):
+        pre = f"bert.encoder.layer.{i}."
+        for j, name in enumerate(("query", "key", "value")):
+            sd[pre + f"attention.self.{name}.weight"] = _copy(
+                b["wqkv"][i][:, j].reshape(d, d).T)
+            sd[pre + f"attention.self.{name}.bias"] = _copy(
+                b["bqkv"][i][j].reshape(d))
+        for name, w, bias in (("attention.output.dense", "wo", "bo"),
+                              ("intermediate.dense", "wi", "bi"),
+                              ("output.dense", "wo_mlp", "bo_mlp")):
+            sd[pre + name + ".weight"] = _copy(
+                b[w][i].reshape(-1, b[w].shape[-1]).T)
+            sd[pre + name + ".bias"] = _copy(b[bias][i])
+        for name, ln in (("attention.output", "ln1"), ("output", "ln2")):
+            sd[pre + name + ".LayerNorm.weight"] = _copy(b[ln + "_scale"][i])
+            sd[pre + name + ".LayerNorm.bias"] = _copy(b[ln + "_bias"][i])
+    return sd
+
+
+def write_bin_shards(sd, root, n=3):
+    """``sd`` as ``n`` ``pytorch_model-0000i-of-0000n.bin`` shards and
+    their ``pytorch_model.bin.index.json``, as ``save_pretrained`` writes
+    a sharded checkpoint."""
+    keys, weight_map = sorted(sd), {}
+    for i in range(n):
+        name = f"pytorch_model-{i + 1:05d}-of-{n:05d}.bin"
+        part = {k: sd[k] for k in keys[i::n]}
+        torch.save(part, os.path.join(root, name))
+        weight_map.update({k: name for k in part})
+    with open(os.path.join(root, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+
+
+def clip_text_state_dict(spec, gen):
+    """Random ``CLIPTextModel`` weights at ``spec``'s widths from ``gen``
+    (CPU), named as HF names them: normal 0.02 linears and biases,
+    LayerNorms 1 and 0."""
+    d, f = spec.hidden_size, spec.intermediate_size
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen) * 0.02
+
+    sd = {"text_model.embeddings.token_embedding.weight":
+              normal(spec.vocab_size, d),
+          "text_model.embeddings.position_embedding.weight":
+              normal(spec.max_position_embeddings, d),
+          "text_model.final_layer_norm.weight": torch.ones(d),
+          "text_model.final_layer_norm.bias": torch.zeros(d)}
+    for i in range(spec.num_hidden_layers):
+        pre = f"text_model.encoder.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (d, d)),
+                            ("self_attn.k_proj", (d, d)),
+                            ("self_attn.v_proj", (d, d)),
+                            ("self_attn.out_proj", (d, d)),
+                            ("mlp.fc1", (f, d)), ("mlp.fc2", (d, f))):
+            sd[pre + name + ".weight"] = normal(*shape)
+            sd[pre + name + ".bias"] = normal(shape[0])
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[pre + ln + ".weight"] = torch.ones(d)
+            sd[pre + ln + ".bias"] = torch.zeros(d)
+    return sd
+
+
+def _max_rel(out, ref):
+    """Max-abs error over the reference's max-abs."""
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def _lens_mask(lens, S):
+    return (torch.arange(S, device=lens.device)[None, :]
+            < lens[:, None]).to(torch.int64)
+
+
+def _launched(counts, want, what):
+    """Exact launches: ``want`` of each named kernel, none of the rest."""
+    got = {k: n for k, n in counts.items() if n and "[" not in k}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def encoder_bert(res, params, cfg):
+    """5g.1-2: BERT-large behind ``init_inference`` in bf16 and int8:
+    logits against the fp32 plain forward on the card, exact launches,
+    ``encode``/``pooled``, masks, drift, bytes, timing in turns."""
+    plain = dataclasses.replace(cfg, dtype=torch.float32,
+                                use_flash_attention=False)
+    V = cfg.vocab_size
+    rng = np.random.default_rng(ENC_SEED)
+    kernels.reset_launch_counts()
+    eng = deepspeed_tpu_torch.init_inference((cfg, params),
+                                             {"dtype": "bfloat16"},
+                                             device="cuda")
+    if not isinstance(eng, BertInferenceEngine):
+        raise AssertionError(f"init_inference((BERT_LARGE, params)) gave "
+                             f"{type(eng).__name__}")
+    kernels.reset_launch_counts()
+    eng8 = deepspeed_tpu_torch.init_inference((cfg, params),
+                                              {"dtype": "int8"},
+                                              device="cuda")
+    ACCEL.synchronize()
+    q_init = kernels.launch_counts()
+    int8_leaves = sorted(k for k, v in eng8.params["blocks"].items()
+                         if isinstance(v, Int8Param))
+    _launched(q_init, {"quantizer": 4}, "int8 engine init")
+    if int8_leaves != ["wi", "wo", "wo_mlp", "wqkv"]:
+        raise AssertionError(f"int8 BERT leaves {int8_leaves}")
+    res["param_bytes"] = {"bf16": param_bytes(eng.params),
+                          "int8": param_bytes(eng8.params)}
+    batches, counts = {}, q_init
+    for B, S in ENC_SHAPES:
+        toks = torch.as_tensor(rng.integers(0, V, (B, S)),
+                               device="cuda")
+        tt = torch.zeros_like(toks)
+        tt[:, S // 2:] = 1
+        kernels.reset_launch_counts()
+        out = eng(toks, tt)
+        ACCEL.synchronize()
+        c = kernels.launch_counts()
+        _launched(c, {"flash_fwd": cfg.n_layer}, f"BERT-large B{B} S{S}")
+        counts = _add(counts, c)
+        with torch.no_grad():
+            ref = bert.apply(params, toks, plain, tt)
+        rel = _rel_l2(out[..., :V], ref[..., :V])
+        finite = bool(torch.isfinite(out).all())
+        res[f"B{B}_S{S}"] = {"rel_l2_err": rel, "finite": finite}
+        log(f"[bert] BERT-large bf16 forward B{B} S{S}: logits "
+            f"{list(out.shape)} finite {finite}, vs the fp32 plain forward "
+            f"on the card rel_l2_err {rel:.5f} (tol 0.05); flash_fwd "
+            f"launches {c['flash_fwd']} (want {cfg.n_layer})")
+        if not finite or not rel <= 0.05 or \
+                tuple(out.shape) != (B, S, cfg.padded_vocab):
+            raise AssertionError(f"BERT-large B{B} S{S}: rel err {rel}")
+        batches[(B, S)] = (toks, tt)
+        if (B, S) == ENC_SHAPES[0]:
+            first = out
+        del ref
+    toks, tt = batches[ENC_SHAPES[0]]
+    B, S = toks.shape
+    kernels.reset_launch_counts()
+    hidden = eng.encode(toks, tt)
+    pooled = eng.pooled(toks, tt)
+    ones = eng(toks, tt, attention_mask=torch.ones_like(toks))
+    ACCEL.synchronize()
+    _launched(kernels.launch_counts(), {"flash_fwd": 3 * cfg.n_layer},
+              "BERT-large encode, pooled and all-ones mask")
+    counts = _add(counts, kernels.launch_counts())
+    if tuple(hidden.shape) != (B, S, cfg.d_model) or \
+            tuple(pooled.shape) != (B, cfg.d_model) or \
+            not torch.equal(ones, first):
+        raise AssertionError("BERT-large encode/pooled shapes, or the "
+                             "all-ones mask is not the unmasked forward")
+    lens = torch.as_tensor(rng.integers(S // 2, S + 1, B),
+                           device="cuda")
+    mask = _lens_mask(lens, S)
+    kernels.reset_launch_counts()
+    padded = eng(toks, tt, attention_mask=mask)
+    ACCEL.synchronize()
+    _launched(kernels.launch_counts(), {}, "BERT-large padded batch")
+    with torch.no_grad():
+        ref = bert.apply(params, toks, plain, tt, attention_mask=mask)
+    prel = _rel_l2(padded[..., :V], ref[..., :V])
+    del ref
+    res["padded"] = {"rel_l2_err": prel, "lens": [int(lens.min()),
+                                                  int(lens.max())]}
+    log(f"[bert] encode {list(hidden.shape)}, pooled {list(pooled.shape)}; "
+        f"all-ones mask bitwise equal to no mask True; right-padded batch "
+        f"(lengths {int(lens.min())}-{int(lens.max())}) through the dense "
+        f"masked path, 0 kernel launches, vs fp32 plain rel_l2_err "
+        f"{prel:.5f} (tol 0.05)")
+    if not prel <= 0.05:
+        raise AssertionError(f"BERT-large padded batch: rel err {prel}")
+    kernels.reset_launch_counts()
+    out8 = eng8(toks, tt)
+    ACCEL.synchronize()
+    _launched(kernels.launch_counts(), {"flash_fwd": cfg.n_layer},
+              "BERT-large int8 forward")
+    counts = _add(counts, kernels.launch_counts())
+    drift = (torch.log_softmax(out8[..., :V], -1)
+             - torch.log_softmax(first[..., :V], -1)).abs().mean().item()
+    res["int8_drift"] = drift
+    pb = res["param_bytes"]
+    log(f"[bert] int8 engine: {len(int8_leaves)} leaves as Int8Param "
+        f"({q_init['quantizer']} quantizer launches at init), parameter "
+        f"bytes {pb['int8']:,} vs bf16 {pb['bf16']:,} "
+        f"({pb['int8'] / pb['bf16']:.3f}x); mean |log-softmax| drift vs "
+        f"bf16 over the true vocabulary {drift:.5f} (tol {ENC_DRIFT_MAX})")
+    if not drift < ENC_DRIFT_MAX:
+        raise AssertionError(f"BERT-large int8 drift {drift}")
+    times = {}
+    for shape in ENC_SHAPES:
+        tk, ty = batches[shape]
+        for label, e in (("bf16", eng), ("int8", eng8), ("int8", eng8),
+                         ("bf16", eng)):
+            times.setdefault((label, shape), []).append(
+                _timed(lambda: e(tk, ty), 5))
+        for label in ("bf16", "int8"):
+            ms = min(times[(label, shape)])
+            res[f"{label}_B{shape[0]}_S{shape[1]}_ms"] = ms
+            log(f"[bert] {label} forward B{shape[0]} S{shape[1]}: {ms:.3f} "
+                f"ms, {shape[0] / ms * 1e3:.1f} sequences/s (in turns: "
+                f"{', '.join(f'{t:.3f}' for t in times[(label, shape)])})")
+    res[f"padded_B{B}_S{S}_ms"] = _timed(
+        lambda: eng(toks, tt, attention_mask=mask), 5)
+    log(f"[bert] padded-mask batch B{B} S{S} (dense attention): "
+        f"{res[f'padded_B{B}_S{S}_ms']:.3f} ms against the unmasked "
+        f"{res[f'bf16_B{B}_S{S}_ms']:.3f} ms")
+    res["profile"] = device_profile(f"bert-large forward B{B} S{S}",
+                                    lambda: eng(toks, tt), ("flash_fwd",))
+    return eng, eng8, first, (toks, tt), counts
+
+
+def encoder_hf_path(res, eng, first, batch, params, cfg):
+    """5g.3: the same params as an HF-keyed state dict, through
+    ``init_inference(<shim>)`` and through 3 ``.bin`` shards →
+    ``load_sharded_state_dict`` → the policy: logits bitwise equal, exact
+    launches.  Returns the counts of the two forwards."""
+    V = cfg.vocab_size
+    sd = bert_hf_state_dict(params, cfg)
+    counts = None
+    for label, make in (("state dict", lambda: sd), ("shards", None)):
+        if make is None:
+            root = tempfile.mkdtemp()
+            try:
+                write_bin_shards(sd, root)
+                t0 = time.perf_counter()
+                loaded = load_sharded_state_dict(root)
+                res["shard_load_s"] = time.perf_counter() - t0
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            make = lambda: loaded
+        shim = types.SimpleNamespace(config=BERT_LARGE_HF, state_dict=make)
+        hf_eng = deepspeed_tpu_torch.init_inference(
+            shim, {"dtype": "bfloat16"}, device="cuda")
+        hcfg = hf_eng.model_config
+        widths = (hcfg.n_layer, hcfg.d_model, hcfg.n_head, hcfg.ffn_dim,
+                  hcfg.padded_vocab)
+        if not isinstance(hf_eng, BertInferenceEngine) or widths != (
+                cfg.n_layer, cfg.d_model, cfg.n_head, cfg.ffn_dim,
+                cfg.padded_vocab):
+            raise AssertionError(f"HF BERT-large through {label}: "
+                                 f"{type(hf_eng).__name__} {widths}")
+        kernels.reset_launch_counts()
+        out = hf_eng(*batch)
+        ACCEL.synchronize()
+        c = kernels.launch_counts()
+        _launched(c, {"flash_fwd": cfg.n_layer}, f"HF BERT-large ({label})")
+        counts = _add(counts, c) if counts else c
+        same = torch.equal(out[..., :V], first[..., :V])
+        res[f"hf_{label.replace(' ', '_')}_bitwise"] = same
+        log(f"[bert] HF-keyed {label} ({len(sd)} tensors) → "
+            f"init_inference → logits bitwise equal to the tuple engine's "
+            f"{same}" + (f"; 3 .bin shards loaded in "
+                         f"{res['shard_load_s']:.2f} s" if label == "shards"
+                         else ""))
+        if not same:
+            raise AssertionError(f"HF BERT-large through {label} differs")
+        del hf_eng, out
+    return counts
+
+
+def encoder_module_quantize(res, params):
+    """5g.4: ``module_quantize`` of BERT-large's tree on the card: one
+    quantizer launch a quantized leaf, ``wi`` bitwise equal to the plain
+    version on the host, at most 255 values a group; its time."""
+    leaves = [(k, v) for k, v in params.items() if not isinstance(v, dict)]
+    leaves += [(f"blocks/{k}", v) for k, v in params["blocks"].items()]
+    quantized = {k: v for k, v in leaves if v.ndim >= 2}
+    kernels.reset_launch_counts()
+    q = module_quantize(params)
+    ACCEL.synchronize()
+    c = kernels.launch_counts()
+    _launched(c, {"quantizer": len(quantized)}, "module_quantize")
+    host = module_quantize({"wi": params["blocks"]["wi"].cpu()})["wi"]
+    same = torch.equal(q["blocks"]["wi"].cpu(), host)
+    most = 0
+    for name, v in quantized.items():
+        got = q["blocks"][name[7:]] if name.startswith("blocks/") else q[name]
+        rows = got.reshape(got.shape[0] if got.ndim >= 3 else 1, -1)
+        most = max(most, max(torch.unique(r).numel() for r in rows))
+    res["module_quantize_ms"] = _timed(lambda: module_quantize(params), 3)
+    wi = params["blocks"]["wi"]
+    res["quantizer_wi_24_groups_ms"] = time_ms(
+        lambda i: quantize(wi, groups=wi.shape[0]), 5)
+    wi2 = wi.reshape(wi.shape[0], -1)
+    res["quantizer_wi_plain_ms"] = time_ms(
+        lambda i: _quantize_ref(wi2, 8, True), 3)
+    n = wi.numel()
+    res["quantizer_wi_bound_ms"] = (n * 4 + n + 8 * wi.shape[0]) \
+        / HBM_BYTES_PER_S * 1e3
+    log(f"[bert] module_quantize(BERT-large): {len(quantized)} leaves, "
+        f"{c['quantizer']} quantizer launches, wi {list(wi.shape)} bitwise "
+        f"equal to the host's plain version {same}, at most {most} values a "
+        f"group (<= 255); {res['module_quantize_ms']:.3f} ms a call; the "
+        f"quantizer on wi's {wi.shape[0]} groups of {n // wi.shape[0]:,} "
+        f"fp32: {res['quantizer_wi_24_groups_ms']:.4f} ms (plain "
+        f"{res['quantizer_wi_plain_ms']:.4f} ms, bound "
+        f"{res['quantizer_wi_bound_ms']:.4f} ms, bytes)")
+    if not same or most > 255:
+        raise AssertionError("module_quantize disagrees with the plain "
+                             "version or leaves the grid")
+    return c
+
+
+def encoder_save16(res, eng8):
+    """5g.5: ``save_16bit_model`` of the int8 engine: JAX's keys, no int8,
+    each leaf reloaded bitwise equal to the engine's dequantized weight."""
+    root = tempfile.mkdtemp()
+    try:
+        path = os.path.join(root, "bert_large_int8.npz")
+        t0 = time.perf_counter()
+        eng8.save_16bit_model(path)
+        res["save_16bit_s"] = time.perf_counter() - t0
+        want = {}
+        for k, v in eng8.params.items():
+            if isinstance(v, dict):
+                want.update({f"['{k}']['{kk}']": vv for kk, vv in v.items()})
+            else:
+                want[f"['{k}']"] = v
+        bad = []
+        with np.load(path) as z:
+            if sorted(z.files) != sorted(want):
+                raise AssertionError(f"save_16bit_model keys {z.files}")
+            for key, w in want.items():
+                w = w.to(torch.bfloat16) if isinstance(w, Int8Param) else w
+                a = z[key]
+                if a.dtype == np.int8 or not np.array_equal(
+                        a.view(np.int16), w.cpu().view(torch.int16).numpy()):
+                    bad.append(key)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[bert] save_16bit_model(int8 engine): {len(want)} keys in JAX's "
+        f"form (['blocks']['wqkv'], ...), none int8, every leaf reloaded "
+        f"bitwise equal to the engine's dequantized weight {not bad}; "
+        f"{res['save_16bit_s']:.2f} s")
+    if bad:
+        raise AssertionError(f"save_16bit_model leaves differ: {bad}")
+
+
+def encoder_layer(res, params, cfg):
+    """5g.6: ``DeepSpeedTransformerLayer`` at BERT-large's layer width in
+    bf16, both LayerNorm orders, B64 S128 with ragged ``seq_lens``:
+    forward + backward against the fp32 plain version (the dense masked
+    attention) on the card, exact launches, two runs bitwise equal; then
+    24 post-LN layers of BERT-large's blocks = the ``bert._block`` loop."""
+    gen = torch.Generator(device="cuda").manual_seed(ENC_SEED + 6)
+    (B, S), d = ENC_SHAPES[0], cfg.d_model
+    x = torch.randn((B, S, d), generator=gen, device="cuda")
+    g = torch.randn((B, S, d), generator=gen, device="cuda")
+    lens = torch.randint(S // 2, S + 1, (B,), generator=gen,
+                         device="cuda")
+    mask = _lens_mask(lens, S)
+
+    def run(layer, **kw):
+        layer.zero_grad(set_to_none=True)
+        xr = x.clone().requires_grad_(True)
+        y = layer(xr, **kw)
+        (y * g).sum().backward()
+        return [y.detach(), xr.grad] + [p.grad for p in layer.parameters()]
+
+    counts = {}
+    for pre in (True, False):
+        lcfg = DeepSpeedTransformerConfig(hidden_size=d, heads=cfg.n_head,
+                                          intermediate_size=cfg.ffn_dim,
+                                          pre_layer_norm=pre, bf16=True)
+        layer = DeepSpeedTransformerLayer(lcfg, generator=gen)
+        ref_layer = DeepSpeedTransformerLayer(
+            dataclasses.replace(lcfg, bf16=False),
+            initial_weights=layer.params, device="cuda")
+        kernels.reset_launch_counts()
+        got = run(layer, seq_lens=lens)
+        ACCEL.synchronize()
+        c = kernels.launch_counts()
+        _launched(c, {"flash_fwd": 1, "flash_bwd_fused": 1},
+                  f"DeepSpeedTransformerLayer pre_ln={pre}")
+        counts = _add(counts, c) if counts else c
+        again = run(layer, seq_lens=lens)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = run(ref_layer, pad_mask=mask)
+        names = ["y", "dx"] + [n for n, _ in layer.named_parameters()]
+        errs = {n: _max_rel(a, b) for n, a, b in zip(names, got, ref)}
+        worst = max(errs, key=errs.get)
+        tag = "pre_ln" if pre else "post_ln"
+        res[f"layer_{tag}"] = {"errors": errs, "repeat_bitwise": repeat}
+        res[f"layer_{tag}_ms"] = eager_ms(lambda: run(layer, seq_lens=lens),
+                                          5)
+        log(f"[layer] DeepSpeedTransformerLayer {tag} d {d}, {cfg.n_head} "
+            f"heads, ffn {cfg.ffn_dim}, bf16, B{B} S{S}, seq_lens "
+            f"{int(lens.min())}-{int(lens.max())}: vs fp32 plain (max-abs "
+            f"err / max-abs ref, tol {LAYER_TOL}) y {errs['y']:.2e}, dx "
+            f"{errs['dx']:.2e}, worst {worst} {errs[worst]:.2e}; launches "
+            f"flash_fwd {c['flash_fwd']}, flash_bwd_fused "
+            f"{c['flash_bwd_fused']}; two runs bitwise equal {repeat}; fwd+"
+            f"bwd {res[f'layer_{tag}_ms']:.3f} ms")
+        log(f"[layer]   {tag} errors: " + ", ".join(
+            f"{n} {e:.2e}" for n, e in errs.items()))
+        if not repeat or errs[worst] > LAYER_TOL:
+            raise AssertionError(f"DeepSpeedTransformerLayer {tag}: "
+                                 f"{worst} {errs[worst]}, repeat {repeat}")
+        del layer, ref_layer, got, again, ref
+    post = DeepSpeedTransformerConfig(hidden_size=d, heads=cfg.n_head,
+                                      intermediate_size=cfg.ffn_dim,
+                                      pre_layer_norm=False, bf16=True,
+                                      layer_norm_eps=cfg.layer_norm_eps)
+    layers = [DeepSpeedTransformerLayer(
+        post, initial_weights=bert.layer_params(params, i), device="cuda")
+        for i in range(cfg.n_layer)]
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    embed_cfg = dataclasses.replace(cfg, n_layer=0)
+    equal = {}
+    with torch.no_grad():
+        h0 = bert.encode(params, toks, embed_cfg)
+        for label, kw in (("no seq_lens", {}), ("seq_lens", {
+                "seq_lens": lens.to(torch.int32)})):
+            a = b = h0
+            for i, layer in enumerate(layers):
+                a = layer(a, **kw)
+                b = bert._block(b, None, kw.get("seq_lens"),
+                                bert.layer_params(params, i), cfg)
+            equal[label] = torch.equal(a, b)
+    res["layer_stack_bitwise"] = equal
+    log(f"[layer] {cfg.n_layer} post-LN layers on BERT-large's blocks over the "
+        f"embedding output = the bert._block loop, bitwise: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"layer stack vs bert._block: {equal}")
+    return counts
+
+
+def encoder_clip(res):
+    """5g.7: the SD 1.5 text encoder through ``convert_hf_clip_text`` →
+    ``gpt.encode`` on a prompt row and the empty prompt (2 x 77), bf16,
+    against the fp32 plain version on the host; exact launches.  Returns
+    the two rows' embeddings (fp32, on the card) for the diffusion
+    phase."""
+    sd = clip_text_state_dict(CLIP_TEXT,
+                              torch.Generator().manual_seed(ENC_SEED + 7))
+    shim = types.SimpleNamespace(config=CLIP_TEXT, state_dict=lambda: sd)
+    ccfg, cparams = convert_hf_clip_text(shim, dtype=torch.bfloat16)
+    S = ccfg.max_seq_len
+    toks = np.full((2, S), CLIP_EOS, np.int64)
+    toks[:, 0] = CLIP_BOS
+    toks[0, 1:21] = np.random.default_rng(ENC_SEED).integers(0, CLIP_BOS, 20)
+    dev = {k: ({kk: vv.to("cuda") for kk, vv in v.items()}
+               if isinstance(v, dict) else v.to("cuda"))
+           for k, v in cparams.items()}
+    tk = torch.as_tensor(toks, device="cuda")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        out = gpt.encode(dev, tk, ccfg)
+        ACCEL.synchronize()
+        c = kernels.launch_counts()
+        _launched(c, {"flash_fwd": ccfg.n_layer}, "CLIP text encoder")
+        ref = gpt.encode(cparams, torch.as_tensor(toks),
+                         dataclasses.replace(ccfg, dtype=torch.float32))
+        res["clip_ms"] = _timed(lambda: gpt.encode(dev, tk, ccfg), 5)
+    rel = _rel_l2(out.cpu(), ref)
+    res["clip"] = {"rel_l2_err": rel, "shape": list(out.shape)}
+    log(f"[clip] SD 1.5 text encoder (CLIP ViT-L/14 text: {ccfg.n_layer} "
+        f"layers, d {ccfg.d_model}, {ccfg.n_head} heads, "
+        f"{ccfg.activation}) through convert_hf_clip_text → gpt.encode on "
+        f"2 x {S} tokens: {list(out.shape)}, vs fp32 plain on the host "
+        f"rel_l2_err {rel:.5f} (tol 0.05); causal flash_fwd launches "
+        f"{c['flash_fwd']} (want {ccfg.n_layer}); {res['clip_ms']:.3f} ms")
+    if not rel <= 0.05 or not torch.isfinite(out).all():
+        raise AssertionError(f"CLIP text encoder: rel err {rel}")
+    return out.float(), c
+
+
+def run_encoders():
+    """Phase 5g: the encoders at full width, bf16, weights from a seed:
+    BERT-large behind ``init_inference`` (bf16 and int8), the HF path,
+    ``module_quantize``, ``save_16bit_model``, ``DeepSpeedTransformerLayer``
+    and the SD 1.5 text encoder.  Counts at 0 before each run; returns
+    (result, the summed counts of the runs, the CLIP embeddings)."""
+    t_phase = time.perf_counter()
+    res = {}
+    cfg = bert.BERT_LARGE
+    params = bert.init(cfg, torch.Generator(device="cuda").manual_seed(
+        ENC_SEED), device="cuda")
+    eng, eng8, first, batch, counts = encoder_bert(res, params, cfg)
+    counts = _add(counts, encoder_hf_path(res, eng, first, batch, params,
+                                          cfg))
+    del eng, first
+    counts = _add(counts, encoder_module_quantize(res, params))
+    encoder_save16(res, eng8)
+    del eng8
+    torch.cuda.empty_cache()
+    counts = _add(counts, encoder_layer(res, params, cfg))
+    del params
+    torch.cuda.empty_cache()
+    embeds, clip_counts = encoder_clip(res)
+    counts = _add(counts, clip_counts)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 5g (the encoders) {res['phase_s']:.1f} s")
+    return res, counts, embeds
 
 
 # ---------------------------------- GPT-2 760M and 2.7B (head dims 96, 80)
@@ -6714,11 +7306,13 @@ def _timed(fn, n):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def run_diffusion():
+def run_diffusion(prompt_embeds):
     """Phase 10: Stable Diffusion 1.5 at its published widths (random
     weights from a seed, bf16) through ``init_inference`` on diffusers
     state dicts → ``DSUNet``/``DSVAE`` → ``DiffusionPipeline``: one prompt,
-    guided 50-step DDIM, 512x512; counts reset before the image and read
+    guided 50-step DDIM, 512x512, its cond and uncond embeddings
+    ``prompt_embeds`` [2, 77, 768] (phase 5g's SD 1.5 text encoder: a
+    prompt and the empty prompt); counts reset before the image and read
     after it.  Then launches per UNet forward and VAE decode, their times,
     the fp32 attention scores, FLOPs and MFU, the card's bf16 UNet forward
     and VAE decode against fp32 on the host, and a profile."""
@@ -6754,8 +7348,7 @@ def run_diffusion():
     resident = torch.cuda.memory_allocated()
     pipe = DiffusionPipeline(unet, vae)
     egen = torch.Generator(device="cuda").manual_seed(77)
-    embeds = torch.randn((1, 77, 768), generator=egen, device="cuda")
-    uncond = torch.zeros_like(embeds)
+    embeds, uncond = prompt_embeds[:1], prompt_embeds[1:]
 
     def image(steps):
         return pipe(embeds, uncond, steps=steps, guidance_scale=GUIDANCE,
@@ -7065,6 +7658,10 @@ def main() -> int:
     counts = _add(counts, spec_counts)
     log(f"[time] speculative decoding done at "
         f"{time.perf_counter() - T0:.1f} s")
+    result["encoders"], enc_counts, clip_embeds = run_encoders()
+    result["launches"]["encoders"] = enc_counts
+    counts = _add(counts, enc_counts)
+    log(f"[time] encoders done at {time.perf_counter() - T0:.1f} s")
 
     log(f"[time] serving paths done at {time.perf_counter() - T0:.1f} s")
     result["training"], train_counts, trainer, batch = run_training()
@@ -7175,7 +7772,7 @@ def main() -> int:
 
     log(f"[time] BERT training and the route check done at "
         f"{time.perf_counter() - T0:.1f} s")
-    result["diffusion"], diffusion_counts = run_diffusion()
+    result["diffusion"], diffusion_counts = run_diffusion(clip_embeds)
     result["launches"]["diffusion"] = diffusion_counts
     counts = {k: counts[k] + diffusion_counts[k] for k in counts}
     torch.cuda.empty_cache()
@@ -7233,7 +7830,7 @@ def main() -> int:
         f"x 8E training {moe_train_counts}, "
         f"sparse training "
         f"{sparse_counts}, bert training {bert_counts}, route check at seq "
-        f"{ROUTE_SEQ} {route_counts}, diffusion "
+        f"{ROUTE_SEQ} {route_counts}, encoders {enc_counts}, diffusion "
         f"{diffusion_counts}, bias-GeLU op {op_counts}")
     missing = [k for k, n in counts.items() if n <= 0 and k not in CHECK_ONLY]
     if missing:

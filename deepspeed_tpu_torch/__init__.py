@@ -29,7 +29,14 @@ package's layout; and the preemptible run around the step:
 ``elasticity.ElasticTrainRunner(engine, save_dir, ...).run(loader,
 max_steps)``, with run supervision (``runtime/supervision``: watchdog,
 heartbeats, rollback) and telemetry (``telemetry``: spans, the metrics
-stream, trace export).
+stream, trace export).  The encoders: BERT served by
+``BertInferenceEngine`` (``init_inference`` on a ``(BertConfig, params)``
+tuple, a BERT ``ModelSpec`` or a ``transformers`` BERT: MLM logits,
+hidden states, the pooler; int8 weights), the CLIP text tower
+(``module_inject.convert_hf_clip_text`` → ``models.gpt.encode``), sharded
+checkpoint loading and ``module_quantize`` (``module_inject``), and the
+standalone encoder block ``DeepSpeedTransformerLayer`` (``ops/
+transformer``, an ``nn.Module``, both LayerNorm orders).
 """
 
 from __future__ import annotations
@@ -37,12 +44,12 @@ from __future__ import annotations
 import os
 from collections.abc import Mapping
 
-import torch
-
 from .accelerator import get_accelerator
 from .inference.config import DeepSpeedInferenceConfig
-from .inference.engine import InferenceEngine
-from .models import gpt
+from .inference.engine import BertInferenceEngine, InferenceEngine
+from .models import bert, gpt
+from .ops.transformer import (DeepSpeedTransformerConfig,
+                              DeepSpeedTransformerLayer)
 from .runtime.engine import DeepSpeedEngine
 from .runtime.model import ModelSpec, from_bert, from_gpt, from_gpt_moe
 
@@ -50,24 +57,31 @@ __version__ = "0.1.0"
 
 
 def init_inference(model=None, config=None, device=None, **kwargs):
-    """Build an :class:`InferenceEngine`, or a served UNet or VAE
-    (reference ``deepspeed/__init__.py`` ``init_inference``).
+    """Build an :class:`InferenceEngine`, a :class:`BertInferenceEngine`,
+    or a served UNet or VAE (reference ``deepspeed/__init__.py``
+    ``init_inference``).
 
     ``model`` is a ``(GPTConfig, params)`` tuple of the port's GPT (params
-    from ``models.gpt.init`` or ``models.convert.from_jax_params``) or a
+    from ``models.gpt.init`` or ``models.convert.from_jax_params``), a
     ``(GPTMoEConfig, params)`` tuple of its GPT-MoE (``models.gpt_moe``;
-    the config's ``moe`` section, if any, at ``ep_size`` 1); a
-    ``transformers`` decoder (a module with ``config`` and
-    ``state_dict()``) that a ``module_inject.POLICIES`` entry matches
-    (GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX, GPT-J), converted and served
-    as a GPT; or a diffusers state dict (or a module with
+    the config's ``moe`` section, if any, at ``ep_size`` 1) or a
+    ``(BertConfig, params)`` tuple of its BERT (``models.bert``, served
+    by the encoder engine); a ``ModelSpec`` with materialized ``params``,
+    dispatched on ``meta["config"]`` the same way; a ``transformers``
+    BERT (``BertForMaskedLM`` or ``BertModel``: a module with ``config``
+    and ``state_dict()``, converted by ``module_inject.HFBertLayerPolicy``
+    and served by the encoder engine; task heads are not converted); a
+    ``transformers`` decoder that a ``module_inject.POLICIES`` entry
+    matches (GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX, GPT-J), converted and
+    served as a GPT; or a diffusers state dict (or a module with
     ``state_dict()``) that ``module_inject.UNetPolicy`` or ``VAEPolicy``
     matches, which returns a ``DSUNet`` or ``DSVAE`` on the device.
     ``config`` is a ``DeepSpeedInferenceConfig`` dict, with remaining
     kwargs merged into it: ``dtype`` is the compute dtype; ``dtype="int8"`` serves a GPT's
-    int8 weights (codes and per-vector scales of the bf16-cast weights)
-    with bf16 compute and a UNet or VAE in bf16; ``kv_cache_dtype="int8"``
-    caches K/V as int8 codes and per-vector scales; ``n_head`` and
+    or BERT's int8 weights (codes and per-vector scales of the bf16-cast
+    weights) with bf16 compute and a UNet or VAE in bf16;
+    ``kv_cache_dtype="int8"`` caches a GPT's K/V as int8 codes and
+    per-vector scales; ``n_head`` and
     ``groups`` (default 8 and 32, SD 1.x) set what a diffusers state dict
     cannot tell.  ``device=None`` runs on CUDA and raises when there is
     none; pass ``device="cpu"`` for the plain PyTorch path."""
@@ -76,33 +90,45 @@ def init_inference(model=None, config=None, device=None, **kwargs):
     extra = {k: cfg_dict.pop(k) for k in ("n_head", "groups")
              if k in cfg_dict}
     inf_config = DeepSpeedInferenceConfig.from_dict(cfg_dict)
-    if isinstance(model, tuple) and len(model) == 2 \
-            and isinstance(model[0], gpt.GPTConfig):
+    if isinstance(model, ModelSpec):
+        if model.params is None:
+            raise AssertionError(
+                "init_inference(ModelSpec) needs materialized params")
+        model = (model.meta.get("config"), model.params)
+    if isinstance(model, tuple) and len(model) == 2:
         model_config, params = model
-        return InferenceEngine(model_config, params, inf_config,
-                               device=device)
+        if isinstance(model_config, bert.BertConfig):
+            return BertInferenceEngine(model_config, params, inf_config,
+                                       device=device)
+        if isinstance(model_config, gpt.GPTConfig):
+            return InferenceEngine(model_config, params, inf_config,
+                                   device=device)
     sd = model if isinstance(model, Mapping) else (
         model.state_dict() if hasattr(model, "state_dict") else None)
     if sd is not None:
-        from .module_inject import (GENERIC_POLICIES, convert_hf_model,
-                                    match_decoder)
-        dtype = inf_config.torch_dtype
-        if dtype == torch.int8:     # weight-only int8 is GPT-only
-            dtype = torch.bfloat16
+        from .module_inject import (GENERIC_POLICIES, convert_hf_bert,
+                                    convert_hf_model, match_decoder)
+        from .module_inject.replace_policy import convertible_bert
         for policy in GENERIC_POLICIES:
             if policy.match(sd):
+                # a UNet or VAE has no int8 weights: dtype="int8" is bf16
                 return policy.apply(
-                    sd, dtype=dtype,
+                    sd, dtype=inf_config.serving_dtype()[0],
                     enable_cuda_graph=inf_config.enable_cuda_graph,
                     device=get_accelerator().resolve_device(device), **extra)
+        # the converters give fp32 params; each engine casts them to its
+        # serving dtype and refuses what it does not serve
+        if convertible_bert(model, sd):
+            return BertInferenceEngine(*convert_hf_bert(model), inf_config,
+                                       device=device)
         if hasattr(model, "config") and match_decoder(sd) is not None:
-            model_config, params = convert_hf_model(model, dtype=dtype)
-            return InferenceEngine(model_config, params, inf_config,
+            return InferenceEngine(*convert_hf_model(model), inf_config,
                                    device=device)
-    raise TypeError("init_inference takes model=(GPTConfig, params) of "
-                    "deepspeed_tpu_torch.models.gpt, a transformers GPT-2, "
-                    "GPT-Neo, OPT, BLOOM, GPT-NeoX or GPT-J model, or a "
-                    "diffusers UNet or VAE state dict")
+    raise TypeError("init_inference takes model=(GPTConfig, params) or "
+                    "(BertConfig, params) of deepspeed_tpu_torch.models, a "
+                    "ModelSpec with params, a transformers BERT (masked LM "
+                    "or bare encoder), GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX "
+                    "or GPT-J model, or a diffusers UNet or VAE state dict")
 
 
 def initialize(args=None, model: ModelSpec = None, optimizer=None,
@@ -155,7 +181,8 @@ def initialize(args=None, model: ModelSpec = None, optimizer=None,
         engine.lr_scheduler
 
 
-__all__ = ["DeepSpeedEngine", "DeepSpeedInferenceConfig", "InferenceEngine",
-           "ModelSpec", "from_bert", "from_gpt", "from_gpt_moe",
-           "init_inference",
+__all__ = ["BertInferenceEngine", "DeepSpeedEngine",
+           "DeepSpeedInferenceConfig", "DeepSpeedTransformerConfig",
+           "DeepSpeedTransformerLayer", "InferenceEngine", "ModelSpec",
+           "from_bert", "from_gpt", "from_gpt_moe", "init_inference",
            "initialize"]

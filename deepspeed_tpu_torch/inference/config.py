@@ -5,9 +5,11 @@ scale per head vector), quantization, tensor parallelism, ``moe`` and
 ``max_out_tokens``.
 
 Options the JAX package has and this port does not yet (tensor
-parallelism, ``quant.int8_compute``, weights of other than 8 bits, expert
-parallelism: ``moe.ep_size`` above 1) raise at construction; none is
-ignored.
+parallelism, weights of other than 8 bits, expert parallelism:
+``moe.ep_size`` above 1) raise at construction, and
+``quant.int8_compute`` in :meth:`DeepSpeedInferenceConfig.serving_dtype`,
+where every served model takes its compute dtype (the encoder engine
+passes its own message, as in the JAX package); none is ignored.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "half": torch.float16,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "int8": torch.int8}
+_INT8_COMPUTE_ERROR = ("quant.int8_compute (int8 x int8 -> int32 GEMMs) is "
+                       'not ported yet; dtype="int8" serves int8 weights '
+                       "with bf16 compute")
 #: the ``moe`` keys the port reads
 _MOE_KEYS = frozenset({"ep_size", "enabled"})
 
@@ -34,15 +39,11 @@ class QuantizationConfig(DeepSpeedConfigModel):
     enabled: bool = False
     #: only 8 is ported (int8 codes); other widths raise
     bits: int = 8
-    #: int8 x int8 -> int32 GEMMs (JAX ``ops/int8.py``): not ported, raises
+    #: int8 x int8 -> int32 GEMMs (JAX ``ops/int8.py``): not ported,
+    #: ``serving_dtype`` raises on it
     int8_compute: bool = False
 
     def __post_init__(self):
-        if self.int8_compute:
-            raise NotImplementedError(
-                "quant.int8_compute (int8 x int8 -> int32 GEMMs) is not "
-                'ported yet; dtype="int8" serves int8 weights with bf16 '
-                "compute")
         if self.bits != 8:
             raise NotImplementedError(
                 f"quant.bits={self.bits}: only 8-bit weights are served")
@@ -111,3 +112,15 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[str(self.dtype).replace("torch.", "")]
+
+    def serving_dtype(self, int8_compute_error: str = _INT8_COMPUTE_ERROR):
+        """(compute dtype, weight_int8): ``dtype="int8"`` means weight-only
+        int8 serving, with the weights stored as int8 codes and per-vector
+        scales and the compute in bf16.  ``quant.int8_compute`` raises
+        ``NotImplementedError(int8_compute_error)``."""
+        if self.quantization.int8_compute:
+            raise NotImplementedError(int8_compute_error)
+        dtype = self.torch_dtype
+        if dtype == torch.int8:
+            return torch.bfloat16, True
+        return dtype, False

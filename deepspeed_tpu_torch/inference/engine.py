@@ -23,34 +23,30 @@ by the target (``inference/speculative.py``).  ``start_session`` gives a
 multi-turn :class:`InferenceSession` over one persistent KV cache, and
 ``serve`` a continuous-batching ``serving.ServingGateway`` over the
 engine (with a draft: speculative rounds in its tick loop).
+
+:class:`BertInferenceEngine` serves the BERT encoder (``models/bert.py``)
+with the same dtype and weight-only int8 treatment: one full-sequence
+forward, no KV cache.  Both engines write their weights with
+``save_16bit_model`` in the JAX package's ``np.savez`` layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..accelerator import get_accelerator
-from ..models import gpt, gpt_inference, gpt_moe, gpt_moe_inference
+from ..models import bert, gpt, gpt_inference, gpt_moe, gpt_moe_inference
 from ..utils.logging import logger
 from .bucketing import (bucket_cache_len, bucket_max_new_tokens,
                         tile_cache_len)
 from .config import DeepSpeedInferenceConfig
-from .quantization import quantize_params_int8
+from .quantization import Int8Param, quantize_params_int8
 from .sampling import filter_logits, sample
-
-
-def _serving_dtype(config: DeepSpeedInferenceConfig):
-    """(compute dtype, weight_int8): ``dtype="int8"`` means weight-only
-    int8 serving, with the weights stored as int8 codes and per-vector
-    scales and the compute in bf16."""
-    dtype = config.torch_dtype
-    if dtype == torch.int8:
-        return torch.bfloat16, True
-    return dtype, False
 
 
 def _shard_and_quantize(params: dict, weight_int8: bool) -> dict:
@@ -73,7 +69,7 @@ class InferenceEngine:
                  config: DeepSpeedInferenceConfig, device=None):
         self.device = get_accelerator().resolve_device(device)
         self._config = config
-        dtype, self._weight_int8 = _serving_dtype(config)
+        dtype, self._weight_int8 = config.serving_dtype()
         self._kv_dtype = "int8" if config.kv_cache_dtype == "int8" else None
         self.model_config = cfg = dataclasses.replace(model_config,
                                                       dtype=dtype)
@@ -102,13 +98,9 @@ class InferenceEngine:
     @torch.no_grad()
     def forward(self, tokens) -> torch.Tensor:
         """Full-sequence logits [B, S, padded_vocab] fp32; tokens [B, S]."""
-        return self._apply_fn(self.params, self._tokens(tokens))
+        return self._apply_fn(self.params, _as_long(tokens, self.device))
 
     __call__ = forward
-
-    def _tokens(self, tokens) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(tokens), dtype=torch.long).to(
-            self.device)
 
     # ------------------------------------------------------------- generate
 
@@ -129,7 +121,7 @@ class InferenceEngine:
         (finished rows keep emitting eos).  Sampling draws from
         ``generator`` (on the engine's device)."""
         cfg = self.model_config
-        tokens = self._tokens(tokens)
+        tokens = _as_long(tokens, self.device)
         B, S = tokens.shape
         ragged = prompt_lens is not None
         if ragged:
@@ -229,7 +221,7 @@ class InferenceEngine:
                 torch.Generator(device=self.device).manual_seed(int(seed))
         return speculative_generate(
             self.params, self.model_config, dparams, dcfg,
-            self._tokens(tokens), max_new_tokens, draft_k,
+            _as_long(tokens, self.device), max_new_tokens, draft_k,
             kv_dtype=self._kv_dtype, temperature=temperature, top_k=top_k,
             top_p=top_p, generator=generator, rounds=rounds)
 
@@ -267,6 +259,13 @@ class InferenceEngine:
         return ServingGateway(self, config=config, journal=journal,
                               autostart=autostart, tracer=tracer,
                               draft=draft)
+
+    # ----------------------------------------------------------- checkpoint
+
+    def save_16bit_model(self, path: str) -> None:
+        """The served weights as one ``np.savez`` file (see
+        :func:`_save_16bit`)."""
+        _save_16bit(self.params, self.model_config.dtype, path)
 
 
 class InferenceSession:
@@ -325,7 +324,7 @@ class InferenceSession:
     def append(self, tokens) -> torch.Tensor:
         """Feed one turn's tokens [B, S]; returns its logits
         [B, S, padded_vocab] (fp32)."""
-        tokens = self._engine._tokens(tokens)
+        tokens = _as_long(tokens, self._engine.device)
         if tokens.ndim != 2 or tokens.shape[0] != self.cache.batch:
             raise ValueError(f"append wants tokens [{self.cache.batch}, S], "
                              f"got {tuple(tokens.shape)}")
@@ -384,3 +383,111 @@ def _to_device(tree: dict, device: torch.device, dtype: torch.dtype) -> dict:
             else v.to(device=device,
                       dtype=dtype if v.is_floating_point() else v.dtype)
             for k, v in tree.items()}
+
+
+def _savez_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as the JAX package's file holds it: bf16 as its raw 2-byte
+    pattern (``|V2``, what ``np.savez`` writes for an ml_dtypes
+    ``bfloat16`` array), anything else as its numpy dtype."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _save_16bit(params: dict, dtype: torch.dtype, path: str) -> None:
+    """Write ``params`` to one ``np.savez`` file under the keys that
+    ``jax.tree_util.keystr`` gives the JAX tree (``['wte']``,
+    ``['blocks']['wqkv']``; dict keys sorted, as JAX flattens them).  A
+    layer-stacked leaf held as a list of per-layer tensors is stacked to
+    one [L, ...] array, and an :class:`Int8Param` is dequantized to
+    ``dtype`` (a 16-bit weight per leaf under the leaf's own key), so
+    either package's file reads like the other's."""
+    arrays = {}
+
+    def walk(tree, key):
+        if isinstance(tree, Mapping):
+            for name in sorted(tree):
+                walk(tree[name], f"{key}[{name!r}]")
+        else:
+            if isinstance(tree, (list, tuple)):
+                tree = torch.stack([w.to(dtype) if isinstance(w, Int8Param)
+                                    else w for w in tree])
+            elif isinstance(tree, Int8Param):
+                tree = tree.to(dtype)
+            arrays[key] = _savez_array(tree)
+
+    walk(params, "")
+    np.savez(path, **arrays)
+
+
+class BertInferenceEngine:
+    """Encoder serving: the BERT encoder's full-sequence forward on one
+    device, no KV cache (JAX ``inference/engine.py`` ``BertInferenceEngine``),
+    with :class:`InferenceEngine`'s dtype and weight-only int8 treatment:
+    ``dtype="int8"`` stores ``wqkv``, ``wo``, ``wi`` and ``wo_mlp`` as
+    :class:`Int8Param` codes of the bf16-cast weights and computes in
+    bf16.  A batch without a mask, or with an all-ones ``attention_mask``,
+    runs the flash kernel (non-causal); any other mask takes the dense
+    masked attention of ``models/bert.py``, as the JAX engine does.
+    ``device=None`` means CUDA (and raises when there is none)."""
+
+    def __init__(self, model_config: bert.BertConfig, params: dict,
+                 config: DeepSpeedInferenceConfig, device=None):
+        dtype, self._weight_int8 = config.serving_dtype(
+            "quant.int8_compute serves the GPT decoder families; the "
+            "encoder engine uses weight-only int8 (dtype='int8')")
+        if config.kv_cache_dtype != "auto":
+            raise NotImplementedError(
+                "kv_cache_dtype applies to autoregressive decode; the "
+                "encoder engine has no KV cache")
+        self.device = get_accelerator().resolve_device(device)
+        self._config = config
+        self.model_config = dataclasses.replace(model_config, dtype=dtype)
+        self.params = _shard_and_quantize(
+            _to_device(params, self.device, dtype), self._weight_int8)
+
+    def _args(self, tokens, token_type_ids, attention_mask):
+        """(tokens, type ids, mask or None) on the device; an all-ones
+        mask is None, so that the unmasked path serves it."""
+        tokens = _as_long(tokens, self.device)
+        tt = torch.zeros_like(tokens) if token_type_ids is None \
+            else _as_long(token_type_ids, self.device)
+        if attention_mask is not None:
+            attention_mask = _as_long(attention_mask, self.device)
+            if bool(attention_mask.all()):
+                attention_mask = None
+        return tokens, tt, attention_mask
+
+    @torch.no_grad()
+    def forward(self, tokens, token_type_ids=None, attention_mask=None):
+        """tokens [B, S] → MLM logits [B, S, padded_vocab] fp32."""
+        tokens, tt, am = self._args(tokens, token_type_ids, attention_mask)
+        return bert.apply(self.params, tokens, self.model_config, tt, am)
+
+    __call__ = forward
+
+    @torch.no_grad()
+    def encode(self, tokens, token_type_ids=None, attention_mask=None):
+        """tokens [B, S] → hidden states [B, S, d] in the compute dtype."""
+        tokens, tt, am = self._args(tokens, token_type_ids, attention_mask)
+        return bert.encode(self.params, tokens, self.model_config, tt, am)
+
+    @torch.no_grad()
+    def pooled(self, tokens, token_type_ids=None, attention_mask=None):
+        """tokens [B, S] → the [CLS] pooler output [B, d]."""
+        return bert.pooled_output(
+            self.params, self.encode(tokens, token_type_ids, attention_mask),
+            self.model_config)
+
+    def save_16bit_model(self, path: str) -> None:
+        """The served weights as one ``np.savez`` file (see
+        :func:`_save_16bit`)."""
+        _save_16bit(self.params, self.model_config.dtype, path)
+
+
+def _as_long(x, device: torch.device) -> torch.Tensor:
+    """An int array or tensor as an int64 tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.long)
+    return torch.as_tensor(np.asarray(x), dtype=torch.long).to(device)

@@ -628,6 +628,14 @@ def apply(params: Params, tokens, config: GPTConfig):
     return lm_logits(params, backbone(params, tokens, config), config)
 
 
+def encode(params: Params, tokens, config: GPTConfig):
+    """Final-LayerNormed hidden states [B, S, d] in the compute dtype: the
+    text-encoder surface (CLIP's ``last_hidden_state``; the tree of
+    ``module_inject.HFCLIPLayerPolicy``)."""
+    x = backbone(params, tokens, config)
+    return _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+
+
 # -------------------------------------------------------------------- train
 
 def _token_nll(logits, targets):

@@ -12,8 +12,12 @@ weights and come from the caller (SD 1.x: 8 and 32).
 
 The HF decoder policies (GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX, GPT-J;
 :data:`POLICIES`, :func:`convert_hf_model`) map a ``transformers``
-model's state dict into the tree of ``models/gpt.py``.  The BERT and CLIP
-text policies are not ported yet.
+model's state dict into the tree of ``models/gpt.py``; the encoder
+policies map BERT (``HFBertLayerPolicy``, :func:`convert_hf_bert`) into
+the tree of ``models/bert.py`` and the CLIP text tower
+(``HFCLIPLayerPolicy``, :func:`convert_hf_clip_text`) into a causal GPT
+tree served through ``gpt.encode``.  A policy reads any object with a
+``config`` of the HF field names and a ``state_dict()``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..models import gpt
+from ..models import bert, gpt
 from ..models.diffusion import UNetConfig, VAEConfig, cast_params
 
 Params = Dict[str, Any]
@@ -842,3 +846,226 @@ def convert_hf_model(hf_model, dtype=torch.float32):
                          f"{[p.__name__ for p in POLICIES]}")
     config = policy.model_config(hf_model.config, dtype=dtype)
     return config, policy.convert(sd, config)
+
+
+# ------------------------------------------------ HF encoder policies
+#
+# The port of the JAX encoder policies (``replace_policy.py:222-312,
+# 561-662, 836-843``).
+
+
+class HFCLIPLayerPolicy:
+    """transformers CLIP text encoder (``CLIPTextModel``, or the text tower
+    of ``CLIPModel``): a pre-LN causal transformer with quick-GeLU MLPs and
+    learned positions.  CLIP has no LM head: the converted tree serves
+    hidden states through ``gpt.encode`` (``last_hidden_state``)."""
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("text_model.encoder.layers" in k and
+                   "self_attn.q_proj.weight" in k for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> gpt.GPTConfig:
+        if hasattr(hf_config, "text_config"):   # a full CLIPModel config
+            hf_config = hf_config.text_config
+        act = getattr(hf_config, "hidden_act", "quick_gelu")
+        return gpt.GPTConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            n_layer=hf_config.num_hidden_layers,
+            n_head=hf_config.num_attention_heads,
+            d_model=hf_config.hidden_size,
+            d_ff=hf_config.intermediate_size,
+            activation="quick_gelu" if act == "quick_gelu" else "gelu_exact",
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config: gpt.GPTConfig) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+
+        def get(name):
+            return _np(sd["text_model." + name])
+
+        def lw(i, name):
+            return get(f"encoder.layers.{i}.{name}.weight").T
+
+        def lb(i, name):
+            return get(f"encoder.layers.{i}.{name}.bias")
+
+        def stack(fn, *args):
+            return np.stack([fn(i, *args) for i in range(L)])
+
+        def qkv_w(i):
+            return np.stack([lw(i, f"self_attn.{n}_proj").reshape(d, H, Dh)
+                             for n in ("q", "k", "v")], axis=1)
+
+        def qkv_b(i):
+            return np.stack([lb(i, f"self_attn.{n}_proj").reshape(H, Dh)
+                             for n in ("q", "k", "v")])
+
+        block = {
+            "ln1_scale": np.stack([get(f"encoder.layers.{i}.layer_norm1."
+                                       "weight") for i in range(L)]),
+            "ln1_bias": stack(lb, "layer_norm1"),
+            "wqkv": stack(qkv_w),
+            "bqkv": stack(qkv_b),
+            "wo": np.stack([lw(i, "self_attn.out_proj").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": stack(lb, "self_attn.out_proj"),
+            "ln2_scale": np.stack([get(f"encoder.layers.{i}.layer_norm2."
+                                       "weight") for i in range(L)]),
+            "ln2_bias": stack(lb, "layer_norm2"),
+            "wi": stack(lw, "mlp.fc1"),
+            "bi": stack(lb, "mlp.fc1"),
+            "wo_mlp": stack(lw, "mlp.fc2"),
+            "bo_mlp": stack(lb, "mlp.fc2"),
+        }
+        params = {
+            "wte": _pad_vocab(get("embeddings.token_embedding.weight"),
+                              config.padded_vocab),
+            "wpe": get("embeddings.position_embedding.weight"),
+            "blocks": block,
+            "lnf_scale": get("final_layer_norm.weight"),
+            "lnf_bias": get("final_layer_norm.bias"),
+        }
+        return _tree_to_torch(params, config.param_dtype)
+
+
+def convert_hf_clip_text(hf_model, dtype=torch.float32):
+    """An HF ``CLIPTextModel`` or ``CLIPModel`` (anything with ``.config``
+    and ``.state_dict()``) → (``GPTConfig``, params) on the CPU; serve its
+    hidden states with ``gpt.encode``.  A bare text model's keys get the
+    ``text_model.`` prefix."""
+    sd = hf_model.state_dict()
+    if not any(k.startswith("text_model.") for k in sd):
+        sd = {"text_model." + k: v for k, v in sd.items()}
+    if not HFCLIPLayerPolicy.match(sd):
+        raise ValueError("not a CLIP text-encoder state dict")
+    config = HFCLIPLayerPolicy.model_config(hf_model.config, dtype=dtype)
+    return config, HFCLIPLayerPolicy.convert(sd, config)
+
+
+class HFBertLayerPolicy:
+    """transformers BERT (``BertForMaskedLM``, ``BertModel``) → the tree of
+    ``models/bert.py``.  A bare ``BertModel`` gets an identity MLM
+    transform with a zero vocabulary bias, and a missing pooler the
+    identity."""
+
+    @staticmethod
+    def match(sd: Dict[str, Any]) -> bool:
+        return any("attention.self.query.weight" in k for k in sd)
+
+    @staticmethod
+    def model_config(hf_config, dtype=torch.float32) -> bert.BertConfig:
+        return bert.BertConfig(
+            vocab_size=hf_config.vocab_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            type_vocab_size=hf_config.type_vocab_size,
+            n_layer=hf_config.num_hidden_layers,
+            n_head=hf_config.num_attention_heads,
+            d_model=hf_config.hidden_size,
+            d_ff=hf_config.intermediate_size,
+            layer_norm_eps=hf_config.layer_norm_eps,
+            dtype=dtype)
+
+    @staticmethod
+    def convert(sd: Dict[str, Any], config) -> Params:
+        L, d = config.n_layer, config.d_model
+        H, Dh = config.n_head, config.head_dim
+        pre = "bert." if any(k.startswith("bert.") for k in sd) else ""
+
+        def get(name):
+            return _np(sd[pre + name])
+
+        def pad_v(w):
+            return _pad_vocab(w, config.padded_vocab)
+
+        def lw(i, name):
+            return get(f"encoder.layer.{i}.{name}.weight").T
+
+        def lb(i, name):
+            return get(f"encoder.layer.{i}.{name}.bias")
+
+        def lnp(i, name, field):
+            return get(f"encoder.layer.{i}.{name}.LayerNorm.{field}")
+
+        def stack(fn, *args):
+            return np.stack([fn(i, *args) for i in range(L)])
+
+        def qkv_w(i):
+            return np.stack([lw(i, f"attention.self.{n}").reshape(d, H, Dh)
+                             for n in ("query", "key", "value")], axis=1)
+
+        def qkv_b(i):
+            return np.stack([lb(i, f"attention.self.{n}").reshape(H, Dh)
+                             for n in ("query", "key", "value")])
+
+        block = {
+            "wqkv": stack(qkv_w),
+            "bqkv": stack(qkv_b),
+            "wo": np.stack([lw(i, "attention.output.dense").reshape(H, Dh, d)
+                            for i in range(L)]),
+            "bo": stack(lb, "attention.output.dense"),
+            "ln1_scale": stack(lnp, "attention.output", "weight"),
+            "ln1_bias": stack(lnp, "attention.output", "bias"),
+            "wi": stack(lw, "intermediate.dense"),
+            "bi": stack(lb, "intermediate.dense"),
+            "wo_mlp": stack(lw, "output.dense"),
+            "bo_mlp": stack(lb, "output.dense"),
+            "ln2_scale": stack(lnp, "output", "weight"),
+            "ln2_bias": stack(lnp, "output", "bias"),
+        }
+        params = {
+            "wte": pad_v(get("embeddings.word_embeddings.weight")),
+            "wpe": get("embeddings.position_embeddings.weight"),
+            "wtype": get("embeddings.token_type_embeddings.weight"),
+            "emb_ln_scale": get("embeddings.LayerNorm.weight"),
+            "emb_ln_bias": get("embeddings.LayerNorm.bias"),
+            "blocks": block,
+        }
+        head = "cls.predictions."
+        if head + "transform.dense.weight" in sd:      # BertForMaskedLM
+            params["mlm_dense"] = _np(sd[head + "transform.dense.weight"]).T
+            params["mlm_dense_bias"] = _np(sd[head + "transform.dense.bias"])
+            params["mlm_ln_scale"] = _np(
+                sd[head + "transform.LayerNorm.weight"])
+            params["mlm_ln_bias"] = _np(sd[head + "transform.LayerNorm.bias"])
+            params["mlm_bias"] = pad_v(_np(sd[head + "bias"]))
+        else:
+            params["mlm_dense"] = np.eye(d, dtype=np.float32)
+            params["mlm_dense_bias"] = np.zeros((d,), np.float32)
+            params["mlm_ln_scale"] = np.ones((d,), np.float32)
+            params["mlm_ln_bias"] = np.zeros((d,), np.float32)
+            params["mlm_bias"] = np.zeros((config.padded_vocab,), np.float32)
+        if pre + "pooler.dense.weight" in sd:
+            params["pool_w"] = get("pooler.dense.weight").T
+            params["pool_b"] = get("pooler.dense.bias")
+        else:
+            params["pool_w"] = np.eye(d, dtype=np.float32)
+            params["pool_b"] = np.zeros((d,), np.float32)
+        return _tree_to_torch(params, config.param_dtype)
+
+
+def convertible_bert(model, sd: Dict[str, Any]) -> bool:
+    """Whether ``init_inference`` serves ``model`` (state dict ``sd``)
+    through :class:`HFBertLayerPolicy` (JAX ``__init__.py:261-279``): a
+    ``config``, the exact word-embedding key of ``BertForMaskedLM`` or
+    ``BertModel`` (RoBERTa and ELECTRA share BERT's attention keys, not
+    its embeddings), and no task head that the conversion would drop."""
+    return (HFBertLayerPolicy.match(sd) and hasattr(model, "config") and
+            ("bert.embeddings.word_embeddings.weight" in sd or
+             "embeddings.word_embeddings.weight" in sd) and
+            not any(k.startswith(("classifier.", "qa_outputs."))
+                    for k in sd))
+
+
+def convert_hf_bert(hf_model, dtype=torch.float32):
+    """An HF BERT module (anything with ``.config`` and ``.state_dict()``)
+    → (``BertConfig``, params) on the CPU."""
+    sd = hf_model.state_dict()
+    if not HFBertLayerPolicy.match(sd):
+        raise ValueError("not a BERT-family state dict")
+    config = HFBertLayerPolicy.model_config(hf_model.config, dtype=dtype)
+    return config, HFBertLayerPolicy.convert(sd, config)

@@ -1,6 +1,6 @@
 """``deepspeed_tpu_torch`` imports with JAX blocked and pulls in neither
-``jax`` nor ``deepspeed_tpu``; its entry points refuse to run on the host
-unless asked to."""
+``jax``, ``deepspeed_tpu`` nor ``ml_dtypes``; its entry points refuse to
+run on the host unless asked to."""
 
 import os
 import subprocess
@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("deepspeed_tpu", "jaxlib")
+                if m.split(".")[0] in ("deepspeed_tpu", "jaxlib", "ml_dtypes")
                 or (m.split(".")[0] == "jax" and sys.modules[m] is not None))
 assert not leaked, leaked
 print(len(names))
@@ -50,8 +50,10 @@ def test_every_module_imports_without_jax():
     # telemetry/propagate), 12 of ZeRO-Offload (ops/op_builder and its
     # three modules, ops/adam/cpu_adam, runtime/swap_tensor and its four
     # modules, runtime/zero/offload_engine, runtime/memory_model), 7 of
-    # MoE (moe and its four modules, models/gpt_moe, gpt_moe_inference)
-    assert int(res.stdout.strip().splitlines()[-1]) >= 113
+    # MoE (moe and its four modules, models/gpt_moe, gpt_moe_inference), 3
+    # of the encoders (module_inject/load_checkpoint, ops/transformer and
+    # its module)
+    assert int(res.stdout.strip().splitlines()[-1]) >= 116
 
 
 def test_bert_and_lamb_modules_are_importable():
@@ -170,6 +172,46 @@ def test_moe_modules_are_importable():
     for obj in (MoE, TopKGate, has_moe_layers, split_moe_param_tree,
                 top1gating, top2gating, moe_config_from_jax):
         assert obj.__module__.startswith("deepspeed_tpu_torch.")
+
+
+def test_encoder_modules_are_importable():
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.engine import BertInferenceEngine
+    from deepspeed_tpu_torch.models.gpt import encode
+    from deepspeed_tpu_torch.module_inject import (
+        HFBertLayerPolicy, HFCLIPLayerPolicy, convert_hf_bert,
+        convert_hf_clip_text, load_sharded_state_dict, module_quantize)
+    from deepspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer)
+    assert deepspeed_tpu_torch.DeepSpeedTransformerLayer is \
+        DeepSpeedTransformerLayer
+    assert deepspeed_tpu_torch.BertInferenceEngine is BertInferenceEngine
+    assert issubclass(DeepSpeedTransformerLayer, torch.nn.Module)
+    assert DeepSpeedTransformerConfig().ffn == 3072
+    for obj in (HFBertLayerPolicy, HFCLIPLayerPolicy, convert_hf_bert,
+                convert_hf_clip_text, load_sharded_state_dict,
+                module_quantize, encode):
+        assert obj.__module__.startswith("deepspeed_tpu_torch.")
+
+
+def test_encoder_entry_points_without_cuda_raise(monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = bert.BertConfig(vocab_size=64, max_seq_len=16, n_layer=1,
+                          n_head=2, d_model=32, dtype=torch.float32)
+    params = bert.init(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.init_inference(model=(cfg, params))
+    eng = deepspeed_tpu_torch.init_inference(model=(cfg, params),
+                                             device="cpu")
+    assert eng.device.type == "cpu"
+    lcfg = deepspeed_tpu_torch.DeepSpeedTransformerConfig(hidden_size=32,
+                                                          heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.DeepSpeedTransformerLayer(lcfg)
+    layer = deepspeed_tpu_torch.DeepSpeedTransformerLayer(lcfg, device="cpu")
+    assert layer.wqkv.device.type == "cpu"
 
 
 def test_moe_entry_points_without_cuda_raise(monkeypatch):

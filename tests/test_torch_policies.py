@@ -3,15 +3,22 @@ random-init ``transformers`` models (nothing is downloaded): the same
 arrays exactly (fp32), and ``init_inference(model=hf_model)`` logits equal
 to the JAX engine's and HF's own at 3e-4 (the JAX tests' parity
 tolerance), for GPT-2, GPT-Neo, OPT, BLOOM, GPT-NeoX and GPT-J; and OPT's
-two refused layouts, refused by both packages."""
+two refused layouts, refused by both packages.  The encoder policies:
+BERT (``BertForMaskedLM``, ``BertModel``) and the CLIP text tower convert
+to the JAX policies' arrays exactly, and ``gpt.encode`` of the converted
+CLIP tower equals JAX's ``gpt.encode`` and HF's ``last_hidden_state`` at
+2e-4 (the JAX CLIP test's tolerance)."""
+
+import types
 
 import numpy as np
 import pytest
 
 import deepspeed_tpu
 import deepspeed_tpu_torch
+from deepspeed_tpu.models import gpt as jgpt
 from deepspeed_tpu.module_inject import replace_policy as jpol
-from deepspeed_tpu_torch.models import convert
+from deepspeed_tpu_torch.models import convert, gpt
 from deepspeed_tpu_torch.module_inject import replace_policy as tpol
 
 transformers = pytest.importorskip("transformers")
@@ -144,3 +151,87 @@ def test_opt_layouts_the_jax_policy_refuses_are_refused(layout):
     with pytest.raises(NotImplementedError, match="not supported"):
         deepspeed_tpu_torch.init_inference(
             model=hf, config={"dtype": "float32"}, device="cpu")
+
+
+CLIP_TOL = 2e-4
+
+
+def _bert(cls):
+    cfg = transformers.BertConfig(
+        vocab_size=120, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=128,
+        max_position_embeddings=64, type_vocab_size=2,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    torch.manual_seed(5)
+    return getattr(transformers, cls)(cfg).eval()
+
+
+@pytest.mark.parametrize("cls", ["BertForMaskedLM", "BertModel"])
+def test_bert_policy_converts_to_the_jax_arrays(cls):
+    """Transposed linears, q/k/v stacked per head, the vocabulary padded
+    (120 → 128), the ``bert.`` prefix optional; a bare ``BertModel`` gets
+    the identity MLM transform and a zero vocabulary bias."""
+    hf = _bert(cls)
+    sd = hf.state_dict()
+    assert jpol.HFBertLayerPolicy.match(sd) and tpol.HFBertLayerPolicy.match(sd)
+    jcfg, jparams = jpol.convert_hf_bert(hf)
+    tcfg, tparams = tpol.convert_hf_bert(hf)
+    assert tcfg == convert.bert_config_from_jax(jcfg, dtype=tcfg.dtype)
+    want, got = _flat(jparams), _flat(convert.to_numpy_params(tparams))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["wte"].shape == (128, 64)
+    assert all(v.dtype == torch.float32 and v.device.type == "cpu"
+               for v in tparams["blocks"].values())
+
+
+def _clip():
+    cfg = transformers.CLIPTextConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4,
+        max_position_embeddings=32, hidden_act="quick_gelu")
+    torch.manual_seed(6)
+    return transformers.CLIPTextModel(cfg).eval()
+
+
+def test_clip_text_tower_matches_jax_and_hf():
+    hf = _clip()
+    jcfg, jparams = jpol.convert_hf_clip_text(hf)
+    tcfg, tparams = tpol.convert_hf_clip_text(hf)
+    assert tcfg == convert.config_from_jax(jcfg, dtype=tcfg.dtype)
+    assert tcfg.activation == "quick_gelu"
+    want, got = _flat(jparams), _flat(convert.to_numpy_params(tparams))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    tokens = np.random.default_rng(7).integers(0, 128, size=(2, 32))
+    tokens[1, 5:] = 127                     # a short prompt, end-padded
+    jout = np.asarray(jgpt.encode(jparams, tokens, jcfg))
+    tout = gpt.encode(tparams, torch.as_tensor(tokens), tcfg).numpy()
+    np.testing.assert_allclose(tout, jout, atol=CLIP_TOL, rtol=CLIP_TOL)
+    with torch.no_grad():
+        hf_out = hf(torch.as_tensor(tokens)).last_hidden_state.numpy()
+    np.testing.assert_allclose(tout, hf_out, atol=CLIP_TOL, rtol=CLIP_TOL)
+
+
+def test_clip_policy_reads_a_full_clip_config_and_bare_keys():
+    """A ``CLIPModel`` config is read through its ``text_config``; a bare
+    text-model state dict gets the ``text_model.`` prefix; an activation
+    other than quick-GeLU maps to the erf GeLU."""
+    hf = _clip()
+    full = types.SimpleNamespace(text_config=hf.config)
+    assert tpol.HFCLIPLayerPolicy.model_config(full) == \
+        tpol.HFCLIPLayerPolicy.model_config(hf.config)
+    bare = types.SimpleNamespace(
+        config=hf.config,
+        state_dict=lambda: {k[len("text_model."):]: v
+                            for k, v in hf.state_dict().items()})
+    cfg, params = tpol.convert_hf_clip_text(bare)
+    _, want = tpol.convert_hf_clip_text(hf)
+    for key, w in _flat(convert.to_numpy_params(want)).items():
+        np.testing.assert_array_equal(
+            _flat(convert.to_numpy_params(params))[key], w, err_msg=key)
+    gelu = types.SimpleNamespace(**{**vars(hf.config), "hidden_act": "gelu"})
+    assert tpol.HFCLIPLayerPolicy.model_config(gelu).activation == "gelu_exact"
+    assert jpol.HFCLIPLayerPolicy.model_config(gelu).activation == "gelu_exact"
